@@ -11,8 +11,17 @@ raises; there is no fallback.
 
 Every C entry point takes ``void*`` pointers (``tensor.data_ptr()``) and
 the CUDA stream, launches on that stream and returns
-``cudaGetLastError()``; ``call`` raises on a non-zero code.
+``cudaGetLastError()``; ``call`` raises on a non-zero code and otherwise
+adds one to the launched kernel's count in ``launches``.
+
+``use_kernels(tensor)`` is the one place that decides between a kernel and
+its plain PyTorch version: CPU tensors take the plain version, CUDA
+tensors the kernel. ``plain_versions()`` is a context manager for tests
+and ``chip_smoke.py`` that sends CUDA tensors to the plain versions too,
+so that a kernel path and its yardstick can run on the same card; no entry
+point of the package uses it.
 """
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +33,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ['BUILD_DIR', 'NVCC_FLAGS', 'load', 'call', 'require', 'stream']
+__all__ = ['BUILD_DIR', 'NVCC_FLAGS', 'KERNELS', 'launches', 'load', 'call',
+           'require', 'stream', 'dropout_args', 'use_kernels',
+           'plain_versions']
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / 'build'
@@ -35,7 +46,17 @@ NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_int64
+U32 = ctypes.c_uint32
+U64 = ctypes.c_uint64
 F32 = ctypes.c_float
+# what every entry point with dropout takes: seed, offset, threshold, scale
+DROPOUT_ARGTYPES = (U64, U64, U32, F32)
+
+KERNELS = ('flash_attention_fwd', 'flash_attention_dq', 'flash_attention_dkv',
+           'layer_norm_fwd', 'add_layer_norm_fwd', 'dropout_grad')
+# kernel launches since the last reset, by kernel (kernels.launch_counts)
+launches = dict.fromkeys(KERNELS, 0)
+_force_plain = False
 
 _lock = threading.Lock()
 _lib = None
@@ -119,8 +140,9 @@ def load():
         return _lib
 
 
-def call(name, argtypes, *args):
-    """Call C entry point ``name`` and raise if it reports a CUDA error."""
+def call(kernel, name, argtypes, *args):
+    """Call C entry point ``name``, which launches ``kernel`` once; raise
+    if it reports a CUDA error, else count the launch."""
     fn = _fns.get(name)
     if fn is None:
         lib = load()
@@ -133,6 +155,36 @@ def call(name, argtypes, *args):
         msg = load().ptt_error_string(code).decode()
         raise RuntimeError(f"paddle_tpu_torch: {name} failed: CUDA error "
                            f"{code} ({msg})")
+    launches[kernel] += 1
+
+
+def dropout_args(p, seed, offset):
+    """``(seed, offset, threshold, scale)`` as the entry points take them;
+    ``p == 0`` gives scale 1, which turns dropout off in the kernel."""
+    from .philox import threshold
+    if p <= 0.0:
+        return 0, 0, 0, 1.0
+    return (int(seed) & 0xFFFFFFFFFFFFFFFF, int(offset) & 0xFFFFFFFFFFFFFFFF,
+            threshold(p), 1.0 / (1.0 - p))
+
+
+def use_kernels(t):
+    """False where ``t`` takes the plain versions: on the CPU, or on any
+    device inside ``plain_versions()``."""
+    return t.device.type != 'cpu' and not _force_plain
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Send every tensor to the kernels' plain PyTorch versions, CUDA
+    tensors included: for holding a kernel path against its yardstick on
+    one device. Not a fallback; nothing in the package enters it."""
+    global _force_plain
+    before, _force_plain = _force_plain, True
+    try:
+        yield
+    finally:
+        _force_plain = before
 
 
 def stream(device):

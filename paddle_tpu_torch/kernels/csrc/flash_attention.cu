@@ -2,11 +2,15 @@
 // the per-row logsumexp.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py, _fwd_kernel (launched
-// by _flash_forward) without dropout. Same semantics: scores are
-// dot * scale, then the (B, Lk) additive key-padding bias, then the causal
-// mask at absolute positions with NEG_INF = -1e30; the running max starts
-// at NEG_INF; o = acc / max(l, 1e-30); lse = m + log(l), or LSE_EMPTY =
-// 1e30 for a row whose every key is -inf (o is then 0).
+// by _flash_forward). Same semantics: scores are dot * scale, then the
+// (B, Lk) additive key-padding bias, then the causal mask at absolute
+// positions (-inf); the running max starts at NEG_INF = -1e30;
+// o = acc / max(l, 1e-30); lse = m + log(l), or LSE_EMPTY = 1e30 for a row
+// whose every key is -inf (o is then 0). Dropout falls on the normalised
+// probabilities: l sums the undropped p, the P.V product takes
+// p * keep / (1 - p), with the mask of philox.cuh keyed on the element
+// (bh, query row, key column) so that the backward kernels, which tile
+// the matrix the other way, regenerate the same bits.
 //
 // Bound on the H100: operations. 4 * L^2 * D flops a head against
 // 16 * L * D bytes, so at L = 512 about 128 flops a byte, above the
@@ -23,20 +27,15 @@
 // owns output columns tx + 16c. Q and K rows are padded by one float so
 // the column-wise reads do not collide on banks. Keys past L are -inf
 // (no L % block rule), rows past L are computed and not stored, and the
-// head dim is zero-padded to 32, 64 or 128.
+// head dim is zero-padded to 32, 64 or 128. With dropout a thread's four
+// score columns lie 16 apart, so it uses one word of each Philox call: the
+// generator then costs about as much as the products (PERF.md).
 #include <cstdint>
 
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
+#include "philox.cuh"
 
 namespace {
-
-constexpr int kBQ = 64;           // query rows per block
-constexpr int kBK = 64;           // keys per K/V tile
-constexpr int kThreads = 128;     // 8 row groups x 16 column lanes
-constexpr int kRows = kBQ / 8;    // query rows per thread
-constexpr int kCols = kBK / 16;   // score columns per thread
-constexpr float kNegInf = -1e30f;
-constexpr float kLseEmpty = 1e30f;
 
 template <int DP>
 struct Tile {
@@ -49,28 +48,15 @@ struct Tile {
     static constexpr size_t bytes = sizeof(float) * (q + k + v + p);
 };
 
-__device__ __forceinline__ float max16(float v) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
-
-__device__ __forceinline__ float sum16(float v) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
-
 // q, k, v, o share strides (sb, sh, sl) in elements; the head dim is
 // contiguous. bias: (B, L) or null. lse: (B*H, L) or null.
-template <int DP>
+template <int DP, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
                  float* __restrict__ o, float* __restrict__ lse, int L, int d,
                  int H, int64_t sb, int64_t sh, int64_t sl, float scale,
-                 int causal) {
+                 int causal, DropoutArgs drop) {
     using T = Tile<DP>;
     constexpr int kOut = DP / 16;  // output columns per thread
     extern __shared__ float smem[];
@@ -146,15 +132,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
             float row_max = kNegInf;
 #pragma unroll
             for (int j = 0; j < kCols; ++j) {
-                const int kc = k0 + tx + 16 * j;
-                float x;
-                if (kc >= L) {
-                    x = __int_as_float(0xff800000);  // -inf: no weight
-                } else {
-                    x = s[i][j] * scale;
-                    if (bias_row != nullptr) x += bias_row[kc];
-                    if (causal && kc > qr) x = kNegInf;
-                }
+                const float x = masked_score(s[i][j], scale, bias_row,
+                                             k0 + tx + 16 * j, qr, L, causal);
                 s[i][j] = x;
                 row_max = fmaxf(row_max, x);
             }
@@ -164,8 +143,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
             for (int j = 0; j < kCols; ++j) {
                 const float p = expf(s[i][j] - m_new);
-                sp[(ty + 8 * i) * T::p_stride + tx + 16 * j] = p;
-                row_sum += p;
+                row_sum += p;    // the undropped sum normalises o
+                float pd = p;
+                if (kDrop)
+                    pd *= keep_scale(
+                        drop, prob_index(bh, qr, k0 + tx + 16 * j, L));
+                sp[(ty + 8 * i) * T::p_stride + tx + 16 * j] = pd;
             }
             l[i] = l[i] * corr + sum16(row_sum);
             m[i] = m_new;
@@ -206,40 +189,48 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-template <int DP>
+template <int DP, bool kDrop>
 int launch(const float* q, const float* k, const float* v, const float* bias,
            float* o, float* lse, int64_t bh, int L, int d, int H, int64_t sb,
            int64_t sh, int64_t sl, float scale, int causal,
-           cudaStream_t stream) {
+           const DropoutArgs& drop, cudaStream_t stream) {
     // above 48 KB a block's shared memory must be opted into; idempotent,
     // so a race between two first callers is harmless
     static bool configured = false;
     if (!configured) {
         const cudaError_t e = cudaFuncSetAttribute(
-            flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            flash_fwd_kernel<DP, kDrop>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(Tile<DP>::bytes));
         if (e != cudaSuccess) return static_cast<int>(e);
         configured = true;
     }
     const dim3 grid(static_cast<unsigned>(bh),
                     static_cast<unsigned>((L + kBQ - 1) / kBQ));
-    flash_fwd_kernel<DP><<<grid, kThreads, Tile<DP>::bytes, stream>>>(
-        q, k, v, bias, o, lse, L, d, H, sb, sh, sl, scale, causal);
+    flash_fwd_kernel<DP, kDrop><<<grid, kThreads, Tile<DP>::bytes, stream>>>(
+        q, k, v, bias, o, lse, L, d, H, sb, sh, sl, scale, causal, drop);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP, typename... Args>
+int launch_for(bool dropout, Args... args) {
+    return dropout ? launch<DP, true>(args...) : launch<DP, false>(args...);
 }
 
 }  // namespace
 
 // q, k, v, o: (B, H, L, D) fp32 with shared strides (sb, sh, sl) and a
 // contiguous head dim; bh = B * H. bias: (B, L) contiguous fp32 or null.
-// lse: (B*H, L) contiguous fp32 or null. D <= 128. Returns
-// cudaGetLastError() after the launch.
+// lse: (B*H, L) contiguous fp32 or null. D <= 128. Dropout is on iff
+// drop_scale != 1. Returns cudaGetLastError() after the launch.
 extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        void* o, void* lse, int64_t bh,
                                        int64_t L, int64_t d, int64_t H,
                                        int64_t sb, int64_t sh, int64_t sl,
                                        float scale, int causal,
+                                       uint64_t seed, uint64_t offset,
+                                       uint32_t threshold, float drop_scale,
                                        void* stream) {
     if (bh <= 0 || bh > 0x7fffffff || L <= 0 || (L + kBQ - 1) / kBQ > 65535 ||
         d <= 0 || H <= 0)
@@ -253,14 +244,16 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
     const auto st = static_cast<cudaStream_t>(stream);
     const int Li = static_cast<int>(L), di = static_cast<int>(d),
               Hi = static_cast<int>(H);
+    const DropoutArgs drop{seed, offset, threshold, drop_scale};
+    const bool dropout = drop_scale != 1.f;
     if (d <= 32)
-        return launch<32>(qp, kp, vp, bp, op, lp, bh, Li, di, Hi, sb, sh, sl,
-                          scale, causal, st);
+        return launch_for<32>(dropout, qp, kp, vp, bp, op, lp, bh, Li, di, Hi,
+                              sb, sh, sl, scale, causal, drop, st);
     if (d <= 64)
-        return launch<64>(qp, kp, vp, bp, op, lp, bh, Li, di, Hi, sb, sh, sl,
-                          scale, causal, st);
+        return launch_for<64>(dropout, qp, kp, vp, bp, op, lp, bh, Li, di, Hi,
+                              sb, sh, sl, scale, causal, drop, st);
     if (d <= 128)
-        return launch<128>(qp, kp, vp, bp, op, lp, bh, Li, di, Hi, sb, sh, sl,
-                           scale, causal, st);
+        return launch_for<128>(dropout, qp, kp, vp, bp, op, lp, bh, Li, di,
+                               Hi, sb, sh, sl, scale, causal, drop, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,6 +13,7 @@ import math
 from ...kernels.fused_dropout_norm import \
     fused_dropout_add_layer_norm as _add_ln_kernel
 from ...kernels.fused_norm import fused_layer_norm
+from .common import next_dropout_call
 
 __all__ = ['layer_norm', 'fused_dropout_add_layer_norm']
 
@@ -34,9 +35,14 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
 
 
 def fused_dropout_add_layer_norm(x, residual, weight=None, bias=None,
-                                 dropout_p=0.0, epsilon=1e-5, training=True):
+                                 dropout_p=0.0, epsilon=1e-5, training=True,
+                                 dropout_state=None):
     """``y = LayerNorm(residual + dropout(x))`` over the last axis; dropout
-    applies only when ``training``."""
+    applies only when ``training``, and then draws this call's ``(seed,
+    offset)`` from ``dropout_state`` (the reference draws a seed per call
+    from its key chain)."""
     p_eff = float(dropout_p) if training else 0.0
+    seed, offset = next_dropout_call(dropout_state, p_eff,
+                                     'fused_dropout_add_layer_norm')
     return _add_ln_kernel(x, residual, weight, bias, dropout_p=p_eff,
-                          epsilon=epsilon)
+                          epsilon=epsilon, seed=seed, offset=offset)

@@ -6,7 +6,10 @@ Inputs are paddle-layout (B, L, H, D). With no mask, or a mask that
 reduces to a (B, Lk) key-padding bias — BERT's (B, 1, 1, L) padding mask —
 and Lq == Lk, attention goes to ``kernels.flash_attention`` (the CUDA
 kernel on CUDA tensors, its plain version on CPU tensors). Other masks
-take the composed path, as in the reference. The reference's
+take the composed path, as in the reference. In training with
+``dropout_p > 0`` the call draws its ``(seed, offset)`` from
+``dropout_state``, as the reference draws a seed per call from its key
+chain; both paths drop with the same Philox mask. The reference's
 ``_FLASH_MIN_SEQ`` threshold and autotune lookup are TPU measurements and
 are not carried over.
 """
@@ -15,6 +18,8 @@ import math
 import torch
 
 from ...kernels.flash_attention import MAX_HEAD_DIM, flash_attention_bhld
+from ...kernels.philox import keep_scale
+from .common import next_dropout_call
 
 __all__ = ['scaled_dot_product_attention']
 
@@ -34,7 +39,7 @@ def _mask_as_kpad_bias(m, batch, lk):
     return bias
 
 
-def _composed(q, k, v, mask, dropout_p, is_causal):
+def _composed(q, k, v, mask, dropout_p, is_causal, seed, offset):
     """Plain attention on (B, H, L, D) for masks the kernel does not take."""
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if mask is not None:
@@ -48,15 +53,18 @@ def _composed(q, k, v, mask, dropout_p, is_causal):
         scores = scores.masked_fill(~keep, -1e30)
     probs = torch.softmax(scores, dim=-1)
     if dropout_p > 0.0:
-        probs = torch.nn.functional.dropout(probs, dropout_p, training=True)
+        probs = probs * keep_scale(probs.shape, dropout_p, seed, offset,
+                                   probs.device, probs.dtype)
     return torch.matmul(probs, v)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
+                                 training=True, dropout_state=None):
     """query/key/value: (B, L, H, D). Returns (B, L, H, D)."""
     p_eff = float(dropout_p) if training else 0.0
+    seed, offset = next_dropout_call(dropout_state, p_eff,
+                                     'scaled_dot_product_attention')
     # (B, L, H, D) -> (B, H, L, D) views; the kernel reads these strides
     q, k, v = (t.transpose(1, 2) for t in (query, key, value))
     kpad = None
@@ -67,7 +75,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         flashable = kpad is not None
     if flashable:
         out = flash_attention_bhld(q, k, v, causal=is_causal,
-                                   kpad_bias=kpad, dropout_p=p_eff)
+                                   kpad_bias=kpad, dropout_p=p_eff,
+                                   seed=seed, offset=offset)
     else:
-        out = _composed(q, k, v, attn_mask, p_eff, is_causal)
+        out = _composed(q, k, v, attn_mask, p_eff, is_causal, seed, offset)
     return out.transpose(1, 2)

@@ -4,7 +4,11 @@
 Initialisers follow the reference's distributions — Xavier-uniform
 ``Linear`` weights with zero biases, Normal(0, std) embeddings — and draw
 from the ``generator`` passed in (the device's default generator when it
-is None).
+is None). ``Dropout`` draws from no generator at call time: it asks the
+``DropoutState`` (``kernels/philox.py``) it was given for each call's
+``(seed, offset)``. A model creates one state and hands it to every layer
+that drops, so no two calls of a run see the same mask; a layer without
+one raises when it is first asked to drop anything.
 """
 import math
 
@@ -12,6 +16,7 @@ import torch
 from torch import nn
 
 from ...device import resolve_device
+from .. import functional as F
 
 __all__ = ['Linear', 'Embedding', 'Dropout']
 
@@ -64,12 +69,18 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    def __init__(self, p=0.5):
+    """Inverted dropout with the Philox mask of ``dropout_state``, the
+    ``DropoutState`` of the model this layer belongs to. Without one the
+    layer passes its input through in eval mode and at ``p = 0``, and
+    raises when training asks it to drop."""
+
+    def __init__(self, p=0.5, *, dropout_state=None):
         super().__init__()
         self.p = p
+        self.dropout_state = dropout_state
 
     def forward(self, x):
-        return torch.nn.functional.dropout(x, self.p, self.training)
+        return F.dropout(x, self.p, self.training, self.dropout_state)
 
     def extra_repr(self):
         return f"p={self.p}"

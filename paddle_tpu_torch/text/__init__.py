@@ -1,6 +1,7 @@
 """Text models of the port. Counterpart of ``paddle_tpu/text``."""
-from .bert import (BertConfig, BertEmbeddings, BertModel, BertPooler,
-                   bert_base, bert_large)
+from .bert import (BertConfig, BertEmbeddings, BertForPretraining, BertModel,
+                   BertPooler, BertPretrainingHeads, bert_base, bert_large)
 
 __all__ = ['BertConfig', 'BertEmbeddings', 'BertModel', 'BertPooler',
-           'bert_base', 'bert_large']
+           'BertPretrainingHeads', 'BertForPretraining', 'bert_base',
+           'bert_large']

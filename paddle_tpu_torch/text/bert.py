@@ -1,22 +1,31 @@
-"""BERT encoder. Counterpart of ``paddle_tpu/text/bert.py`` (``BertConfig``,
-``BertEmbeddings``, ``BertPooler``, ``BertModel``, ``bert_base``,
-``bert_large``); the pretraining heads are not ported yet.
+"""BERT encoder and pretraining heads. Counterpart of
+``paddle_tpu/text/bert.py`` (``BertConfig``, ``BertEmbeddings``,
+``BertPooler``, ``BertModel``, ``BertPretrainingHeads``,
+``BertForPretraining``, ``bert_base``, ``bert_large``).
 
 The numbers follow the reference exactly: the embedding LayerNorm uses
 ``eps=1e-12`` while the encoder's use the LayerNorm default 1e-5, GELU is
 the exact erf form, and a (B, L) padding mask becomes the additive
 ``(1 - mask) * -1e4`` — so padding rows of a serving bucket (all-zero
-mask) attend uniformly and stay finite.
+mask) attend uniformly and stay finite. The MLM decoder is tied to the
+word embeddings: one (vocab, hidden) parameter, listed once in the state
+dict under ``bert.embeddings.word_embeddings.weight`` as in the reference,
+used untransposed (``h @ W^T``). In training every dropout site of a model
+draws from the model's one ``DropoutState``, which the model creates,
+seeds from the ``generator`` it was built with and hands to its layers.
 """
 import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..kernels.philox import DropoutState
+from ..nn import functional as F
 from ..nn import (Dropout, Embedding, LayerNorm, Linear, TransformerEncoder,
                   TransformerEncoderLayer)
 
 __all__ = ['BertConfig', 'BertEmbeddings', 'BertPooler', 'BertModel',
-           'bert_base', 'bert_large']
+           'BertPretrainingHeads', 'BertForPretraining', 'bert_base',
+           'bert_large']
 
 
 class BertConfig:
@@ -41,7 +50,8 @@ class BertConfig:
 
 
 class BertEmbeddings(nn.Module):
-    def __init__(self, config, *, device=None, generator=None):
+    def __init__(self, config, *, device=None, generator=None,
+                 dropout_state=None):
         super().__init__()
         kw = dict(std=config.initializer_range, device=device,
                   generator=generator)
@@ -53,7 +63,8 @@ class BertEmbeddings(nn.Module):
                                                config.hidden_size, **kw)
         self.layer_norm = LayerNorm(config.hidden_size, epsilon=1e-12,
                                     device=device)
-        self.dropout = Dropout(config.hidden_dropout_prob)
+        self.dropout = Dropout(config.hidden_dropout_prob,
+                               dropout_state=dropout_state)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         B, L = input_ids.shape
@@ -82,8 +93,9 @@ class BertModel(nn.Module):
     """BERT encoder -> ``(sequence_output, pooled_output)``.
 
     ``device=None`` builds on the CUDA device (``device='cpu'`` for the
-    plain path); every initial value is drawn from ``generator``, which
-    defaults to a generator on that device seeded with 0.
+    plain path); every initial value, and after them the seed of the
+    model's ``dropout_state``, is drawn from ``generator``, which defaults
+    to a generator on that device seeded with 0.
     """
 
     def __init__(self, config=None, *, device=None, generator=None,
@@ -95,18 +107,24 @@ class BertModel(nn.Module):
         if generator is None:
             generator = torch.Generator(device=device)
             generator.manual_seed(0)
+        # every layer that drops shares this state; its seed is drawn
+        # last, so the weights a seed gives do not depend on it
+        self.dropout_state = DropoutState(0)
         kw = dict(device=device, generator=generator)
-        self.embeddings = BertEmbeddings(config, **kw)
+        self.embeddings = BertEmbeddings(config,
+                                         dropout_state=self.dropout_state,
+                                         **kw)
         enc_layer = TransformerEncoderLayer(
             config.hidden_size, config.num_attention_heads,
             config.intermediate_size, dropout=config.hidden_dropout_prob,
             activation=config.hidden_act,
             attn_dropout=config.attention_probs_dropout_prob,
-            act_dropout=0.0, **kw)
+            act_dropout=0.0, dropout_state=self.dropout_state, **kw)
         self.encoder = TransformerEncoder(enc_layer,
                                           config.num_hidden_layers,
                                           generator=generator)
         self.pooler = BertPooler(config, **kw)
+        self.dropout_state.seed = DropoutState.from_generator(generator).seed
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
                 attention_mask=None):
@@ -117,6 +135,80 @@ class BertModel(nn.Module):
         emb = self.embeddings(input_ids, token_type_ids, position_ids)
         seq = self.encoder(emb, attention_mask)
         return seq, self.pooler(seq)
+
+
+class BertPretrainingHeads(nn.Module):
+    """MLM head (transform, activation, LayerNorm, tied decoder + bias) and
+    NSP head. ``embedding_weights`` is the model's (vocab, hidden) word
+    embedding parameter; the head keeps a reference to it, not a parameter
+    of its own, so it stays one tensor with one gradient."""
+
+    def __init__(self, config, embedding_weights, *, device=None,
+                 generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        kw = dict(device=device, generator=generator)
+        self.transform = Linear(config.hidden_size, config.hidden_size, **kw)
+        self.activation = getattr(F, config.hidden_act)
+        self.layer_norm = LayerNorm(config.hidden_size, epsilon=1e-12,
+                                    device=device)
+        self._tied = (embedding_weights,)   # a tuple hides it from nn.Module
+        self.decoder_bias = nn.Parameter(torch.zeros(config.vocab_size,
+                                                     device=device))
+        self.seq_relationship = Linear(config.hidden_size, 2, **kw)
+
+    @property
+    def decoder_weight(self):
+        return self._tied[0]
+
+    def forward(self, sequence_output, pooled_output, masked_positions=None):
+        if masked_positions is not None:
+            # (B, K) positions -> (B, K, hidden) rows of the sequence
+            batch_idx = torch.arange(sequence_output.shape[0],
+                                     device=sequence_output.device)[:, None]
+            sequence_output = sequence_output[
+                batch_idx, masked_positions.to(torch.int64)]
+        h = self.layer_norm(self.activation(self.transform(sequence_output)))
+        logits = torch.nn.functional.linear(h, self.decoder_weight,
+                                            self.decoder_bias)
+        return logits, self.seq_relationship(pooled_output)
+
+
+class BertForPretraining(nn.Module):
+    """``BertModel`` with the pretraining heads -> ``(prediction_logits,
+    nsp_logits)``; ``pretraining_loss`` is the MLM cross entropy (labels of
+    -1 ignored) plus the NSP cross entropy."""
+
+    def __init__(self, config=None, *, device=None, generator=None,
+                 **kwargs):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=device)
+            generator.manual_seed(0)
+        self.bert = BertModel(config, device=device, generator=generator,
+                              **kwargs)
+        self.cls = BertPretrainingHeads(
+            self.bert.config, self.bert.embeddings.word_embeddings.weight,
+            device=device, generator=generator)
+
+    @property
+    def dropout_state(self):
+        return self.bert.dropout_state
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                masked_positions=None):
+        seq, pooled = self.bert(input_ids, token_type_ids,
+                                attention_mask=attention_mask)
+        return self.cls(seq, pooled, masked_positions)
+
+    def pretraining_loss(self, prediction_logits, nsp_logits, masked_labels,
+                         next_sentence_labels):
+        mlm = F.cross_entropy(
+            prediction_logits.reshape(-1, prediction_logits.shape[-1]),
+            masked_labels.reshape(-1), ignore_index=-1)
+        nsp = F.cross_entropy(nsp_logits, next_sentence_labels.reshape(-1))
+        return mlm + nsp
 
 
 def bert_base(**kwargs):

@@ -397,7 +397,8 @@ def test_port_calls_no_library_kernel():
     assert not hits, hits
     sources = sorted(p.name for p in (pkg / 'kernels' / 'csrc').glob('*.cu'))
     assert sources == ['errors.cu', 'flash_attention.cu',
-                       'fused_dropout_norm.cu', 'fused_norm.cu']
+                       'flash_attention_bwd.cu', 'fused_dropout_norm.cu',
+                       'fused_norm.cu']
 
 
 @pytest.mark.parametrize("where", ['checkout', 'alone'])
