@@ -8,33 +8,56 @@ Phases, each printing one JSON line:
 1. card   — the GPU's name and power limit (nvidia-smi), versions;
 2. build  — compile the port's CUDA kernels from ``paddle_tpu_torch/
    kernels/csrc`` with nvcc for sm_90a (set-up time);
-3. kernels — each of the six kernels against its plain PyTorch version on
-   the card at the shapes BERT-large serving and training give it (fp32)
-   and at awkward ones, without and with dropout, with its time, the plain
-   version's, one PyTorch library call's as a yardstick, and the bound;
-   the Philox dropout mask bit for bit against ``kernels/philox.py``;
-4. parity — a full-width, 2-layer BERT served through ``ServingEngine`` on
+3. kernels — each of the six fp32 kernels against its plain PyTorch
+   version on the card at the shapes BERT-large serving and training give
+   it and at awkward ones, without and with dropout, with its time, the
+   plain version's, one PyTorch library call's as a yardstick, and the
+   bound; the Philox dropout mask bit for bit against ``kernels/philox.py``;
+4. kernels bf16 — the same six kernels at bf16 on the bf16 train step's
+   inputs (attention at (8, 16, 512, 64) as transpose(1, 2) views, p = 0.1;
+   the norms at (4096, 1024) and (608, 1024); add+LayerNorm with 4
+   outputs; the mask gradient), each against its plain version at bf16,
+   timed beside the plain version, a bf16 library call and the bound at the
+   bf16 tensor-core peak; L = 300 with D = 40 and a -inf batch row, and
+   D = 128 causal; each wrapper called under an op log that sees no copy
+   and no cast; the bf16 kernel's mask bit for bit as the fp32 kernel's;
+5. rms    — ``nn.RMSNorm`` forward and backward (autograd) at fp32 and
+   bf16, with and without a weight, at (4096, 1024), (4096, 4096) and
+   (300, 1000), against the plain version, with exactly one RMSNorm launch
+   per forward; the kernel's time beside ``F.rms_norm``'s and the bound;
+6. parity — a full-width, 2-layer BERT served through ``ServingEngine`` on
    the GPU against the same weights run on the CPU (plain path);
-5. serve  — BERT-large (24 layers, hidden 1024, seq 512) served through
+7. serve  — BERT-large (24 layers, hidden 1024, seq 512) served through
    ``ServingEngine`` in batches landing in buckets 1, 4 and 16, plus one
    request through the worker thread; the kernel launch counts of this
    run must be exactly 1 LayerNorm, 48 add+LayerNorm and 24 flash
    attention launches per batch;
-6. profile — device time by kernel over one more bucket-16 batch;
-7. train parity — a full-width, 2-layer ``BertForPretraining``, batch 2 x
+8. profile — device time by kernel over one more bucket-16 batch;
+9. train parity — a full-width, 2-layer ``BertForPretraining``, batch 2 x
    512: loss and every gradient, GPU against CPU at p = 0, and kernel
    path against plain path on the GPU at p = 0.1 with the same seeds; the
    same step twice from one (seed, offset) gives one loss;
-8. train — BERT-large pretraining, batch 8 x 512, dropout 0.1, through
+10. train — BERT-large pretraining, batch 8 x 512, dropout 0.1, through
    ``engine.build_train_step`` with AdamW: 2 warm-up and 18 timed steps on
    one batch; per step exactly 24 flash forward, 24 dQ, 24 dK/dV, 48
    add+LayerNorm, 48 mask-gradient and 2 LayerNorm launches; every loss
-   finite and the 20th below the 1st; then one profiled step.
+   finite and the 20th below the 1st; then one profiled step;
+11. train parity bf16 — phase 9's model and batch under the reference's
+   bf16 recipe (``bf16_recipe``, ``bench.py::bench_bert``): at p = 0
+   against the fp32 step on the same weights, at p = 0.1 against the
+   plain versions on the card; gates on the loss and on each gradient's
+   error over its max; the repeated step gives one loss;
+12. train bf16 — phase 10 under the bf16 recipe on the same weights and
+   batch, with the same launch counts; one profiled step, and one step
+   under the op log, whose copies and casts are listed by the line that
+   asked for them (none from a kernel wrapper).
 
-Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
-...}``. Any failure raises and exits non-zero; without a CUDA device (or
-without the package beside this file) it exits non-zero and prints no
-result. Matrix products run in full fp32 (TF32 off).
+Then a ``{"kernels": [...]}`` line (all seven kernels, bf16 numbers at the
+top level and under ``bf16``, fp32 under ``fp32``, launches by path) and,
+last, ``{"ok": true, "device": ...}``. Any failure raises and exits
+non-zero; without a CUDA device (or without the package beside this file)
+it exits non-zero and prints no result. fp32 matrix products run in full
+fp32 (TF32 off).
 """
 import argparse
 import copy
@@ -42,12 +65,16 @@ import json
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
-# published H100 SXM peaks (dense): fp32 outside the tensor cores, HBM3
+# published H100 SXM peaks (dense): fp32 outside the tensor cores, bf16 on
+# the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # kernel vs plain version, max abs, fp32: the two sum in different orders,
 # which moves values of order 1-10 by ~1e-6; 1e-4 leaves a wide margin
@@ -67,8 +94,8 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound(flops, nbytes):
-    t_ops, t_mem = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
+    t_ops, t_mem = flops / peak_flops, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_mem), 'operations' if t_ops > t_mem else 'bytes'
 
 
@@ -126,10 +153,37 @@ def phase_build():
     lib = _build.load()
     seconds = time.perf_counter() - t0
     log = _build.build().with_suffix('.so.log')
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if 'registers' in ln or 'spill' in ln] if log.exists() else []
     emit({'phase': 'build', 'seconds': seconds, 'library': lib._name,
-          'flags': list(_build.NVCC_FLAGS), 'ptxas': ptxas})
+          'flags': list(_build.NVCC_FLAGS),
+          'ptxas': _ptxas_table(log.read_text() if log.exists() else '')})
+
+
+def _ptxas_table(text):
+    """ptxas's -v report -> one entry per kernel: its name (demangled
+    when c++filt is there), registers, spill stores and loads."""
+    entries, current = [], None
+    for line in text.splitlines():
+        if 'Compiling entry function' in line:
+            current = {'kernel': line.split("'")[1]}
+            entries.append(current)
+        elif current is not None and 'spill stores' in line:
+            words = line.replace(',', '').split()
+            current['spill_stores'] = int(words[words.index('spill') - 2])
+            current['spill_loads'] = int(words[-4])
+        elif current is not None and 'Used' in line and 'registers' in line:
+            words = line.replace(',', ' ').split()
+            current['registers'] = int(words[words.index('registers') - 1])
+    try:
+        names = subprocess.run(['c++filt'], input='\n'.join(
+            e['kernel'] for e in entries), capture_output=True, text=True,
+            check=True, timeout=60).stdout.splitlines()
+        if len(names) == len(entries):
+            for e, name in zip(entries, names):
+                e['kernel'] = name.replace('(anonymous namespace)::', '') \
+                    .split('(')[0].replace('void ', '')
+    except (OSError, subprocess.SubprocessError):
+        pass                       # keep the mangled names
+    return entries
 
 
 def emit_kernel(name, rows, tolerance=TOL, **extra):
@@ -262,13 +316,15 @@ def _key_bias(batch, length, dev, gen):
 
 def _attention_case(fa, q, k, v, do, causal, kb, p, seed, offset):
     """Forward, dQ and dK/dV kernels against their plain versions on one
-    input -> the errors (o and lse absolute, gradients relative)."""
+    input -> the errors (o and lse absolute, and o over its max abs value;
+    gradients relative). delta is fp32 whatever the dtype, as the
+    backward computes it."""
     from paddle_tpu_torch import kernels
     scale = 1.0 / q.shape[-1] ** 0.5
     kw = dict(causal=causal, kpad_bias=kb, dropout_p=p, seed=seed,
               offset=offset)
     o, lse = fa.flash_attention_forward(q, k, v, **kw)
-    delta = (do * o).sum(-1)
+    delta = (do.float() * o.float()).sum(-1)
     rest = (lse, delta, causal, scale, kb, p, seed, offset)
     dq = fa.flash_attention_dq(q, k, v, do, *rest)
     dk, dv = fa.flash_attention_dkv(q, k, v, do, *rest)
@@ -280,6 +336,7 @@ def _attention_case(fa, q, k, v, do, causal, kb, p, seed, offset):
         rdq = fa.flash_attention_dq(q, k, v, do, *rest)
         rdk, rdv = fa.flash_attention_dkv(q, k, v, do, *rest)
     errs = {'o': max(max_err(o, ro), max_err(lse, rlse)),
+            'o_rel': rel_err(o, ro), 'lse': max_err(lse, rlse),
             'dq': rel_err(dq, rdq), 'dk': rel_err(dk, rdk),
             'dv': rel_err(dv, rdv)}
     for t in (o, dq, dk, dv):
@@ -293,8 +350,8 @@ def _attention_ms(fa, q, k, v, do, bias, p, seed, flush):
     and dK/dV on one non-causal input."""
     drop = (p, seed, 3) if p else ()
     o, lse = fa.flash_attention_forward(q, k, v, False, None, bias, *drop)
-    rest = (lse, (do * o).sum(-1), False, 1.0 / q.shape[-1] ** 0.5, bias,
-            *drop)
+    rest = (lse, (do.float() * o.float()).sum(-1), False,
+            1.0 / q.shape[-1] ** 0.5, bias, *drop)
     return {'fwd': time_ms(lambda: fa.flash_attention_forward(
                 q, k, v, False, None, bias, *drop), flush),
             'dq': time_ms(lambda: fa.flash_attention_dq(q, k, v, do, *rest),
@@ -671,12 +728,41 @@ def phase_profile(what, run, top_n=12, **extra):
             busy_us += b - reach
             reach = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    groups = {}
+    for name, (ms, n) in by_name.items():
+        group = _kernel_group(name)
+        g_ms, g_n = groups.get(group, (0.0, 0))
+        groups[group] = (g_ms + ms, g_n + n)
     emit({'phase': 'profile', 'of': what, **extra, 'wall_ms': wall_ms,
           'device_busy_ms': busy_us / 1e3,
           'device_idle_share': (1.0 - busy_us / 1e3 / wall_ms
                                 if spans else None),
+          'device_events': len(spans),
+          'groups': {g: {'ms': ms, 'calls': n} for g, (ms, n) in
+                     sorted(groups.items(), key=lambda kv: -kv[1][0])},
           'top': [{'ms': ms, 'calls': n, 'name': name[:90]}
                   for name, (ms, n) in top]})
+
+
+# the port's kernels by their CUDA function names; the rest by the words
+# PyTorch's, cuBLAS's and CUTLASS's kernel names carry
+_GROUPS = (('attention kernels', ('flash_fwd_kernel', 'flash_dq_kernel',
+                                  'flash_dkv_kernel')),
+           ('norm and mask kernels', ('layer_norm_fwd_kernel',
+                                      'rms_norm_fwd_kernel',
+                                      'dropout_grad_kernel')),
+           ('matrix products', ('gemm', 'xmma', 'cutlass', 'nvjet',
+                                'sgemm', 'splitk')),
+           ('AdamW (multi_tensor_apply)', ('multi_tensor_apply',)),
+           ('copies and casts', ('copy', 'Memcpy', 'Memset')),
+           ('reductions', ('reduce',)))
+
+
+def _kernel_group(name):
+    for group, words in _GROUPS:
+        if any(w in name for w in words):
+            return group
+    return 'other elementwise'
 
 
 def _pretraining_batch(rs, batch, vocab):
@@ -693,33 +779,40 @@ def _pretraining_batch(rs, batch, vocab):
     return x, y
 
 
-def _loss_and_grads(model, x, y, device):
+def _loss_and_grads(model, x, y, device, bf16=False):
     """One forward and backward of ``pretraining_loss`` -> (loss, {name:
-    gradient}), with the model's dropout state rewound to offset 0."""
+    fp32 gradient on the host}), with the model's dropout state rewound to
+    offset 0; with ``bf16``, under the reference's recipe
+    (``bf16_recipe``)."""
     model.dropout_state.offset = 0
+    params = dict(model.named_parameters())
     feeds = {k: torch.from_numpy(v).to(device) for k, v in x.items()}
-    labels = [torch.from_numpy(v).to(device) for v in y]
-    loss = model.pretraining_loss(*model(**feeds), *labels)
-    names, params = zip(*model.named_parameters())
-    grads = torch.autograd.grad(loss, params)
+    labels = tuple(torch.from_numpy(v).to(device) for v in y)
+    if bf16:
+        loss, _ = bf16_recipe(model)(params, (feeds, labels))
+    else:
+        loss = model.pretraining_loss(*model(**feeds), *labels)
+    grads = torch.autograd.grad(loss, list(params.values()))
     return (float(loss.detach()),
-            {n: g.detach().cpu() for n, g in zip(names, grads)})
+            {n: g.detach().float().cpu() for n, g in zip(params, grads)})
 
 
-def _compare_grads(what, got, want):
-    """Worst gradient error relative to its tensor's max abs value. A
-    tensor whose true gradient is zero (the key bias: softmax ignores a
-    shift of a row's scores) holds rounding noise on both sides, so the
-    scale has a floor of 1e-3 of the model's largest gradient entry."""
+def _compare_grads(what, got, want, tol=GRAD_TOL, mean_tol=None):
+    """Each gradient's max abs error over its tensor's max abs value ->
+    (worst, its name, mean over the tensors); raises past ``tol`` (and
+    ``mean_tol`` for the mean, when given). A tensor whose true gradient is
+    zero (the key bias: softmax ignores a shift of a row's scores) holds
+    rounding noise on both sides, so the scale has a floor of 1e-3 of the
+    model's largest gradient entry."""
     top = max(float(g.abs().max()) for g in want.values())
-    worst, worst_name = 0.0, None
-    for name, ref in want.items():
-        scale = max(float(ref.abs().max()), 1e-3 * top)
-        err = max_err(got[name], ref) / scale
-        if not err <= worst:           # keeps a NaN
-            worst, worst_name = err, name
-    check(f'{what}: gradient of {worst_name}', worst, GRAD_TOL)
-    return worst, worst_name
+    errs = {n: max_err(got[n], r) / max(float(r.abs().max()), 1e-3 * top)
+            for n, r in want.items()}
+    worst_name = max(errs, key=lambda n: (errs[n] != errs[n], errs[n]))
+    mean = float(np.mean(list(errs.values())))
+    check(f'{what}: gradient of {worst_name}', errs[worst_name], tol)
+    if mean_tol is not None:
+        check(f'{what}: mean gradient error', mean, mean_tol)
+    return errs[worst_name], worst_name, mean
 
 
 def phase_train_parity(seed):
@@ -762,7 +855,8 @@ def phase_train_parity(seed):
                                  "kernel")
         loss_err = abs(loss - ref_loss) / abs(ref_loss)
         check(f'train parity p={p}: loss', loss_err, GRAD_TOL)
-        worst, name = _compare_grads(f'train parity p={p}', grads, ref_grads)
+        worst, name, _ = _compare_grads(f'train parity p={p}', grads,
+                                        ref_grads)
         out[f'p={p}'] = {'against': other, 'loss': loss,
                          'reference_loss': ref_loss, 'loss_rel_err': loss_err,
                          'worst_grad_rel_err': worst, 'worst_grad': name,
@@ -774,10 +868,14 @@ def phase_train_parity(seed):
 
 TRAIN_LAUNCHES = {'flash_attention_fwd': 24, 'flash_attention_dq': 24,
                   'flash_attention_dkv': 24, 'add_layer_norm_fwd': 48,
-                  'dropout_grad': 48, 'layer_norm_fwd': 2}
+                  'dropout_grad': 48, 'layer_norm_fwd': 2,
+                  'rms_norm_fwd': 0}
 
 
-def phase_train(seed, card):
+def phase_train(seed, card, bf16=False):
+    """BERT-large pretraining steps through ``build_train_step``: fp32, or
+    with ``bf16`` the reference's recipe (``bf16_recipe``) on the same
+    weights (the same seed) and batch."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.engine import build_train_step
     from paddle_tpu_torch.optimizer import AdamW
@@ -788,9 +886,13 @@ def phase_train(seed, card):
     cfg = bert_large()
     t0 = time.perf_counter()
     model = BertForPretraining(cfg, device=dev, generator=gen).train()
-    step = build_train_step(
-        net=model, loss=model.pretraining_loss,
-        optimizer=AdamW(learning_rate=1e-4, weight_decay=0.01))
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01)
+    if bf16:
+        step = build_train_step(bf16_recipe(model), opt,
+                                params=dict(model.named_parameters()))
+    else:
+        step = build_train_step(net=model, loss=model.pretraining_loss,
+                                optimizer=opt)
     state = step.init_state()
     x, y = _pretraining_batch(np.random.RandomState(seed), TRAIN_BATCH,
                               cfg.vocab_size)
@@ -815,8 +917,8 @@ def phase_train(seed, card):
         step_ms.append(1e3 * (time.perf_counter() - t1))
         counts = kernels.launch_counts()       # ... read right after it
         if counts != TRAIN_LAUNCHES:
-            raise AssertionError(f"train step {i}: launches {counts}, "
-                                 f"expected {TRAIN_LAUNCHES}")
+            raise AssertionError(f"train step {i} (bf16={bf16}): launches "
+                                 f"{counts}, expected {TRAIN_LAUNCHES}")
         for name, n in counts.items():
             totals[name] += n
         losses.append(float(result.loss))
@@ -826,9 +928,14 @@ def phase_train(seed, card):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train: loss did not fall: {losses}")
     ms = step_ms[warmup:]
-    emit({'phase': 'train', 'model': 'bert_large pretraining', 'layers':
+    if bf16 and result.outputs[0].dtype != BF16:
+        raise AssertionError("bf16 train: the logits are not bf16")
+    emit({'phase': 'train_bf16' if bf16 else 'train',
+          'model': 'bert_large pretraining', 'layers':
           cfg.num_hidden_layers, 'hidden': cfg.hidden_size,
-          'batch': [TRAIN_BATCH, SEQ], 'dtype': 'float32',
+          'batch': [TRAIN_BATCH, SEQ],
+          'dtype': ('bfloat16 compute, fp32 master weights (bench_bert '
+                    'recipe)' if bf16 else 'float32'),
           'dropout': cfg.hidden_dropout_prob, 'optimizer':
           'AdamW(lr=1e-4, weight_decay=0.01)', 'card': card,
           'setup_s': setup_s, 'warmup_steps': warmup, 'timed_steps': timed,
@@ -837,9 +944,505 @@ def phase_train(seed, card):
           'samples_per_s': TRAIN_BATCH / (float(np.median(ms)) / 1e3),
           'max_memory_allocated_bytes': peak, 'losses': losses,
           'launches_per_step': TRAIN_LAUNCHES, 'launches': totals})
-    phase_profile('train step', lambda: step(state, batch), top_n=16,
+    phase_profile('train step bf16' if bf16 else 'train step',
+                  lambda: step(state, batch), top_n=20 if bf16 else 16,
                   batch=[TRAIN_BATCH, SEQ])
+    if bf16:
+        copy_accounting(step, state, batch)
     return totals
+
+
+# ---------------------------------------------------------------------------
+# bf16: the reference's training precision (bench.py::bench_bert: bf16
+# compute, fp32 master weights)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# kernel vs plain version at bf16, max abs error over the output's (or
+# gradient's) max abs value: both compute in fp32 and round at the same
+# points, so they differ by one bf16 step (2^-8 = 3.9e-3 relative) where
+# sums taken in another order straddle a rounding boundary, and again where
+# a rounded P or dS feeds a product
+BF16_TOL = 1e-2
+# fp32 statistics (lse, mean, rstd) of bf16 inputs: summation order only
+STAT_TOL = 1e-4
+# a bf16 model step against another path (fp32 weights and path, or the
+# plain versions), per gradient tensor over its max abs value: rounding
+# compounds over the layers (2 layers at full width); the same gates hold
+# a narrow 2-layer model against the JAX package's bf16 recipe on the CPU
+# (tests/test_torch_bf16.py)
+BF16_LOSS_TOL = 2e-3
+BF16_GRAD_MAX = 0.1
+BF16_GRAD_MEAN = 0.03
+COPY_OPS = ('aten._to_copy.default', 'aten.copy_.default',
+            'aten.clone.default')
+# the functions that check tensors and launch a kernel: none may copy or
+# cast a tensor (the C entry points read and write each dtype in HBM)
+WRAPPERS = ('_forward', '_rms_forward', '_launch_forward', '_kernel_inputs',
+            '_backward_inputs', '_backward_call', 'flash_attention_dq',
+            'flash_attention_dkv', 'dropout_grad', '_require_rows')
+
+
+def _site():
+    """The innermost line of this repository on the Python stack."""
+    for fr in reversed(traceback.extract_stack()[:-2]):
+        path = fr.filename.replace('\\', '/')
+        at = path.rfind('paddle_tpu_torch/')
+        if at >= 0:
+            return f'{path[at:]}:{fr.lineno} {fr.name}'
+        if path.endswith('chip_smoke.py'):
+            return f'chip_smoke.py:{fr.lineno} {fr.name}'
+    return 'torch'
+
+
+class OpLog(TorchDispatchMode):
+    """Every aten op dispatched while active; for each copy or cast, its
+    dtypes, shape and the line of this repository that asked for it."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.copies = [], []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = str(func)
+        self.ops.append(name)
+        if name in COPY_OPS:
+            src = args[1] if name == 'aten.copy_.default' else args[0]
+            self.copies.append((str(src.dtype).replace('torch.', ''),
+                                str(out.dtype).replace('torch.', ''),
+                                tuple(src.shape), _site()))
+        return out
+
+
+def no_copies(what, fn):
+    """``fn()`` under the op log; raises if it copied or cast a tensor."""
+    with OpLog() as log:
+        out = fn()
+    if log.copies:
+        raise AssertionError(f"{what}: copied or cast {log.copies}")
+    return out, sorted(set(log.ops))
+
+
+def phase_kernels_bf16(seed, flush):
+    """The six kernels at bf16 on the bf16 train step's own inputs, each
+    against its plain version on the card, with its time, the plain
+    version's, a PyTorch library call's and the bound; the wrappers called
+    under the op log (no copy, no cast); the awkward attention cases; the
+    Philox mask of the bf16 kernel bit for bit as at fp32."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_dropout_norm as fdn
+    from paddle_tpu_torch.kernels import fused_norm, philox
+    dev = torch.device('cuda', 0)
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 10)
+    P, SEED = 0.1, 0x1234567890ABCDEF
+    kernels.reset_launch_counts()
+    rows, wrapper_ops = {}, {}
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(BF16)
+
+    def bf16_bound(flops, nbytes):
+        return bound(flops, nbytes, PEAK_BF16_FLOPS)
+
+    # -- the mask: the bf16 kernel's bits are the fp32 kernel's and
+    # philox.py's; a kept element is 1/(1-p) rounded once to bf16 ---------
+    n = 4 * 2 ** 20 + 3
+    m16 = fdn.dropout_grad(torch.ones(n, device=dev, dtype=BF16), P, SEED, 7)
+    m32 = fdn.dropout_grad(torch.ones(n, device=dev), P, SEED, 7)
+    keep = philox.keep_mask((n,), P, SEED, 7, dev)
+    torch.cuda.synchronize()
+    if not (torch.equal(m16 != 0, keep) and torch.equal(m32 != 0, keep)
+            and torch.equal(m16, m32.to(BF16))):
+        raise AssertionError("dropout mask: the bf16 kernel's bits differ "
+                             "from the fp32 kernel's and kernels/philox.py")
+    emit({'phase': 'philox_bf16', 'elements': n, 'p': P,
+          'bit_exact_with_fp32_kernel_and_philox_py': True,
+          'keep_rate': float(keep.double().mean())})
+    del m16, m32, keep
+
+    # -- attention at the bf16 train step's inputs: (8, 16, 512, 64), no
+    # mask, q/k/v/dO seen through transpose(1, 2) -------------------------
+    B, H, L, D = TRAIN_BATCH, 16, SEQ, 64
+    shape = (B, H, L, D)
+    q, k, v, do = (randn(B, L, H, D).transpose(1, 2) for _ in range(4))
+    errs = {p: _attention_case(fa, q, k, v, do, False, None, p, SEED, 3)
+            for p in (0.0, P)}
+    cases = []
+    for causal, shp, neg_row in ((False, (2, 3, 300, 40), True),
+                                 (True, (2, 4, SEQ, 128), False)):
+        b_, _, l_, _ = shp
+        qq, kk, vv, dd = (randn(*shp) for _ in range(4))
+        kb = None
+        if neg_row:
+            kb = torch.where(torch.rand(b_, l_, device=dev, generator=gen)
+                             < 0.2, -1e4, 0.0).to(torch.float32)
+            kb[1] = float('-inf')
+        for p in (0.0, P):
+            e = _attention_case(fa, qq, kk, vv, dd, causal, kb, p, SEED, 11)
+            cases.append({'shape': list(shp), 'causal': causal,
+                          'bias': kb is not None, 'empty_row': neg_row,
+                          'p': p, **e})
+    for case in [dict(errs[0.0], p=0.0, shape=list(shape)),
+                 dict(errs[P], p=P, shape=list(shape))] + cases:
+        what = f"bf16 flash {case['shape']} p={case['p']}"
+        check(f'{what}: o over its max', case['o_rel'], BF16_TOL)
+        check(f'{what}: lse', case['lse'], STAT_TOL)
+        for g in ('dq', 'dk', 'dv'):
+            check(f'{what}: {g}', case[g], BF16_TOL)
+    # the wrappers as the step calls them: bf16 in, bf16 out, no cast
+    drop = (P, SEED, 3)
+    (o, lse), wrapper_ops['flash_attention_fwd'] = no_copies(
+        'flash forward', lambda: fa.flash_attention_forward(
+            q, k, v, False, None, None, *drop))
+    delta = (do.float() * o.float()).sum(-1)
+    rest = (lse, delta, False, 1.0 / D ** 0.5, None, *drop)
+    dq, wrapper_ops['flash_attention_dq'] = no_copies(
+        'flash dQ', lambda: fa.flash_attention_dq(q, k, v, do, *rest))
+    (dk, dv), wrapper_ops['flash_attention_dkv'] = no_copies(
+        'flash dK/dV', lambda: fa.flash_attention_dkv(q, k, v, do, *rest))
+    if not (o.dtype == dq.dtype == dk.dtype == dv.dtype == BF16
+            and lse.dtype == torch.float32):
+        raise AssertionError("flash attention: bf16 in, not bf16 out")
+    ms = {p: _attention_ms(fa, q, k, v, do, None, p, SEED, flush)
+          for p in (0.0, P)}
+    with kernels.plain_versions():
+        plain = _attention_ms(fa, q, k, v, do, None, P, SEED, flush)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), do, retain_graph=True), flush)
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                       flush)
+    del ol, ql, kl, vl
+    # the work: every key of every row (no mask); q, k, v, dO read once and
+    # each output written once in bf16, lse and delta in fp32
+    n_qd = 2.0 * B * H * L * D
+    side = 4.0 * B * H * L
+    products = float(B * H) * L * L * D
+    library = 'bf16 SDPA backward (dQ, dK, dV together), p = 0'
+    for name, kind, outs, per, tensors, extra in (
+            ('flash_attention_fwd', 'fwd', ('o_rel',), 4.0, 4, side),
+            ('flash_attention_dq', 'dq', ('dq',), 6.0, 5, 2 * side),
+            ('flash_attention_dkv', 'dkv', ('dk', 'dv'), 8.0, 6, 2 * side)):
+        b_ms, b_by = bf16_bound(per * products, tensors * n_qd + extra)
+        rows[name] = {
+            'max_abs_err': max(errs[p][g] for p in (0.0, P) for g in outs),
+            'error_is': 'relative to the max abs value',
+            'ms': ms[P][kind], 'ms_p0': ms[0.0][kind], 'plain_ms': plain[kind],
+            'library_ms': sdpa_fwd if kind == 'fwd' else sdpa_bwd,
+            'library': ('bf16 SDPA forward, p = 0' if kind == 'fwd'
+                        else library),
+            'bound_ms': b_ms, 'bound_by': b_by, 'shape': list(shape),
+            'layout': '(B, L, H, D) seen through transpose(1, 2)',
+            'dtype': 'bfloat16', 'tolerance': BF16_TOL}
+    rows['flash_attention_fwd'].update(
+        lse_abs_err=max(errs[p]['lse'] for p in (0.0, P)), cases=cases)
+    for name in ('flash_attention_fwd', 'flash_attention_dq',
+                 'flash_attention_dkv'):
+        emit_kernel(name, rows, tolerance=BF16_TOL, phase='kernel_bf16')
+    del q, k, v, do, o, dq, dk, dv
+
+    # -- LayerNorm as the bf16 step launches it, y/mean/rstd out, eps
+    # 1e-12, on the embeddings (4096 rows) and the MLM head (608 rows) ----
+    E = 1024
+    w, b = (1.0 + 0.1 * randn(E).float()).to(BF16), 0.1 * randn(E)
+    ln = {}
+    for lead in ((TRAIN_BATCH, SEQ), (TRAIN_BATCH, SEQ * 15 // 100)):
+        xs = randn(*lead, E)
+        out, ops = no_copies('layer norm', lambda: fused_norm._forward(
+            xs, w, b, 1e-12, True))
+        wrapper_ops['layer_norm_fwd'] = ops
+        with kernels.plain_versions():
+            ref = fused_norm._forward(xs, w, b, 1e-12, True)
+        torch.cuda.synchronize()
+        err_y, err_st = rel_err(out[0], ref[0]), max(
+            max_err(out[1], ref[1]), max_err(out[2], ref[2]))
+        check(f'bf16 layer norm {(*lead, E)}: y over its max', err_y,
+              BF16_TOL)
+        check(f'bf16 layer norm {(*lead, E)}: mean, rstd', err_st, STAT_TOL)
+        n_ = lead[0] * lead[1]
+        b_ms, b_by = bf16_bound(8.0 * n_ * E, 2.0 * (2 * n_ * E + 2 * E)
+                                + 8.0 * n_)
+        with kernels.plain_versions():
+            ln_plain = time_ms(lambda: fused_norm._forward(
+                xs, w, b, 1e-12, True), flush)
+        ln[str((*lead, E))] = {
+            'max_abs_err': max_err(out[0], ref[0]), 'y_rel_err': err_y,
+            'stats_abs_err': err_st,
+            'ms': time_ms(lambda: fused_norm._forward(xs, w, b, 1e-12, True),
+                          flush),
+            'plain_ms': ln_plain,
+            'library_ms': time_ms(lambda: torch.native_layer_norm(
+                xs, (E,), w, b, 1e-12), flush),
+            'bound_ms': b_ms, 'bound_by': b_by}
+    first = ln[str((TRAIN_BATCH, SEQ, E))]
+    rows['layer_norm_fwd'] = {
+        **first, 'library': 'torch.native_layer_norm (bf16, fp32 stats)',
+        'shape': [TRAIN_BATCH * SEQ, E], 'dtype': 'bfloat16',
+        'outputs': 'y, mean, rstd', 'shapes': ln}
+    emit_kernel('layer_norm_fwd', rows, tolerance=BF16_TOL,
+                phase='kernel_bf16')
+
+    # -- dropout + add + LayerNorm in the bf16 step (4 outputs), and the
+    # mask gradient ------------------------------------------------------
+    N = TRAIN_BATCH * SEQ
+    x, res, g = randn(N, E), randn(N, E), randn(N, E)
+    add_errs = {}
+    for n_, e_, p in ((N, E, P), (N, E, 0.0), (37, 1023, 0.25)):
+        xs, rs_ = (randn(n_, e_) for _ in range(2))
+        ws, bs = randn(e_), randn(e_)
+        out, ops = no_copies('add + layer norm', lambda: fdn._forward(
+            xs, rs_, ws, bs, p, 1e-5, SEED, 5, True))
+        wrapper_ops['add_layer_norm_fwd'] = ops
+        with kernels.plain_versions():
+            ref = fdn._forward(xs, rs_, ws, bs, p, 1e-5, SEED, 5, True)
+        torch.cuda.synchronize()
+        e_rel = max(rel_err(out[0], ref[0]), rel_err(out[1], ref[1]))
+        e_st = max(max_err(out[2], ref[2]), max_err(out[3], ref[3]))
+        what = f'bf16 dropout + add + layer norm ({n_}, {e_}) p={p}'
+        check(f'{what}: y, yin over their max', e_rel, BF16_TOL)
+        check(f'{what}: mean, rstd', e_st, STAT_TOL)
+        add_errs[f'({n_}, {e_}) p={p}'] = {
+            'max_abs_err': max(max_err(out[0], ref[0]),
+                               max_err(out[1], ref[1])),
+            'y_yin_rel_err': e_rel, 'stats_abs_err': e_st}
+    add_ms = {p: time_ms(lambda p=p: fdn._forward(
+        x, res, w, b, p, 1e-5, SEED, 5, True), flush) for p in (0.0, P)}
+    with kernels.plain_versions():
+        add_plain = time_ms(lambda: fdn._forward(
+            x, res, w, b, P, 1e-5, SEED, 5, True), flush)
+    b_ms, b_by = bf16_bound(9.0 * N * E,
+                            2.0 * (4 * N * E + 2 * E) + 8.0 * N)
+    rows['add_layer_norm_fwd'] = {
+        'max_abs_err': max(r['max_abs_err'] for r in add_errs.values()),
+        'ms': add_ms[P], 'ms_p0': add_ms[0.0], 'plain_ms': add_plain,
+        'library_ms': None, 'library': 'none (no single call adds and norms)',
+        'bound_ms': b_ms, 'bound_by': b_by, 'shape': [N, E],
+        'dtype': 'bfloat16', 'outputs': 'y, yin, mean, rstd',
+        'errors': add_errs}
+    emit_kernel('add_layer_norm_fwd', rows, tolerance=BF16_TOL,
+                phase='kernel_bf16')
+
+    dx, wrapper_ops['dropout_grad'] = no_copies(
+        'dropout mask gradient', lambda: fdn.dropout_grad(g, P, SEED, 5))
+    with kernels.plain_versions():
+        rdx = fdn.dropout_grad(g, P, SEED, 5)
+    torch.cuda.synchronize()
+    if not torch.equal(dx, rdx):      # one product, rounded once, both
+        raise AssertionError("bf16 dropout mask gradient differs from its "
+                             "plain version")
+    stored = philox.keep_scale(g.shape, P, SEED, 5, dev).to(BF16)
+    with kernels.plain_versions():
+        grad_plain = time_ms(lambda: fdn.dropout_grad(g, P, SEED, 5), flush)
+    b_ms, b_by = bf16_bound(1.0 * N * E, 2.0 * 2 * N * E)
+    rows['dropout_grad'] = {
+        'max_abs_err': max_err(dx, rdx), 'bit_exact': True,
+        'ms': time_ms(lambda: fdn.dropout_grad(g, P, SEED, 5), flush),
+        'plain_ms': grad_plain,
+        'library_ms': time_ms(lambda: g * stored, flush),
+        'library': 'multiply by a stored (N, D) bf16 mask',
+        'bound_ms': b_ms, 'bound_by': b_by, 'shape': [N, E],
+        'dtype': 'bfloat16'}
+    emit_kernel('dropout_grad', rows, tolerance=0.0, phase='kernel_bf16')
+    emit({'phase': 'wrappers_bf16', 'copies_or_casts': 0,
+          'aten_ops': wrapper_ops})
+    return rows
+
+
+def phase_rms(seed, flush):
+    """``nn.RMSNorm`` forward and backward (autograd) at fp32 and bf16,
+    with and without a weight, at the BERT-large train step's rows by its
+    hidden and intermediate widths and at an odd shape, against the plain
+    version on the card; exactly one RMSNorm launch per forward; times at
+    the two large shapes. -> (rows by dtype, this path's launch counts)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.kernels import fused_norm
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 20)
+    totals = dict.fromkeys(kernels.KERNELS, 0)
+    one = {**dict.fromkeys(kernels.KERNELS, 0), 'rms_norm_fwd': 1}
+    checks, timings = [], {}
+    rows = {}
+    for dtype in (torch.float32, BF16):
+        for n_, d_ in ((TRAIN_BATCH * SEQ, 1024), (TRAIN_BATCH * SEQ, 4096),
+                       (300, 1000)):
+            x0 = torch.randn(n_, d_, device=dev, generator=gen).to(dtype)
+            gy = torch.randn(n_, d_, device=dev, generator=gen).to(dtype)
+            for weighted in (True, False):
+                mod = tnn.RMSNorm(d_, weight_attr=None if weighted else False,
+                                  device=dev).to(dtype)
+                if weighted:
+                    with torch.no_grad():
+                        mod.weight.copy_(1.0 + 0.1 * torch.randn(
+                            d_, device=dev, generator=gen))
+                x = x0.clone().requires_grad_()
+                kernels.reset_launch_counts()      # the path: one forward
+                y = mod(x)
+                counts = kernels.launch_counts()   # ... read right after
+                if counts != one:
+                    raise AssertionError(f"nn.RMSNorm forward launched "
+                                         f"{counts}, expected {one}")
+                params = [x] + ([mod.weight] if weighted else [])
+                grads = torch.autograd.grad(y, params, gy)
+                if kernels.launch_counts() != one:
+                    raise AssertionError("the RMSNorm backward launched a "
+                                         "kernel (it is torch ops)")
+                for k_, c in counts.items():
+                    totals[k_] += c
+                xr = x0.clone().requires_grad_()
+                with kernels.plain_versions():
+                    yr = mod(xr)
+                    rgrads = torch.autograd.grad(
+                        yr, [xr] + ([mod.weight] if weighted else []), gy)
+                torch.cuda.synchronize()
+                if dtype == torch.float32:
+                    e_y, tol_y = max_err(y, yr), TOL
+                else:
+                    e_y, tol_y = rel_err(y, yr), BF16_TOL
+                e_g = max(rel_err(a, c) for a, c in zip(grads, rgrads))
+                tol_g = GRAD_TOL if dtype == torch.float32 else BF16_TOL
+                what = f'nn.RMSNorm {str(dtype)[6:]} ({n_}, {d_}) ' \
+                       f'weight={weighted}'
+                check(f'{what}: y', e_y, tol_y)
+                check(f'{what}: gradients', e_g, tol_g)
+                if not all(torch.isfinite(t).all() for t in (y, *grads)):
+                    raise AssertionError(f'{what}: non-finite')
+                checks.append({'dtype': str(dtype)[6:], 'shape': [n_, d_],
+                               'weight': weighted, 'y_err': e_y,
+                               'y_err_is': ('abs' if dtype == torch.float32
+                                            else 'relative to max'),
+                               'grad_rel_err': e_g,
+                               'max_abs_err': max_err(y, yr),
+                               'y_dtype': str(y.dtype)[6:],
+                               'grad_dtype': str(grads[0].dtype)[6:]})
+                if weighted and n_ == TRAIN_BATCH * SEQ:
+                    xd, wd = x0, mod.weight.detach()
+                    size = 4 if dtype == torch.float32 else 2
+                    peak = (PEAK_FP32_FLOPS if dtype == torch.float32
+                            else PEAK_BF16_FLOPS)
+                    # x read and y written once, the weight, fp32 rstd
+                    b_ms, b_by = bound(4.0 * n_ * d_, size * (2 * n_ * d_ + d_)
+                                       + 4.0 * n_, peak)
+                    with kernels.plain_versions():
+                        plain_ms = time_ms(lambda: fused_norm._rms_forward(
+                            xd, wd, 1e-6, True), flush)
+                    timings[f'{str(dtype)[6:]} ({n_}, {d_})'] = {
+                        'max_abs_err': max_err(y, yr),
+                        'ms': time_ms(lambda: fused_norm._rms_forward(
+                            xd, wd, 1e-6, True), flush),
+                        'plain_ms': plain_ms,
+                        'library_ms': time_ms(
+                            lambda: torch.nn.functional.rms_norm(
+                                xd, (d_,), wd, 1e-6), flush),
+                        'bound_ms': b_ms, 'bound_by': b_by}
+        key = f'{str(dtype)[6:]} ({TRAIN_BATCH * SEQ}, 1024)'
+        rows['fp32' if dtype == torch.float32 else 'bf16'] = {
+            **timings[key],
+            'max_abs_err': max(c['max_abs_err'] for c in checks
+                               if c['dtype'] == str(dtype)[6:]),
+            'library': 'torch.nn.functional.rms_norm', 'shape':
+            [TRAIN_BATCH * SEQ, 1024], 'dtype': str(dtype)[6:],
+            'outputs': 'y, rstd (the autograd path)'}
+    emit({'phase': 'rms', 'module': 'paddle_tpu_torch.nn.RMSNorm',
+          'tolerance': {'fp32': [TOL, GRAD_TOL], 'bf16': BF16_TOL},
+          'checks': checks, 'timings': timings,
+          'launches_per_forward': 1, 'launches': totals})
+    return rows, totals
+
+
+def bf16_recipe(net):
+    """``bench.py::bench_bert``'s ``loss_of`` as a ``loss_fn`` for
+    ``build_train_step``: every fp32 leaf cast to bf16 (``.to`` is
+    differentiable, so gradients arrive in fp32 on the fp32 masters), the
+    model through ``torch.func.functional_call``, the loss on fp32
+    logits."""
+    def loss_fn(params, batch):
+        x, y = batch
+        pc = {k: v.to(BF16) if v.dtype == torch.float32 else v
+              for k, v in params.items()}
+        logits, nsp = torch.func.functional_call(net, pc, (), x)
+        loss = net.pretraining_loss(logits.float(), nsp.float(), *y)
+        return loss, (logits, nsp)
+    return loss_fn
+
+
+def phase_train_parity_bf16(seed):
+    """A full-width 2-layer BertForPretraining, batch 2 x 512, under the
+    bf16 recipe: at p = 0 against the fp32 step on the same weights and
+    batch, at p = 0.1 against the plain versions on the card with the same
+    seeds; the same step twice from one (seed, offset) gives one loss."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.text.bert import BertForPretraining, bert_large
+    dev = torch.device('cuda', 0)
+    x, y = _pretraining_batch(np.random.RandomState(seed), 2, 30522)
+    out = {'phase': 'train_parity_bf16', 'layers': 2, 'batch': [2, SEQ],
+           'recipe': 'bf16 compute, fp32 master weights',
+           'gates': {'loss_rel': BF16_LOSS_TOL, 'grad_max': BF16_GRAD_MAX,
+                     'grad_mean': BF16_GRAD_MEAN}}
+    for p in (0.0, 0.1):
+        cfg = bert_large(hidden_dropout_prob=p,
+                         attention_probs_dropout_prob=p)
+        cfg.num_hidden_layers = 2
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 2)
+        model = BertForPretraining(cfg, device=dev, generator=gen).train()
+        kernels.reset_launch_counts()
+        loss, grads = _loss_and_grads(model, x, y, dev, True)
+        counts = kernels.launch_counts()
+        if p == 0.0:
+            ref_loss, ref_grads = _loss_and_grads(model, x, y, dev)
+            other = 'the fp32 step (kernels) on the same weights'
+        else:
+            with kernels.plain_versions():
+                ref_loss, ref_grads = _loss_and_grads(model, x, y, dev,
+                                                      True)
+            other = 'plain versions on the GPU, bf16 recipe'
+            again, _ = _loss_and_grads(model, x, y, dev, True)
+            if again != loss:
+                raise AssertionError(
+                    f"bf16 train parity: the same step from the same seed "
+                    f"and offset gave losses {loss} and {again}")
+            out['repeat_loss_identical'] = True
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        check(f'bf16 train parity p={p}: loss', loss_err, BF16_LOSS_TOL)
+        worst, name, mean = _compare_grads(
+            f'bf16 train parity p={p}', grads, ref_grads, BF16_GRAD_MAX,
+            BF16_GRAD_MEAN)
+        out[f'p={p}'] = {'against': other, 'loss': loss,
+                         'reference_loss': ref_loss, 'loss_rel_err': loss_err,
+                         'worst_grad_rel_err': worst, 'worst_grad': name,
+                         'mean_grad_rel_err': mean, 'gradients': len(grads),
+                         'launches': counts}
+        del model
+        torch.cuda.empty_cache()
+    emit(out)
+
+
+def copy_accounting(step, state, batch):
+    """One more bf16 step under the op log: every copy or cast, grouped by
+    (from, to, the line that asked for it). None may come from a kernel
+    wrapper."""
+    with OpLog() as log:
+        step(state, batch)
+        torch.cuda.synchronize()
+    groups = {}
+    for src, dst, _, site in log.copies:
+        key = f'{src}->{dst} {site}'
+        groups[key] = groups.get(key, 0) + 1
+    bad = [k for k in groups if '/kernels/' in k
+           and k.rsplit(' ', 1)[-1] in WRAPPERS]
+    if bad:
+        raise AssertionError(f"bf16 step: a kernel wrapper copied or cast: "
+                             f"{bad}")
+    emit({'phase': 'copies_bf16_step', 'ops': len(log.ops),
+          'copies_or_casts': len(log.copies), 'from_kernel_wrappers': 0,
+          'by_site': dict(sorted(groups.items(), key=lambda kv: -kv[1]))})
 
 
 SOURCES = {
@@ -856,6 +1459,8 @@ SOURCES = {
         'paddle_tpu/kernels/fused_dropout_norm.py:74'),
     'layer_norm_fwd': ('paddle_tpu_torch/kernels/csrc/fused_norm.cu',
                        'paddle_tpu/kernels/fused_norm.py:26'),
+    'rms_norm_fwd': ('paddle_tpu_torch/kernels/csrc/fused_norm.cu',
+                     'paddle_tpu/kernels/fused_norm.py:43'),
     'add_layer_norm_fwd': (
         'paddle_tpu_torch/kernels/csrc/fused_dropout_norm.cu',
         'paddle_tpu/kernels/fused_dropout_norm.py:41'),
@@ -879,23 +1484,36 @@ def main():
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
                         device='cuda')   # 256 MB, five times the L2
     rows = phase_kernels(args.seed, flush)
+    rows16 = phase_kernels_bf16(args.seed, flush)
+    rms_rows, rms_path = phase_rms(args.seed, flush)
+    rows['rms_norm_fwd'], rows16['rms_norm_fwd'] = rms_rows['fp32'], \
+        rms_rows['bf16']
     del flush
     phase_parity(args.seed)
     served = phase_serve(args.seed, card)
     torch.cuda.empty_cache()
     phase_train_parity(args.seed)
     trained = phase_train(args.seed, card)
-    # launches: the two main paths' counts, each zeroed just before its
-    # path and read just after (serving: 21 batches; training: 20 steps)
+    torch.cuda.empty_cache()
+    phase_train_parity_bf16(args.seed)
+    trained16 = phase_train(args.seed, card, bf16=True)
+    # launches: each main path's counts, zeroed just before the path and
+    # read just after (serving: 21 batches; each training run: 20 steps;
+    # nn.RMSNorm: 12 forwards and their backward); the top-level numbers
+    # are bf16's, the dtype of the reference's training recipe
+    paths = {'serve': served, 'train_fp32': trained,
+             'train_bf16': trained16, 'nn.RMSNorm': rms_path}
+    keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms')
     emit({'kernels': [
         {'name': name, 'route': 'cuda', 'source': SOURCES[name][0],
          'replaces': SOURCES[name][1],
-         'launches': served[name] + trained[name],
-         'launches_serve': served[name], 'launches_train': trained[name],
-         'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
-         'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
-         'bound_by': r['bound_by'], 'library_ms': r['library_ms']}
-        for name, r in rows.items()]})
+         'launches': sum(c[name] for c in paths.values()),
+         'launches_by_path': {p: c[name] for p, c in paths.items()},
+         **{k: rows16[name][k] for k in keys},
+         'fp32': {k: rows[name][k] for k in keys},
+         'bf16': {k: rows16[name][k] for k in keys}}
+        for name in SOURCES]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -12,11 +12,15 @@ convention and is the same object. There is no key: a model's dropout
 draws from its own ``DropoutState``. The loss stays on the device until
 ``float()`` is called on it, so a loop of steps never waits for the card.
 
-``scaler=``, ``nan_guard=True``, ``microbatch > 1``, ``remat=``,
-``sharding=`` and ``in_shardings=`` raise ``NotImplementedError``: mixed
-precision, the NaN guard and microbatching come with the next training
-slice (with ``amp/`` and ``engine/loop.py``), rematerialisation and
-sharding with ``distributed/``.
+Mixed precision needs no option: as in the reference's ``bench_bert``, a
+``loss_fn`` casts the fp32 parameters to bf16 with ``.to(torch.bfloat16)``
+(differentiable) and runs the model on the copies through
+``torch.func.functional_call``; the gradients arrive in fp32 on the fp32
+masters, which the optimizer updates. ``scaler=``, ``nan_guard=True``,
+``microbatch > 1``, ``remat=``, ``sharding=`` and ``in_shardings=`` raise
+``NotImplementedError``: the loss scaler, the NaN guard and microbatching
+come with a later training slice (with ``amp/`` and ``engine/loop.py``),
+rematerialisation and sharding with ``distributed/``.
 """
 import numpy as np
 import torch
@@ -90,10 +94,9 @@ def _net_loss_fn(net, loss):
 
 
 _LATER = {
-    'scaler': "an amp.GradScaler comes with bf16 and amp/ in the next "
-              "training slice",
-    'nan_guard': "the NaN guard comes with the next training slice",
-    'microbatch': "microbatching comes with the next training slice",
+    'scaler': "an amp.GradScaler comes with amp/ in a later training slice",
+    'nan_guard': "the NaN guard comes with a later training slice",
+    'microbatch': "microbatching comes with a later training slice",
     'remat': "rematerialisation (torch.utils.checkpoint) comes with the "
              "distributed slice",
     'sharding': "sharded state comes with the distributed slice",

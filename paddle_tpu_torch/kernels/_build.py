@@ -12,7 +12,10 @@ raises; there is no fallback.
 Every C entry point takes ``void*`` pointers (``tensor.data_ptr()``) and
 the CUDA stream, launches on that stream and returns
 ``cudaGetLastError()``; ``call`` raises on a non-zero code and otherwise
-adds one to the launched kernel's count in ``launches``.
+adds one to the launched kernel's count in ``launches``. Each kernel is
+instantiated for fp32 and bf16 and reads and writes its tensors in HBM in
+that dtype (statistics, ``lse``, ``delta`` and the key bias are always
+fp32); the entry point takes the code ``dtype_code`` gives.
 
 ``use_kernels(tensor)`` is the one place that decides between a kernel and
 its plain PyTorch version: CPU tensors take the plain version, CUDA
@@ -33,9 +36,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ['BUILD_DIR', 'NVCC_FLAGS', 'KERNELS', 'launches', 'load', 'call',
-           'require', 'stream', 'dropout_args', 'use_kernels',
-           'plain_versions']
+__all__ = ['BUILD_DIR', 'NVCC_FLAGS', 'KERNELS', 'DTYPES', 'launches', 'load',
+           'call', 'require', 'dtype_code', 'stream', 'dropout_args',
+           'use_kernels', 'plain_versions']
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / 'build'
@@ -53,7 +56,11 @@ F32 = ctypes.c_float
 DROPOUT_ARGTYPES = (U64, U64, U32, F32)
 
 KERNELS = ('flash_attention_fwd', 'flash_attention_dq', 'flash_attention_dkv',
-           'layer_norm_fwd', 'add_layer_norm_fwd', 'dropout_grad')
+           'layer_norm_fwd', 'rms_norm_fwd', 'add_layer_norm_fwd',
+           'dropout_grad')
+# the element types the kernels are built for -> the code the C entry
+# points take (csrc/dtype.cuh, ElemType); float16 comes with amp/
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches since the last reset, by kernel (kernels.launch_counts)
 launches = dict.fromkeys(KERNELS, 0)
 _force_plain = False
@@ -193,18 +200,32 @@ def stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require(t, name, device, shape=None, contiguous=True):
-    """Raise ``ValueError`` unless ``t`` is a contiguous fp32 CUDA tensor on
-    ``device`` (with ``shape``, when given) — what the kernels take. With
-    ``contiguous=False`` the caller checks the layout itself."""
+def dtype_code(t):
+    """The element-type code of ``t``'s dtype for the C entry points."""
+    return DTYPES[t.dtype]
+
+
+def require(t, name, device, shape=None, contiguous=True, dtype=None):
+    """Raise ``ValueError`` unless ``t`` is a contiguous CUDA tensor on
+    ``device`` of a dtype the kernels take — ``dtype`` when given (the
+    call's own dtype, or fp32 for statistics and the key bias), else fp32
+    or bf16 — and with ``shape``, when given. With ``contiguous=False`` the
+    caller checks the layout itself. Nothing is converted: a tensor of
+    another dtype is refused, never cast."""
+    if t.dtype not in DTYPES:
+        raise ValueError(f"{name}: the CUDA kernels take float32 or "
+                         f"bfloat16, got {t.dtype} (float16 is not ported "
+                         f"yet)")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}: every "
+                         f"tensor of one call has the call's dtype, and "
+                         f"statistics, lse, delta and the key bias are "
+                         f"float32")
     if t.device.type != 'cuda':
         raise ValueError(f"{name}: expected a CUDA tensor, got device "
                          f"{t.device}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: the CUDA kernels take float32 in this "
-                         f"version, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

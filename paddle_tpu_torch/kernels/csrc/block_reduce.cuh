@@ -22,10 +22,11 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
     return t;
 }
 
-// Threads for one row of width d: about four elements a thread, a whole
-// number of warps, at most 1024.
-inline int row_threads(long long d) {
-    long long t = (d + 3) / 4;
+// Threads for one row of width d when a thread takes g columns a step:
+// one step a thread where the row allows, a whole number of warps, at most
+// 1024.
+inline int row_threads(long long d, int g) {
+    long long t = (d + g - 1) / g;
     t = (t + 31) / 32 * 32;
     if (t < 32) t = 32;
     if (t > 1024) t = 1024;

@@ -1,5 +1,5 @@
-// Flash attention forward, fp32: o = softmax(q k^T * scale + bias) v, plus
-// the per-row logsumexp.
+// Flash attention forward, fp32 or bf16: o = softmax(q k^T * scale + bias) v,
+// plus the per-row logsumexp.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py, _fwd_kernel (launched
 // by _flash_forward). Same semantics: scores are dot * scale, then the
@@ -10,13 +10,20 @@
 // probabilities: l sums the undropped p, the P.V product takes
 // p * keep / (1 - p), with the mask of philox.cuh keyed on the element
 // (bh, query row, key column) so that the backward kernels, which tile
-// the matrix the other way, regenerate the same bits.
+// the matrix the other way, regenerate the same bits. At bf16, q/k/v are
+// read as bf16 and every product of two bf16 values is exact in fp32, so
+// the scores, the softmax statistics and the output accumulate in fp32 as
+// on the TPU's MXU; P (dropped, unnormalised) is rounded to bf16 before the
+// P.V product, where the reference casts it to v's dtype; o is stored in
+// bf16 and lse in fp32.
 //
 // Bound on the H100: operations. 4 * L^2 * D flops a head against
 // 16 * L * D bytes, so at L = 512 about 128 flops a byte, above the
-// 20 flop/byte ridge of fp32 CUDA cores (67 TFLOP/s over 3.35 TB/s). This
-// first version runs on the fp32 FMA pipes; tensor cores (mma/wgmma in
-// TF32 or bf16), TMA and a load/compute pipeline are later work.
+// 20 flop/byte ridge of fp32 CUDA cores (67 TFLOP/s over 3.35 TB/s); at
+// bf16 the bound is the tensor cores' 989 TFLOP/s, which these FMA loops
+// cannot approach. This version runs on the fp32 FMA pipes at both dtypes
+// (bf16 tiles are widened to fp32 in shared memory); tensor cores
+// (mma/wgmma), TMA and a load/compute pipeline are later work.
 //
 // Design: grid (B*H, ceil(L/64)); each block keeps a 64-row Q tile in
 // shared memory and walks 64-key K/V tiles through shared memory (the
@@ -32,6 +39,7 @@
 // generator then costs about as much as the products (PERF.md).
 #include <cstdint>
 
+#include "dtype.cuh"
 #include "flash_common.cuh"
 #include "philox.cuh"
 
@@ -48,22 +56,23 @@ struct Tile {
     static constexpr size_t bytes = sizeof(float) * (q + k + v + p);
 };
 
-// q, k, v, o share strides (sb, sh, sl) in elements; the head dim is
-// contiguous. bias: (B, L) or null. lse: (B*H, L) or null.
-template <int DP, bool kDrop>
+// q, k, v, o (element type T) share strides (sb, sh, sl) in elements; the
+// head dim is contiguous. bias: (B, L) fp32 or null. lse: (B*H, L) fp32 or
+// null.
+template <int DP, bool kDrop, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ bias,
-                 float* __restrict__ o, float* __restrict__ lse, int L, int d,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ bias,
+                 T* __restrict__ o, float* __restrict__ lse, int L, int d,
                  int H, int64_t sb, int64_t sh, int64_t sl, float scale,
                  int causal, DropoutArgs drop) {
-    using T = Tile<DP>;
+    using Tl = Tile<DP>;
     constexpr int kOut = DP / 16;  // output columns per thread
     extern __shared__ float smem[];
     float* sq = smem;
-    float* sk = sq + T::q;
-    float* sv = sk + T::k;
-    float* sp = sv + T::v;
+    float* sk = sq + Tl::q;
+    float* sv = sk + Tl::k;
+    float* sp = sv + Tl::v;
 
     const int bh = blockIdx.x;
     const int b = bh / H;
@@ -79,8 +88,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     for (int i = tid; i < kBQ * DP; i += kThreads) {
         const int r = i / DP, c = i % DP, qr = q0 + r;
-        sq[r * T::qk_stride + c] =
-            (qr < L && c < d) ? q[base + qr * sl + c] : 0.f;
+        sq[r * Tl::qk_stride + c] =
+            (qr < L && c < d) ? to_f32(q[base + qr * sl + c]) : 0.f;
     }
 
     float m[kRows], l[kRows], acc[kRows][kOut];
@@ -101,8 +110,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int i = tid; i < kBK * DP; i += kThreads) {
             const int r = i / DP, c = i % DP, kr = k0 + r;
             const bool in = kr < L && c < d;
-            sk[r * T::qk_stride + c] = in ? k[base + kr * sl + c] : 0.f;
-            sv[r * DP + c] = in ? v[base + kr * sl + c] : 0.f;
+            sk[r * Tl::qk_stride + c] =
+                in ? to_f32(k[base + kr * sl + c]) : 0.f;
+            sv[r * DP + c] = in ? to_f32(v[base + kr * sl + c]) : 0.f;
         }
         __syncthreads();
 
@@ -116,10 +126,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
             float kc[kCols];
 #pragma unroll
             for (int j = 0; j < kCols; ++j)
-                kc[j] = sk[(tx + 16 * j) * T::qk_stride + c];
+                kc[j] = sk[(tx + 16 * j) * Tl::qk_stride + c];
 #pragma unroll
             for (int i = 0; i < kRows; ++i) {
-                const float qv = sq[(ty + 8 * i) * T::qk_stride + c];
+                const float qv = sq[(ty + 8 * i) * Tl::qk_stride + c];
 #pragma unroll
                 for (int j = 0; j < kCols; ++j)
                     s[i][j] = fmaf(qv, kc[j], s[i][j]);
@@ -148,7 +158,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 if (kDrop)
                     pd *= keep_scale(
                         drop, prob_index(bh, qr, k0 + tx + 16 * j, L));
-                sp[(ty + 8 * i) * T::p_stride + tx + 16 * j] = pd;
+                // the P.V product takes P in v's dtype
+                sp[(ty + 8 * i) * Tl::p_stride + tx + 16 * j] =
+                    round_to<T>(pd);
             }
             l[i] = l[i] * corr + sum16(row_sum);
             m[i] = m_new;
@@ -164,7 +176,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
             for (int c = 0; c < kOut; ++c) vc[c] = sv[kk * DP + tx + 16 * c];
 #pragma unroll
             for (int i = 0; i < kRows; ++i) {
-                const float p = sp[(ty + 8 * i) * T::p_stride + kk];
+                const float p = sp[(ty + 8 * i) * Tl::p_stride + kk];
 #pragma unroll
                 for (int c = 0; c < kOut; ++c)
                     acc[i][c] = fmaf(p, vc[c], acc[i][c]);
@@ -177,11 +189,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int qr = q0 + ty + 8 * i;
         if (qr >= L) continue;
         const float denom = fmaxf(l[i], 1e-30f);
-        float* orow = o + base + qr * sl;
+        T* orow = o + base + qr * sl;
 #pragma unroll
         for (int c = 0; c < kOut; ++c) {
             const int col = tx + 16 * c;
-            if (col < d) orow[col] = acc[i][c] / denom;
+            if (col < d) orow[col] = from_f32<T>(acc[i][c] / denom);
         }
         if (lse != nullptr && tx == 0)
             lse[static_cast<int64_t>(bh) * L + qr] =
@@ -189,9 +201,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-template <int DP, bool kDrop>
-int launch(const float* q, const float* k, const float* v, const float* bias,
-           float* o, float* lse, int64_t bh, int L, int d, int H, int64_t sb,
+template <int DP, bool kDrop, typename T>
+int launch(const T* q, const T* k, const T* v, const float* bias, T* o,
+           float* lse, int64_t bh, int L, int d, int H, int64_t sb,
            int64_t sh, int64_t sl, float scale, int causal,
            const DropoutArgs& drop, cudaStream_t stream) {
     // above 48 KB a block's shared memory must be opted into; idempotent,
@@ -199,7 +211,7 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
     static bool configured = false;
     if (!configured) {
         const cudaError_t e = cudaFuncSetAttribute(
-            flash_fwd_kernel<DP, kDrop>,
+            flash_fwd_kernel<DP, kDrop, T>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(Tile<DP>::bytes));
         if (e != cudaSuccess) return static_cast<int>(e);
@@ -207,22 +219,47 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
     }
     const dim3 grid(static_cast<unsigned>(bh),
                     static_cast<unsigned>((L + kBQ - 1) / kBQ));
-    flash_fwd_kernel<DP, kDrop><<<grid, kThreads, Tile<DP>::bytes, stream>>>(
-        q, k, v, bias, o, lse, L, d, H, sb, sh, sl, scale, causal, drop);
+    flash_fwd_kernel<DP, kDrop, T>
+        <<<grid, kThreads, Tile<DP>::bytes, stream>>>(
+            q, k, v, bias, o, lse, L, d, H, sb, sh, sl, scale, causal, drop);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP, typename... Args>
-int launch_for(bool dropout, Args... args) {
-    return dropout ? launch<DP, true>(args...) : launch<DP, false>(args...);
+template <int DP, typename T, typename... Args>
+int launch_for(bool dropout, const T* q, Args... args) {
+    return dropout ? launch<DP, true, T>(q, args...)
+                   : launch<DP, false, T>(q, args...);
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const float* bias,
+             void* o, float* lse, int64_t bh, int L, int d, int H, int64_t sb,
+             int64_t sh, int64_t sl, float scale, int causal,
+             const DropoutArgs& drop, cudaStream_t st) {
+    const auto qp = static_cast<const T*>(q);
+    const auto kp = static_cast<const T*>(k);
+    const auto vp = static_cast<const T*>(v);
+    const auto op = static_cast<T*>(o);
+    const bool dropout = drop.scale != 1.f;
+    if (d <= 32)
+        return launch_for<32>(dropout, qp, kp, vp, bias, op, lse, bh, L, d, H,
+                              sb, sh, sl, scale, causal, drop, st);
+    if (d <= 64)
+        return launch_for<64>(dropout, qp, kp, vp, bias, op, lse, bh, L, d, H,
+                              sb, sh, sl, scale, causal, drop, st);
+    if (d <= 128)
+        return launch_for<128>(dropout, qp, kp, vp, bias, op, lse, bh, L, d,
+                               H, sb, sh, sl, scale, causal, drop, st);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q, k, v, o: (B, H, L, D) fp32 with shared strides (sb, sh, sl) and a
-// contiguous head dim; bh = B * H. bias: (B, L) contiguous fp32 or null.
-// lse: (B*H, L) contiguous fp32 or null. D <= 128. Dropout is on iff
-// drop_scale != 1. Returns cudaGetLastError() after the launch.
+// q, k, v, o: (B, H, L, D), fp32 (dtype kF32) or bf16 (kBF16), with shared
+// strides (sb, sh, sl) and a contiguous head dim; bh = B * H. bias: (B, L)
+// contiguous fp32 or null. lse: (B*H, L) contiguous fp32 or null. D <= 128.
+// Dropout is on iff drop_scale != 1. Returns cudaGetLastError() after the
+// launch.
 extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        void* o, void* lse, int64_t bh,
@@ -231,29 +268,21 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
                                        float scale, int causal,
                                        uint64_t seed, uint64_t offset,
                                        uint32_t threshold, float drop_scale,
-                                       void* stream) {
+                                       int dtype, void* stream) {
     if (bh <= 0 || bh > 0x7fffffff || L <= 0 || (L + kBQ - 1) / kBQ > 65535 ||
         d <= 0 || H <= 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    const auto qp = static_cast<const float*>(q);
-    const auto kp = static_cast<const float*>(k);
-    const auto vp = static_cast<const float*>(v);
     const auto bp = static_cast<const float*>(bias);
-    const auto op = static_cast<float*>(o);
     const auto lp = static_cast<float*>(lse);
     const auto st = static_cast<cudaStream_t>(stream);
     const int Li = static_cast<int>(L), di = static_cast<int>(d),
               Hi = static_cast<int>(H);
     const DropoutArgs drop{seed, offset, threshold, drop_scale};
-    const bool dropout = drop_scale != 1.f;
-    if (d <= 32)
-        return launch_for<32>(dropout, qp, kp, vp, bp, op, lp, bh, Li, di, Hi,
-                              sb, sh, sl, scale, causal, drop, st);
-    if (d <= 64)
-        return launch_for<64>(dropout, qp, kp, vp, bp, op, lp, bh, Li, di, Hi,
-                              sb, sh, sl, scale, causal, drop, st);
-    if (d <= 128)
-        return launch_for<128>(dropout, qp, kp, vp, bp, op, lp, bh, Li, di,
-                               Hi, sb, sh, sl, scale, causal, drop, st);
+    if (dtype == kF32)
+        return dispatch<float>(q, k, v, bp, o, lp, bh, Li, di, Hi, sb, sh, sl,
+                               scale, causal, drop, st);
+    if (dtype == kBF16)
+        return dispatch<__nv_bfloat16>(q, k, v, bp, o, lp, bh, Li, di, Hi, sb,
+                                       sh, sl, scale, causal, drop, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

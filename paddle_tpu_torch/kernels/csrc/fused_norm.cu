@@ -1,55 +1,85 @@
-// LayerNorm forward over the last axis, fp32.
+// LayerNorm and RMSNorm forward over the last axis, fp32 or bf16.
 //
 // Replaces: paddle_tpu/kernels/fused_norm.py, _ln_fwd_kernel (launched by
-// _ln_forward). Same arithmetic: fp32 mean, then the centred variance
-// (two passes, not E[x^2] - E[x]^2), rstd = rsqrt(var + eps), optional
-// weight and bias, and the fp32 per-row mean/rstd the backward needs.
+// _ln_forward) and _rms_fwd_kernel (launched by _rms_forward). Same
+// arithmetic: x is read in its dtype and widened to fp32; LayerNorm takes
+// the fp32 mean, then the centred variance (two passes, not
+// E[x^2] - E[x]^2), rstd = rsqrt(var + eps), optional weight and bias;
+// RMSNorm takes ms = mean(x^2), rstd = rsqrt(ms + eps), y = x * rstd * w.
+// y is stored in x's dtype, the per-row statistics the backward needs
+// (mean and rstd, or rstd) in fp32. The reference's TPU gate
+// (D % 128 == 0) does not apply: any N, any D.
 //
-// Bound on the H100: bytes. One row of D floats is read and one written
-// (8 bytes an element) for about 8 flops an element, so at 3.35 TB/s
-// against 67 TFLOP/s fp32 the memory side is ~20x the arithmetic side.
+// Bound on the H100: bytes. One row is read and one written (4 bytes an
+// element in bf16, 8 in fp32) for about 8 flops an element, far below the
+// ridge of either the fp32 pipes or the tensor cores.
 //
-// Design: one thread block per row, a grid-stride loop over D, warp
-// shuffles plus a 32-float shared scratch for the block sums. The row is
-// read from device memory once; the second and third passes hit L1 (a
-// BERT-large row is 4 KB). Any N and any D: no row tiling, so no
-// multiple-of-8 rule as on the TPU. Null weight/bias mean no affine; null
-// mean/rstd mean the caller does not want the statistics (serving).
+// Design: one thread block per row, each thread taking 16 bytes of the row
+// a step (4 fp32 or 8 bf16 values, one vector load) when the width and the
+// pointers allow, else 4 elements one by one; warp shuffles plus a
+// 32-float shared scratch for the block sums. The row is read from device
+// memory once; the later passes hit L1 (a BERT-large row is 2-4 KB). Null
+// weight/bias mean no affine; null statistics mean the caller does not
+// want them (serving).
 #include <cstdint>
 
 #include "block_reduce.cuh"
+#include "dtype.cuh"
 
 namespace {
 
-__global__ void layer_norm_fwd_kernel(const float* __restrict__ x,
-                                      const float* __restrict__ w,
-                                      const float* __restrict__ b,
-                                      float* __restrict__ y,
+template <typename T, bool kVec>
+__global__ void layer_norm_fwd_kernel(const T* __restrict__ x,
+                                      const T* __restrict__ w,
+                                      const T* __restrict__ b,
+                                      T* __restrict__ y,
                                       float* __restrict__ mean_out,
                                       float* __restrict__ rstd_out,
                                       int64_t d, float eps) {
+    using IO = RowIO<T, kVec>;
+    constexpr int G = IO::G;
     __shared__ float scratch[32];
     const int64_t row = blockIdx.x;
-    const float* xr = x + row * d;
-    float* yr = y + row * d;
+    const T* xr = x + row * d;
+    T* yr = y + row * d;
+    const int64_t first = G * static_cast<int64_t>(threadIdx.x);
+    const int64_t step = G * static_cast<int64_t>(blockDim.x);
 
     float s = 0.f;
-    for (int64_t i = threadIdx.x; i < d; i += blockDim.x) s += xr[i];
+    for (int64_t c0 = first; c0 < d; c0 += step) {
+        float v[G];
+        IO::load(xr, c0, d, v);
+#pragma unroll
+        for (int e = 0; e < G; ++e) s += v[e];     // 0 past d
+    }
     const float mean = block_sum(s, scratch) / static_cast<float>(d);
 
     float ss = 0.f;
-    for (int64_t i = threadIdx.x; i < d; i += blockDim.x) {
-        const float c = xr[i] - mean;
-        ss += c * c;
+    for (int64_t c0 = first; c0 < d; c0 += step) {
+        float v[G];
+        IO::load(xr, c0, d, v);
+#pragma unroll
+        for (int e = 0; e < G; ++e) {
+            const float c = IO::in(c0, e, d) ? v[e] - mean : 0.f;
+            ss += c * c;
+        }
     }
     const float var = block_sum(ss, scratch) / static_cast<float>(d);
     const float rstd = rsqrtf(var + eps);
 
-    for (int64_t i = threadIdx.x; i < d; i += blockDim.x) {
-        float v = (xr[i] - mean) * rstd;
-        if (w != nullptr) v *= w[i];
-        if (b != nullptr) v += b[i];
-        yr[i] = v;
+    for (int64_t c0 = first; c0 < d; c0 += step) {
+        float v[G], wv[G], bv[G];
+        IO::load(xr, c0, d, v);
+        if (w != nullptr) IO::load(w, c0, d, wv);
+        if (b != nullptr) IO::load(b, c0, d, bv);
+#pragma unroll
+        for (int e = 0; e < G; ++e) {
+            float o = (v[e] - mean) * rstd;
+            if (w != nullptr) o *= wv[e];
+            if (b != nullptr) o += bv[e];
+            v[e] = o;
+        }
+        IO::store(yr, c0, d, v);
     }
     if (threadIdx.x == 0) {
         if (mean_out != nullptr) mean_out[row] = mean;
@@ -57,18 +87,118 @@ __global__ void layer_norm_fwd_kernel(const float* __restrict__ x,
     }
 }
 
+template <typename T, bool kVec>
+__global__ void rms_norm_fwd_kernel(const T* __restrict__ x,
+                                    const T* __restrict__ w,
+                                    T* __restrict__ y,
+                                    float* __restrict__ rstd_out, int64_t d,
+                                    float eps) {
+    using IO = RowIO<T, kVec>;
+    constexpr int G = IO::G;
+    __shared__ float scratch[32];
+    const int64_t row = blockIdx.x;
+    const T* xr = x + row * d;
+    T* yr = y + row * d;
+    const int64_t first = G * static_cast<int64_t>(threadIdx.x);
+    const int64_t step = G * static_cast<int64_t>(blockDim.x);
+
+    float ss = 0.f;
+    for (int64_t c0 = first; c0 < d; c0 += step) {
+        float v[G];
+        IO::load(xr, c0, d, v);
+#pragma unroll
+        for (int e = 0; e < G; ++e) ss += v[e] * v[e];   // 0 past d
+    }
+    const float ms = block_sum(ss, scratch) / static_cast<float>(d);
+    const float rstd = rsqrtf(ms + eps);
+
+    for (int64_t c0 = first; c0 < d; c0 += step) {
+        float v[G], wv[G];
+        IO::load(xr, c0, d, v);
+        if (w != nullptr) IO::load(w, c0, d, wv);
+#pragma unroll
+        for (int e = 0; e < G; ++e) {
+            float o = v[e] * rstd;
+            if (w != nullptr) o *= wv[e];
+            v[e] = o;
+        }
+        IO::store(yr, c0, d, v);
+    }
+    if (threadIdx.x == 0 && rstd_out != nullptr) rstd_out[row] = rstd;
+}
+
+template <typename T, bool kVec>
+int launch_ln(const void* x, const void* w, const void* b, void* y,
+              void* mean, void* rstd, int64_t n, int64_t d, float eps,
+              cudaStream_t st) {
+    layer_norm_fwd_kernel<T, kVec>
+        <<<static_cast<unsigned>(n), row_threads(d, RowIO<T, kVec>::G), 0,
+           st>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+                 static_cast<const T*>(b), static_cast<T*>(y),
+                 static_cast<float*>(mean), static_cast<float*>(rstd), d,
+                 eps);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_ln(const void* x, const void* w, const void* b, void* y,
+                void* mean, void* rstd, int64_t n, int64_t d, float eps,
+                cudaStream_t st) {
+    return rows_vectorise<T>(d, {x, w, b, y})
+               ? launch_ln<T, true>(x, w, b, y, mean, rstd, n, d, eps, st)
+               : launch_ln<T, false>(x, w, b, y, mean, rstd, n, d, eps, st);
+}
+
+template <typename T, bool kVec>
+int launch_rms(const void* x, const void* w, void* y, void* rstd, int64_t n,
+               int64_t d, float eps, cudaStream_t st) {
+    rms_norm_fwd_kernel<T, kVec>
+        <<<static_cast<unsigned>(n), row_threads(d, RowIO<T, kVec>::G), 0,
+           st>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+                 static_cast<T*>(y), static_cast<float*>(rstd), d, eps);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_rms(const void* x, const void* w, void* y, void* rstd,
+                 int64_t n, int64_t d, float eps, cudaStream_t st) {
+    return rows_vectorise<T>(d, {x, w, y})
+               ? launch_rms<T, true>(x, w, y, rstd, n, d, eps, st)
+               : launch_rms<T, false>(x, w, y, rstd, n, d, eps, st);
+}
+
 }  // namespace
 
-// x, y: (n, d) contiguous fp32. w, b: (d,) or null. mean, rstd: (n,) or
-// null. Returns cudaGetLastError() after the launch.
+// x, y: (n, d) contiguous, fp32 (dtype kF32) or bf16 (kBF16). w, b: (d,)
+// in the same dtype, or null. mean, rstd: (n,) fp32 or null. Returns
+// cudaGetLastError() after the launch.
 extern "C" int ptt_layer_norm_fwd(const void* x, const void* w, const void* b,
                                   void* y, void* mean, void* rstd, int64_t n,
-                                  int64_t d, float eps, void* stream) {
-    if (n <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    layer_norm_fwd_kernel<<<static_cast<unsigned>(n), row_threads(d), 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(b), static_cast<float*>(y),
-        static_cast<float*>(mean), static_cast<float*>(rstd), d, eps);
-    return static_cast<int>(cudaGetLastError());
+                                  int64_t d, float eps, int dtype,
+                                  void* stream) {
+    if (n <= 0 || n > 0x7fffffff || d <= 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto st = static_cast<cudaStream_t>(stream);
+    if (dtype == kF32)
+        return dispatch_ln<float>(x, w, b, y, mean, rstd, n, d, eps, st);
+    if (dtype == kBF16)
+        return dispatch_ln<__nv_bfloat16>(x, w, b, y, mean, rstd, n, d, eps,
+                                          st);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// x, y: (n, d) contiguous fp32 or bf16 (dtype). w: (d,) in the same dtype,
+// or null. rstd: (n,) fp32, or null when the caller does not want it.
+// Returns cudaGetLastError() after the launch.
+extern "C" int ptt_rms_norm_fwd(const void* x, const void* w, void* y,
+                                void* rstd, int64_t n, int64_t d, float eps,
+                                int dtype, void* stream) {
+    if (n <= 0 || n > 0x7fffffff || d <= 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto st = static_cast<cudaStream_t>(stream);
+    if (dtype == kF32)
+        return dispatch_rms<float>(x, w, y, rstd, n, d, eps, st);
+    if (dtype == kBF16)
+        return dispatch_rms<__nv_bfloat16>(x, w, y, rstd, n, d, eps, st);
+    return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -27,10 +27,18 @@ probabilities, that never stores an (L, L) matrix in either direction.
 
 The dropout mask is a function of ``(seed, offset)`` and the element
 (b * H + h, query row, key column) — see ``philox.py`` — so ``dropout_p >
-0`` needs both. On CUDA the kernels take fp32, Lq == Lk, D <= 128, and
-q/k/v with one common layout whose head dim is contiguous (a (B, L, H, D)
-tensor seen through ``transpose(1, 2)`` needs no copy); the gradients come
-back in that layout.
+0`` needs both. On CUDA the kernels take fp32 or bf16 (q, k, v and dO in
+one dtype; ``lse``, ``delta`` and the key bias fp32), Lq == Lk, D <= 128,
+and q/k/v with one common layout whose head dim is contiguous (a (B, L, H,
+D) tensor seen through ``transpose(1, 2)`` needs no copy); the outputs and
+gradients come back in that dtype and layout.
+
+At bf16 the arithmetic is the reference's: scores, softmax statistics and
+every accumulator are fp32, and P (forward), P dropped and dS (backward)
+are rounded to the input dtype just before the products that take them,
+where the reference casts them (``flash_attention.py:154, :254, :316,
+:319``). The plain versions round at the same points; at fp32 the rounding
+is the identity.
 """
 import math
 
@@ -49,9 +57,11 @@ LSE_EMPTY = 1e30   # lse of a row with no unmasked key: exp(s - LSE_EMPTY) == 0
 MAX_HEAD_DIM = 128
 
 _FWD_ARGTYPES = (_build.P,) * 6 + (_build.I64,) * 7 + \
-    (_build.F32, _build.I32) + _build.DROPOUT_ARGTYPES + (_build.P,)
+    (_build.F32, _build.I32) + _build.DROPOUT_ARGTYPES + (_build.I32,
+                                                         _build.P)
 _DQ_ARGTYPES = (_build.P,) * 8 + (_build.I64,) * 10 + \
-    (_build.F32, _build.I32) + _build.DROPOUT_ARGTYPES + (_build.P,)
+    (_build.F32, _build.I32) + _build.DROPOUT_ARGTYPES + (_build.I32,
+                                                         _build.P)
 _DKV_ARGTYPES = (_build.P,) + _DQ_ARGTYPES
 
 
@@ -78,6 +88,12 @@ def _scores(q, k, causal, scale, kpad_bias):
     return s
 
 
+def _rounded(t, dtype):
+    """``t`` after a round trip through ``dtype``: what a product whose
+    operands are cast to ``dtype`` sees (the identity at fp32)."""
+    return t.to(dtype).to(t.dtype)
+
+
 def _attn_reference(q, k, v, causal, scale, kpad_bias=None, dropout_p=0.0,
                     seed=None, offset=None):
     """Plain attention on (B, H, L, D) -> ``(o, lse)`` with the kernel's
@@ -87,7 +103,8 @@ def _attn_reference(q, k, v, causal, scale, kpad_bias=None, dropout_p=0.0,
     ``-inf`` scores gets ``o = 0`` and ``lse = LSE_EMPTY`` instead of
     NaN), and dropout, when asked, falls on
     the normalised probabilities with the Philox mask of ``(seed,
-    offset)``."""
+    offset)``. Unnormalised P, dropped, is rounded to ``v``'s dtype before
+    the P.V product, as the reference rounds it."""
     _check_dropout(dropout_p, seed, offset)
     s = _scores(q, k, causal, scale, kpad_bias)
     m = s.amax(-1, keepdim=True).clamp_min(NEG_INF)
@@ -97,7 +114,7 @@ def _attn_reference(q, k, v, causal, scale, kpad_bias=None, dropout_p=0.0,
         p = p * keep_scale(p.shape, dropout_p, seed, offset, p.device,
                            p.dtype)
     denom = l.clamp_min(1e-30)
-    o = torch.matmul(p, v.to(p.dtype)) / denom
+    o = torch.matmul(_rounded(p, v.dtype), v.to(p.dtype)) / denom
     lse = torch.where(l > 0, m + torch.log(denom),
                       torch.full_like(l, LSE_EMPTY))
     return o.to(q.dtype), lse.squeeze(-1)
@@ -106,7 +123,8 @@ def _attn_reference(q, k, v, causal, scale, kpad_bias=None, dropout_p=0.0,
 def _p_ds(q, k, v, do, lse, delta, causal, scale, kpad_bias, dropout_p, seed,
           offset):
     """``(P * keep/(1-p), dS)`` written out as (B, H, L, L) matrices: P is
-    rebuilt from ``lse``, ``dS = P * (dP * keep/(1-p) - delta)``."""
+    rebuilt from ``lse``, ``dS = P * (dP * keep/(1-p) - delta)``; both
+    rounded to the input dtype, which the products that take them read."""
     s = _scores(q, k, causal, scale, kpad_bias)
     p = torch.exp(s - lse.to(s.dtype).unsqueeze(-1))
     dp = torch.matmul(do.to(s.dtype), v.to(s.dtype).transpose(-1, -2))
@@ -115,7 +133,8 @@ def _p_ds(q, k, v, do, lse, delta, causal, scale, kpad_bias, dropout_p, seed,
         ks = keep_scale(p.shape, dropout_p, seed, offset, p.device, p.dtype)
         p_drop = p * ks
         dp = dp * ks
-    return p_drop, p * (dp - delta.to(s.dtype).unsqueeze(-1))
+    ds = p * (dp - delta.to(s.dtype).unsqueeze(-1))
+    return _rounded(p_drop, q.dtype), _rounded(ds, q.dtype)
 
 
 def _dq_reference(q, k, v, do, lse, delta, causal, scale, kpad_bias=None,
@@ -142,13 +161,14 @@ def _kernel_inputs(q, k, v, kpad_bias):
     with one common layout whose head dim is contiguous, and which
     ``torch.empty_like`` reproduces."""
     b, h, L, d = q.shape
-    for t, name in ((q, 'q'), (k, 'k'), (v, 'v')):
+    # q last: a dtype that differs from q's is named before other faults
+    for t, name in ((k, 'k'), (v, 'v'), (q, 'q')):
         if t.dim() != 4 or tuple(t.shape) != (b, h, L, d):
             raise ValueError(f"flash attention: {name} has shape "
                              f"{tuple(t.shape)}, expected {(b, h, L, d)} "
                              "(B, H, L, D) with Lq == Lk")
         _build.require(t, f'flash attention: {name}', q.device,
-                       contiguous=False)
+                       contiguous=False, dtype=q.dtype)
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash attention: head dim {d} > {MAX_HEAD_DIM}")
     if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
@@ -157,7 +177,7 @@ def _kernel_inputs(q, k, v, kpad_bias):
     if kpad_bias is not None:
         kpad_bias = kpad_bias.to(torch.float32).contiguous()
         _build.require(kpad_bias, 'flash attention: kpad_bias', q.device,
-                       (b, L))
+                       (b, L), dtype=torch.float32)
     return q, k, v, kpad_bias
 
 
@@ -179,7 +199,7 @@ def _launch_forward(q, k, v, kpad_bias, causal, scale, dropout, want_lse):
                     _ptr(kpad_bias), o.data_ptr(), _ptr(lse), b * h, L, d, h,
                     q.stride(0), q.stride(1), q.stride(2), float(scale),
                     int(bool(causal)), *_build.dropout_args(*dropout),
-                    _build.stream(q.device))
+                    _build.dtype_code(q), _build.stream(q.device))
     return o, lse
 
 
@@ -189,12 +209,14 @@ def _backward_inputs(q, k, v, do, lse, delta, kpad_bias):
     q, k, v, kpad_bias = _kernel_inputs(q, k, v, kpad_bias)
     b, h, L, d = q.shape
     _build.require(do, 'flash attention: dO', q.device, q.shape,
-                   contiguous=False)
+                   contiguous=False, dtype=q.dtype)
     if do.stride(-1) != 1:
         do = do.contiguous()
     lse, delta = lse.contiguous(), delta.contiguous()
-    _build.require(lse, 'flash attention: lse', q.device, (b, h, L))
-    _build.require(delta, 'flash attention: delta', q.device, (b, h, L))
+    _build.require(lse, 'flash attention: lse', q.device, (b, h, L),
+                   dtype=torch.float32)
+    _build.require(delta, 'flash attention: delta', q.device, (b, h, L),
+                   dtype=torch.float32)
     return q, k, v, do, lse, delta, kpad_bias
 
 
@@ -211,7 +233,7 @@ def _backward_call(kernel, argtypes, tensors, outs, causal, scale, dropout):
                     q.stride(0), q.stride(1), q.stride(2), do.stride(0),
                     do.stride(1), do.stride(2), float(scale),
                     int(bool(causal)), *_build.dropout_args(*dropout),
-                    _build.stream(q.device))
+                    _build.dtype_code(q), _build.stream(q.device))
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, causal, scale,
@@ -260,7 +282,8 @@ def flash_attention_backward(q, k, v, o, lse, do, causal=False, scale=None,
                              offset=None):
     """``(dq, dk, dv)`` of attention on (B, H, L, D) from the forward's
     inputs and outputs and the output gradient ``do``: ``delta`` in a
-    torch op, then ``flash_attention_dq`` and ``flash_attention_dkv``."""
+    torch op (fp32, as the reference's), then ``flash_attention_dq`` and
+    ``flash_attention_dkv``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     ct = torch.promote_types(q.dtype, torch.float32)

@@ -19,6 +19,13 @@ statistics, the backward is LayerNorm's closed form in torch ops (plain XLA
 in the reference) followed, when ``p > 0``, by the mask-gradient kernel
 ``dx = d_yin * keep / (1 - p)``. In eval and under ``torch.no_grad()`` the
 forward writes ``y`` only.
+
+Both kernels take fp32 or bf16, every tensor of a call in one dtype. As in
+the reference, the sum ``residual + dropout(x)`` is formed in fp32 and the
+statistics are taken from that fp32 sum, while ``y`` and ``yin`` are
+stored in the input dtype; the backward forms ``xhat`` from the stored
+(at bf16, rounded) ``yin``, and the mask gradient multiplies in fp32 and
+rounds once.
 """
 import torch
 
@@ -31,9 +38,12 @@ __all__ = ['fused_dropout_add_layer_norm',
            'dropout_grad_plain']
 
 _FWD_ARGTYPES = (_build.P,) * 8 + (_build.I64, _build.I64, _build.F32) + \
-    _build.DROPOUT_ARGTYPES + (_build.P,)
+    _build.DROPOUT_ARGTYPES + (_build.I32, _build.P)
 _GRAD_ARGTYPES = (_build.P, _build.P, _build.I64) + \
-    _build.DROPOUT_ARGTYPES + (_build.P,)
+    _build.DROPOUT_ARGTYPES + (_build.I32, _build.P)
+# at bf16 the dropout branch keeps a row's fp32 sum in shared memory: 4
+# bytes a column of the 227 KB a block may have, less its 128-byte scratch
+MAX_BF16_DROPOUT_WIDTH = (232448 - 128) // 4
 
 
 def _check_dropout(name, dropout_p, seed, offset):
@@ -46,14 +56,15 @@ def _check_dropout(name, dropout_p, seed, offset):
 
 
 def _plain_stats(x, residual, weight, bias, dropout_p, epsilon, seed, offset):
-    """-> ``(y, yin, mean, rstd)`` in plain PyTorch."""
+    """-> ``(y, yin, mean, rstd)`` in plain PyTorch: the statistics of the
+    sum in the compute type, ``y`` and ``yin`` in ``x``'s dtype."""
     ct = torch.promote_types(x.dtype, torch.float32)
     xf = x.to(ct)
     if dropout_p > 0.0:
         xf = xf * keep_scale(x.shape, dropout_p, seed, offset, x.device, ct)
-    yin = (residual.to(ct) + xf).to(x.dtype)
-    y, mean, rstd = layer_norm_stats(yin, weight, bias, epsilon)
-    return y, yin, mean, rstd
+    total = residual.to(ct) + xf
+    y, mean, rstd = layer_norm_stats(total, weight, bias, epsilon)
+    return y.to(x.dtype), total.to(x.dtype), mean, rstd
 
 
 def fused_dropout_add_layer_norm_plain(x, residual, weight=None, bias=None,
@@ -68,14 +79,17 @@ def fused_dropout_add_layer_norm_plain(x, residual, weight=None, bias=None,
 
 
 def dropout_grad_plain(g, dropout_p, seed, offset):
-    """``g * keep / (1 - p)`` with the Philox mask of ``(seed, offset)``."""
-    return g * keep_scale(g.shape, dropout_p, seed, offset, g.device, g.dtype)
+    """``g * keep / (1 - p)`` with the Philox mask of ``(seed, offset)``,
+    multiplied in the compute type and rounded once to ``g``'s dtype."""
+    ct = torch.promote_types(g.dtype, torch.float32)
+    return (g.to(ct) * keep_scale(g.shape, dropout_p, seed, offset, g.device,
+                                  ct)).to(g.dtype)
 
 
 def dropout_grad(g, dropout_p, seed, offset):
     """The dropout-mask gradient ``dx = g * keep / (1 - p)``, the mask
-    regenerated from ``(seed, offset)``. CUDA tensors run the kernel (fp32,
-    contiguous); CPU tensors the plain version."""
+    regenerated from ``(seed, offset)``. CUDA tensors run the kernel (fp32
+    or bf16, contiguous); CPU tensors the plain version."""
     _check_dropout('dropout_grad', dropout_p, seed, offset)
     if dropout_p == 0.0:
         return g
@@ -89,7 +103,7 @@ def dropout_grad(g, dropout_p, seed, offset):
         _build.call('dropout_grad', 'ptt_dropout_grad', _GRAD_ARGTYPES,
                     g.data_ptr(), out.data_ptr(), g.numel(),
                     *_build.dropout_args(dropout_p, seed, offset),
-                    _build.stream(g.device))
+                    _build.dtype_code(g), _build.stream(g.device))
     return out
 
 
@@ -103,11 +117,19 @@ def _forward(x, residual, weight, bias, dropout_p, epsilon, seed, offset,
         return out if want_saved else (out[0], None, None, None)
     name = 'fused_dropout_add_layer_norm'
     d = x.shape[-1]
-    _build.require(x, f'{name}: x', x.device)
-    _build.require(residual, f'{name}: residual', x.device, x.shape)
+    # x last: a dtype that differs from x's is named before other faults
+    _build.require(residual, f'{name}: residual', x.device, x.shape,
+                   dtype=x.dtype)
     for t, label in ((weight, 'weight'), (bias, 'bias')):
         if t is not None:
-            _build.require(t, f'{name}: {label}', x.device, (d,))
+            _build.require(t, f'{name}: {label}', x.device, (d,),
+                           dtype=x.dtype)
+    _build.require(x, f'{name}: x', x.device)
+    if (dropout_p > 0.0 and x.dtype == torch.bfloat16
+            and d > MAX_BF16_DROPOUT_WIDTH):
+        raise ValueError(f"{name}: with dropout at bfloat16 the kernel takes "
+                         f"rows of at most {MAX_BF16_DROPOUT_WIDTH} columns, "
+                         f"got {d}")
     y = torch.empty_like(x)
     # the dropout branch parks the sum in yin between its passes
     yin = torch.empty_like(x) if want_saved or dropout_p > 0.0 else None
@@ -128,7 +150,7 @@ def _forward(x, residual, weight, bias, dropout_p, epsilon, seed, offset,
                     None if rstd is None else rstd.data_ptr(), n, d,
                     float(epsilon),
                     *_build.dropout_args(dropout_p, seed, offset),
-                    _build.stream(x.device))
+                    _build.dtype_code(x), _build.stream(x.device))
     return (y, yin, mean, rstd) if want_saved else (y, None, None, None)
 
 
@@ -157,8 +179,8 @@ def fused_dropout_add_layer_norm(x, residual, weight=None, bias=None,
                                  offset=None):
     """``y = LayerNorm(residual + dropout(x))`` over the last axis.
     ``dropout_p > 0`` needs the call's Philox ``seed`` and ``offset``. CUDA
-    tensors run the kernels (fp32, contiguous); CPU tensors the plain
-    versions; differentiable on both."""
+    tensors run the kernels (fp32 or bf16, contiguous, one dtype for every
+    tensor); CPU tensors the plain versions; differentiable on both."""
     dropout_p = float(dropout_p)
     _check_dropout('fused_dropout_add_layer_norm', dropout_p, seed, offset)
     if torch.is_grad_enabled() and any(

@@ -2,9 +2,9 @@
 ``paddle_tpu/nn``; the layers are ``torch.nn.Module``s."""
 from . import functional
 from .layer import (Dropout, Embedding, LayerNorm, Linear,
-                    MultiHeadAttention, TransformerEncoder,
+                    MultiHeadAttention, RMSNorm, TransformerEncoder,
                     TransformerEncoderLayer)
 
 __all__ = ['functional', 'Dropout', 'Embedding', 'LayerNorm', 'Linear',
-           'MultiHeadAttention', 'TransformerEncoder',
+           'MultiHeadAttention', 'RMSNorm', 'TransformerEncoder',
            'TransformerEncoderLayer']

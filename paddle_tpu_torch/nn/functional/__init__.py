@@ -3,8 +3,9 @@ from . import common, loss, norm, transformer
 from .activation import gelu, relu
 from .common import dropout
 from .loss import cross_entropy
-from .norm import fused_dropout_add_layer_norm, layer_norm
+from .norm import fused_dropout_add_layer_norm, layer_norm, rms_norm
 from .transformer import scaled_dot_product_attention
 
 __all__ = ['gelu', 'relu', 'dropout', 'cross_entropy', 'layer_norm',
-           'fused_dropout_add_layer_norm', 'scaled_dot_product_attention']
+           'rms_norm', 'fused_dropout_add_layer_norm',
+           'scaled_dot_product_attention']

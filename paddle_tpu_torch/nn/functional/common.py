@@ -9,7 +9,9 @@ call's ``(seed, offset)``. The mask is the Philox mask the kernels use
 (``kernels/philox.py``), in plain torch ops: this dropout is composed XLA
 code in the reference too, not a Pallas kernel.
 """
-from ...kernels.philox import keep_scale
+import torch
+
+from ...kernels.philox import keep_mask
 
 __all__ = ['dropout', 'next_dropout_call']
 
@@ -30,7 +32,9 @@ def next_dropout_call(dropout_state, p_eff, what):
 
 def dropout(x, p=0.5, training=True, dropout_state=None):
     """Inverted dropout: in training each element is zeroed with
-    probability ``p`` and the rest scaled by ``1 / (1 - p)``."""
+    probability ``p`` and the rest scaled by ``1 / (1 - p)``, in ``x``'s
+    dtype (at bf16 the kept values are ``x / (1 - p)`` rounded once, as the
+    reference's ``where(keep, v / (1 - p), 0)``)."""
     p_eff = float(p) if training else 0.0
     if not 0.0 <= p_eff < 1.0:
         if p_eff == 1.0:
@@ -39,4 +43,5 @@ def dropout(x, p=0.5, training=True, dropout_state=None):
     seed, offset = next_dropout_call(dropout_state, p_eff, 'dropout')
     if seed is None:
         return x
-    return x * keep_scale(x.shape, p_eff, seed, offset, x.device, x.dtype)
+    keep = keep_mask(x.shape, p_eff, seed, offset, x.device)
+    return torch.where(keep, x * (1.0 / (1.0 - p_eff)), 0.0)

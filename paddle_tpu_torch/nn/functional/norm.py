@@ -1,21 +1,22 @@
 """Normalisation functionals. Counterpart of
-``paddle_tpu/nn/functional/norm.py`` (``layer_norm`` and
+``paddle_tpu/nn/functional/norm.py`` (``layer_norm``, ``rms_norm`` and
 ``fused_dropout_add_layer_norm``).
 
-Both dispatch by device inside the kernel wrappers: CUDA tensors run the
-hand-written kernels, CPU tensors their plain versions. The reference's
-gates (``x.shape[-1] % 128 == 0`` and ``_FUSED_DROPOUT_NORM_MIN_ROWS =
-4096``) were measured on a TPU v5e and do not carry over: on CUDA the
-kernels run at every size until thresholds are measured on the card.
+All three dispatch by device inside the kernel wrappers: CUDA tensors run
+the hand-written kernels, CPU tensors their plain versions. The
+reference's gates (``x.shape[-1] % 128 == 0`` and
+``_FUSED_DROPOUT_NORM_MIN_ROWS = 4096``) were measured on a TPU v5e and do
+not carry over: on CUDA the kernels run at every size until thresholds are
+measured on the card.
 """
 import math
 
 from ...kernels.fused_dropout_norm import \
     fused_dropout_add_layer_norm as _add_ln_kernel
-from ...kernels.fused_norm import fused_layer_norm
+from ...kernels.fused_norm import fused_layer_norm, fused_rms_norm
 from .common import next_dropout_call
 
-__all__ = ['layer_norm', 'fused_dropout_add_layer_norm']
+__all__ = ['layer_norm', 'rms_norm', 'fused_dropout_add_layer_norm']
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
@@ -32,6 +33,13 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
         None if weight is None else weight.reshape(d),
         None if bias is None else bias.reshape(d), epsilon)
     return y.reshape(shape)
+
+
+def rms_norm(x, weight=None, epsilon=1e-6):
+    """RMSNorm over the last axis: ``x * rsqrt(mean(x^2) + epsilon) *
+    weight`` — the reference kernel's arithmetic (its off-TPU path divides
+    by ``sqrt`` instead), on the RMSNorm kernel at every width."""
+    return fused_rms_norm(x, weight, epsilon)
 
 
 def fused_dropout_add_layer_norm(x, residual, weight=None, bias=None,

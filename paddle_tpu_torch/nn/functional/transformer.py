@@ -26,14 +26,17 @@ __all__ = ['scaled_dot_product_attention']
 
 def _mask_as_kpad_bias(m, batch, lk):
     """Convert a (B|1, 1, 1, Lk) boolean/additive mask to the (B, Lk)
-    additive bias the flash kernel streams; None for any other shape."""
+    fp32 additive bias the flash kernel streams (an additive mask keeps the
+    values of its dtype, as the reference's kernel reads
+    ``bias.astype(float32)``); None for any other shape."""
     if m.dim() != 4 or m.shape[1] != 1 or m.shape[2] != 1:
         return None
     if m.shape[3] != lk or m.shape[0] not in (1, batch):
         return None
     bias = m.reshape(m.shape[0], lk)
     if bias.dtype == torch.bool:
-        bias = torch.where(bias, 0.0, -1e9).to(torch.float32)
+        bias = torch.where(bias, 0.0, -1e9)
+    bias = bias.to(torch.float32)
     if bias.shape[0] == 1:
         bias = bias.expand(batch, lk)
     return bias

@@ -139,11 +139,13 @@ class BertModel(nn.Module):
 
 class BertPretrainingHeads(nn.Module):
     """MLM head (transform, activation, LayerNorm, tied decoder + bias) and
-    NSP head. ``embedding_weights`` is the model's (vocab, hidden) word
-    embedding parameter; the head keeps a reference to it, not a parameter
-    of its own, so it stays one tensor with one gradient."""
+    NSP head. ``word_embeddings`` is the model's word ``Embedding``; the
+    head keeps a reference to it and reads its (vocab, hidden) ``weight`` at
+    each call, not a parameter of its own, so the weight stays one tensor
+    with one gradient, and ``torch.func.functional_call`` substituting that
+    weight (a bf16 copy, say) substitutes the decoder's too."""
 
-    def __init__(self, config, embedding_weights, *, device=None,
+    def __init__(self, config, word_embeddings, *, device=None,
                  generator=None):
         super().__init__()
         device = resolve_device(device)
@@ -152,14 +154,15 @@ class BertPretrainingHeads(nn.Module):
         self.activation = getattr(F, config.hidden_act)
         self.layer_norm = LayerNorm(config.hidden_size, epsilon=1e-12,
                                     device=device)
-        self._tied = (embedding_weights,)   # a tuple hides it from nn.Module
+        # a tuple hides the module from nn.Module's registry
+        self._tied = (word_embeddings,)
         self.decoder_bias = nn.Parameter(torch.zeros(config.vocab_size,
                                                      device=device))
         self.seq_relationship = Linear(config.hidden_size, 2, **kw)
 
     @property
     def decoder_weight(self):
-        return self._tied[0]
+        return self._tied[0].weight
 
     def forward(self, sequence_output, pooled_output, masked_positions=None):
         if masked_positions is not None:
@@ -189,7 +192,7 @@ class BertForPretraining(nn.Module):
         self.bert = BertModel(config, device=device, generator=generator,
                               **kwargs)
         self.cls = BertPretrainingHeads(
-            self.bert.config, self.bert.embeddings.word_embeddings.weight,
+            self.bert.config, self.bert.embeddings.word_embeddings,
             device=device, generator=generator)
 
     @property

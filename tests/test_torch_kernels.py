@@ -619,6 +619,7 @@ def test_plain_versions_context_sends_any_device_to_the_plain_path():
     assert _build.use_kernels(x)
     assert set(kernels.launch_counts()) == set(kernels.KERNELS) == {
         'flash_attention_fwd', 'flash_attention_dq', 'flash_attention_dkv',
-        'layer_norm_fwd', 'add_layer_norm_fwd', 'dropout_grad'}
+        'layer_norm_fwd', 'rms_norm_fwd', 'add_layer_norm_fwd',
+        'dropout_grad'}
     kernels.reset_launch_counts()
     assert not any(kernels.launch_counts().values())
