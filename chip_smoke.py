@@ -7,7 +7,9 @@ Phases, each printing one JSON line:
 
 1. card   — the GPU's name and power limit (nvidia-smi), versions;
 2. build  — compile the port's CUDA kernels from ``paddle_tpu_torch/
-   kernels/csrc`` with nvcc for sm_90a (set-up time);
+   kernels/csrc`` with nvcc for sm_90a (set-up time), and count each
+   kernel's tensor-core instructions in its SASS (``cuobjdump``): the bf16
+   flash forward and dK/dV must have them;
 3. kernels — each of the six fp32 kernels against its plain PyTorch
    version on the card at the shapes BERT-large serving and training give
    it and at awkward ones, without and with dropout, with its time, the
@@ -21,6 +23,8 @@ Phases, each printing one JSON line:
    bf16 tensor-core peak; L = 300 with D = 40 and a -inf batch row, and
    D = 128 causal; each wrapper called under an op log that sees no copy
    and no cast; the bf16 kernel's mask bit for bit as the fp32 kernel's;
+   then ``attention_mask_probe``: the attention dropout mask read back bit
+   for bit through the forward and through dK/dV at fp32 and bf16;
 5. rms    — ``nn.RMSNorm`` forward and backward (autograd) at fp32 and
    bf16, with and without a weight, at (4096, 1024), (4096, 4096) and
    (300, 1000), against the plain version, with exactly one RMSNorm launch
@@ -52,8 +56,10 @@ Phases, each printing one JSON line:
    under the op log, whose copies and casts are listed by the line that
    asked for them (none from a kernel wrapper).
 
-Then a ``{"kernels": [...]}`` line (all seven kernels, bf16 numbers at the
-top level and under ``bf16``, fp32 under ``fp32``, launches by path) and,
+Every kernel row carries ``share_of_bound`` (bound ms over kernel ms) and
+the achieved TFLOP/s and TB/s beside the library call's time. Then a
+``{"kernels": [...]}`` line (all seven kernels, bf16 numbers at the top
+level and under ``bf16``, fp32 under ``fp32``, launches by path) and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero; without a CUDA device (or without the package beside this file)
 it exits non-zero and prints no result. fp32 matrix products run in full
@@ -66,6 +72,7 @@ import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -88,6 +95,9 @@ GRAD_TOL = 1e-3
 SEQ = 512
 TRAIN_BATCH = 8
 TIMED_RUNS = 25
+# device cycles the stream is held before each timed launch: ~2.5 ms at the
+# H100's 1.6-1.98 GHz, far longer than any wrapper's Python
+HOLD_CYCLES = 4_000_000
 
 
 def emit(obj):
@@ -95,19 +105,41 @@ def emit(obj):
 
 
 def bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
+    """The least time the card could take for ``flops`` operations on
+    ``nbytes`` moved to or from device memory -> a row's work fields."""
     t_ops, t_mem = flops / peak_flops, nbytes / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_mem), 'operations' if t_ops > t_mem else 'bytes'
+    return {'bound_ms': 1e3 * max(t_ops, t_mem),
+            'bound_by': 'operations' if t_ops > t_mem else 'bytes',
+            'flops': flops, 'bytes': nbytes}
+
+
+def closeness(row):
+    """A row's time against its work: ``share_of_bound`` (bound ms over
+    kernel ms) and the achieved rates; ``_p0`` beside them for an
+    attention row's p = 0 time."""
+    out = {}
+    for suffix, ms in (('', row.get('ms')), ('_p0', row.get('ms_p0'))):
+        if ms:
+            out[f'share_of_bound{suffix}'] = row['bound_ms'] / ms
+            out[f'achieved_tflops{suffix}'] = row['flops'] / ms / 1e9
+            out[f'achieved_tb_per_s{suffix}'] = row['bytes'] / ms / 1e9
+    return out
 
 
 def time_ms(fn, flush):
     """Median device time of ``fn`` over TIMED_RUNS launches, CUDA events
     around each; the L2 cache is overwritten before each launch, so every
-    input comes from device memory."""
+    input comes from device memory. Then the stream is held busy for a few
+    ms (``torch.cuda._sleep``) before the first event, so that the host has
+    queued all of ``fn``'s work by the time it fires: the time is the
+    device's, without the wrapper's Python (which a 0.05 ms kernel would
+    otherwise wait on)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(TIMED_RUNS):
         flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -147,15 +179,63 @@ def phase_card():
     return smi
 
 
+# the kernels that must run on the tensor cores: each instantiation needs
+# mma.sync (HMMA) or wgmma (HGMMA) instructions in its SASS
+TENSOR_CORE_KERNELS = ('flash_fwd_mma_kernel', 'flash_dkv_mma_kernel')
+
+
 def phase_build():
     from paddle_tpu_torch.kernels import _build
     t0 = time.perf_counter()
     lib = _build.load()
     seconds = time.perf_counter() - t0
-    log = _build.build().with_suffix('.so.log')
+    path = _build.build()
+    log = path.with_suffix('.so.log')
+    mma = _tensor_core_counts(path, _build)
+    need = {n: c for n, c in mma.items()
+            if n.split('<')[0] in TENSOR_CORE_KERNELS}
+    if len(need) != 2 * 2 * len(TENSOR_CORE_KERNELS) or \
+            not all(need.values()):
+        raise AssertionError(f"tensor-core kernels without HMMA/HGMMA "
+                             f"instructions, or missing: {need}")
     emit({'phase': 'build', 'seconds': seconds, 'library': lib._name,
           'flags': list(_build.NVCC_FLAGS),
+          'tensor_core_instructions': need,
+          'other_kernels_with_mma': {n: c for n, c in mma.items()
+                                     if c and n not in need},
           'ptxas': _ptxas_table(log.read_text() if log.exists() else '')})
+
+
+def _tensor_core_counts(lib, _build):
+    """``cuobjdump --dump-sass`` of the built library -> {kernel: number of
+    tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma)}."""
+    tool = Path(_build._nvcc()).parent / 'cuobjdump'
+    sass = subprocess.run([str(tool), '--dump-sass', str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            current = line.split('Function :', 1)[1].strip()
+            counts[current] = 0
+        elif current is not None and ('HMMA' in line or 'HGMMA' in line):
+            counts[current] += 1
+    return dict(zip(_demangle(list(counts)), counts.values()))
+
+
+def _demangle(names):
+    """Kernel symbols -> their names with template arguments (c++filt),
+    or the mangled names where c++filt is missing."""
+    try:
+        out = subprocess.run(['c++filt'], input='\n'.join(names),
+                             capture_output=True, text=True, check=True,
+                             timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return names
+    if len(out) != len(names):
+        return names
+    return [n.replace('(anonymous namespace)::', '').split('(')[0]
+            .replace('void ', '') for n in out]
 
 
 def _ptxas_table(text):
@@ -173,16 +253,8 @@ def _ptxas_table(text):
         elif current is not None and 'Used' in line and 'registers' in line:
             words = line.replace(',', ' ').split()
             current['registers'] = int(words[words.index('registers') - 1])
-    try:
-        names = subprocess.run(['c++filt'], input='\n'.join(
-            e['kernel'] for e in entries), capture_output=True, text=True,
-            check=True, timeout=60).stdout.splitlines()
-        if len(names) == len(entries):
-            for e, name in zip(entries, names):
-                e['kernel'] = name.replace('(anonymous namespace)::', '') \
-                    .split('(')[0].replace('void ', '')
-    except (OSError, subprocess.SubprocessError):
-        pass                       # keep the mangled names
+    for e, name in zip(entries, _demangle([e['kernel'] for e in entries])):
+        e['kernel'] = name
     return entries
 
 
@@ -190,6 +262,7 @@ def emit_kernel(name, rows, tolerance=TOL, **extra):
     """One kernel's phase line; ``phase_launches`` counts this phase's
     own launches (checks and timing), not the main path's."""
     from paddle_tpu_torch import kernels
+    rows[name].update(closeness(rows[name]))
     row = dict(rows[name])
     emit({'phase': 'kernel', 'name': name, 'tolerance': tolerance,
           'kernel_ms': row.pop('ms'),
@@ -251,7 +324,7 @@ def phase_kernels(seed, flush):
     keys = float(lengths.sum())
     flops = 4.0 * H * L * D * keys
     nbytes = 4.0 * (2 * B * H * L * D + 2 * H * D * keys + B * L)
-    b_ms, b_by = bound(flops, nbytes)
+    work = bound(flops, nbytes)
     mask4 = bias[:, None, None, :]
     rows['flash_attention_fwd'] = {
         'max_abs_err': err,
@@ -262,9 +335,9 @@ def phase_kernels(seed, flush):
         'library_ms': time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask4), flush),
-        'bound_ms': b_ms, 'bound_by': b_by,
-        'shape': [B, H, L, D], 'unmasked_keys': keys, 'flops': flops,
-        'bytes': nbytes, 'flops_all_keys': 4.0 * B * H * L * L * D,
+        **work,
+        'shape': [B, H, L, D], 'unmasked_keys': keys,
+        'flops_all_keys': 4.0 * B * H * L * L * D,
         'extra_cases': cases}
 
     # -- LayerNorm (embedding norm) and add+LayerNorm (48 epilogues) -----
@@ -274,7 +347,7 @@ def phase_kernels(seed, flush):
     y = fused_norm.fused_layer_norm(x, w, b, 1e-12)
     err = max_err(y, fused_norm.fused_layer_norm_plain(x, w, b, 1e-12))
     check('layer norm', err, TOL)
-    b_ms, b_by = bound(8.0 * N * E, 4.0 * (2 * N * E + 2 * E))
+    work = bound(8.0 * N * E, 4.0 * (2 * N * E + 2 * E))
     rows['layer_norm_fwd'] = {
         'max_abs_err': err,
         'ms': time_ms(lambda: fused_norm.fused_layer_norm(x, w, b, 1e-12),
@@ -283,13 +356,13 @@ def phase_kernels(seed, flush):
             x, w, b, 1e-12), flush),
         'library_ms': time_ms(lambda: torch.nn.functional.layer_norm(
             x, (E,), w, b, 1e-12), flush),
-        'bound_ms': b_ms, 'bound_by': b_by, 'shape': [N, E]}
+        **work, 'shape': [N, E]}
 
     y = fused_dropout_norm.fused_dropout_add_layer_norm(x, res, w, b)
     err = max_err(y, fused_dropout_norm.fused_dropout_add_layer_norm_plain(
         x, res, w, b))
     check('add + layer norm', err, TOL)
-    b_ms, b_by = bound(9.0 * N * E, 4.0 * (3 * N * E + 2 * E))
+    work = bound(9.0 * N * E, 4.0 * (3 * N * E + 2 * E))
     rows['add_layer_norm_fwd'] = {
         'max_abs_err': err,
         'ms': time_ms(lambda: fused_dropout_norm.fused_dropout_add_layer_norm(
@@ -298,7 +371,7 @@ def phase_kernels(seed, flush):
             lambda: fused_dropout_norm.fused_dropout_add_layer_norm_plain(
                 x, res, w, b), flush),
         'library_ms': None,        # no single PyTorch call adds and norms
-        'bound_ms': b_ms, 'bound_by': b_by, 'shape': [N, E]}
+        **work, 'shape': [N, E]}
     # the rows are printed once the train step's shapes are in them
     phase_train_kernels(randn, gen, flush, rows)
     return rows
@@ -343,6 +416,89 @@ def _attention_case(fa, q, k, v, do, causal, kb, p, seed, offset):
         if not torch.isfinite(t).all():
             raise AssertionError("attention kernels: non-finite output")
     return errs
+
+
+def attention_mask_probe(dtype, device, length, p, seed, offset, heads=2):
+    """Read the attention dropout mask back, bit for bit, through the
+    forward and through dK/dV, on one 64-key (forward) or 64-query (dK/dV)
+    window per batch row: batch row b probes window 64 b .. 64 b + 63, so
+    the windows cover every key tile, the last one ragged unless 64
+    divides ``length``. D = 64; q = k = 0, so every score is its bias.
+
+    - forward: key bias 0 on the window, -inf elsewhere, so P = 1 there;
+      v = the one-hot of key position mod 64, so o[b, h, i, j] != 0 iff
+      element (b H + h, i, 64 b + j) is kept;
+    - dK/dV: v = 0, lse = delta = 0, no bias, so P = 1 and dS = 0;
+      dO = the one-hot of query position mod 64 on the window rows, zero
+      elsewhere, so dv[b, h, key, j] != 0 iff (b H + h, 64 b + j, key) is
+      kept.
+
+    CUDA tensors run the kernels, CPU tensors the plain versions. -> {
+    'forward': (read, want), 'dkv': (read, want)}: boolean masks of the
+    probed elements, ``want`` from ``philox.keep_mask``."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import philox
+    D = 64
+    B = -(-length // D)
+    shape = (B, heads, length, D)
+    pos = torch.arange(length, device=device)
+    window = pos[None, :] // D == torch.arange(B, device=device)[:, None]
+    onehot = (pos[:, None] % D == torch.arange(D, device=device)[None, :])
+    zeros = torch.zeros(shape, dtype=dtype, device=device)
+    keep = philox.keep_mask((B * heads, length, length), p, seed, offset,
+                            device).reshape(B, heads, length, length)
+    out = {}
+    bias = torch.where(window, 0.0, float('-inf')).to(torch.float32)
+    v = onehot.to(dtype).expand(shape).contiguous()
+    o, _ = fa.flash_attention_forward(zeros, zeros, v, False, None, bias, p,
+                                      seed, offset)
+    reads, wants = [], []
+    for b in range(B):
+        w = slice(D * b, min(D * (b + 1), length))
+        n = w.stop - w.start
+        reads.append((o[b, :, :, :n] != 0).flatten())
+        wants.append(keep[b, :, :, w].flatten())
+    out['forward'] = (torch.cat(reads), torch.cat(wants))
+
+    do = (window[:, :, None] & onehot[None]).to(dtype)[:, None].expand(
+        shape).contiguous()
+    stats = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+    _, dv = fa.flash_attention_dkv(zeros, zeros, zeros, do, stats, stats,
+                                   False, 1.0 / D ** 0.5, None, p, seed,
+                                   offset)
+    reads, wants = [], []
+    for b in range(B):
+        w = slice(D * b, min(D * (b + 1), length))
+        n = w.stop - w.start
+        reads.append((dv[b, :, :, :n] != 0).flatten())
+        wants.append(keep[b, :, w, :].transpose(-1, -2).flatten())
+    out['dkv'] = (torch.cat(reads), torch.cat(wants))
+    return out
+
+
+def phase_mask_probe(seed):
+    """``attention_mask_probe`` on the card at fp32 and bf16, at a length
+    that 4 divides (the bf16 kernels' lanes share each Philox call's four
+    words) and one it does not (a call per probability): every bit must be
+    philox.py's."""
+    dev = torch.device('cuda', 0)
+    P, SEED = 0.1, 0x1234567890ABCDEF + seed
+    probes = []
+    for dtype in (torch.float32, BF16):
+        for length in (300, 333):
+            res = attention_mask_probe(dtype, dev, length, P, SEED, 17)
+            torch.cuda.synchronize()
+            row = {'dtype': str(dtype)[6:], 'length': length}
+            for path, (read, want) in res.items():
+                wrong = int((read != want).sum())
+                if wrong:
+                    raise AssertionError(
+                        f"attention mask probe ({path}, {row}): {wrong} of "
+                        f"{want.numel()} bits differ from kernels/philox.py")
+                row[path] = {'bits': want.numel(), 'kept': int(want.sum())}
+            probes.append(row)
+    emit({'phase': 'attention_mask_probe', 'p': P, 'bit_exact': True,
+          'probes': probes})
 
 
 def _attention_ms(fa, q, k, v, do, bias, p, seed, flush):
@@ -454,35 +610,36 @@ def phase_train_kernels(randn, gen, flush, rows):
                       (whole + 2) * n_qd + extra),
                 bound(flops_per_key * H * L * D * keys,
                       whole * n_qd + kv_bytes + extra + 4.0 * B * L))
-    (b_ms, b_by), biased = bounds(4.0, 2, side)         # q, o; lse
+    work, biased = bounds(4.0, 2, side)         # q, o; lse
     rows['flash_attention_fwd'].update({
         'train': {'shape': list(shape), 'layout': '(B, L, H, D) seen '
                   'through transpose(1, 2)', 'bias': False,
                   'ms_p0': ms[0.0]['fwd'], 'ms_p0.1': ms[P]['fwd'],
                   'dropout_ratio': ms[P]['fwd'] / ms[0.0]['fwd'],
                   'plain_ms_p0.1': plain['fwd'], 'library_ms_p0': sdpa_fwd,
-                  'bound_ms': b_ms, 'bound_by': b_by,
+                  **work,
                   'max_abs_err_p0.1': errs[P]['o'],
                   'with_key_bias': {'unmasked_keys': keys,
                                     'ms_p0.1': ms_bias['fwd'],
-                                    'bound_ms': biased[0],
-                                    'bound_by': biased[1]},
+                                    'bound_ms': biased['bound_ms'],
+                                    'bound_by': biased['bound_by']},
                   'cases': cases}})
     library = ('SDPA backward (dQ, dK, dV together) through '
                'torch.autograd.grad, p = 0')
     for name, kind, grads, flops_per_key, whole in (
             ('flash_attention_dq', 'dq', ('dq',), 6.0, 3),     # q, dO, dq
             ('flash_attention_dkv', 'dkv', ('dk', 'dv'), 8.0, 4)):
-        (b_ms, b_by), biased = bounds(flops_per_key, whole, 2 * side)
+        work, biased = bounds(flops_per_key, whole, 2 * side)
         rows[name] = {
             'max_abs_err': max(errs[p][g] for p in (0.0, P) for g in grads),
             'ms': ms[P][kind], 'ms_p0': ms[0.0][kind],
             'plain_ms': plain[kind], 'library_ms': sdpa_bwd,
-            'library': library, 'bound_ms': b_ms, 'bound_by': b_by,
+            'library': library, **work,
             'shape': list(shape), 'layout': '(B, L, H, D) seen through '
             'transpose(1, 2)', 'bias': False,
             'with_key_bias': {'unmasked_keys': keys, 'ms': ms_bias[kind],
-                              'bound_ms': biased[0], 'bound_by': biased[1]}}
+                              'bound_ms': biased['bound_ms'],
+                              'bound_by': biased['bound_by']}}
     emit_kernel('flash_attention_fwd', rows)
     emit_kernel('flash_attention_dq', rows, tolerance=GRAD_TOL,
                 error_is='relative to the max abs gradient')
@@ -508,13 +665,13 @@ def phase_train_kernels(randn, gen, flush, rows):
         err = max(max_err(a, c) for a, c in zip(out, ref))
         check(f'layer norm {(*lead, E)}: y, mean, rstd', err, TOL)
         n_ = lead[0] * lead[1]
-        b_ms, b_by = bound(8.0 * n_ * E, 4.0 * (2 * n_ * E + 2 * E + 2 * n_))
+        work = bound(8.0 * n_ * E, 4.0 * (2 * n_ * E + 2 * E + 2 * n_))
         ln_train[str((*lead, E))] = {
             'max_abs_err': err, 'ms': time_ms(lambda: fused_norm._forward(
                 xs, w, b, 1e-12, True), flush), 'plain_ms': ln_plain,
             'library_ms': time_ms(lambda: torch.native_layer_norm(
                 xs, (E,), w, b, 1e-12), flush),
-            'bound_ms': b_ms, 'bound_by': b_by}
+            **work}
     rows['layer_norm_fwd']['train'] = {'outputs': 'y, mean, rstd',
                                        **ln_train}
     rows['layer_norm_fwd']['max_abs_err'] = max(
@@ -539,12 +696,12 @@ def phase_train_kernels(randn, gen, flush, rows):
         train_plain = time_ms(lambda: fdn._forward(
             x, res, w, b, P, 1e-5, SEED, 5, True), flush)
     # training writes yin, mean and rstd too
-    b_ms, b_by = bound(9.0 * N * E, 4.0 * (4 * N * E + 2 * E + 2 * N))
+    work = bound(9.0 * N * E, 4.0 * (4 * N * E + 2 * E + 2 * N))
     rows['add_layer_norm_fwd'].update({
         'train': {'shape': [N, E], 'outputs': 'y, yin, mean, rstd',
                   'ms_p0': train_ms[0.0], 'ms_p0.1': train_ms[P],
-                  'plain_ms_p0.1': train_plain, 'bound_ms': b_ms,
-                  'bound_by': b_by, 'max_abs_err': ln_errs}})
+                  'plain_ms_p0.1': train_plain, **work,
+                  'max_abs_err': ln_errs}})
     emit_kernel('add_layer_norm_fwd', rows)
 
     dx = fdn.dropout_grad(g, P, SEED, 5)
@@ -555,14 +712,14 @@ def phase_train_kernels(randn, gen, flush, rows):
     stored = philox.keep_scale(g.shape, P, SEED, 5, dev)
     with kernels.plain_versions():
         grad_plain = time_ms(lambda: fdn.dropout_grad(g, P, SEED, 5), flush)
-    b_ms, b_by = bound(1.0 * N * E, 4.0 * 2 * N * E)
+    work = bound(1.0 * N * E, 4.0 * 2 * N * E)
     rows['dropout_grad'] = {
         'max_abs_err': err,
         'ms': time_ms(lambda: fdn.dropout_grad(g, P, SEED, 5), flush),
         'plain_ms': grad_plain,
         'library_ms': time_ms(lambda: g * stored, flush),
         'library': 'multiply by a stored (N, D) fp32 mask',
-        'bound_ms': b_ms, 'bound_by': b_by, 'shape': [N, E]}
+        **work, 'shape': [N, E]}
     emit_kernel('dropout_grad', rows, mask_bit_exact=True,
                 keep_rate=keep_rate)
 
@@ -747,7 +904,8 @@ def phase_profile(what, run, top_n=12, **extra):
 # the port's kernels by their CUDA function names; the rest by the words
 # PyTorch's, cuBLAS's and CUTLASS's kernel names carry
 _GROUPS = (('attention kernels', ('flash_fwd_kernel', 'flash_dq_kernel',
-                                  'flash_dkv_kernel')),
+                                  'flash_dkv_kernel', 'flash_fwd_mma_kernel',
+                                  'flash_dkv_mma_kernel')),
            ('norm and mask kernels', ('layer_norm_fwd_kernel',
                                       'rms_norm_fwd_kernel',
                                       'dropout_grad_kernel')),
@@ -974,6 +1132,10 @@ STAT_TOL = 1e-4
 BF16_LOSS_TOL = 2e-3
 BF16_GRAD_MAX = 0.1
 BF16_GRAD_MEAN = 0.03
+# the bf16 tensor-core attention kernels' time over the library call's in
+# the same run, p = 0, at the train step's shape: the forward at most twice
+# SDPA's forward, dK/dV at most SDPA's whole backward (dQ, dK, dV)
+SPEED_LIMITS = {'fwd_over_sdpa_fwd': 2.0, 'dkv_over_sdpa_bwd': 1.0}
 COPY_OPS = ('aten._to_copy.default', 'aten.copy_.default',
             'aten.clone.default')
 # the functions that check tensors and launch a kernel: none may copy or
@@ -1128,7 +1290,7 @@ def phase_kernels_bf16(seed, flush):
             ('flash_attention_fwd', 'fwd', ('o_rel',), 4.0, 4, side),
             ('flash_attention_dq', 'dq', ('dq',), 6.0, 5, 2 * side),
             ('flash_attention_dkv', 'dkv', ('dk', 'dv'), 8.0, 6, 2 * side)):
-        b_ms, b_by = bf16_bound(per * products, tensors * n_qd + extra)
+        work = bf16_bound(per * products, tensors * n_qd + extra)
         rows[name] = {
             'max_abs_err': max(errs[p][g] for p in (0.0, P) for g in outs),
             'error_is': 'relative to the max abs value',
@@ -1136,7 +1298,7 @@ def phase_kernels_bf16(seed, flush):
             'library_ms': sdpa_fwd if kind == 'fwd' else sdpa_bwd,
             'library': ('bf16 SDPA forward, p = 0' if kind == 'fwd'
                         else library),
-            'bound_ms': b_ms, 'bound_by': b_by, 'shape': list(shape),
+            **work, 'shape': list(shape),
             'layout': '(B, L, H, D) seen through transpose(1, 2)',
             'dtype': 'bfloat16', 'tolerance': BF16_TOL}
     rows['flash_attention_fwd'].update(
@@ -1144,6 +1306,14 @@ def phase_kernels_bf16(seed, flush):
     for name in ('flash_attention_fwd', 'flash_attention_dq',
                  'flash_attention_dkv'):
         emit_kernel(name, rows, tolerance=BF16_TOL, phase='kernel_bf16')
+    # the tensor-core kernels against one library call each, p = 0
+    speed = {'fwd_over_sdpa_fwd': ms[0.0]['fwd'] / sdpa_fwd,
+             'dkv_over_sdpa_bwd': ms[0.0]['dkv'] / sdpa_bwd}
+    emit({'phase': 'attention_speed_bf16', **speed, 'limits': SPEED_LIMITS})
+    for key, limit in SPEED_LIMITS.items():
+        if not speed[key] <= limit:
+            raise AssertionError(f"bf16 attention: {key} = {speed[key]} > "
+                                 f"{limit}")
     del q, k, v, do, o, dq, dk, dv
 
     # -- LayerNorm as the bf16 step launches it, y/mean/rstd out, eps
@@ -1165,7 +1335,7 @@ def phase_kernels_bf16(seed, flush):
               BF16_TOL)
         check(f'bf16 layer norm {(*lead, E)}: mean, rstd', err_st, STAT_TOL)
         n_ = lead[0] * lead[1]
-        b_ms, b_by = bf16_bound(8.0 * n_ * E, 2.0 * (2 * n_ * E + 2 * E)
+        work = bf16_bound(8.0 * n_ * E, 2.0 * (2 * n_ * E + 2 * E)
                                 + 8.0 * n_)
         with kernels.plain_versions():
             ln_plain = time_ms(lambda: fused_norm._forward(
@@ -1178,7 +1348,7 @@ def phase_kernels_bf16(seed, flush):
             'plain_ms': ln_plain,
             'library_ms': time_ms(lambda: torch.native_layer_norm(
                 xs, (E,), w, b, 1e-12), flush),
-            'bound_ms': b_ms, 'bound_by': b_by}
+            **work}
     first = ln[str((TRAIN_BATCH, SEQ, E))]
     rows['layer_norm_fwd'] = {
         **first, 'library': 'torch.native_layer_norm (bf16, fp32 stats)',
@@ -1215,13 +1385,13 @@ def phase_kernels_bf16(seed, flush):
     with kernels.plain_versions():
         add_plain = time_ms(lambda: fdn._forward(
             x, res, w, b, P, 1e-5, SEED, 5, True), flush)
-    b_ms, b_by = bf16_bound(9.0 * N * E,
+    work = bf16_bound(9.0 * N * E,
                             2.0 * (4 * N * E + 2 * E) + 8.0 * N)
     rows['add_layer_norm_fwd'] = {
         'max_abs_err': max(r['max_abs_err'] for r in add_errs.values()),
         'ms': add_ms[P], 'ms_p0': add_ms[0.0], 'plain_ms': add_plain,
         'library_ms': None, 'library': 'none (no single call adds and norms)',
-        'bound_ms': b_ms, 'bound_by': b_by, 'shape': [N, E],
+        **work, 'shape': [N, E],
         'dtype': 'bfloat16', 'outputs': 'y, yin, mean, rstd',
         'errors': add_errs}
     emit_kernel('add_layer_norm_fwd', rows, tolerance=BF16_TOL,
@@ -1238,14 +1408,14 @@ def phase_kernels_bf16(seed, flush):
     stored = philox.keep_scale(g.shape, P, SEED, 5, dev).to(BF16)
     with kernels.plain_versions():
         grad_plain = time_ms(lambda: fdn.dropout_grad(g, P, SEED, 5), flush)
-    b_ms, b_by = bf16_bound(1.0 * N * E, 2.0 * 2 * N * E)
+    work = bf16_bound(1.0 * N * E, 2.0 * 2 * N * E)
     rows['dropout_grad'] = {
         'max_abs_err': max_err(dx, rdx), 'bit_exact': True,
         'ms': time_ms(lambda: fdn.dropout_grad(g, P, SEED, 5), flush),
         'plain_ms': grad_plain,
         'library_ms': time_ms(lambda: g * stored, flush),
         'library': 'multiply by a stored (N, D) bf16 mask',
-        'bound_ms': b_ms, 'bound_by': b_by, 'shape': [N, E],
+        **work, 'shape': [N, E],
         'dtype': 'bfloat16'}
     emit_kernel('dropout_grad', rows, tolerance=0.0, phase='kernel_bf16')
     emit({'phase': 'wrappers_bf16', 'copies_or_casts': 0,
@@ -1327,7 +1497,7 @@ def phase_rms(seed, flush):
                     peak = (PEAK_FP32_FLOPS if dtype == torch.float32
                             else PEAK_BF16_FLOPS)
                     # x read and y written once, the weight, fp32 rstd
-                    b_ms, b_by = bound(4.0 * n_ * d_, size * (2 * n_ * d_ + d_)
+                    work = bound(4.0 * n_ * d_, size * (2 * n_ * d_ + d_)
                                        + 4.0 * n_, peak)
                     with kernels.plain_versions():
                         plain_ms = time_ms(lambda: fused_norm._rms_forward(
@@ -1340,7 +1510,7 @@ def phase_rms(seed, flush):
                         'library_ms': time_ms(
                             lambda: torch.nn.functional.rms_norm(
                                 xd, (d_,), wd, 1e-6), flush),
-                        'bound_ms': b_ms, 'bound_by': b_by}
+                        **work}
         key = f'{str(dtype)[6:]} ({TRAIN_BATCH * SEQ}, 1024)'
         rows['fp32' if dtype == torch.float32 else 'bf16'] = {
             **timings[key],
@@ -1485,6 +1655,7 @@ def main():
                         device='cuda')   # 256 MB, five times the L2
     rows = phase_kernels(args.seed, flush)
     rows16 = phase_kernels_bf16(args.seed, flush)
+    phase_mask_probe(args.seed)
     rms_rows, rms_path = phase_rms(args.seed, flush)
     rows['rms_norm_fwd'], rows16['rms_norm_fwd'] = rms_rows['fp32'], \
         rms_rows['bf16']
@@ -1504,7 +1675,10 @@ def main():
     paths = {'serve': served, 'train_fp32': trained,
              'train_bf16': trained16, 'nn.RMSNorm': rms_path}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-            'library_ms')
+            'library_ms', 'share_of_bound', 'achieved_tflops',
+            'achieved_tb_per_s')
+    for row in (*rows.values(), *rows16.values()):
+        row.update(closeness(row))
     emit({'kernels': [
         {'name': name, 'route': 'cuda', 'source': SOURCES[name][0],
          'replaces': SOURCES[name][1],

@@ -6,10 +6,11 @@
 //   dQ = scale * dS K,   dK = scale * dS^T Q,   dV = (P * keep/(1-p))^T dO.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py, _dq_kernel and
-// _dkv_kernel (both launched by _flash_backward). S is rebuilt by
-// masked_score exactly as the forward built it (scale, key-padding bias,
-// -inf above the causal diagonal and past L), and the dropout mask by philox.cuh from
-// the element (bh, query row, key column), so both kernels see the
+// _dkv_kernel (both launched by _flash_backward). S is rebuilt as the
+// forward of the same dtype built it (masked_score, or fragment_scores in
+// the log2 domain: scale, key-padding bias, -inf above the causal diagonal
+// and past L), and the dropout mask by philox.cuh from the element (bh,
+// query row, key column), so both kernels see the
 // forward's bits although they walk the matrix in other orders. A row
 // whose every key was -inf has lse = 1e30: its P is exp(-inf) = 0 and all
 // its gradients are 0, never NaN. The bias gets no gradient. At bf16,
@@ -19,28 +20,56 @@
 // to the input dtype (flash_attention.py:254, :316, :319); dq/dk/dv are
 // stored in bf16.
 //
-// Bound on the H100: operations. dQ is three products (S, dP, dS K),
-// 6 L^2 D flops a head; dK/dV four (S, dP, P^T dO, dS^T Q), 8 L^2 D;
-// against some 24 L D bytes a head each (12 L D at bf16). At bf16 the
-// bound is the tensor cores' 989 TFLOP/s, out of reach of these FMA loops.
+// Three kernels.
 //
-// Design: both use the forward's layout: 128 threads, thread (ty, tx) owns
-// rows ty + 8i and score columns tx + 16j of a 64 x 64 tile; S and dP come
-// out of one loop over the head dim. dQ: grid (B*H, ceil(L/64)) over Q
-// tiles; Q, dO, lse and delta stay resident and K/V tiles stream through
-// (the TPU kernel's sequential grid axis is this loop); dS goes through
-// shared memory for dS K. dK/dV: grid over K tiles; K, V resident, Q/dO
-// tiles stream, from the diagonal on when causal; P and dS go through
-// shared memory and are read by columns (rows padded by one float) for
-// the two transposed products. One block owns a K tile, so no atomics.
-// Rows past L load lse = 1e30 and dO = 0 and store nothing. Shared memory
-// is 83-100 KB at D = 64 and 149-166 KB at D = 128, opted into with
-// cudaFuncSetAttribute.
+// flash_dkv_mma_kernel (dK/dV at bf16; replaces _dkv_kernel there). Bound
+// on the H100: four products (S, dP, P^T dO, dS^T Q), 8 L^2 D flops a head,
+// against 12 L D bytes (q, k, v, dO read, dk, dv written, bf16) and 8 L of
+// lse and delta: 340 flops a byte at L = 512, D = 64, above the 295
+// flop/byte ridge, so the tensor cores bound it. Every product is a
+// tensor-core mma.sync with fp32 accumulators. Grid (B*H, ceil(L/64)): a
+// block owns 64 keys, K and V resident in shared memory as bf16, and
+// streams Q, dO, lse and delta tiles of 64 queries through a three-stage
+// cp.async ring (from the diagonal on when causal). 4 warps, each owning
+// 16 keys against the whole query tile, with KEYS as the fragment rows:
+// S^T = K Q^T and dP^T = V dO^T come out as fp32 fragments, P^T = exp(S^T
+// - lse) and dS^T = P^T (dP^T keep/(1-p) - delta) are formed on them, and
+// their bf16 conversion (the reference's casts) is directly the A operand
+// of dV += (P keep)^T dO and dK += dS^T Q (dO and Q read with
+// ldmatrix.trans). So P and dS never go through shared memory and a tile
+// needs one barrier; shared-memory reads are ~0.56 ldmatrix a product.
+// Under dropout the four keys of one Philox call lie on four lanes' rows,
+// so those four lanes make the four calls their 16 probabilities need,
+// one each, and trade words with three shuffles (fragment_keep_t in
+// flash_common.cuh): one call per four probabilities, every word used,
+// when L % 4 == 0. One block owns a key tile: no atomics, dK and dV are
+// deterministic. Ragged edges as the forward's (cp.async zero fill, masks
+// only on edge tiles, element loads when d % 8 != 0); the head dim is
+// padded to 64 or 128. At D = 64 without dropout the registers are capped
+// for three blocks an SM (a few bytes spill), which measured faster than
+// two; 67 KB of shared memory at D = 64, 133 KB at D = 128.
+//
+// flash_dq_kernel (both dtypes) and flash_dkv_kernel (fp32) stay on the
+// fp32 FMA pipes (tensor cores at fp32 would be TF32, which the fp32 gates
+// forbid): dQ is three products (S, dP, dS K), 6 L^2 D flops a head, dK/dV
+// four, against some 24 L D bytes a head at fp32 (12 at bf16); operations
+// bound both. Both use the fp32 forward's layout: 128 threads, thread (ty,
+// tx) owns rows ty + 8i and score columns tx + 16j of a 64 x 64 tile; S
+// and dP come out of one loop over the head dim. dQ: grid (B*H,
+// ceil(L/64)) over Q tiles; Q, dO, lse and delta stay resident and K/V
+// tiles stream through (the TPU kernel's sequential grid axis is this
+// loop); dS goes through shared memory for dS K. fp32 dK/dV: grid over K
+// tiles; K, V resident, Q/dO tiles stream, from the diagonal on when
+// causal; P and dS go through shared memory and are read by columns (rows
+// padded by one float) for the two transposed products. Rows past L load
+// lse = 1e30 and dO = 0 and store nothing. Shared memory is 83-100 KB at
+// D = 64 and 149-166 KB at D = 128, opted into with cudaFuncSetAttribute.
 #include <cstdint>
 
 #include "dtype.cuh"
 #include "flash_common.cuh"
 #include "philox.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -320,6 +349,223 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+// dK/dV at bf16 on the tensor cores, keys as the fragment rows. q, k, v,
+// dk and dv share strides `s`, dO has `gs`; `vec` / `gvec`: their rows are
+// whole 16-byte chunks. 4 warps; warp w owns keys 16 w .. 16 w + 15 of the
+// block's 64 against each 64-query tile: S^T = K Q^T and dP^T = V dO^T as
+// fp32 fragments, then P^T and dS^T, converted in registers, are the A
+// operands of dV += P^T dO and dK += dS^T Q (dO and Q read with
+// ldmatrix.trans): no trip through shared memory.
+constexpr int kDkvStages = 3;
+
+template <int DP, bool kDrop>
+__global__ void __launch_bounds__(kThreads, DP == 64 && !kDrop ? 3 : 1)
+flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const float* __restrict__ bias, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int L, int d, int H, Strides s,
+                     Strides gs, float scale, int causal, int vec, int gvec,
+                     DropoutArgs drop) {
+    constexpr int kTile = kBQ * DP;     // elements of a Q/dO/K/V tile
+    constexpr int kSteps = DP / 16;     // k-steps of S^T and dP^T
+    constexpr int kQN = kBQ / 8;        // n-tiles of S^T over the queries
+    constexpr int kOutN = DP / 8;       // n-tiles of dK and dV
+    static_assert(kBK == 16 * (kThreads / 32), "a warp owns 16 keys");
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    bf16* sk = reinterpret_cast<bf16*>(smem_raw);
+    bf16* sv = sk + kTile;
+    bf16* sq = sv + kTile;                  // kDkvStages stages
+    bf16* sdo = sq + kDkvStages * kTile;    // kDkvStages stages
+    float* slse = reinterpret_cast<float*>(sdo + kDkvStages * kTile);
+    float* sdelta = slse + kDkvStages * kBQ;
+
+    const int bh = blockIdx.x, b = bh / H, h = bh % H;
+    const int k0 = blockIdx.y * kBK;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int kr = k0 + 16 * warp + g;   // the lane's keys: kr and kr + 8
+    const int64_t base = b * s.b + h * s.h;
+    const int64_t gbase = b * gs.b + h * gs.h;
+    const int64_t stat = static_cast<int64_t>(bh) * L;
+    const float scale2 = scale * kLog2e;
+    // the key-padding bias of the lane's two keys, log2 domain
+    float kb2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+        kb2[i] = bias != nullptr && kr + 8 * i < L
+                     ? bias[static_cast<int64_t>(b) * L + kr + 8 * i] * kLog2e
+                     : 0.f;
+
+    // causal: query tiles above the diagonal see none of these keys
+    const int t0 = causal ? k0 / kBQ : 0;
+    const int n_tiles = (L + kBQ - 1) / kBQ;
+    // query tile t (Q, dO, lse, delta) into stage (t - t0) % kDkvStages, as
+    // one commit group (empty past the last tile, so that every iteration
+    // waits for the same count)
+    const auto load_queries = [&](int t) {
+        if (t < n_tiles) {
+            const int st = (t - t0) % kDkvStages, q0 = t * kBQ;
+            load_rows<kBQ, DP, kThreads>(sq + st * kTile, q, base, s.l, q0, L,
+                                         d, vec);
+            load_rows<kBQ, DP, kThreads>(sdo + st * kTile, dout, gbase, gs.l,
+                                         q0, L, d, gvec);
+            const int i = threadIdx.x & (kBQ - 1);
+            const float* src = threadIdx.x < kBQ ? lse : delta;
+            float* dst = (threadIdx.x < kBQ ? slse : sdelta) + st * kBQ + i;
+            const bool ok = q0 + i < L;
+            cp_async4(dst, ok ? src + stat + q0 + i : src, ok);
+        }
+        cp_async_commit();
+    };
+    static_assert(kThreads == 2 * kBQ, "a thread copies one lse or delta");
+
+    load_rows<kBK, DP, kThreads>(sk, k, base, s.l, k0, L, d, vec);
+    load_rows<kBK, DP, kThreads>(sv, v, base, s.l, k0, L, d, vec);
+    // K and V join the first query tile's group
+#pragma unroll
+    for (int i = 0; i < kDkvStages - 1; ++i) load_queries(t0 + i);
+
+    float acc_k[kOutN][4], acc_v[kOutN][4];
+#pragma unroll
+    for (int n = 0; n < kOutN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+    for (int t = t0; t < n_tiles; ++t) {
+        const int q0 = t * kBQ;
+        const int st = (t - t0) % kDkvStages;
+        cp_async_wait<kDkvStages - 2>();   // tile t is in shared memory ...
+        __syncthreads();   // ... for every thread, and tile t - 1's stage is
+        load_queries(t + kDkvStages - 1);  // free for the tile 2 ahead
+        const bf16* sqt = sq + st * kTile;
+        const bf16* sdot = sdo + st * kTile;
+        const float* slt = slse + st * kBQ;
+        const float* sdt = sdelta + st * kBQ;
+
+        // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries a warp
+        float sc[kQN][4], dp[kQN][4];
+#pragma unroll
+        for (int n = 0; n < kQN; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk) {
+            uint32_t ka[4], va[4];
+            const int at = swz<DP>(16 * warp + (lane & 7) +
+                                       ((lane >> 3) & 1) * 8,
+                                   kk * 16 + (lane >> 4) * 8);
+            ldmatrix_x4(ka, sk + at);
+            ldmatrix_x4(va, sv + at);
+#pragma unroll
+            for (int np = 0; np < kQN / 2; ++np) {
+                uint32_t qb[4], gb[4];
+                const int qat = swz<DP>(np * 16 + (lane & 7) + (lane >> 4) * 8,
+                                        kk * 16 + ((lane >> 3) & 1) * 8);
+                ldmatrix_x4(qb, sqt + qat);
+                ldmatrix_x4(gb, sdot + qat);
+                mma_bf16(sc[2 * np], ka, qb[0], qb[1]);
+                mma_bf16(sc[2 * np + 1], ka, qb[2], qb[3]);
+                mma_bf16(dp[2 * np], va, gb[0], gb[1]);
+                mma_bf16(dp[2 * np + 1], va, gb[2], gb[3]);
+            }
+        }
+
+        // P^T = exp(S^T - lse) and dS^T = P^T (dP^T keep/(1-p) - delta),
+        // in place of S^T and dP^T; only a key tile reaching past L or a
+        // tile above the diagonal needs the masks
+        const bool edge = k0 + kBK > L || (causal && k0 + 16 * warp + 15 > q0);
+#pragma unroll
+        for (int n = 0; n < kQN; ++n) {
+            const int qi = 8 * n + 2 * t4;   // query in the tile: qi, qi + 1
+            const int qc = q0 + qi;
+            const float2 lq = *reinterpret_cast<const float2*>(slt + qi);
+            const float2 dq = *reinterpret_cast<const float2*>(sdt + qi);
+            // a query past L has lse = 1e30, so its P is 0
+            const float lse2[2] = {(qc < L ? lq.x : kLseEmpty) * kLog2e,
+                                   (qc + 1 < L ? lq.y : kLseEmpty) * kLog2e};
+            const float dl[2] = {dq.x, dq.y};
+            float ks[4];
+            if (kDrop) fragment_keep_t(drop, bh, kr, qc, L, lane, ks);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float x = fmaf(sc[n][e], scale2, kb2[e >> 1]);
+                if (edge) {
+                    const int key = kr + 8 * (e >> 1), qq = qc + (e & 1);
+                    if (key >= L || (causal && key > qq))
+                        x = __int_as_float(0xff800000);
+                }
+                const float p = ex2(x - lse2[e & 1]);
+                const float dpe = kDrop ? dp[n][e] * ks[e] : dp[n][e];
+                sc[n][e] = kDrop ? p * ks[e] : p;
+                dp[n][e] = p * (dpe - dl[e & 1]);
+            }
+        }
+
+        // dV += (P keep)^T dO and dK += dS^T Q: the fragments, rounded to
+        // bf16 (the reference's casts), are the A operands
+#pragma unroll
+        for (int kq = 0; kq < kBQ / 16; ++kq) {
+            uint32_t pa[4], da[4];
+            pa[0] = pack_bf16(sc[2 * kq][0], sc[2 * kq][1]);
+            pa[1] = pack_bf16(sc[2 * kq][2], sc[2 * kq][3]);
+            pa[2] = pack_bf16(sc[2 * kq + 1][0], sc[2 * kq + 1][1]);
+            pa[3] = pack_bf16(sc[2 * kq + 1][2], sc[2 * kq + 1][3]);
+            da[0] = pack_bf16(dp[2 * kq][0], dp[2 * kq][1]);
+            da[1] = pack_bf16(dp[2 * kq][2], dp[2 * kq][3]);
+            da[2] = pack_bf16(dp[2 * kq + 1][0], dp[2 * kq + 1][1]);
+            da[3] = pack_bf16(dp[2 * kq + 1][2], dp[2 * kq + 1][3]);
+#pragma unroll
+            for (int np = 0; np < kOutN / 2; ++np) {
+                uint32_t gb[4], qb[4];
+                const int at = swz<DP>(
+                    kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                    np * 16 + (lane >> 4) * 8);
+                ldmatrix_x4_trans(gb, sdot + at);
+                ldmatrix_x4_trans(qb, sqt + at);
+                mma_bf16(acc_v[2 * np], pa, gb[0], gb[1]);
+                mma_bf16(acc_v[2 * np + 1], pa, gb[2], gb[3]);
+                mma_bf16(acc_k[2 * np], da, qb[0], qb[1]);
+                mma_bf16(acc_k[2 * np + 1], da, qb[2], qb[3]);
+            }
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int key = kr + 8 * i;
+        if (key >= L) continue;
+        bf16* dkrow = dk + base + key * s.l;
+        bf16* dvrow = dv + base + key * s.l;
+#pragma unroll
+        for (int n = 0; n < kOutN; ++n) {
+            const int col = 8 * n + 2 * t4;
+            const float k0v = acc_k[n][2 * i] * scale;
+            const float k1v = acc_k[n][2 * i + 1] * scale;
+            const float v0v = acc_v[n][2 * i], v1v = acc_v[n][2 * i + 1];
+            if (vec) {
+                if (col < d) {
+                    *reinterpret_cast<uint32_t*>(dkrow + col) =
+                        pack_bf16(k0v, k1v);
+                    *reinterpret_cast<uint32_t*>(dvrow + col) =
+                        pack_bf16(v0v, v1v);
+                }
+            } else {
+                if (col < d) {
+                    dkrow[col] = __float2bfloat16_rn(k0v);
+                    dvrow[col] = __float2bfloat16_rn(v0v);
+                }
+                if (col + 1 < d) {
+                    dkrow[col + 1] = __float2bfloat16_rn(k1v);
+                    dvrow[col + 1] = __float2bfloat16_rn(v1v);
+                }
+            }
+        }
+    }
+}
+
 // q, k, v, dout, dq, dk, dv point at elements of the call's dtype
 struct BwdArgs {
     const void *q, *k, *v, *dout;
@@ -380,6 +626,43 @@ int launch_dkv(const BwdArgs& a) {
     return static_cast<int>(cudaGetLastError());
 }
 
+template <int DP, bool kDrop>
+int launch_dkv_mma(const BwdArgs& a) {
+    // K, V, kDkvStages stages of Q and dO (bf16) and of lse and delta (fp32)
+    constexpr size_t bytes =
+        sizeof(bf16) * (2 + 2 * kDkvStages) * kBQ * DP +
+        sizeof(float) * 2 * kDkvStages * kBQ;
+    static bool configured = false;
+    const cudaError_t e = allow_shared(flash_dkv_mma_kernel<DP, kDrop>,
+                                       bytes, &configured);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int64_t strides[3] = {a.s.b, a.s.h, a.s.l};
+    const int64_t gstrides[3] = {a.gs.b, a.gs.h, a.gs.l};
+    const int vec = chunks_of_16(a.d, strides, {a.q, a.k, a.v, a.dk, a.dv});
+    const int gvec = chunks_of_16(a.d, gstrides, {a.dout});
+    const dim3 grid(static_cast<unsigned>(a.bh),
+                    static_cast<unsigned>((a.L + kBK - 1) / kBK));
+    flash_dkv_mma_kernel<DP, kDrop><<<grid, kThreads, bytes, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        a.lse, a.delta, a.bias, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.L, a.d, a.H, a.s, a.gs, a.scale, a.causal,
+        vec, gvec, a.drop);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 dK/dV on the tensor cores: the head dim padded to 64 or 128
+int dispatch_dkv_mma(const BwdArgs& a) {
+    const bool dropout = a.drop.scale != 1.f;
+    if (a.d <= 64)
+        return dropout ? launch_dkv_mma<64, true>(a)
+                       : launch_dkv_mma<64, false>(a);
+    if (a.d <= 128)
+        return dropout ? launch_dkv_mma<128, true>(a)
+                       : launch_dkv_mma<128, false>(a);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <bool kDkv, int DP, typename T>
 int launch_one(const BwdArgs& a) {
     const bool dropout = a.drop.scale != 1.f;
@@ -405,7 +688,10 @@ int dispatch(const BwdArgs& a, int dtype) {
         (a.L + kBQ - 1) / kBQ > 65535 || a.d <= 0 || a.H <= 0)
         return static_cast<int>(cudaErrorInvalidValue);
     if (dtype == kF32) return dispatch_dim<kDkv, float>(a);
-    if (dtype == kBF16) return dispatch_dim<kDkv, __nv_bfloat16>(a);
+    if (dtype == kBF16) {
+        if constexpr (kDkv) return dispatch_dkv_mma(a);
+        else return dispatch_dim<false, __nv_bfloat16>(a);
+    }
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
