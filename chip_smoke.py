@@ -9,12 +9,15 @@ Phases, each printing one JSON line:
 2. build  — compile the port's CUDA kernels from ``paddle_tpu_torch/
    kernels/csrc`` with nvcc for sm_90a (set-up time), and count each
    kernel's tensor-core instructions in its SASS (``cuobjdump``): the bf16
-   flash forward and dK/dV must have them;
+   flash forward, dQ and dK/dV and the fp32 (3xTF32) forward must have
+   them;
 3. kernels — each of the six fp32 kernels against its plain PyTorch
    version on the card at the shapes BERT-large serving and training give
    it and at awkward ones, without and with dropout, with its time, the
    plain version's, one PyTorch library call's as a yardstick, and the
-   bound; the Philox dropout mask bit for bit against ``kernels/philox.py``;
+   bound (the attention rows' at the TF32 peak); the fp32 forward at most
+   SDPA's fp32 forward at the serving and the train shape; the Philox
+   dropout mask bit for bit against ``kernels/philox.py``;
 4. kernels bf16 — the same six kernels at bf16 on the bf16 train step's
    inputs (attention at (8, 16, 512, 64) as transpose(1, 2) views, p = 0.1;
    the norms at (4096, 1024) and (608, 1024); add+LayerNorm with 4
@@ -23,8 +26,9 @@ Phases, each printing one JSON line:
    bf16 tensor-core peak; L = 300 with D = 40 and a -inf batch row, and
    D = 128 causal; each wrapper called under an op log that sees no copy
    and no cast; the bf16 kernel's mask bit for bit as the fp32 kernel's;
-   then ``attention_mask_probe``: the attention dropout mask read back bit
-   for bit through the forward and through dK/dV at fp32 and bf16;
+   the speed limits of the three tensor-core kernels against SDPA; then
+   ``attention_mask_probe``: the attention dropout mask read back bit for
+   bit through the forward, dQ and dK/dV at fp32 and bf16;
 5. rms    — ``nn.RMSNorm`` forward and backward (autograd) at fp32 and
    bf16, with and without a weight, at (4096, 1024), (4096, 4096) and
    (300, 1000), against the plain version, with exactly one RMSNorm launch
@@ -78,9 +82,12 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-# published H100 SXM peaks (dense): fp32 outside the tensor cores, bf16 on
-# the tensor cores, HBM3
+# published H100 SXM peaks (dense): fp32 outside the tensor cores, TF32 and
+# bf16 on the tensor cores, HBM3. The fp32 attention rows take their bound
+# at the TF32 peak: it is the fastest the card does that work, whatever
+# unit a kernel runs it on (the forward runs 3xTF32 on the tensor cores)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # kernel vs plain version, max abs, fp32: the two sum in different orders,
@@ -179,9 +186,11 @@ def phase_card():
     return smi
 
 
-# the kernels that must run on the tensor cores: each instantiation needs
-# mma.sync (HMMA) or wgmma (HGMMA) instructions in its SASS
-TENSOR_CORE_KERNELS = ('flash_fwd_mma_kernel', 'flash_dkv_mma_kernel')
+# the kernels that must run on the tensor cores, four instantiations each
+# (two head dims, with and without dropout): each needs mma.sync (HMMA) or
+# wgmma (HGMMA) instructions in its SASS
+TENSOR_CORE_KERNELS = ('flash_fwd_mma_kernel', 'flash_dkv_mma_kernel',
+                       'flash_dq_mma_kernel', 'flash_fwd_tf32_kernel')
 
 
 def phase_build():
@@ -324,7 +333,7 @@ def phase_kernels(seed, flush):
     keys = float(lengths.sum())
     flops = 4.0 * H * L * D * keys
     nbytes = 4.0 * (2 * B * H * L * D + 2 * H * D * keys + B * L)
-    work = bound(flops, nbytes)
+    work = bound(flops, nbytes, PEAK_TF32_FLOPS)
     mask4 = bias[:, None, None, :]
     rows['flash_attention_fwd'] = {
         'max_abs_err': err,
@@ -339,6 +348,9 @@ def phase_kernels(seed, flush):
         'shape': [B, H, L, D], 'unmasked_keys': keys,
         'flops_all_keys': 4.0 * B * H * L * L * D,
         'extra_cases': cases}
+    serve = rows['flash_attention_fwd']
+    check_speed('attention_speed_fp32_serve', {
+        'fwd_fp32_over_sdpa_fwd': serve['ms'] / serve['library_ms']})
 
     # -- LayerNorm (embedding norm) and add+LayerNorm (48 epilogues) -----
     N, E = 16 * SEQ, 1024
@@ -420,22 +432,27 @@ def _attention_case(fa, q, k, v, do, causal, kb, p, seed, offset):
 
 def attention_mask_probe(dtype, device, length, p, seed, offset, heads=2):
     """Read the attention dropout mask back, bit for bit, through the
-    forward and through dK/dV, on one 64-key (forward) or 64-query (dK/dV)
+    forward, dQ and dK/dV, on one 64-key (forward, dQ) or 64-query (dK/dV)
     window per batch row: batch row b probes window 64 b .. 64 b + 63, so
     the windows cover every key tile, the last one ragged unless 64
-    divides ``length``. D = 64; q = k = 0, so every score is its bias.
+    divides ``length``. D = 64.
 
-    - forward: key bias 0 on the window, -inf elsewhere, so P = 1 there;
-      v = the one-hot of key position mod 64, so o[b, h, i, j] != 0 iff
-      element (b H + h, i, 64 b + j) is kept;
-    - dK/dV: v = 0, lse = delta = 0, no bias, so P = 1 and dS = 0;
+    - forward: q = k = 0 and a key bias 0 on the window, -inf elsewhere,
+      so P = 1 there; v = the one-hot of key position mod 64, so
+      o[b, h, i, j] != 0 iff element (b H + h, i, 64 b + j) is kept;
+    - dQ: q = 0, k = the one-hot of key position mod 64, v and dO a
+      column of ones each, lse = delta = 0, the forward's bias; so P = 1
+      on the window, dP = 1 and dS = keep / (1 - p) there, and
+      dq[b, h, i, j] != 0 iff (b H + h, i, 64 b + j) is kept;
+    - dK/dV: q = k = v = 0, lse = delta = 0, no bias, so P = 1 and dS = 0;
       dO = the one-hot of query position mod 64 on the window rows, zero
       elsewhere, so dv[b, h, key, j] != 0 iff (b H + h, 64 b + j, key) is
       kept.
 
     CUDA tensors run the kernels, CPU tensors the plain versions. -> {
-    'forward': (read, want), 'dkv': (read, want)}: boolean masks of the
-    probed elements, ``want`` from ``philox.keep_mask``."""
+    'forward': (read, want), 'dq': (read, want), 'dkv': (read, want)}:
+    boolean masks of the probed elements, ``want`` from
+    ``philox.keep_mask``."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import philox
     D = 64
@@ -445,34 +462,39 @@ def attention_mask_probe(dtype, device, length, p, seed, offset, heads=2):
     window = pos[None, :] // D == torch.arange(B, device=device)[:, None]
     onehot = (pos[:, None] % D == torch.arange(D, device=device)[None, :])
     zeros = torch.zeros(shape, dtype=dtype, device=device)
+    stats = torch.zeros(shape[:3], dtype=torch.float32, device=device)
     keep = philox.keep_mask((B * heads, length, length), p, seed, offset,
                             device).reshape(B, heads, length, length)
-    out = {}
+    windows = [slice(D * b, min(D * (b + 1), length)) for b in range(B)]
+
+    def key_windows(out):
+        """out[b, :, :, :n] against the keys of batch row b's window"""
+        return (torch.cat([(out[b, :, :, :w.stop - w.start] != 0).flatten()
+                           for b, w in enumerate(windows)]),
+                torch.cat([keep[b, :, :, w].flatten()
+                           for b, w in enumerate(windows)]))
     bias = torch.where(window, 0.0, float('-inf')).to(torch.float32)
     v = onehot.to(dtype).expand(shape).contiguous()
     o, _ = fa.flash_attention_forward(zeros, zeros, v, False, None, bias, p,
                                       seed, offset)
-    reads, wants = [], []
-    for b in range(B):
-        w = slice(D * b, min(D * (b + 1), length))
-        n = w.stop - w.start
-        reads.append((o[b, :, :, :n] != 0).flatten())
-        wants.append(keep[b, :, :, w].flatten())
-    out['forward'] = (torch.cat(reads), torch.cat(wants))
+    out = {'forward': key_windows(o)}
+
+    ones = torch.zeros(shape, dtype=dtype, device=device)
+    ones[..., 0] = 1
+    dq = fa.flash_attention_dq(zeros, v, ones, ones, stats, stats, False,
+                               1.0 / D ** 0.5, bias, p, seed, offset)
+    out['dq'] = key_windows(dq)
 
     do = (window[:, :, None] & onehot[None]).to(dtype)[:, None].expand(
         shape).contiguous()
-    stats = torch.zeros(shape[:3], dtype=torch.float32, device=device)
     _, dv = fa.flash_attention_dkv(zeros, zeros, zeros, do, stats, stats,
                                    False, 1.0 / D ** 0.5, None, p, seed,
                                    offset)
-    reads, wants = [], []
-    for b in range(B):
-        w = slice(D * b, min(D * (b + 1), length))
-        n = w.stop - w.start
-        reads.append((dv[b, :, :, :n] != 0).flatten())
-        wants.append(keep[b, :, w, :].transpose(-1, -2).flatten())
-    out['dkv'] = (torch.cat(reads), torch.cat(wants))
+    out['dkv'] = (
+        torch.cat([(dv[b, :, :, :w.stop - w.start] != 0).flatten()
+                   for b, w in enumerate(windows)]),
+        torch.cat([keep[b, :, w, :].transpose(-1, -2).flatten()
+                   for b, w in enumerate(windows)]))
     return out
 
 
@@ -605,11 +627,13 @@ def phase_train_kernels(randn, gen, flush, rows):
     kv_bytes = 4.0 * 2 * H * D * keys
 
     def bounds(flops_per_key, whole, extra):
-        """(bound of the unmasked input, bound of the biased one)."""
+        """(bound of the unmasked input, bound of the biased one), at the
+        TF32 peak."""
         return (bound(flops_per_key * H * L * D * all_keys,
-                      (whole + 2) * n_qd + extra),
+                      (whole + 2) * n_qd + extra, PEAK_TF32_FLOPS),
                 bound(flops_per_key * H * L * D * keys,
-                      whole * n_qd + kv_bytes + extra + 4.0 * B * L))
+                      whole * n_qd + kv_bytes + extra + 4.0 * B * L,
+                      PEAK_TF32_FLOPS))
     work, biased = bounds(4.0, 2, side)         # q, o; lse
     rows['flash_attention_fwd'].update({
         'train': {'shape': list(shape), 'layout': '(B, L, H, D) seen '
@@ -624,6 +648,8 @@ def phase_train_kernels(randn, gen, flush, rows):
                                     'bound_ms': biased['bound_ms'],
                                     'bound_by': biased['bound_by']},
                   'cases': cases}})
+    check_speed('attention_speed_fp32_train', {
+        'fwd_fp32_over_sdpa_fwd': ms[0.0]['fwd'] / sdpa_fwd})
     library = ('SDPA backward (dQ, dK, dV together) through '
                'torch.autograd.grad, p = 0')
     for name, kind, grads, flops_per_key, whole in (
@@ -903,8 +929,9 @@ def phase_profile(what, run, top_n=12, **extra):
 
 # the port's kernels by their CUDA function names; the rest by the words
 # PyTorch's, cuBLAS's and CUTLASS's kernel names carry
-_GROUPS = (('attention kernels', ('flash_fwd_kernel', 'flash_dq_kernel',
+_GROUPS = (('attention kernels', ('flash_fwd_tf32_kernel', 'flash_dq_kernel',
                                   'flash_dkv_kernel', 'flash_fwd_mma_kernel',
+                                  'flash_dq_mma_kernel',
                                   'flash_dkv_mma_kernel')),
            ('norm and mask kernels', ('layer_norm_fwd_kernel',
                                       'rms_norm_fwd_kernel',
@@ -1132,10 +1159,13 @@ STAT_TOL = 1e-4
 BF16_LOSS_TOL = 2e-3
 BF16_GRAD_MAX = 0.1
 BF16_GRAD_MEAN = 0.03
-# the bf16 tensor-core attention kernels' time over the library call's in
-# the same run, p = 0, at the train step's shape: the forward at most twice
-# SDPA's forward, dK/dV at most SDPA's whole backward (dQ, dK, dV)
-SPEED_LIMITS = {'fwd_over_sdpa_fwd': 2.0, 'dkv_over_sdpa_bwd': 1.0}
+# the tensor-core attention kernels' time over the library call's in the
+# same run, p = 0: at bf16 at the train step's shape, the forward at most
+# twice SDPA's forward, dK/dV and dQ each at most SDPA's whole backward (dQ,
+# dK, dV); the fp32 forward at most SDPA's fp32 forward, at the fp32 train
+# shape and at the serving shape with its key bias
+SPEED_LIMITS = {'fwd_over_sdpa_fwd': 2.0, 'dkv_over_sdpa_bwd': 1.0,
+                'dq_over_sdpa_bwd': 1.0, 'fwd_fp32_over_sdpa_fwd': 1.0}
 COPY_OPS = ('aten._to_copy.default', 'aten.copy_.default',
             'aten.clone.default')
 # the functions that check tensors and launch a kernel: none may copy or
@@ -1175,6 +1205,17 @@ class OpLog(TorchDispatchMode):
                                 str(out.dtype).replace('torch.', ''),
                                 tuple(src.shape), _site()))
         return out
+
+
+def check_speed(phase, speed):
+    """Print ``speed`` ({limit: kernel ms over library ms, one run}) as
+    ``phase``'s line and hold each ratio to its SPEED_LIMITS entry."""
+    emit({'phase': phase, **speed,
+          'limits': {k: SPEED_LIMITS[k] for k in speed}})
+    for key, ratio in speed.items():
+        if not ratio <= SPEED_LIMITS[key]:
+            raise AssertionError(f"{phase}: {key} = {ratio} > "
+                                 f"{SPEED_LIMITS[key]}")
 
 
 def no_copies(what, fn):
@@ -1307,13 +1348,10 @@ def phase_kernels_bf16(seed, flush):
                  'flash_attention_dkv'):
         emit_kernel(name, rows, tolerance=BF16_TOL, phase='kernel_bf16')
     # the tensor-core kernels against one library call each, p = 0
-    speed = {'fwd_over_sdpa_fwd': ms[0.0]['fwd'] / sdpa_fwd,
-             'dkv_over_sdpa_bwd': ms[0.0]['dkv'] / sdpa_bwd}
-    emit({'phase': 'attention_speed_bf16', **speed, 'limits': SPEED_LIMITS})
-    for key, limit in SPEED_LIMITS.items():
-        if not speed[key] <= limit:
-            raise AssertionError(f"bf16 attention: {key} = {speed[key]} > "
-                                 f"{limit}")
+    check_speed('attention_speed_bf16', {
+        'fwd_over_sdpa_fwd': ms[0.0]['fwd'] / sdpa_fwd,
+        'dkv_over_sdpa_bwd': ms[0.0]['dkv'] / sdpa_bwd,
+        'dq_over_sdpa_bwd': ms[0.0]['dq'] / sdpa_bwd})
     del q, k, v, do, o, dq, dk, dv
 
     # -- LayerNorm as the bf16 step launches it, y/mean/rstd out, eps

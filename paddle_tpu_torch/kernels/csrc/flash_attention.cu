@@ -16,7 +16,7 @@
 // product, where the reference casts it to v's dtype; o is stored in bf16
 // and lse in fp32.
 //
-// Two kernels, one per dtype.
+// Two kernels, one per dtype, both on the tensor cores.
 //
 // flash_fwd_mma_kernel (bf16). Bound on the H100: 4 L^2 D flops a head
 // against 8 L D bytes (q, k, v read, o written, bf16), so at L = 512,
@@ -51,21 +51,41 @@
 // per probability. It reaches ~17 % of its bound, ~1.85x the library's
 // forward (PERF.md): wgmma with TMA is the next step.
 //
-// flash_fwd_kernel (fp32). Tensor cores at fp32 would be TF32, which the
-// fp32 gates forbid, so this one stays on the FMA pipes: 4 L^2 D flops
-// against 16 L D bytes, 128 flops a byte, above the 20 flop/byte ridge of
-// fp32 CUDA cores (67 TFLOP/s), so operations bound it. Grid (B*H,
-// ceil(L/64)); each block keeps a 64-row Q tile in shared memory and walks
-// 64-key K/V tiles through shared memory (the sequential grid axis of the
-// TPU kernel becomes this loop). 128 threads: thread (ty, tx) owns query
-// rows ty + 8i (i < 8) and score columns tx + 16j (j < 4), so a row's max
-// and sum are 16-lane shuffles; the P tile goes through shared memory for
-// the P.V product, where the thread owns output columns tx + 16c. Q and K
-// rows are padded by one float so the column-wise reads do not collide on
-// banks. Keys past L are -inf, rows past L are computed and not stored,
-// and the head dim is zero-padded to 32, 64 or 128. With dropout a
-// thread's four score columns lie 16 apart, so it uses one word of each
-// Philox call.
+// flash_fwd_tf32_kernel (fp32). 4 L^2 D flops against 16 L D bytes, 128
+// flops a byte at L = 512: just under the 148 flop/byte ridge of the TF32
+// tensor cores (495 TFLOP/s over 3.35 TB/s), so at their peak HBM would
+// bound it, and the FMA pipes (67 TFLOP/s) are far from either. The fp32
+// gates (1e-4 on o and lse) rule out plain TF32, whose single product is
+// off by up to 2^-10 of |a b| and moves o and lse past 1e-4 on
+// unit-normal inputs (tests/test_torch_tf32x3.py); but 3xTF32 keeps them:
+// each fp32 operand is split into hi = tf32(x) and lo = tf32(x - hi), and
+// a b is a_lo b_hi + a_hi b_lo + a_hi b_hi, three TF32 tensor-core
+// products whose error is ~2^-21 of |a b|, close to fp32's own 2^-24
+// rounding (CUTLASS's OpMultiplyAddFastF32; tests/test_torch_tf32x3.py
+// emulates it against the gate). So both products, Q K^T and P.V, run as
+// mma.sync m16n8k8 tf32 triples (tensor_core.cuh), issued term by term
+// across the n-tiles so that no product waits on the one before. Their
+// rate bounds the kernel (PERF.md). Otherwise the bf16 kernel's design at
+// one m-tile a warp: grid (B*H, ceil(L/64)), 4 warps of 16 query rows,
+// K/V tiles of 64 keys through a two-stage cp.async ring, the online
+// softmax on the accumulator fragments, the masks only on edge tiles, the
+// dropout bits of fragment_keep. What differs at fp32:
+// - the softmax runs in natural units, on scores rounded as the reference
+//   rounds them (dot * scale, then + bias; fragment_scores_fp32): next to
+//   a -1e4 key bias a score's ulp is 2^-10, and the log2 domain's own
+//   roundings put lse 2^-10 off the reference's on rows whose keys are all
+//   so masked, ten times the gate;
+// - tiles are fp32 rows padded to 68 (or 132) floats, whose stride is 4
+//   mod 32 words, so ldmatrix (b16, so an 8 x 4 fp32 block is one 8 x 8
+//   matrix) loads Q's A and K's B fragments and plain 32-bit loads read
+//   V's B fragments down a column, all without bank conflicts;
+// - P's accumulator fragment becomes the A operand of P.V with its keys
+//   permuted within each k8 block (tensor_core.cuh), without a shuffle;
+// - every fragment is split into hi/lo in registers as it is loaded, Q's
+//   once at D = 64 and every tile at D = 128 (registers).
+// Ragged edges as the bf16 kernel's: cp.async zero fill, element loads
+// when d % 4 != 0 or a stride or pointer is not whole 16-byte chunks, D
+// padded to 64 or 128.
 #include <cstdint>
 
 #include "dtype.cuh"
@@ -74,162 +94,6 @@
 #include "tensor_core.cuh"
 
 namespace {
-
-template <int DP>
-struct Tile {
-    static constexpr int qk_stride = DP + 1;   // floats per Q/K smem row
-    static constexpr int p_stride = kBK + 1;   // floats per P smem row
-    static constexpr int q = kBQ * qk_stride;
-    static constexpr int k = kBK * qk_stride;
-    static constexpr int v = kBK * DP;
-    static constexpr int p = kBQ * p_stride;
-    static constexpr size_t bytes = sizeof(float) * (q + k + v + p);
-};
-
-// q, k, v, o (element type T) share strides (sb, sh, sl) in elements; the
-// head dim is contiguous. bias: (B, L) fp32 or null. lse: (B*H, L) fp32 or
-// null.
-template <int DP, bool kDrop, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ o, float* __restrict__ lse, int L, int d,
-                 int H, int64_t sb, int64_t sh, int64_t sl, float scale,
-                 int causal, DropoutArgs drop) {
-    using Tl = Tile<DP>;
-    constexpr int kOut = DP / 16;  // output columns per thread
-    extern __shared__ float smem[];
-    float* sq = smem;
-    float* sk = sq + Tl::q;
-    float* sv = sk + Tl::k;
-    float* sp = sv + Tl::v;
-
-    const int bh = blockIdx.x;
-    const int b = bh / H;
-    const int h = bh % H;
-    const int q0 = blockIdx.y * kBQ;
-    const int tid = threadIdx.x;
-    const int ty = tid >> 4;
-    const int tx = tid & 15;
-    const int64_t base = static_cast<int64_t>(b) * sb +
-                         static_cast<int64_t>(h) * sh;
-    const float* bias_row =
-        bias != nullptr ? bias + static_cast<int64_t>(b) * L : nullptr;
-
-    for (int i = tid; i < kBQ * DP; i += kThreads) {
-        const int r = i / DP, c = i % DP, qr = q0 + r;
-        sq[r * Tl::qk_stride + c] =
-            (qr < L && c < d) ? to_f32(q[base + qr * sl + c]) : 0.f;
-    }
-
-    float m[kRows], l[kRows], acc[kRows][kOut];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-        m[i] = kNegInf;
-        l[i] = 0.f;
-#pragma unroll
-        for (int c = 0; c < kOut; ++c) acc[i][c] = 0.f;
-    }
-
-    int n_tiles = (L + kBK - 1) / kBK;
-    if (causal) n_tiles = min(n_tiles, (min(q0 + kBQ, L) - 1) / kBK + 1);
-
-    for (int t = 0; t < n_tiles; ++t) {
-        const int k0 = t * kBK;
-        __syncthreads();  // the previous tile's readers are done
-        for (int i = tid; i < kBK * DP; i += kThreads) {
-            const int r = i / DP, c = i % DP, kr = k0 + r;
-            const bool in = kr < L && c < d;
-            sk[r * Tl::qk_stride + c] =
-                in ? to_f32(k[base + kr * sl + c]) : 0.f;
-            sv[r * DP + c] = in ? to_f32(v[base + kr * sl + c]) : 0.f;
-        }
-        __syncthreads();
-
-        float s[kRows][kCols];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-            for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-        for (int c = 0; c < DP; ++c) {
-            float kc[kCols];
-#pragma unroll
-            for (int j = 0; j < kCols; ++j)
-                kc[j] = sk[(tx + 16 * j) * Tl::qk_stride + c];
-#pragma unroll
-            for (int i = 0; i < kRows; ++i) {
-                const float qv = sq[(ty + 8 * i) * Tl::qk_stride + c];
-#pragma unroll
-                for (int j = 0; j < kCols; ++j)
-                    s[i][j] = fmaf(qv, kc[j], s[i][j]);
-            }
-        }
-
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-            const int qr = q0 + ty + 8 * i;
-            float row_max = kNegInf;
-#pragma unroll
-            for (int j = 0; j < kCols; ++j) {
-                const float x = masked_score(s[i][j], scale, bias_row,
-                                             k0 + tx + 16 * j, qr, L, causal);
-                s[i][j] = x;
-                row_max = fmaxf(row_max, x);
-            }
-            const float m_new = fmaxf(m[i], max16(row_max));
-            const float corr = expf(m[i] - m_new);
-            float row_sum = 0.f;
-#pragma unroll
-            for (int j = 0; j < kCols; ++j) {
-                const float p = expf(s[i][j] - m_new);
-                row_sum += p;    // the undropped sum normalises o
-                float pd = p;
-                if (kDrop)
-                    pd *= keep_scale(
-                        drop, prob_index(bh, qr, k0 + tx + 16 * j, L));
-                // the P.V product takes P in v's dtype
-                sp[(ty + 8 * i) * Tl::p_stride + tx + 16 * j] =
-                    round_to<T>(pd);
-            }
-            l[i] = l[i] * corr + sum16(row_sum);
-            m[i] = m_new;
-#pragma unroll
-            for (int c = 0; c < kOut; ++c) acc[i][c] *= corr;
-        }
-        __syncthreads();
-
-#pragma unroll 4
-        for (int kk = 0; kk < kBK; ++kk) {
-            float vc[kOut];
-#pragma unroll
-            for (int c = 0; c < kOut; ++c) vc[c] = sv[kk * DP + tx + 16 * c];
-#pragma unroll
-            for (int i = 0; i < kRows; ++i) {
-                const float p = sp[(ty + 8 * i) * Tl::p_stride + kk];
-#pragma unroll
-                for (int c = 0; c < kOut; ++c)
-                    acc[i][c] = fmaf(p, vc[c], acc[i][c]);
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-        const int qr = q0 + ty + 8 * i;
-        if (qr >= L) continue;
-        const float denom = fmaxf(l[i], 1e-30f);
-        T* orow = o + base + qr * sl;
-#pragma unroll
-        for (int c = 0; c < kOut; ++c) {
-            const int col = tx + 16 * c;
-            if (col < d) orow[col] = from_f32<T>(acc[i][c] / denom);
-        }
-        if (lse != nullptr && tx == 0)
-            lse[static_cast<int64_t>(bh) * L + qr] =
-                l[i] > 0.f ? m[i] + logf(denom) : kLseEmpty;
-    }
-}
 
 // depth of the forward's cp.async ring: the K/V tile computed and one in
 // flight behind it (a third stage measured no faster: PERF.md)
@@ -468,7 +332,7 @@ int launch_mma(const bf16* q, const bf16* k, const bf16* v,
         configured = true;
     }
     const int64_t strides[3] = {sb, sh, sl};
-    const int vec = chunks_of_16(d, strides, {q, k, v, o});
+    const int vec = chunks_of_16<bf16>(d, strides, {q, k, v, o});
     const dim3 grid(static_cast<unsigned>(bh),
                     static_cast<unsigned>((L + rows - 1) / rows));
     flash_fwd_mma_kernel<DP, kMT, kDrop><<<grid, kThreads, bytes, stream>>>(
@@ -507,55 +371,278 @@ int dispatch_mma(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int DP, bool kDrop, typename T>
-int launch(const T* q, const T* k, const T* v, const float* bias, T* o,
-           float* lse, int64_t bh, int L, int d, int H, int64_t sb,
-           int64_t sh, int64_t sl, float scale, int causal,
-           const DropoutArgs& drop, cudaStream_t stream) {
-    // above 48 KB a block's shared memory must be opted into; idempotent,
-    // so a race between two first callers is harmless
+// q, k, v, o: fp32 with shared strides (sb, sh, sl) in elements, head dim
+// contiguous; bias (B, L) fp32 or null; lse (B*H, L) fp32 or null. `vec`:
+// every row of q, k, v, o is whole 16-byte chunks (chunks_of_16<float>).
+// Each of the 4 warps owns 16 query rows: a block takes 64. Every product
+// is 3xTF32 (mma_3xtf32): the K, V and P fragments are split into hi/lo in
+// registers as they are loaded; Q's at D = 64 once, and held, at D = 128
+// every tile from shared memory, as holding them would leave no registers.
+template <int DP, bool kDrop>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_tf32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ bias, float* __restrict__ o,
+                      float* __restrict__ lse, int L, int d, int H,
+                      int64_t sb, int64_t sh, int64_t sl, float scale,
+                      int causal, int vec, DropoutArgs drop) {
+    constexpr int kS = f32_stride(DP);  // floats a shared row
+    constexpr int kKTile = kBK * kS;    // floats of a K or V tile
+    constexpr int kSteps = DP / 8;      // k-steps of Q K^T over the head dim
+    constexpr int kOutN = DP / 8;       // n-tiles of the output
+    constexpr int kKeyN = kBK / 8;      // n-tiles of a score tile
+    constexpr bool kQHeld = DP <= 64;   // Q's hi/lo fragments in registers
+    static_assert(kBQ == 16 * (kThreads / 32), "a warp owns 16 rows");
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    float* sq = reinterpret_cast<float*>(smem_raw);
+    float* sk = sq + kBQ * kS;              // kFwdStages stages
+    float* sv = sk + kFwdStages * kKTile;   // kFwdStages stages
+
+    const int bh = blockIdx.x, b = bh / H, h = bh % H;
+    const int q0 = blockIdx.y * kBQ;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = warp * 16;          // the warp's first row in the tile
+    const int qr = q0 + r0 + g;        // the lane's rows: qr and qr + 8
+    const int64_t base = static_cast<int64_t>(b) * sb +
+                         static_cast<int64_t>(h) * sh;
+    const float* bias_row =
+        bias != nullptr ? bias + static_cast<int64_t>(b) * L : nullptr;
+
+    int n_tiles = (L + kBK - 1) / kBK;
+    if (causal) n_tiles = min(n_tiles, (min(q0 + kBQ, L) - 1) / kBK + 1);
+
+    // K/V tile t into stage t % kFwdStages, as one commit group (empty past
+    // the last tile, so that every iteration waits for the same count)
+    const auto load_keys = [&](int t) {
+        if (t < n_tiles) {
+            const int at = (t % kFwdStages) * kKTile;
+            load_rows_f32<kBK, DP, kThreads>(sk + at, k, base, sl, t * kBK, L,
+                                             d, vec);
+            load_rows_f32<kBK, DP, kThreads>(sv + at, v, base, sl, t * kBK, L,
+                                             d, vec);
+        }
+        cp_async_commit();
+    };
+    load_rows_f32<kBQ, DP, kThreads>(sq, q, base, sl, q0, L, d, vec);
+    cp_async_commit();
+#pragma unroll
+    for (int t = 0; t < kFwdStages - 1; ++t) load_keys(t);
+
+    // Q's A fragment of k-step s (head columns 8s .. 8s + 7), split: the
+    // four 8 x 4 blocks (rows 0-7 | 8-15) x (columns 0-3 | 4-7) are a0..a3
+    const auto q_frag = [&](int s, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+        uint32_t r[4];
+        ldmatrix_x4(r, sq + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kS +
+                           8 * s + (lane >> 4) * 4);
+        split_tf32(r, hi, lo);
+    };
+    cp_async_wait<kFwdStages - 1>();
+    __syncthreads();
+    uint32_t qhi[kQHeld ? kSteps : 1][4], qlo[kQHeld ? kSteps : 1][4];
+    if constexpr (kQHeld) {
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) q_frag(s, qhi[s], qlo[s]);
+    }
+    float m[2] = {kNegInf, kNegInf};   // natural units, quad-uniform
+    float l[2] = {0.f, 0.f};           // this lane's part of the row sums
+    float acc[kOutN][4];
+#pragma unroll
+    for (int n = 0; n < kOutN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    for (int t = 0; t < n_tiles; ++t) {
+        const int k0 = t * kBK;
+        cp_async_wait<kFwdStages - 2>();   // tile t is in shared memory ...
+        __syncthreads();   // ... for every thread, and tile t - 1's stage is
+        load_keys(t + kFwdStages - 1);   // free for the next tile
+        const float* skt = sk + (t % kFwdStages) * kKTile;
+        const float* svt = sv + (t % kFwdStages) * kKTile;
+
+        // S = Q K^T: keys 16np .. 16np + 15 as n-tiles 2np, 2np + 1, whose
+        // b0 / b1 are the 8 x 4 blocks (keys 0-7 | 8-15) x (columns 0-3 |
+        // 4-7) of one ldmatrix
+        float sc[kKeyN][4];
+#pragma unroll
+        for (int n = 0; n < kKeyN; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+            uint32_t ah[4], al[4];
+            if constexpr (kQHeld) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    ah[i] = qhi[s][i];
+                    al[i] = qlo[s][i];
+                }
+            } else {
+                q_frag(s, ah, al);
+            }
+            uint32_t kh[kKeyN][2], kl[kKeyN][2];
+#pragma unroll
+            for (int np = 0; np < kKeyN / 2; ++np) {
+                uint32_t kb[4];
+                ldmatrix_x4(kb, skt + (np * 16 + (lane & 7) +
+                                       (lane >> 4) * 8) * kS +
+                                    8 * s + ((lane >> 3) & 1) * 4);
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                    split_tf32(__uint_as_float(kb[i]),
+                               kh[2 * np + (i >> 1)][i & 1],
+                               kl[2 * np + (i >> 1)][i & 1]);
+            }
+            mma_3xtf32<kKeyN>(sc, ah, al, kh, kl);
+        }
+
+        // online softmax on the fragments in natural units (the scores
+        // rounded as the reference rounds them), exp as ex2 of the
+        // difference times log2(e); only a tile that reaches past L or
+        // above the warp's diagonal needs the masks
+        const bool edge =
+            k0 + kBK > L || (causal && k0 + kBK - 1 > q0 + r0);
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int n = 0; n < kKeyN; ++n) {
+            fragment_scores_fp32(sc[n], scale, bias_row, k0 + 8 * n + 2 * t4,
+                                 qr, L, causal, edge);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+        }
+        float corr[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const float m_new = fmaxf(m[i], quad_max(mx[i]));
+            corr[i] = ex2((m[i] - m_new) * kLog2e);
+            m[i] = m_new;
+            l[i] *= corr[i];
+        }
+        if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+            for (int n = 0; n < kOutN; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+        }
+#pragma unroll
+        for (int n = 0; n < kKeyN; ++n) {
+            float ks[4];
+            if (kDrop)
+                fragment_keep(drop, bh, qr, k0 + 8 * n + 2 * t4, L, lane, ks);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float p = ex2((sc[n][e] - m[e >> 1]) * kLog2e);
+                l[e >> 1] += p;   // the undropped sum normalises o
+                sc[n][e] = kDrop ? p * ks[e] : p;
+            }
+        }
+
+        // O += P V, 3xTF32, one k-step per n-tile j of P (keys 8j .. 8j +
+        // 7) with its keys permuted: A = (c0, c2, c1, c3) takes key 2t as
+        // column t and key 2t + 1 as column t + 4, so B's rows t and t + 4
+        // are V's rows 8j + 2t and 8j + 2t + 1, read at column g; eight
+        // output n-tiles at a time
+#pragma unroll
+        for (int j = 0; j < kKeyN; ++j) {
+            uint32_t ph[4], pl[4];
+            split_tf32(sc[j][0], ph[0], pl[0]);
+            split_tf32(sc[j][2], ph[1], pl[1]);
+            split_tf32(sc[j][1], ph[2], pl[2]);
+            split_tf32(sc[j][3], ph[3], pl[3]);
+            const float* vrow = svt + (8 * j + 2 * t4) * kS + g;
+#pragma unroll
+            for (int n0 = 0; n0 < kOutN; n0 += 8) {
+                uint32_t vh[8][2], vl[8][2];
+#pragma unroll
+                for (int n = 0; n < 8; ++n) {
+                    split_tf32(vrow[8 * (n0 + n)], vh[n][0], vl[n][0]);
+                    split_tf32(vrow[kS + 8 * (n0 + n)], vh[n][1], vl[n][1]);
+                }
+                mma_3xtf32<8>(acc + n0, ph, pl, vh, vl);
+            }
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int row = qr + 8 * i;
+        const float li = quad_sum(l[i]);
+        if (row >= L) continue;
+        const float denom = fmaxf(li, 1e-30f);
+        float* orow = o + base + row * sl;
+#pragma unroll
+        for (int n = 0; n < kOutN; ++n) {
+            const int col = 8 * n + 2 * t4;
+            const float v0 = acc[n][2 * i] / denom;
+            const float v1 = acc[n][2 * i + 1] / denom;
+            if (vec) {
+                if (col < d)
+                    *reinterpret_cast<float2*>(orow + col) =
+                        make_float2(v0, v1);
+            } else {
+                if (col < d) orow[col] = v0;
+                if (col + 1 < d) orow[col + 1] = v1;
+            }
+        }
+        if (lse != nullptr && t4 == 0)
+            lse[static_cast<int64_t>(bh) * L + row] =
+                li > 0.f ? m[i] + logf(denom) : kLseEmpty;
+    }
+}
+
+template <int DP, bool kDrop>
+int launch_tf32(const float* q, const float* k, const float* v,
+                const float* bias, float* o, float* lse, int64_t bh, int L,
+                int d, int H, int64_t sb, int64_t sh, int64_t sl, float scale,
+                int causal, const DropoutArgs& drop, cudaStream_t stream) {
+    // Q, kFwdStages stages of K and of V
+    constexpr size_t bytes =
+        sizeof(float) * (kBQ + 2 * kFwdStages * kBK) * f32_stride(DP);
     static bool configured = false;
     if (!configured) {
         const cudaError_t e = cudaFuncSetAttribute(
-            flash_fwd_kernel<DP, kDrop, T>,
+            flash_fwd_tf32_kernel<DP, kDrop>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(Tile<DP>::bytes));
+            static_cast<int>(bytes));
         if (e != cudaSuccess) return static_cast<int>(e);
         configured = true;
     }
+    const int64_t strides[3] = {sb, sh, sl};
+    const int vec = chunks_of_16<float>(d, strides, {q, k, v, o});
     const dim3 grid(static_cast<unsigned>(bh),
                     static_cast<unsigned>((L + kBQ - 1) / kBQ));
-    flash_fwd_kernel<DP, kDrop, T>
-        <<<grid, kThreads, Tile<DP>::bytes, stream>>>(
-            q, k, v, bias, o, lse, L, d, H, sb, sh, sl, scale, causal, drop);
+    flash_fwd_tf32_kernel<DP, kDrop><<<grid, kThreads, bytes, stream>>>(
+        q, k, v, bias, o, lse, L, d, H, sb, sh, sl, scale, causal, vec, drop);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP, typename T, typename... Args>
-int launch_for(bool dropout, const T* q, Args... args) {
-    return dropout ? launch<DP, true, T>(q, args...)
-                   : launch<DP, false, T>(q, args...);
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const float* bias,
-             void* o, float* lse, int64_t bh, int L, int d, int H, int64_t sb,
-             int64_t sh, int64_t sl, float scale, int causal,
-             const DropoutArgs& drop, cudaStream_t st) {
-    const auto qp = static_cast<const T*>(q);
-    const auto kp = static_cast<const T*>(k);
-    const auto vp = static_cast<const T*>(v);
-    const auto op = static_cast<T*>(o);
+// fp32 on the tensor cores (3xTF32): the head dim padded to 64 or 128
+int dispatch_tf32(const void* q, const void* k, const void* v,
+                  const float* bias, void* o, float* lse, int64_t bh, int L,
+                  int d, int H, int64_t sb, int64_t sh, int64_t sl,
+                  float scale, int causal, const DropoutArgs& drop,
+                  cudaStream_t st) {
+    const auto qp = static_cast<const float*>(q);
+    const auto kp = static_cast<const float*>(k);
+    const auto vp = static_cast<const float*>(v);
+    const auto op = static_cast<float*>(o);
     const bool dropout = drop.scale != 1.f;
-    if (d <= 32)
-        return launch_for<32>(dropout, qp, kp, vp, bias, op, lse, bh, L, d, H,
-                              sb, sh, sl, scale, causal, drop, st);
     if (d <= 64)
-        return launch_for<64>(dropout, qp, kp, vp, bias, op, lse, bh, L, d, H,
-                              sb, sh, sl, scale, causal, drop, st);
+        return dropout ? launch_tf32<64, true>(qp, kp, vp, bias, op, lse, bh,
+                                               L, d, H, sb, sh, sl, scale,
+                                               causal, drop, st)
+                       : launch_tf32<64, false>(qp, kp, vp, bias, op, lse, bh,
+                                                L, d, H, sb, sh, sl, scale,
+                                                causal, drop, st);
     if (d <= 128)
-        return launch_for<128>(dropout, qp, kp, vp, bias, op, lse, bh, L, d,
-                               H, sb, sh, sl, scale, causal, drop, st);
+        return dropout ? launch_tf32<128, true>(qp, kp, vp, bias, op, lse, bh,
+                                                L, d, H, sb, sh, sl, scale,
+                                                causal, drop, st)
+                       : launch_tf32<128, false>(qp, kp, vp, bias, op, lse,
+                                                 bh, L, d, H, sb, sh, sl,
+                                                 scale, causal, drop, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -585,8 +672,8 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
               Hi = static_cast<int>(H);
     const DropoutArgs drop{seed, offset, threshold, drop_scale};
     if (dtype == kF32)
-        return dispatch<float>(q, k, v, bp, o, lp, bh, Li, di, Hi, sb, sh, sl,
-                               scale, causal, drop, st);
+        return dispatch_tf32(q, k, v, bp, o, lp, bh, Li, di, Hi, sb, sh, sl,
+                             scale, causal, drop, st);
     if (dtype == kBF16)
         return dispatch_mma(q, k, v, bp, o, lp, bh, Li, di, Hi, sb, sh, sl,
                             scale, causal, drop, st);

@@ -7,11 +7,12 @@
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py, _dq_kernel and
 // _dkv_kernel (both launched by _flash_backward). S is rebuilt as the
-// forward of the same dtype built it (masked_score, or fragment_scores in
-// the log2 domain: scale, key-padding bias, -inf above the causal diagonal
-// and past L), and the dropout mask by philox.cuh from the element (bh,
-// query row, key column), so both kernels see the
-// forward's bits although they walk the matrix in other orders. A row
+// forward built it (scale, key-padding bias, -inf above the causal
+// diagonal and past L: fragment_scores in the log2 domain in the
+// tensor-core kernels, masked_score in the FMA ones), and the dropout mask
+// by philox.cuh from the element (bh, query row, key column), so both
+// kernels see the forward's bits although they walk the matrix in other
+// orders. A row
 // whose every key was -inf has lse = 1e30: its P is exp(-inf) = 0 and all
 // its gradients are 0, never NaN. The bias gets no gradient. At bf16,
 // q/k/v/dO are read as bf16 (their products are exact in fp32) and lse,
@@ -20,7 +21,8 @@
 // to the input dtype (flash_attention.py:254, :316, :319); dq/dk/dv are
 // stored in bf16.
 //
-// Three kernels.
+// Four kernels: at bf16 both on the tensor cores, at fp32 both on the FMA
+// pipes.
 //
 // flash_dkv_mma_kernel (dK/dV at bf16; replaces _dkv_kernel there). Bound
 // on the H100: four products (S, dP, P^T dO, dS^T Q), 8 L^2 D flops a head,
@@ -49,21 +51,40 @@
 // for three blocks an SM (a few bytes spill), which measured faster than
 // two; 67 KB of shared memory at D = 64, 133 KB at D = 128.
 //
-// flash_dq_kernel (both dtypes) and flash_dkv_kernel (fp32) stay on the
-// fp32 FMA pipes (tensor cores at fp32 would be TF32, which the fp32 gates
-// forbid): dQ is three products (S, dP, dS K), 6 L^2 D flops a head, dK/dV
-// four, against some 24 L D bytes a head at fp32 (12 at bf16); operations
-// bound both. Both use the fp32 forward's layout: 128 threads, thread (ty,
-// tx) owns rows ty + 8i and score columns tx + 16j of a 64 x 64 tile; S
-// and dP come out of one loop over the head dim. dQ: grid (B*H,
+// flash_dq_mma_kernel (dQ at bf16; replaces _dq_kernel there). Three
+// products (S, dP, dS K), 6 L^2 D flops a head, against 10 L D bytes (q,
+// k, v, dO read, dq written, bf16) and 8 L of lse and delta: 303 flops a
+// byte at L = 512, D = 64, just above the 295 flop/byte ridge, so the
+// tensor cores bound it. The forward's
+// layout, as queries are the fragment rows here too: grid (B*H,
+// ceil(L/64)) over query tiles, 4 warps of 16 rows whose Q and dO
+// fragments stay in registers as the A operands of S = Q K^T and dP =
+// dO V^T; K/V tiles of 64 keys stream through a two-stage cp.async ring
+// (the TPU kernel's sequential grid axis is this loop, up to the diagonal
+// tile when causal). P = exp(S - lse) in the log2 domain, the masks only
+// on edge tiles, the dropout bits of fragment_keep (queries as rows: one
+// Philox call per four probabilities when L % 4 == 0); dS = P (dP
+// keep/(1-p) - delta) is rounded to bf16 where the reference casts it and
+// becomes, in registers, the A operand of dQ += dS K, with K read a second
+// time through ldmatrix.trans: dS never goes through shared memory and a
+// tile needs one barrier. One block owns a query tile: no atomics. Ragged
+// edges as the forward's; 48 KB of shared memory at D = 64.
+//
+// flash_dq_kernel and flash_dkv_kernel (fp32) stay on the FMA pipes for
+// now (the forward runs 3xTF32 on the tensor cores, flash_attention.cu
+// says why that keeps the fp32 gates; these two are next, ROADMAP): dQ is
+// three products, dK/dV four, against some 24 L D bytes a head; operations
+// bound both. Both use the old fp32 forward's layout: 128 threads, thread
+// (ty, tx) owns rows ty + 8i and score columns tx + 16j of a 64 x 64 tile;
+// S and dP come out of one loop over the head dim. dQ: grid (B*H,
 // ceil(L/64)) over Q tiles; Q, dO, lse and delta stay resident and K/V
-// tiles stream through (the TPU kernel's sequential grid axis is this
-// loop); dS goes through shared memory for dS K. fp32 dK/dV: grid over K
-// tiles; K, V resident, Q/dO tiles stream, from the diagonal on when
-// causal; P and dS go through shared memory and are read by columns (rows
-// padded by one float) for the two transposed products. Rows past L load
-// lse = 1e30 and dO = 0 and store nothing. Shared memory is 83-100 KB at
-// D = 64 and 149-166 KB at D = 128, opted into with cudaFuncSetAttribute.
+// tiles stream through; dS goes through shared memory for dS K. dK/dV:
+// grid over K tiles; K, V resident, Q/dO tiles stream, from the diagonal
+// on when causal; P and dS go through shared memory and are read by
+// columns (rows padded by one float) for the two transposed products. Rows
+// past L load lse = 1e30 and dO = 0 and store nothing. Shared memory is
+// 83-100 KB at D = 64 and 149-166 KB at D = 128, opted into with
+// cudaFuncSetAttribute.
 #include <cstdint>
 
 #include "dtype.cuh"
@@ -89,22 +110,21 @@ struct Strides {
 
 // 64 rows from row0 of one head of `src` into a padded fp32 shared tile,
 // zero past L and past d.
-template <int DP, typename T>
+template <int DP>
 __device__ __forceinline__ void load_tile(float* dst,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int64_t base, int64_t sl, int row0,
                                           int L, int d) {
     for (int i = threadIdx.x; i < kBQ * DP; i += kThreads) {
         const int r = i / DP, c = i % DP, row = row0 + r;
         dst[r * BwdTile<DP>::stride + c] =
-            (row < L && c < d) ? to_f32(src[base + row * sl + c]) : 0.f;
+            (row < L && c < d) ? src[base + row * sl + c] : 0.f;
     }
 }
 
 // The thread's fragments of P (dropped) and dS for one tile pair: query
-// rows q0 + ty + 8i against keys k0 + tx + 16j, each rounded to T, the
-// dtype the products that take them read.
-template <int DP, bool kDrop, typename T>
+// rows q0 + ty + 8i against keys k0 + tx + 16j.
+template <int DP, bool kDrop>
 __device__ __forceinline__ void tile_p_ds(
     const float* sq, const float* sdo, const float* sk, const float* sv,
     const float (&lse)[kRows], const float (&delta)[kRows],
@@ -152,20 +172,20 @@ __device__ __forceinline__ void tile_p_ds(
                 pd *= ks;
                 dpv *= ks;
             }
-            p[i][j] = round_to<T>(pd);
-            ds[i][j] = round_to<T>(pv * (dpv - delta[i]));
+            p[i][j] = pd;
+            ds[i][j] = pv * (dpv - delta[i]);
         }
     }
 }
 
-// q, k, v and dq (element type T) share strides `s`; dO has `gs`. lse,
-// delta: (B*H, L) fp32.
-template <int DP, bool kDrop, typename T>
+// q, k, v and dq (fp32) share strides `s`; dO has `gs`. lse, delta:
+// (B*H, L) fp32.
+template <int DP, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                const float* __restrict__ bias, T* __restrict__ dq, int L,
+                const float* __restrict__ bias, float* __restrict__ dq, int L,
                 int d, int H, Strides s, Strides gs, float scale, int causal,
                 DropoutArgs drop) {
     using Tl = BwdTile<DP>;
@@ -208,8 +228,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         __syncthreads();
 
         float p[kRows][kCols], ds[kRows][kCols];
-        tile_p_ds<DP, kDrop, T>(sq, sdo, sk, sv, lse_r, delta_r, bias_row,
-                                bh, q0, k0, L, scale, causal, drop, p, ds);
+        tile_p_ds<DP, kDrop>(sq, sdo, sk, sv, lse_r, delta_r, bias_row, bh,
+                             q0, k0, L, scale, causal, drop, p, ds);
 #pragma unroll
         for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -241,20 +261,20 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int c = 0; c < kOut; ++c) {
             const int col = tx + 16 * c;
             if (col < d)
-                dq[base + qr * s.l + col] = from_f32<T>(acc[i][c] * scale);
+                dq[base + qr * s.l + col] = acc[i][c] * scale;
         }
     }
 }
 
-// q, k, v, dk and dv (element type T) share strides `s`; dO has `gs`.
-template <int DP, bool kDrop, typename T>
+// q, k, v, dk and dv (fp32) share strides `s`; dO has `gs`.
+template <int DP, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
-                 const float* __restrict__ bias, T* __restrict__ dk,
-                 T* __restrict__ dv, int L, int d, int H, Strides s,
+                 const float* __restrict__ bias, float* __restrict__ dk,
+                 float* __restrict__ dv, int L, int d, int H, Strides s,
                  Strides gs, float scale, int causal, DropoutArgs drop) {
     using Tl = BwdTile<DP>;
     constexpr int kOut = DP / 16;
@@ -301,8 +321,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             delta_r[i] = qr < L ? delta[at] : 0.f;
         }
         float p[kRows][kCols], ds[kRows][kCols];
-        tile_p_ds<DP, kDrop, T>(sq, sdo, sk, sv, lse_r, delta_r, bias_row,
-                                bh, q0, k0, L, scale, causal, drop, p, ds);
+        tile_p_ds<DP, kDrop>(sq, sdo, sk, sv, lse_r, delta_r, bias_row, bh,
+                             q0, k0, L, scale, causal, drop, p, ds);
 #pragma unroll
         for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -342,8 +362,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int c = 0; c < kOut; ++c) {
             const int col = tx + 16 * c;
             if (col < d) {
-                dk[base + kr * s.l + col] = from_f32<T>(acc_k[i][c] * scale);
-                dv[base + kr * s.l + col] = from_f32<T>(acc_v[i][c]);
+                dk[base + kr * s.l + col] = acc_k[i][c] * scale;
+                dv[base + kr * s.l + col] = acc_v[i][c];
             }
         }
     }
@@ -566,6 +586,188 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
+// dQ at bf16 on the tensor cores, queries as the fragment rows. q, k, v
+// and dq share strides `s`, dO has `gs`; `vec` / `gvec`: their rows are
+// whole 16-byte chunks. 4 warps; warp w owns query rows 16 w .. 16 w + 15
+// of the block's 64, with its Q and dO fragments in registers, against
+// each 64-key K/V tile of a two-stage cp.async ring: S = Q K^T and dP =
+// dO V^T as fp32 fragments, then dS, converted in registers, is the A
+// operand of dQ += dS K (K read again with ldmatrix.trans): dS never goes
+// through shared memory.
+constexpr int kDqStages = 2;
+
+template <int DP, bool kDrop>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ bias, bf16* __restrict__ dq,
+                    int L, int d, int H, Strides s, Strides gs, float scale,
+                    int causal, int vec, int gvec, DropoutArgs drop) {
+    constexpr int kTile = kBK * DP;     // elements of a Q/dO/K/V tile
+    constexpr int kSteps = DP / 16;     // k-steps of S and dP
+    constexpr int kKeyN = kBK / 8;      // n-tiles of S over the keys
+    constexpr int kOutN = DP / 8;       // n-tiles of dQ
+    static_assert(kBQ == 16 * (kThreads / 32), "a warp owns 16 rows");
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    bf16* sq = reinterpret_cast<bf16*>(smem_raw);
+    bf16* sdo = sq + kTile;
+    bf16* sk = sdo + kTile;                 // kDqStages stages
+    bf16* sv = sk + kDqStages * kTile;      // kDqStages stages
+
+    const int bh = blockIdx.x, b = bh / H, h = bh % H;
+    const int q0 = blockIdx.y * kBQ;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = 16 * warp;           // the warp's first row in the tile
+    const int qr = q0 + r0 + g;         // the lane's rows: qr and qr + 8
+    const int64_t base = b * s.b + h * s.h;
+    const int64_t gbase = b * gs.b + h * gs.h;
+    const int64_t stat = static_cast<int64_t>(bh) * L;
+    const float* bias_row =
+        bias != nullptr ? bias + static_cast<int64_t>(b) * L : nullptr;
+    const float scale2 = scale * kLog2e;
+
+    int n_tiles = (L + kBK - 1) / kBK;
+    if (causal) n_tiles = min(n_tiles, (min(q0 + kBQ, L) - 1) / kBK + 1);
+
+    // K/V tile t into stage t % kDqStages, as one commit group (empty past
+    // the last tile, so that every iteration waits for the same count)
+    const auto load_keys = [&](int t) {
+        if (t < n_tiles) {
+            const int at = (t % kDqStages) * kTile;
+            load_rows<kBK, DP, kThreads>(sk + at, k, base, s.l, t * kBK, L,
+                                         d, vec);
+            load_rows<kBK, DP, kThreads>(sv + at, v, base, s.l, t * kBK, L,
+                                         d, vec);
+        }
+        cp_async_commit();
+    };
+    load_rows<kBQ, DP, kThreads>(sq, q, base, s.l, q0, L, d, vec);
+    load_rows<kBQ, DP, kThreads>(sdo, dout, gbase, gs.l, q0, L, d, gvec);
+    cp_async_commit();
+#pragma unroll
+    for (int t = 0; t < kDqStages - 1; ++t) load_keys(t);
+
+    // the lane's two rows' lse (log2 domain) and delta; a row past L has
+    // lse = 1e30, so its P is 0
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int row = qr + 8 * i;
+        lse2[i] = (row < L ? lse[stat + row] : kLseEmpty) * kLog2e;
+        dl[i] = row < L ? delta[stat + row] : 0.f;
+    }
+
+    cp_async_wait<kDqStages - 1>();
+    __syncthreads();
+    uint32_t qf[kSteps][4], gf[kSteps][4];   // Q and dO, A fragments
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+        const int at = swz<DP>(r0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                               st * 16 + (lane >> 4) * 8);
+        ldmatrix_x4(qf[st], sq + at);
+        ldmatrix_x4(gf[st], sdo + at);
+    }
+    float acc[kOutN][4];
+#pragma unroll
+    for (int n = 0; n < kOutN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    for (int t = 0; t < n_tiles; ++t) {
+        const int k0 = t * kBK;
+        cp_async_wait<kDqStages - 2>();   // tile t is in shared memory ...
+        __syncthreads();   // ... for every thread, and tile t - 1's stage is
+        load_keys(t + kDqStages - 1);    // free for the next tile
+        const bf16* skt = sk + (t % kDqStages) * kTile;
+        const bf16* svt = sv + (t % kDqStages) * kTile;
+
+        // S = Q K^T and dP = dO V^T: keys 16np .. 16np + 15 as n-tiles
+        // 2np, 2np + 1; K and V read at the same addresses
+        float sc[kKeyN][4], dp[kKeyN][4];
+#pragma unroll
+        for (int n = 0; n < kKeyN; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+        for (int st = 0; st < kSteps; ++st)
+#pragma unroll
+            for (int np = 0; np < kKeyN / 2; ++np) {
+                uint32_t kb[4], vb[4];
+                const int at = swz<DP>(np * 16 + (lane & 7) + (lane >> 4) * 8,
+                                       st * 16 + ((lane >> 3) & 1) * 8);
+                ldmatrix_x4(kb, skt + at);
+                ldmatrix_x4(vb, svt + at);
+                mma_bf16(sc[2 * np], qf[st], kb[0], kb[1]);
+                mma_bf16(sc[2 * np + 1], qf[st], kb[2], kb[3]);
+                mma_bf16(dp[2 * np], gf[st], vb[0], vb[1]);
+                mma_bf16(dp[2 * np + 1], gf[st], vb[2], vb[3]);
+            }
+
+        // P = exp(S - lse) and dS = P (dP keep/(1-p) - delta), in place of
+        // S; only a tile reaching past L or above the warp's diagonal needs
+        // the masks
+        const bool edge =
+            k0 + kBK > L || (causal && k0 + kBK - 1 > q0 + r0);
+#pragma unroll
+        for (int n = 0; n < kKeyN; ++n) {
+            const int kc = k0 + 8 * n + 2 * t4;
+            fragment_scores(sc[n], scale2, bias_row, kc, qr, L, causal, edge);
+            float ks[4];
+            if (kDrop) fragment_keep(drop, bh, qr, kc, L, lane, ks);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float p = ex2(sc[n][e] - lse2[e >> 1]);
+                const float dpe = kDrop ? dp[n][e] * ks[e] : dp[n][e];
+                sc[n][e] = p * (dpe - dl[e >> 1]);
+            }
+        }
+
+        // dQ += dS K: dS's fragments, rounded to bf16 (the reference's
+        // cast), are the A operand, two n-tiles (16 keys) a k-step
+#pragma unroll
+        for (int kq = 0; kq < kBK / 16; ++kq) {
+            uint32_t da[4];
+            da[0] = pack_bf16(sc[2 * kq][0], sc[2 * kq][1]);
+            da[1] = pack_bf16(sc[2 * kq][2], sc[2 * kq][3]);
+            da[2] = pack_bf16(sc[2 * kq + 1][0], sc[2 * kq + 1][1]);
+            da[3] = pack_bf16(sc[2 * kq + 1][2], sc[2 * kq + 1][3]);
+#pragma unroll
+            for (int np = 0; np < kOutN / 2; ++np) {
+                uint32_t kb[4];
+                ldmatrix_x4_trans(kb, skt + swz<DP>(
+                    kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                    np * 16 + (lane >> 4) * 8));
+                mma_bf16(acc[2 * np], da, kb[0], kb[1]);
+                mma_bf16(acc[2 * np + 1], da, kb[2], kb[3]);
+            }
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int row = qr + 8 * i;
+        if (row >= L) continue;
+        bf16* dqrow = dq + base + row * s.l;
+#pragma unroll
+        for (int n = 0; n < kOutN; ++n) {
+            const int col = 8 * n + 2 * t4;
+            const float v0 = acc[n][2 * i] * scale;
+            const float v1 = acc[n][2 * i + 1] * scale;
+            if (vec) {
+                if (col < d)
+                    *reinterpret_cast<uint32_t*>(dqrow + col) =
+                        pack_bf16(v0, v1);
+            } else {
+                if (col < d) dqrow[col] = __float2bfloat16_rn(v0);
+                if (col + 1 < d) dqrow[col + 1] = __float2bfloat16_rn(v1);
+            }
+        }
+    }
+}
+
 // q, k, v, dout, dq, dk, dv point at elements of the call's dtype
 struct BwdArgs {
     const void *q, *k, *v, *dout;
@@ -592,37 +794,60 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes, bool* configured) {
     return e;
 }
 
-template <int DP, bool kDrop, typename T>
+template <int DP, bool kDrop>
 int launch_dq(const BwdArgs& a) {
     static bool configured = false;
-    const cudaError_t e = allow_shared(flash_dq_kernel<DP, kDrop, T>,
+    const cudaError_t e = allow_shared(flash_dq_kernel<DP, kDrop>,
                                        BwdTile<DP>::dq_bytes, &configured);
     if (e != cudaSuccess) return static_cast<int>(e);
     const dim3 grid(static_cast<unsigned>(a.bh),
                     static_cast<unsigned>((a.L + kBQ - 1) / kBQ));
-    flash_dq_kernel<DP, kDrop, T>
+    flash_dq_kernel<DP, kDrop>
         <<<grid, kThreads, BwdTile<DP>::dq_bytes, a.stream>>>(
-            static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-            static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-            a.delta, a.bias, static_cast<T*>(a.dq), a.L, a.d, a.H, a.s, a.gs,
-            a.scale, a.causal, a.drop);
+            static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+            static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+            a.lse, a.delta, a.bias, static_cast<float*>(a.dq), a.L, a.d, a.H,
+            a.s, a.gs, a.scale, a.causal, a.drop);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP, bool kDrop, typename T>
+template <int DP, bool kDrop>
 int launch_dkv(const BwdArgs& a) {
     static bool configured = false;
-    const cudaError_t e = allow_shared(flash_dkv_kernel<DP, kDrop, T>,
+    const cudaError_t e = allow_shared(flash_dkv_kernel<DP, kDrop>,
                                        BwdTile<DP>::dkv_bytes, &configured);
     if (e != cudaSuccess) return static_cast<int>(e);
     const dim3 grid(static_cast<unsigned>(a.bh),
                     static_cast<unsigned>((a.L + kBK - 1) / kBK));
-    flash_dkv_kernel<DP, kDrop, T>
+    flash_dkv_kernel<DP, kDrop>
         <<<grid, kThreads, BwdTile<DP>::dkv_bytes, a.stream>>>(
-            static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-            static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-            a.delta, a.bias, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-            a.L, a.d, a.H, a.s, a.gs, a.scale, a.causal, a.drop);
+            static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+            static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+            a.lse, a.delta, a.bias, static_cast<float*>(a.dk),
+            static_cast<float*>(a.dv), a.L, a.d, a.H, a.s, a.gs, a.scale,
+            a.causal, a.drop);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP, bool kDrop>
+int launch_dq_mma(const BwdArgs& a) {
+    // Q, dO, kDqStages stages of K and of V (bf16)
+    constexpr size_t bytes = sizeof(bf16) * (2 + 2 * kDqStages) * kBK * DP;
+    static bool configured = false;
+    const cudaError_t e = allow_shared(flash_dq_mma_kernel<DP, kDrop>, bytes,
+                                       &configured);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int64_t strides[3] = {a.s.b, a.s.h, a.s.l};
+    const int64_t gstrides[3] = {a.gs.b, a.gs.h, a.gs.l};
+    const int vec = chunks_of_16<bf16>(a.d, strides, {a.q, a.k, a.v, a.dq});
+    const int gvec = chunks_of_16<bf16>(a.d, gstrides, {a.dout});
+    const dim3 grid(static_cast<unsigned>(a.bh),
+                    static_cast<unsigned>((a.L + kBQ - 1) / kBQ));
+    flash_dq_mma_kernel<DP, kDrop><<<grid, kThreads, bytes, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        a.lse, a.delta, a.bias, static_cast<bf16*>(a.dq), a.L, a.d, a.H, a.s,
+        a.gs, a.scale, a.causal, vec, gvec, a.drop);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -638,8 +863,9 @@ int launch_dkv_mma(const BwdArgs& a) {
     if (e != cudaSuccess) return static_cast<int>(e);
     const int64_t strides[3] = {a.s.b, a.s.h, a.s.l};
     const int64_t gstrides[3] = {a.gs.b, a.gs.h, a.gs.l};
-    const int vec = chunks_of_16(a.d, strides, {a.q, a.k, a.v, a.dk, a.dv});
-    const int gvec = chunks_of_16(a.d, gstrides, {a.dout});
+    const int vec =
+        chunks_of_16<bf16>(a.d, strides, {a.q, a.k, a.v, a.dk, a.dv});
+    const int gvec = chunks_of_16<bf16>(a.d, gstrides, {a.dout});
     const dim3 grid(static_cast<unsigned>(a.bh),
                     static_cast<unsigned>((a.L + kBK - 1) / kBK));
     flash_dkv_mma_kernel<DP, kDrop><<<grid, kThreads, bytes, a.stream>>>(
@@ -651,34 +877,30 @@ int launch_dkv_mma(const BwdArgs& a) {
     return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 dK/dV on the tensor cores: the head dim padded to 64 or 128
-int dispatch_dkv_mma(const BwdArgs& a) {
-    const bool dropout = a.drop.scale != 1.f;
-    if (a.d <= 64)
-        return dropout ? launch_dkv_mma<64, true>(a)
-                       : launch_dkv_mma<64, false>(a);
-    if (a.d <= 128)
-        return dropout ? launch_dkv_mma<128, true>(a)
-                       : launch_dkv_mma<128, false>(a);
-    return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <bool kDkv, int DP, typename T>
+// one kernel at one padded head dim: bf16 on the tensor cores (`kMma`),
+// fp32 on the FMA pipes
+template <bool kMma, bool kDkv, int DP>
 int launch_one(const BwdArgs& a) {
     const bool dropout = a.drop.scale != 1.f;
-    if constexpr (kDkv)
-        return dropout ? launch_dkv<DP, true, T>(a)
-                       : launch_dkv<DP, false, T>(a);
+    if constexpr (kMma && kDkv)
+        return dropout ? launch_dkv_mma<DP, true>(a)
+                       : launch_dkv_mma<DP, false>(a);
+    else if constexpr (kMma)
+        return dropout ? launch_dq_mma<DP, true>(a)
+                       : launch_dq_mma<DP, false>(a);
+    else if constexpr (kDkv)
+        return dropout ? launch_dkv<DP, true>(a) : launch_dkv<DP, false>(a);
     else
-        return dropout ? launch_dq<DP, true, T>(a)
-                       : launch_dq<DP, false, T>(a);
+        return dropout ? launch_dq<DP, true>(a) : launch_dq<DP, false>(a);
 }
 
-template <bool kDkv, typename T>
+// the head dim padded to 32 (FMA only), 64 or 128
+template <bool kMma, bool kDkv>
 int dispatch_dim(const BwdArgs& a) {
-    if (a.d <= 32) return launch_one<kDkv, 32, T>(a);
-    if (a.d <= 64) return launch_one<kDkv, 64, T>(a);
-    if (a.d <= 128) return launch_one<kDkv, 128, T>(a);
+    if constexpr (!kMma)
+        if (a.d <= 32) return launch_one<false, kDkv, 32>(a);
+    if (a.d <= 64) return launch_one<kMma, kDkv, 64>(a);
+    if (a.d <= 128) return launch_one<kMma, kDkv, 128>(a);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -687,11 +909,8 @@ int dispatch(const BwdArgs& a, int dtype) {
     if (a.bh <= 0 || a.bh > 0x7fffffff || a.L <= 0 ||
         (a.L + kBQ - 1) / kBQ > 65535 || a.d <= 0 || a.H <= 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    if (dtype == kF32) return dispatch_dim<kDkv, float>(a);
-    if (dtype == kBF16) {
-        if constexpr (kDkv) return dispatch_dkv_mma(a);
-        else return dispatch_dim<false, __nv_bfloat16>(a);
-    }
+    if (dtype == kF32) return dispatch_dim<false, kDkv>(a);
+    if (dtype == kBF16) return dispatch_dim<true, kDkv>(a);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 

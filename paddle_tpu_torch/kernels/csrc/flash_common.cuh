@@ -12,24 +12,11 @@
 
 constexpr int kBQ = 64;           // query rows per tile
 constexpr int kBK = 64;           // keys per tile
-constexpr int kThreads = 128;     // 8 row groups x 16 column lanes
-constexpr int kRows = kBQ / 8;    // query rows per thread: ty + 8 i
-constexpr int kCols = kBK / 16;   // score columns per thread: tx + 16 j
+constexpr int kThreads = 128;     // 4 warps; FMA: 8 rows x 16 columns
+constexpr int kRows = kBQ / 8;    // FMA: query rows per thread, ty + 8 i
+constexpr int kCols = kBK / 16;   // FMA: score columns per thread, tx + 16 j
 constexpr float kNegInf = -1e30f;
 constexpr float kLseEmpty = 1e30f;
-
-__device__ __forceinline__ float max16(float v) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
-
-__device__ __forceinline__ float sum16(float v) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
 
 // over the 4 lanes of a quad: the lanes that hold one row of an mma
 // accumulator fragment (tensor_core.cuh)
@@ -89,6 +76,35 @@ __device__ __forceinline__ void fragment_scores(float (&s)[4], float scale2,
     s[1] = fmaf(s[1], scale2, b1);
     s[2] = fmaf(s[2], scale2, b0);
     s[3] = fmaf(s[3], scale2, b1);
+    if (edge) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int key = kc + (e & 1), row = qr + 8 * (e >> 1);
+            if (key >= L || (causal && key > row))
+                s[e] = __int_as_float(0xff800000);
+        }
+    }
+}
+
+// fragment_scores in natural units, rounded where the reference rounds:
+// dot * scale, then + bias, as two fp32 operations (no fused multiply-add).
+// Next to BERT's -1e4 bias a score's ulp is 2^-10, ten times the fp32
+// gate on lse, so the fp32 forward takes its scores, and its row max, from
+// the same two roundings as _attn_reference: then they are the
+// reference's whenever the dot products agree to within a rounding.
+__device__ __forceinline__ void fragment_scores_fp32(float (&s)[4],
+                                                     float scale,
+                                                     const float* bias_row,
+                                                     int kc, int qr, int L,
+                                                     int causal, bool edge) {
+    float b0 = 0.f, b1 = 0.f;
+    if (bias_row != nullptr) {
+        b0 = kc < L ? bias_row[kc] : 0.f;
+        b1 = kc + 1 < L ? bias_row[kc + 1] : 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+        s[e] = __fadd_rn(__fmul_rn(s[e], scale), e & 1 ? b1 : b0);
     if (edge) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {

@@ -1,8 +1,10 @@
-// What the bf16 tensor-core kernels share: the m16n8k16 product with fp32
-// accumulation (mma.sync), fragment loads from shared memory (ldmatrix,
-// plain and transposed), 16- and 4-byte asynchronous copies from global to
-// shared memory (cp.async with commit/wait groups), and the XOR swizzle of
-// bf16 tile rows.
+// What the tensor-core kernels share: the m16n8k16 bf16 product and the
+// m16n8k8 TF32 product with fp32 accumulation (mma.sync), the split of an
+// fp32 value into two TF32 terms for the 3xTF32 product, fragment loads
+// from shared memory (ldmatrix, plain and transposed), 16- and 4-byte
+// asynchronous copies from global to shared memory (cp.async with
+// commit/wait groups), the XOR swizzle of bf16 tile rows and the padded
+// stride of fp32 tile rows.
 //
 // Fragment layout of mma.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), lane = 4 * g + t (g = lane / 4, t = lane % 4):
@@ -14,6 +16,17 @@
 //     (row g+8, cols 2t, 2t+1).
 // A C fragment of scores is therefore, two n-tiles at a time, the A
 // fragment of the next product: no trip through shared memory.
+//
+// mma.m16n8k8 with .tf32 operands ("Matrix fragments for mma.m16n8k8"):
+//   A (16 x 8), 4 registers of one tf32: a0 (row g, col t), a1 (row g+8,
+//     col t), a2 (row g, col t+4), a3 (row g+8, col t+4);
+//   B (8 x 8), 2 registers: b0 (row t, col g), b1 (row t+4, col g);
+//   C/D as m16n8k16's.
+// Here the C layout (cols 2t, 2t+1) is not the A layout (cols t, t+4), so a
+// C fragment of scores is the A operand of the next product only with its
+// k-index permuted: A = (c0, c2, c1, c3) takes key 2t as column t and key
+// 2t+1 as column t+4, and B must then take the same keys in its rows t and
+// t+4. A sum over keys does not depend on their order.
 //
 // Hopper's full tensor-core rate needs wgmma with TMA; these kernels take
 // mma.sync, which runs on the same tensor cores at a lower rate, with
@@ -92,6 +105,56 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a b on the tensor cores: tf32 operands (fp32 bit patterns whose low
+// 13 mantissa bits are zero), fp32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo + (a remainder below 2^-22 |x|): hi = tf32(x) and lo =
+// tf32(x - hi), each rounded to nearest with ties away from zero (x - hi is
+// exact in fp32). The 3xTF32 product (CUTLASS's OpMultiplyAddFastF32)
+// a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi drops a_lo b_lo and the
+// remainders, ~2^-21 of |a b|, against fp32's own 2^-24 rounding; a single
+// TF32 product is off by up to 2^-10.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+    const float rest = x - __uint_as_float(hi);
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+// split_tf32 of four fp32 bit patterns (an ldmatrix'ed fragment)
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
+}
+
+// d[n] += a b[n] for N n-tiles at close to fp32 accuracy on the TF32
+// tensor cores: three products each, the small terms first (lo hi, hi lo,
+// then hi hi), issued term by term across the N accumulators, so that no
+// product waits on the one before it
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (*d)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[N][2],
+                                           const uint32_t (&b_lo)[N][2]) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma_tf32(d[n], a_lo, b_hi[n][0], b_hi[n][1]);
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma_tf32(d[n], a_hi, b_lo[n][0], b_lo[n][1]);
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma_tf32(d[n], a_hi, b_hi[n][0], b_hi[n][1]);
+}
+
 // two fp32 values rounded to nearest even into one bf16 pair, `lo` in the
 // low half: the order of an A fragment's and of memory's columns
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -138,11 +201,48 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
     }
 }
 
-// Whether a bf16 tensor's rows may move in 16-byte chunks: d, the three
-// strides (batch, head, row) and every pointer whole chunks of 8 elements.
+// Floats a shared fp32 tile row of W (a multiple of 32) takes: W + 4, so
+// that a row is whole 16-byte chunks and eight rows at one column fall in
+// eight different 4-bank groups (the stride is 4 mod 32 words). Then the
+// ldmatrix loads of tf32 A and B fragments (an 8 x 4 fp32 block is one
+// 8 x 8 b16 matrix: lane 4g + t receives element (g, t)) and the 32-bit
+// loads of a B fragment read down a column (rows 2t and 2t + 1 of column
+// g) are free of bank conflicts.
+__host__ __device__ constexpr int f32_stride(int W) { return W + 4; }
+
+// As load_rows, for fp32 rows into an R x f32_stride(W) tile without a
+// swizzle. `vec`: 16-byte cp.async (rows whole 4-float chunks,
+// chunks_of_16<float>).
+template <int R, int W, int NT>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              int64_t base, int64_t sl,
+                                              int row0, int L, int d,
+                                              bool vec) {
+    constexpr int S = f32_stride(W);
+    if (vec) {
+        constexpr int kChunks = W / 4;
+        for (int i = threadIdx.x; i < R * kChunks; i += NT) {
+            const int r = i / kChunks, c = (i % kChunks) * 4, row = row0 + r;
+            const bool ok = row < L && c < d;
+            cp_async16(dst + r * S + c, ok ? src + base + row * sl + c : src,
+                       ok);
+        }
+    } else {
+        for (int i = threadIdx.x; i < R * W; i += NT) {
+            const int r = i / W, c = i % W, row = row0 + r;
+            dst[r * S + c] =
+                (row < L && c < d) ? src[base + row * sl + c] : 0.f;
+        }
+    }
+}
+
+// Whether a tensor of T's rows may move in 16-byte chunks: d, the three
+// strides (batch, head, row) and every pointer whole chunks of 16 / sizeof(T)
+// elements.
+template <typename T>
 inline bool chunks_of_16(int64_t d, const int64_t (&strides)[3],
                          std::initializer_list<const void*> ptrs) {
     for (const int64_t st : strides)
-        if (st % 8 != 0) return false;
-    return rows_vectorise<bf16>(d, ptrs);
+        if (st % (16 / static_cast<int64_t>(sizeof(T))) != 0) return false;
+    return rows_vectorise<T>(d, ptrs);
 }

@@ -1,5 +1,5 @@
-"""The attention dropout mask, read back bit for bit through the forward and
-through dK/dV (``chip_smoke.attention_mask_probe``).
+"""The attention dropout mask, read back bit for bit through the forward, dQ
+and dK/dV (``chip_smoke.attention_mask_probe``).
 
 On the card the probe runs the CUDA kernels and must recover
 ``philox.keep_mask`` exactly (``chip_smoke.py``'s ``attention_mask_probe``
@@ -23,7 +23,7 @@ SEED, OFFSET, P = 0x1234567890ABCDEF, 17, 0.1
 def test_probe_reads_back_the_philox_mask(dtype, length):
     res = chip_smoke.attention_mask_probe(dtype, torch.device('cpu'), length,
                                           P, SEED, OFFSET)
-    assert set(res) == {'forward', 'dkv'}
+    assert set(res) == {'forward', 'dq', 'dkv'}
     for path, (read, want) in res.items():
         assert read.dtype == want.dtype == torch.bool, path
         # every (row, key) of the probed windows: B H L min(64, ...) bits
@@ -41,5 +41,6 @@ def test_probe_notices_another_mask(monkeypatch):
     monkeypatch.setattr(tfa, 'keep_scale', next_call)
     res = chip_smoke.attention_mask_probe(torch.float32, torch.device('cpu'),
                                           130, P, SEED, OFFSET)
+    assert set(res) == {'forward', 'dq', 'dkv'}
     for path, (read, want) in res.items():
         assert not torch.equal(read, want), path
