@@ -8,16 +8,18 @@ Phases, each printing one JSON line:
 1. card   — the GPU's name and power limit (nvidia-smi), versions;
 2. build  — compile the port's CUDA kernels from ``paddle_tpu_torch/
    kernels/csrc`` with nvcc for sm_90a (set-up time), and count each
-   kernel's tensor-core instructions in its SASS (``cuobjdump``): the bf16
-   flash forward, dQ and dK/dV and the fp32 (3xTF32) forward must have
+   kernel's tensor-core instructions in its SASS (``cuobjdump``): the
+   flash forward, dQ and dK/dV at bf16 and at fp32 (3xTF32) must have
    them;
 3. kernels — each of the six fp32 kernels against its plain PyTorch
    version on the card at the shapes BERT-large serving and training give
    it and at awkward ones, without and with dropout, with its time, the
    plain version's, one PyTorch library call's as a yardstick, and the
    bound (the attention rows' at the TF32 peak); the fp32 forward at most
-   SDPA's fp32 forward at the serving and the train shape; the Philox
-   dropout mask bit for bit against ``kernels/philox.py``;
+   SDPA's fp32 forward at the serving and the train shape, the fp32 dQ and
+   dK/dV each at most SDPA's whole fp32 backward; a causal case whose
+   first keys all carry BERT's bf16 key bias (-9984), at fp32 and bf16;
+   the Philox dropout mask bit for bit against ``kernels/philox.py``;
 4. kernels bf16 — the same six kernels at bf16 on the bf16 train step's
    inputs (attention at (8, 16, 512, 64) as transpose(1, 2) views, p = 0.1;
    the norms at (4096, 1024) and (608, 1024); add+LayerNorm with 4
@@ -186,11 +188,13 @@ def phase_card():
     return smi
 
 
-# the kernels that must run on the tensor cores, four instantiations each
-# (two head dims, with and without dropout): each needs mma.sync (HMMA) or
-# wgmma (HGMMA) instructions in its SASS
-TENSOR_CORE_KERNELS = ('flash_fwd_mma_kernel', 'flash_dkv_mma_kernel',
-                       'flash_dq_mma_kernel', 'flash_fwd_tf32_kernel')
+# the kernels that must run on the tensor cores -> their instantiations
+# (two head dims, with and without dropout; the forwards also with and
+# without a key bias): each needs mma.sync (HMMA) or wgmma (HGMMA)
+# instructions in its SASS
+TENSOR_CORE_KERNELS = {'flash_fwd_mma_kernel': 8, 'flash_dkv_mma_kernel': 4,
+                       'flash_dq_mma_kernel': 4, 'flash_fwd_tf32_kernel': 8,
+                       'flash_dq_tf32_kernel': 4, 'flash_dkv_tf32_kernel': 4}
 
 
 def phase_build():
@@ -203,8 +207,9 @@ def phase_build():
     mma = _tensor_core_counts(path, _build)
     need = {n: c for n, c in mma.items()
             if n.split('<')[0] in TENSOR_CORE_KERNELS}
-    if len(need) != 2 * 2 * len(TENSOR_CORE_KERNELS) or \
-            not all(need.values()):
+    found = {k: sum(n.split('<')[0] == k for n in need)
+             for k in TENSOR_CORE_KERNELS}
+    if found != TENSOR_CORE_KERNELS or not all(need.values()):
         raise AssertionError(f"tensor-core kernels without HMMA/HGMMA "
                              f"instructions, or missing: {need}")
     emit({'phase': 'build', 'seconds': seconds, 'library': lib._name,
@@ -399,11 +404,38 @@ def _key_bias(batch, length, dev, gen):
     return bias, float(lengths.sum())
 
 
-def _attention_case(fa, q, k, v, do, causal, kb, p, seed, offset):
+# A causal case whose batch row 0 has its first BIASED_KEYS keys at BERT's
+# key bias as the kernels see it (-1e4 rounded to bf16: -9984), so that the
+# first BIASED_KEYS query rows have no key without it. There a score's ulp
+# is 2^-10, ten times the gate on lse: scores and lse have to be rounded as
+# the reference rounds them (csrc/flash_common.cuh, fragment_scores). At
+# bf16 the products are exact and the kernels' o and lse are held to their
+# plain versions as everywhere. At fp32 the 3xTF32 products, within ~2^-21
+# of each fp32 product, now and then round a score of that size to the
+# fp32 value next to the plain version's, 2^-10 away, which moves o and
+# lse by up to 2^-10 times that key's weight; the plain version's own lse
+# is 2^-10 from the float64 one there. So on this case the fp32
+# forward's o and lse are held to the float64 attention, each no farther
+# from it than the plain version's plus TOL (``_attention_case(exact=
+# True)``); its gradients to the plain versions' as everywhere.
+BIASED_ROWS_SHAPE = (2, 4, 256, 64)
+BIASED_KEYS = 96
+
+
+def biased_first_keys(batch, length, dev):
+    bias = torch.zeros(batch, length, device=dev)
+    bias[0, :BIASED_KEYS] = -9984.0
+    return bias
+
+
+def _attention_case(fa, q, k, v, do, causal, kb, p, seed, offset,
+                    exact=False):
     """Forward, dQ and dK/dV kernels against their plain versions on one
     input -> the errors (o and lse absolute, and o over its max abs value;
     gradients relative). delta is fp32 whatever the dtype, as the
-    backward computes it."""
+    backward computes it. With ``exact``, also the forward's and its plain
+    version's errors against the plain version in float64: ``o_f64``,
+    ``lse_f64`` and ``o_f64_plain``, ``lse_f64_plain``, absolute."""
     from paddle_tpu_torch import kernels
     scale = 1.0 / q.shape[-1] ** 0.5
     kw = dict(causal=causal, kpad_bias=kb, dropout_p=p, seed=seed,
@@ -424,6 +456,14 @@ def _attention_case(fa, q, k, v, do, causal, kb, p, seed, offset):
             'o_rel': rel_err(o, ro), 'lse': max_err(lse, rlse),
             'dq': rel_err(dq, rdq), 'dk': rel_err(dk, rdk),
             'dv': rel_err(dv, rdv)}
+    if exact:
+        with kernels.plain_versions():
+            xo, xlse = fa.flash_attention_forward(
+                *(t.double() for t in (q, k, v)),
+                **dict(kw, kpad_bias=None if kb is None else kb.double()))
+        errs.update(o_f64=max_err(o, xo), lse_f64=max_err(lse, xlse),
+                    o_f64_plain=max_err(ro, xo),
+                    lse_f64_plain=max_err(rlse, xlse))
     for t in (o, dq, dk, dv):
         if not torch.isfinite(t).all():
             raise AssertionError("attention kernels: non-finite output")
@@ -580,26 +620,37 @@ def phase_train_kernels(randn, gen, flush, rows):
               **_attention_case(fa, qb, kb_, vb, dob, False, bias, p, SEED, 3)}
              for p in (0.0, P)]
     # causal at full size; ragged L with the head dim padded to 64 and one
-    # batch row whose every key is -inf; head dim 128
+    # batch row whose every key is -inf; head dim 128; causal with the
+    # first keys of batch row 0 at BERT's bf16 key bias
     for causal, shp, neg_row in ((True, shape, False),
                                  (False, (2, 3, 300, 40), True),
-                                 (True, (1, 2, 77, 128), False)):
+                                 (True, (1, 2, 77, 128), False),
+                                 (True, BIASED_ROWS_SHAPE, False)):
         b_, _, l_, d_ = shp
         qq, kk, vv, dd = (randn(*shp) for _ in range(4))
         kb = None
-        if not causal or d_ == 128:
+        if shp == BIASED_ROWS_SHAPE:
+            kb = biased_first_keys(b_, l_, dev)
+        elif not causal or d_ == 128:
             kb = torch.where(torch.rand(b_, l_, device=dev, generator=gen)
                              < 0.2, -1e4, 0.0).to(torch.float32)
             if neg_row:
                 kb[1] = float('-inf')
         for p in (0.0, P):
-            e = _attention_case(fa, qq, kk, vv, dd, causal, kb, p, SEED, 11)
+            e = _attention_case(fa, qq, kk, vv, dd, causal, kb, p, SEED, 11,
+                                exact=shp == BIASED_ROWS_SHAPE)
             cases.append({'shape': list(shp), 'causal': causal,
                           'bias': kb is not None, 'empty_row': neg_row,
                           'p': p, **e})
     for case in [dict(errs[0.0], p=0.0, shape=list(shape)),
                  dict(errs[P], p=P, shape=list(shape))] + cases:
-        check(f"flash forward {case['shape']} p={case['p']}", case['o'], TOL)
+        what = f"flash forward {case['shape']} p={case['p']}"
+        if 'o_f64' in case:     # BIASED_ROWS_SHAPE says why
+            for out in ('o', 'lse'):
+                check(f'{what}: {out} against float64', case[f'{out}_f64'],
+                      case[f'{out}_f64_plain'] + TOL)
+        else:
+            check(what, case['o'], TOL)
         for g in ('dq', 'dk', 'dv'):
             check(f"flash {g} {case['shape']} p={case['p']}", case[g],
                   GRAD_TOL)
@@ -649,7 +700,9 @@ def phase_train_kernels(randn, gen, flush, rows):
                                     'bound_by': biased['bound_by']},
                   'cases': cases}})
     check_speed('attention_speed_fp32_train', {
-        'fwd_fp32_over_sdpa_fwd': ms[0.0]['fwd'] / sdpa_fwd})
+        'fwd_fp32_over_sdpa_fwd': ms[0.0]['fwd'] / sdpa_fwd,
+        'dq_fp32_over_sdpa_bwd': ms[0.0]['dq'] / sdpa_bwd,
+        'dkv_fp32_over_sdpa_bwd': ms[0.0]['dkv'] / sdpa_bwd})
     library = ('SDPA backward (dQ, dK, dV together) through '
                'torch.autograd.grad, p = 0')
     for name, kind, grads, flops_per_key, whole in (
@@ -929,8 +982,10 @@ def phase_profile(what, run, top_n=12, **extra):
 
 # the port's kernels by their CUDA function names; the rest by the words
 # PyTorch's, cuBLAS's and CUTLASS's kernel names carry
-_GROUPS = (('attention kernels', ('flash_fwd_tf32_kernel', 'flash_dq_kernel',
-                                  'flash_dkv_kernel', 'flash_fwd_mma_kernel',
+_GROUPS = (('attention kernels', ('flash_fwd_tf32_kernel',
+                                  'flash_dq_tf32_kernel',
+                                  'flash_dkv_tf32_kernel',
+                                  'flash_fwd_mma_kernel',
                                   'flash_dq_mma_kernel',
                                   'flash_dkv_mma_kernel')),
            ('norm and mask kernels', ('layer_norm_fwd_kernel',
@@ -1163,9 +1218,11 @@ BF16_GRAD_MEAN = 0.03
 # same run, p = 0: at bf16 at the train step's shape, the forward at most
 # twice SDPA's forward, dK/dV and dQ each at most SDPA's whole backward (dQ,
 # dK, dV); the fp32 forward at most SDPA's fp32 forward, at the fp32 train
-# shape and at the serving shape with its key bias
+# shape and at the serving shape with its key bias; the fp32 dQ and dK/dV
+# each at most SDPA's whole fp32 backward at the fp32 train shape
 SPEED_LIMITS = {'fwd_over_sdpa_fwd': 2.0, 'dkv_over_sdpa_bwd': 1.0,
-                'dq_over_sdpa_bwd': 1.0, 'fwd_fp32_over_sdpa_fwd': 1.0}
+                'dq_over_sdpa_bwd': 1.0, 'fwd_fp32_over_sdpa_fwd': 1.0,
+                'dq_fp32_over_sdpa_bwd': 1.0, 'dkv_fp32_over_sdpa_bwd': 1.0}
 COPY_OPS = ('aten._to_copy.default', 'aten.copy_.default',
             'aten.clone.default')
 # the functions that check tensors and launch a kernel: none may copy or
@@ -1276,11 +1333,14 @@ def phase_kernels_bf16(seed, flush):
             for p in (0.0, P)}
     cases = []
     for causal, shp, neg_row in ((False, (2, 3, 300, 40), True),
-                                 (True, (2, 4, SEQ, 128), False)):
+                                 (True, (2, 4, SEQ, 128), False),
+                                 (True, BIASED_ROWS_SHAPE, False)):
         b_, _, l_, _ = shp
         qq, kk, vv, dd = (randn(*shp) for _ in range(4))
         kb = None
-        if neg_row:
+        if shp == BIASED_ROWS_SHAPE:
+            kb = biased_first_keys(b_, l_, dev)
+        elif neg_row:
             kb = torch.where(torch.rand(b_, l_, device=dev, generator=gen)
                              < 0.2, -1e4, 0.0).to(torch.float32)
             kb[1] = float('-inf')

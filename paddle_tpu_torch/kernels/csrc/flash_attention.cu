@@ -33,23 +33,29 @@
 // halves shared-memory reads per product; with dropout or at D = 128 one
 // (64 rows), which leaves registers for the Philox work and the wider
 // accumulator. S = Q K^T comes out as fp32 fragments; the online softmax
-// runs on them in the log2 domain (one FFMA and one ex2 a score), a row's
-// max over a 4-lane quad, the masks only on a tile that reaches past L or
-// above the diagonal, the output rescaled only when a row's max moved; P
-// is converted in registers into the A operand of P.V (V read with
-// ldmatrix.trans), never through shared memory; l sums per lane and is
-// reduced once at the end. Tiles are bf16 rows with an XOR swizzle of
-// their 16-byte chunks (tensor_core.cuh), which keeps ldmatrix free of
-// bank conflicts. Ragged edges stay inside the kernel: cp.async fills
-// rows past L and columns past d with zeros, keys past L score -inf, rows
-// past L are not stored; the head dim is padded to 64 or 128. When d, the
-// strides or a pointer is not whole 16-byte chunks (d % 8 != 0), the same
-// kernel loads element by element into the same layout. Under dropout
-// each lane makes one Philox call per four probabilities and uses all
-// four words (fragment_keep in flash_common.cuh: the two lanes of a quad
-// pair share their calls through one shuffle) when L % 4 == 0, else a call
-// per probability. It reaches ~17 % of its bound, ~1.85x the library's
-// forward (PERF.md): wgmma with TMA is the next step.
+// runs on them in natural units, on scores rounded as the reference rounds
+// them (fragment_scores in flash_common.cuh says why: the log2 domain put
+// lse 2^-10 off next to a -1e4 key bias), a probability one FFMA and one
+// ex2 (exp_offset, row_lse), and without a key bias the scale taken into
+// that FFMA (fwd_scores; one instantiation with a bias and one without, the
+// latter bit for bit the same softmax at D = 64, one multiply a score
+// cheaper); a row's max over a 4-lane quad, the masks only on a tile that
+// reaches past L or above the diagonal, the output rescaled only when a
+// row's max moved; P is converted in registers into the A
+// operand of P.V (V read with ldmatrix.trans), never through shared
+// memory; l sums per lane and is reduced once at the end. Tiles are bf16
+// rows with an XOR swizzle of their 16-byte chunks (tensor_core.cuh),
+// which keeps ldmatrix free of bank conflicts. Ragged edges stay inside
+// the kernel: cp.async fills rows past L and columns past d with zeros,
+// keys past L score -inf, rows past L are not stored; the head dim is
+// padded to 64 or 128. When d, the strides or a pointer is not whole
+// 16-byte chunks (d % 8 != 0), the same kernel loads element by element
+// into the same layout. Under dropout each lane makes one Philox call per
+// four probabilities and uses all four words (fragment_keep in
+// flash_common.cuh: the two lanes of a quad pair share their calls through
+// one shuffle) when L % 4 == 0, else a call per probability. It reaches
+// ~17 % of its bound, ~1.8x the library's forward (PERF.md): wgmma with
+// TMA is the next step.
 //
 // flash_fwd_tf32_kernel (fp32). 4 L^2 D flops against 16 L D bytes, 128
 // flops a byte at L = 512: just under the 148 flop/byte ridge of the TF32
@@ -70,11 +76,6 @@
 // K/V tiles of 64 keys through a two-stage cp.async ring, the online
 // softmax on the accumulator fragments, the masks only on edge tiles, the
 // dropout bits of fragment_keep. What differs at fp32:
-// - the softmax runs in natural units, on scores rounded as the reference
-//   rounds them (dot * scale, then + bias; fragment_scores_fp32): next to
-//   a -1e4 key bias a score's ulp is 2^-10, and the log2 domain's own
-//   roundings put lse 2^-10 off the reference's on rows whose keys are all
-//   so masked, ten times the gate;
 // - tiles are fp32 rows padded to 68 (or 132) floats, whose stride is 4
 //   mod 32 words, so ldmatrix (b16, so an 8 x 4 fp32 block is one 8 x 8
 //   matrix) loads Q's A and K's B fragments and plain 32-bit loads read
@@ -100,10 +101,12 @@ namespace {
 constexpr int kFwdStages = 2;
 
 // q, k, v, o: bf16 with shared strides (sb, sh, sl) in elements, head dim
-// contiguous; bias (B, L) fp32 or null; lse (B*H, L) fp32 or null. `vec`:
-// every row of q, k, v, o is whole 16-byte chunks (chunks_of_16). Each of
-// the 4 warps owns kMT m-tiles of 16 query rows: a block takes 64 kMT rows.
-template <int DP, int kMT, bool kDrop>
+// contiguous; bias (B, L) fp32, null iff !kBias; lse (B*H, L) fp32 or
+// null. `vec`: every row of q, k, v, o is whole 16-byte chunks
+// (chunks_of_16). Each of the 4 warps owns kMT m-tiles of 16 query rows: a
+// block takes 64 kMT rows. Without a key bias (!kBias) the scale moves into
+// the exponent (fwd_scores in flash_common.cuh).
+template <int DP, int kMT, bool kDrop, bool kBias>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
@@ -129,8 +132,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int64_t base = static_cast<int64_t>(b) * sb +
                          static_cast<int64_t>(h) * sh;
     const float* bias_row =
-        bias != nullptr ? bias + static_cast<int64_t>(b) * L : nullptr;
-    const float scale2 = scale * kLog2e;
+        kBias ? bias + static_cast<int64_t>(b) * L : nullptr;
+    const float xscale = fwd_exp_scale<kBias>(scale);
 
     int n_tiles = (L + kBK - 1) / kBK;
     if (causal) n_tiles = min(n_tiles, (min(q0 + kRowsB, L) - 1) / kBK + 1);
@@ -165,8 +168,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         sq + swz<DP>(r0 + 16 * mt + (lane & 7) +
                                          ((lane >> 3) & 1) * 8,
                                      s * 16 + (lane >> 4) * 8));
-    float m[kMT][2], l[kMT][2];   // m in the log2 domain and quad-uniform;
-                                  // l this lane's part of the row sums
+    float m[kMT][2], l[kMT][2];   // m quad-uniform; l this lane's part of
+                                  // the row sums
     float acc[kMT][kOutN][4];
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
@@ -210,7 +213,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 }
             }
 
-        // online softmax on the fragments, in the log2 domain; only a tile
+        // online softmax on the fragments in natural units; only a tile
         // that reaches past L or above the warp's diagonal needs the masks
         const bool edge =
             k0 + kBK > L || (causal && k0 + kBK - 1 > q0 + r0);
@@ -220,8 +223,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
             for (int n = 0; n < kKeyN; ++n) {
-                fragment_scores(sc[mt][n], scale2, bias_row,
-                                k0 + 8 * n + 2 * t4, qr, L, causal, edge);
+                fwd_scores<kBias>(sc[mt][n], scale, bias_row, qr,
+                                  k0 + 8 * n + 2 * t4, L, causal, edge);
 #pragma unroll
                 for (int e = 0; e < 4; ++e)
                     mx[e >> 1] = fmaxf(mx[e >> 1], sc[mt][n][e]);
@@ -229,8 +232,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             float corr[2];
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
-                const float m_new = fmaxf(m[mt][i], quad_max(mx[i]));
-                corr[i] = ex2(m[mt][i] - m_new);
+                const float m_new = fmaxf(
+                    m[mt][i], fwd_row_max<kBias>(quad_max(mx[i]), scale));
+                corr[i] = ex2(exp_offset(m[mt][i]) - exp_offset(m_new));
                 m[mt][i] = m_new;
                 l[mt][i] *= corr[i];
             }
@@ -240,6 +244,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
                     for (int e = 0; e < 4; ++e) acc[mt][n][e] *= corr[e >> 1];
             }
+            const float ml[2] = {exp_offset(m[mt][0]), exp_offset(m[mt][1])};
 #pragma unroll
             for (int n = 0; n < kKeyN; ++n) {
                 float ks[4];
@@ -248,7 +253,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                   ks);
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
-                    const float p = ex2(sc[mt][n][e] - m[mt][e >> 1]);
+                    const float p =
+                        ex2(fmaf(sc[mt][n][e], xscale, -ml[e >> 1]));
                     l[mt][e >> 1] += p;   // the undropped sum normalises o
                     sc[mt][n][e] = kDrop ? p * ks[e] : p;
                 }
@@ -310,11 +316,11 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             }
             if (lse != nullptr && t4 == 0)
                 lse[static_cast<int64_t>(bh) * L + row] =
-                    li > 0.f ? m[mt][i] * kLn2 + logf(denom) : kLseEmpty;
+                    li > 0.f ? row_lse(m[mt][i], denom) : kLseEmpty;
         }
 }
 
-template <int DP, int kMT, bool kDrop>
+template <int DP, int kMT, bool kDrop, bool kBias>
 int launch_mma(const bf16* q, const bf16* k, const bf16* v,
                const float* bias, bf16* o, float* lse, int64_t bh, int L,
                int d, int H, int64_t sb, int64_t sh, int64_t sl, float scale,
@@ -325,7 +331,7 @@ int launch_mma(const bf16* q, const bf16* k, const bf16* v,
     static bool configured = false;
     if (!configured) {
         const cudaError_t e = cudaFuncSetAttribute(
-            flash_fwd_mma_kernel<DP, kMT, kDrop>,
+            flash_fwd_mma_kernel<DP, kMT, kDrop, kBias>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(bytes));
         if (e != cudaSuccess) return static_cast<int>(e);
@@ -335,12 +341,14 @@ int launch_mma(const bf16* q, const bf16* k, const bf16* v,
     const int vec = chunks_of_16<bf16>(d, strides, {q, k, v, o});
     const dim3 grid(static_cast<unsigned>(bh),
                     static_cast<unsigned>((L + rows - 1) / rows));
-    flash_fwd_mma_kernel<DP, kMT, kDrop><<<grid, kThreads, bytes, stream>>>(
+    flash_fwd_mma_kernel<DP, kMT, kDrop, kBias>
+        <<<grid, kThreads, bytes, stream>>>(
         q, k, v, bias, o, lse, L, d, H, sb, sh, sl, scale, causal, vec, drop);
     return static_cast<int>(cudaGetLastError());
 }
 
 // bf16 on the tensor cores: the head dim padded to 64 or 128
+template <bool kBias>
 int dispatch_mma(const void* q, const void* k, const void* v,
                  const float* bias, void* o, float* lse, int64_t bh, int L,
                  int d, int H, int64_t sb, int64_t sh, int64_t sl,
@@ -355,19 +363,19 @@ int dispatch_mma(const void* q, const void* k, const void* v,
     // loads per product; under dropout one m-tile, whose registers leave
     // room for the Philox work (PERF.md)
     if (d <= 64)
-        return dropout ? launch_mma<64, 1, true>(qp, kp, vp, bias, op, lse, bh,
-                                                 L, d, H, sb, sh, sl, scale,
-                                                 causal, drop, st)
-                       : launch_mma<64, 2, false>(qp, kp, vp, bias, op, lse,
-                                                  bh, L, d, H, sb, sh, sl,
-                                                  scale, causal, drop, st);
+        return dropout ? launch_mma<64, 1, true, kBias>(
+                             qp, kp, vp, bias, op, lse, bh, L, d, H, sb, sh,
+                             sl, scale, causal, drop, st)
+                       : launch_mma<64, 2, false, kBias>(
+                             qp, kp, vp, bias, op, lse, bh, L, d, H, sb, sh,
+                             sl, scale, causal, drop, st);
     if (d <= 128)
-        return dropout ? launch_mma<128, 1, true>(qp, kp, vp, bias, op, lse,
-                                                  bh, L, d, H, sb, sh, sl,
-                                                  scale, causal, drop, st)
-                       : launch_mma<128, 1, false>(qp, kp, vp, bias, op, lse,
-                                                   bh, L, d, H, sb, sh, sl,
-                                                   scale, causal, drop, st);
+        return dropout ? launch_mma<128, 1, true, kBias>(
+                             qp, kp, vp, bias, op, lse, bh, L, d, H, sb, sh,
+                             sl, scale, causal, drop, st)
+                       : launch_mma<128, 1, false, kBias>(
+                             qp, kp, vp, bias, op, lse, bh, L, d, H, sb, sh,
+                             sl, scale, causal, drop, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -378,7 +386,8 @@ int dispatch_mma(const void* q, const void* k, const void* v,
 // is 3xTF32 (mma_3xtf32): the K, V and P fragments are split into hi/lo in
 // registers as they are loaded; Q's at D = 64 once, and held, at D = 128
 // every tile from shared memory, as holding them would leave no registers.
-template <int DP, bool kDrop>
+// bias and kBias as the bf16 kernel's.
+template <int DP, bool kDrop, bool kBias>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_tf32_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -408,7 +417,8 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
     const int64_t base = static_cast<int64_t>(b) * sb +
                          static_cast<int64_t>(h) * sh;
     const float* bias_row =
-        bias != nullptr ? bias + static_cast<int64_t>(b) * L : nullptr;
+        kBias ? bias + static_cast<int64_t>(b) * L : nullptr;
+    const float xscale = fwd_exp_scale<kBias>(scale);
 
     int n_tiles = (L + kBK - 1) / kBK;
     if (causal) n_tiles = min(n_tiles, (min(q0 + kBQ, L) - 1) / kBK + 1);
@@ -430,20 +440,14 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int t = 0; t < kFwdStages - 1; ++t) load_keys(t);
 
-    // Q's A fragment of k-step s (head columns 8s .. 8s + 7), split: the
-    // four 8 x 4 blocks (rows 0-7 | 8-15) x (columns 0-3 | 4-7) are a0..a3
-    const auto q_frag = [&](int s, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-        uint32_t r[4];
-        ldmatrix_x4(r, sq + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kS +
-                           8 * s + (lane >> 4) * 4);
-        split_tf32(r, hi, lo);
-    };
+    // Q's A fragment of k-step s: head columns 8s .. 8s + 7
     cp_async_wait<kFwdStages - 1>();
     __syncthreads();
     uint32_t qhi[kQHeld ? kSteps : 1][4], qlo[kQHeld ? kSteps : 1][4];
     if constexpr (kQHeld) {
 #pragma unroll
-        for (int s = 0; s < kSteps; ++s) q_frag(s, qhi[s], qlo[s]);
+        for (int s = 0; s < kSteps; ++s)
+            a_frag_tf32(sq, kS, r0, 8 * s, qhi[s], qlo[s]);
     }
     float m[2] = {kNegInf, kNegInf};   // natural units, quad-uniform
     float l[2] = {0.f, 0.f};           // this lane's part of the row sums
@@ -461,9 +465,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
         const float* skt = sk + (t % kFwdStages) * kKTile;
         const float* svt = sv + (t % kFwdStages) * kKTile;
 
-        // S = Q K^T: keys 16np .. 16np + 15 as n-tiles 2np, 2np + 1, whose
-        // b0 / b1 are the 8 x 4 blocks (keys 0-7 | 8-15) x (columns 0-3 |
-        // 4-7) of one ldmatrix
+        // S = Q K^T: keys 8n .. 8n + 7 as n-tile n
         float sc[kKeyN][4];
 #pragma unroll
         for (int n = 0; n < kKeyN; ++n)
@@ -479,35 +481,23 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
                     al[i] = qlo[s][i];
                 }
             } else {
-                q_frag(s, ah, al);
+                a_frag_tf32(sq, kS, r0, 8 * s, ah, al);
             }
             uint32_t kh[kKeyN][2], kl[kKeyN][2];
-#pragma unroll
-            for (int np = 0; np < kKeyN / 2; ++np) {
-                uint32_t kb[4];
-                ldmatrix_x4(kb, skt + (np * 16 + (lane & 7) +
-                                       (lane >> 4) * 8) * kS +
-                                    8 * s + ((lane >> 3) & 1) * 4);
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-                    split_tf32(__uint_as_float(kb[i]),
-                               kh[2 * np + (i >> 1)][i & 1],
-                               kl[2 * np + (i >> 1)][i & 1]);
-            }
+            b_frags_tf32<kKeyN>(skt, kS, 8 * s, kh, kl);
             mma_3xtf32<kKeyN>(sc, ah, al, kh, kl);
         }
 
-        // online softmax on the fragments in natural units (the scores
-        // rounded as the reference rounds them), exp as ex2 of the
-        // difference times log2(e); only a tile that reaches past L or
-        // above the warp's diagonal needs the masks
+        // online softmax on the fragments in natural units, as the bf16
+        // kernel's; only a tile that reaches past L or above the warp's
+        // diagonal needs the masks
         const bool edge =
             k0 + kBK > L || (causal && k0 + kBK - 1 > q0 + r0);
         float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
         for (int n = 0; n < kKeyN; ++n) {
-            fragment_scores_fp32(sc[n], scale, bias_row, k0 + 8 * n + 2 * t4,
-                                 qr, L, causal, edge);
+            fwd_scores<kBias>(sc[n], scale, bias_row, qr, k0 + 8 * n + 2 * t4,
+                              L, causal, edge);
 #pragma unroll
             for (int e = 0; e < 4; ++e)
                 mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
@@ -515,8 +505,9 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
         float corr[2];
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-            const float m_new = fmaxf(m[i], quad_max(mx[i]));
-            corr[i] = ex2((m[i] - m_new) * kLog2e);
+            const float m_new =
+                fmaxf(m[i], fwd_row_max<kBias>(quad_max(mx[i]), scale));
+            corr[i] = ex2(exp_offset(m[i]) - exp_offset(m_new));
             m[i] = m_new;
             l[i] *= corr[i];
         }
@@ -526,6 +517,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
 #pragma unroll
                 for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
         }
+        const float ml[2] = {exp_offset(m[0]), exp_offset(m[1])};
 #pragma unroll
         for (int n = 0; n < kKeyN; ++n) {
             float ks[4];
@@ -533,7 +525,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
                 fragment_keep(drop, bh, qr, k0 + 8 * n + 2 * t4, L, lane, ks);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const float p = ex2((sc[n][e] - m[e >> 1]) * kLog2e);
+                const float p = ex2(fmaf(sc[n][e], xscale, -ml[e >> 1]));
                 l[e >> 1] += p;   // the undropped sum normalises o
                 sc[n][e] = kDrop ? p * ks[e] : p;
             }
@@ -542,24 +534,16 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
         // O += P V, 3xTF32, one k-step per n-tile j of P (keys 8j .. 8j +
         // 7) with its keys permuted: A = (c0, c2, c1, c3) takes key 2t as
         // column t and key 2t + 1 as column t + 4, so B's rows t and t + 4
-        // are V's rows 8j + 2t and 8j + 2t + 1, read at column g; eight
+        // are V's rows 8j + 2t and 8j + 2t + 1, read down a column; eight
         // output n-tiles at a time
 #pragma unroll
         for (int j = 0; j < kKeyN; ++j) {
             uint32_t ph[4], pl[4];
-            split_tf32(sc[j][0], ph[0], pl[0]);
-            split_tf32(sc[j][2], ph[1], pl[1]);
-            split_tf32(sc[j][1], ph[2], pl[2]);
-            split_tf32(sc[j][3], ph[3], pl[3]);
-            const float* vrow = svt + (8 * j + 2 * t4) * kS + g;
+            c_as_a_tf32(sc[j], ph, pl);
 #pragma unroll
             for (int n0 = 0; n0 < kOutN; n0 += 8) {
                 uint32_t vh[8][2], vl[8][2];
-#pragma unroll
-                for (int n = 0; n < 8; ++n) {
-                    split_tf32(vrow[8 * (n0 + n)], vh[n][0], vl[n][0]);
-                    split_tf32(vrow[kS + 8 * (n0 + n)], vh[n][1], vl[n][1]);
-                }
+                b_frags_col_tf32<8>(svt, kS, 8 * j, 8 * n0, vh, vl);
                 mma_3xtf32<8>(acc + n0, ph, pl, vh, vl);
             }
         }
@@ -588,11 +572,11 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
         }
         if (lse != nullptr && t4 == 0)
             lse[static_cast<int64_t>(bh) * L + row] =
-                li > 0.f ? m[i] + logf(denom) : kLseEmpty;
+                li > 0.f ? row_lse(m[i], denom) : kLseEmpty;
     }
 }
 
-template <int DP, bool kDrop>
+template <int DP, bool kDrop, bool kBias>
 int launch_tf32(const float* q, const float* k, const float* v,
                 const float* bias, float* o, float* lse, int64_t bh, int L,
                 int d, int H, int64_t sb, int64_t sh, int64_t sl, float scale,
@@ -603,7 +587,7 @@ int launch_tf32(const float* q, const float* k, const float* v,
     static bool configured = false;
     if (!configured) {
         const cudaError_t e = cudaFuncSetAttribute(
-            flash_fwd_tf32_kernel<DP, kDrop>,
+            flash_fwd_tf32_kernel<DP, kDrop, kBias>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(bytes));
         if (e != cudaSuccess) return static_cast<int>(e);
@@ -613,12 +597,14 @@ int launch_tf32(const float* q, const float* k, const float* v,
     const int vec = chunks_of_16<float>(d, strides, {q, k, v, o});
     const dim3 grid(static_cast<unsigned>(bh),
                     static_cast<unsigned>((L + kBQ - 1) / kBQ));
-    flash_fwd_tf32_kernel<DP, kDrop><<<grid, kThreads, bytes, stream>>>(
+    flash_fwd_tf32_kernel<DP, kDrop, kBias>
+        <<<grid, kThreads, bytes, stream>>>(
         q, k, v, bias, o, lse, L, d, H, sb, sh, sl, scale, causal, vec, drop);
     return static_cast<int>(cudaGetLastError());
 }
 
 // fp32 on the tensor cores (3xTF32): the head dim padded to 64 or 128
+template <bool kBias>
 int dispatch_tf32(const void* q, const void* k, const void* v,
                   const float* bias, void* o, float* lse, int64_t bh, int L,
                   int d, int H, int64_t sb, int64_t sh, int64_t sl,
@@ -630,19 +616,19 @@ int dispatch_tf32(const void* q, const void* k, const void* v,
     const auto op = static_cast<float*>(o);
     const bool dropout = drop.scale != 1.f;
     if (d <= 64)
-        return dropout ? launch_tf32<64, true>(qp, kp, vp, bias, op, lse, bh,
-                                               L, d, H, sb, sh, sl, scale,
-                                               causal, drop, st)
-                       : launch_tf32<64, false>(qp, kp, vp, bias, op, lse, bh,
-                                                L, d, H, sb, sh, sl, scale,
-                                                causal, drop, st);
+        return dropout ? launch_tf32<64, true, kBias>(
+                             qp, kp, vp, bias, op, lse, bh, L, d, H, sb, sh,
+                             sl, scale, causal, drop, st)
+                       : launch_tf32<64, false, kBias>(
+                             qp, kp, vp, bias, op, lse, bh, L, d, H, sb, sh,
+                             sl, scale, causal, drop, st);
     if (d <= 128)
-        return dropout ? launch_tf32<128, true>(qp, kp, vp, bias, op, lse, bh,
-                                                L, d, H, sb, sh, sl, scale,
-                                                causal, drop, st)
-                       : launch_tf32<128, false>(qp, kp, vp, bias, op, lse,
-                                                 bh, L, d, H, sb, sh, sl,
-                                                 scale, causal, drop, st);
+        return dropout ? launch_tf32<128, true, kBias>(
+                             qp, kp, vp, bias, op, lse, bh, L, d, H, sb, sh,
+                             sl, scale, causal, drop, st)
+                       : launch_tf32<128, false, kBias>(
+                             qp, kp, vp, bias, op, lse, bh, L, d, H, sb, sh,
+                             sl, scale, causal, drop, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -671,11 +657,12 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
     const int Li = static_cast<int>(L), di = static_cast<int>(d),
               Hi = static_cast<int>(H);
     const DropoutArgs drop{seed, offset, threshold, drop_scale};
-    if (dtype == kF32)
-        return dispatch_tf32(q, k, v, bp, o, lp, bh, Li, di, Hi, sb, sh, sl,
-                             scale, causal, drop, st);
-    if (dtype == kBF16)
-        return dispatch_mma(q, k, v, bp, o, lp, bh, Li, di, Hi, sb, sh, sl,
-                            scale, causal, drop, st);
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype != kF32 && dtype != kBF16)
+        return static_cast<int>(cudaErrorInvalidValue);
+    // one instantiation with a key bias and one without (fwd_scores)
+    const auto dispatch =
+        dtype == kF32 ? (bp ? dispatch_tf32<true> : dispatch_tf32<false>)
+                      : (bp ? dispatch_mma<true> : dispatch_mma<false>);
+    return dispatch(q, k, v, bp, o, lp, bh, Li, di, Hi, sb, sh, sl, scale,
+                    causal, drop, st);
 }

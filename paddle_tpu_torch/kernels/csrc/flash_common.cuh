@@ -1,6 +1,6 @@
 // What the flash-attention forward and backward kernels share: the tile
-// sizes, the thread layouts' row reductions, the masked score and the
-// dropout mask of a fragment, so that the backward rebuilds exactly the
+// sizes, the row reductions over a quad, the scores of an accumulator
+// fragment and its dropout mask, so that the backward rebuilds exactly the
 // scores and the bits the forward saw.
 #pragma once
 
@@ -12,9 +12,7 @@
 
 constexpr int kBQ = 64;           // query rows per tile
 constexpr int kBK = 64;           // keys per tile
-constexpr int kThreads = 128;     // 4 warps; FMA: 8 rows x 16 columns
-constexpr int kRows = kBQ / 8;    // FMA: query rows per thread, ty + 8 i
-constexpr int kCols = kBK / 16;   // FMA: score columns per thread, tx + 16 j
+constexpr int kThreads = 128;     // 4 warps of 16 fragment rows each
 constexpr float kNegInf = -1e30f;
 constexpr float kLseEmpty = 1e30f;
 
@@ -30,23 +28,8 @@ __device__ __forceinline__ float quad_sum(float v) {
     return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// The score of query row qr against key kc from their dot product: scale,
-// then the key-padding bias. A key past L or above the causal diagonal (at
-// absolute positions) weighs nothing: -inf, so exp(score - m) is 0 whatever
-// the row's other keys are. (The reference writes NEG_INF there, which
-// gives the same 0 on every row that has a finite score; -inf also keeps a
-// row whose allowed keys are all -inf independent of the tiling.)
-__device__ __forceinline__ float masked_score(float dot, float scale,
-                                              const float* bias_row, int kc,
-                                              int qr, int L, int causal) {
-    if (kc >= L || (causal && kc > qr)) return __int_as_float(0xff800000);
-    float x = dot * scale;
-    if (bias_row != nullptr) x += bias_row[kc];
-    return x;
-}
-
-// The tensor-core kernels' scores are in the log2 domain: x * log2(e),
-// so that exp(x - m) is one ex2 of a difference.
+// Scores and the softmax are in natural units; exp(x) is one ex2 of
+// x * log2(e) on the special-function unit.
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -57,62 +40,131 @@ __device__ __forceinline__ float ex2(float x) {
     return y;
 }
 
-// masked_score for one n-tile of an mma accumulator fragment (queries as
-// rows: rows qr, qr + 8, keys kc, kc + 1, in fragment order), times
-// log2(e): dot * scale2 + bias * log2(e) with scale2 = scale * log2(e),
-// then -inf past L and above the causal diagonal. `edge`: whether the
-// tile may hold such a key at all; a tile inside the matrix and below the
-// diagonal skips the checks.
-__device__ __forceinline__ void fragment_scores(float (&s)[4], float scale2,
-                                                const float* bias_row,
-                                                int kc, int qr, int L,
-                                                int causal, bool edge) {
-    float b0 = 0.f, b1 = 0.f;
-    if (bias_row != nullptr) {
-        b0 = kc < L ? bias_row[kc] * kLog2e : 0.f;
-        b1 = kc + 1 < L ? bias_row[kc + 1] * kLog2e : 0.f;
-    }
-    s[0] = fmaf(s[0], scale2, b0);
-    s[1] = fmaf(s[1], scale2, b1);
-    s[2] = fmaf(s[2], scale2, b0);
-    s[3] = fmaf(s[3], scale2, b1);
-    if (edge) {
+// The forward's online softmax takes each probability in one FFMA and one
+// ex2: p = ex2(fmaf(s, log2(e), -exp_offset(m))), m the row's running max.
+// exp_offset(m) = m log2(e) rounded (never fused), so every p of the row,
+// and the rescale ex2(exp_offset(m_old) - exp_offset(m_new)) of the earlier
+// tiles, carries the same factor 2^r, r = m log2(e) - exp_offset(m) (the
+// product's rounding error, up to 2^-11 next to a -1e4 bias): o = acc / l
+// does not see it, and row_lse takes it out of the log-sum-exp exactly (r
+// is an fp32 value, fmaf(m, log2(e), -exp_offset(m))). The scores and their
+// max are the reference's (fragment_scores) either way.
+__device__ __forceinline__ float exp_offset(float m) {
+    return __fmul_rn(m, kLog2e);
+}
+
+// lse = m + log(l) of a row whose max is m and whose probabilities, taken
+// as above, sum to l
+__device__ __forceinline__ float row_lse(float m, float l) {
+    return m + (logf(l) - fmaf(m, kLog2e, -exp_offset(m)) * kLn2);
+}
+
+// The key-padding bias of keys `key` and `key + step` (0 past L): the `kb`
+// of fragment_scores.
+__device__ __forceinline__ void key_bias(const float* bias_row, int key,
+                                         int step, int L, float (&kb)[2]) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int key = kc + (e & 1), row = qr + 8 * (e >> 1);
-            if (key >= L || (causal && key > row))
-                s[e] = __int_as_float(0xff800000);
-        }
+    for (int i = 0; i < 2; ++i) {
+        const int at = key + step * i;
+        kb[i] = bias_row != nullptr && at < L ? bias_row[at] : 0.f;
     }
 }
 
-// fragment_scores in natural units, rounded where the reference rounds:
-// dot * scale, then + bias, as two fp32 operations (no fused multiply-add).
-// Next to BERT's -1e4 bias a score's ulp is 2^-10, ten times the fp32
-// gate on lse, so the fp32 forward takes its scores, and its row max, from
-// the same two roundings as _attn_reference: then they are the
-// reference's whenever the dot products agree to within a rounding.
-__device__ __forceinline__ void fragment_scores_fp32(float (&s)[4],
-                                                     float scale,
-                                                     const float* bias_row,
-                                                     int kc, int qr, int L,
-                                                     int causal, bool edge) {
-    float b0 = 0.f, b1 = 0.f;
-    if (bias_row != nullptr) {
-        b0 = kc < L ? bias_row[kc] : 0.f;
-        b1 = kc + 1 < L ? bias_row[kc + 1] : 0.f;
+// Whether key `key` weighs nothing for query `query`
+__device__ __forceinline__ bool masked_key(int key, int query, int L,
+                                           int causal) {
+    return key >= L || (causal && key > query);
+}
+
+// The scores of one m16n8 accumulator fragment of dot products, rounded
+// as every attention kernel rounds them, where the reference rounds them
+// (_score_tile; the forwards take the same roundings in fwd_scores, below):
+// dot * scale, then + the key-padding bias, as two fp32 operations (no
+// fused multiply-add), in natural units. A key past L or above the causal
+// diagonal (at absolute positions) weighs nothing: -inf, so exp(score - m)
+// is 0 whatever the row's other keys are. (The reference writes NEG_INF
+// there, which gives the same 0 on every row that has a finite score; -inf
+// also keeps a row whose allowed keys are all -inf independent of the
+// tiling.)
+//
+// Why natural units: next to BERT's -1e4 bias (-9984 at bf16) a score's
+// ulp is 2^-10, ten times the 1e-4 gate on lse. Scores taken in the log2
+// domain, fmaf(dot, scale * log2(e), bias * log2(e)), and an lse formed as
+// m * ln(2) + log(l) each round once more at that magnitude, and put lse
+// 2^-10 off the reference's on a row whose allowed keys all carry the
+// bias. Rounded as here, the scores and the row max are the reference's
+// whenever the dot products agree to within a rounding, and s - m, s - lse
+// are exact (Sterbenz).
+//
+// Fragment order c0, c1, c2, c3: with queries as rows (kKeyRows false)
+// rows `row`, row + 8 and keys `col`, col + 1, i.e. (row, col), (row, col
+// + 1), (row + 8, col), (row + 8, col + 1); with keys as rows (true) keys
+// `row`, row + 8 and queries `col`, col + 1 in the same order. kb: the bias
+// of the fragment's two keys (key_bias; 0 without a bias, whose add changes
+// no score). `edge`: whether the fragment may hold a masked key at all; one
+// inside the matrix and below the diagonal skips the checks.
+template <bool kKeyRows>
+__device__ __forceinline__ void fragment_scores(float (&s)[4], float scale,
+                                                const float (&kb)[2], int row,
+                                                int col, int L, int causal,
+                                                bool edge) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        const int i = kKeyRows ? e >> 1 : e & 1;   // which of the two keys
+        float x = __fadd_rn(__fmul_rn(s[e], scale), kb[i]);
+        if (edge) {
+            const int key = kKeyRows ? row + 8 * i : col + i;
+            const int query = kKeyRows ? col + (e & 1) : row + 8 * (e >> 1);
+            if (masked_key(key, query, L, causal))
+                x = __int_as_float(0xff800000);
+        }
+        s[e] = x;
     }
+}
+
+// fragment_scores' masks alone, on a fragment with queries as rows
+__device__ __forceinline__ void fragment_mask(float (&s)[4], int qr, int kc,
+                                              int L, int causal) {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-        s[e] = __fadd_rn(__fmul_rn(s[e], scale), e & 1 ? b1 : b0);
-    if (edge) {
+        if (masked_key(kc + (e & 1), qr + 8 * (e >> 1), L, causal))
+            s[e] = __int_as_float(0xff800000);
+}
+
+// The forward's scores of one n-tile (queries as rows: rows qr, qr + 8,
+// keys kc, kc + 1). With a key bias (kBias) they are fragment_scores', its
+// two roundings, with the masks taken after them in a pass of their own:
+// the forwards measured faster so, the backward kernels slower (PERF.md).
+// Without a bias they stay the dot products, masked, and the scale moves
+// into the exponent: fwd_row_max turns a row's max dot product into the
+// natural-unit max m (a product rounded once, as every score would be), and
+// p = ex2(fmaf(dot, fwd_exp_scale(scale), -exp_offset(m))). That is bit for
+// bit the natural-unit softmax when the scale is a power of two (D = 64:
+// 1/8) and within an fp32 rounding of the exponent's argument otherwise
+// (scores without a bias are O(10)), at one multiply a score fewer.
+template <bool kBias>
+__device__ __forceinline__ void fwd_scores(float (&s)[4], float scale,
+                                           const float* bias_row, int qr,
+                                           int kc, int L, int causal,
+                                           bool edge) {
+    if constexpr (kBias) {
+        float kb[2];
+        key_bias(bias_row, kc, 1, L, kb);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int key = kc + (e & 1), row = qr + 8 * (e >> 1);
-            if (key >= L || (causal && key > row))
-                s[e] = __int_as_float(0xff800000);
-        }
+        for (int e = 0; e < 4; ++e)
+            s[e] = __fadd_rn(__fmul_rn(s[e], scale), kb[e & 1]);
     }
+    if (edge) fragment_mask(s, qr, kc, L, causal);
+}
+
+template <bool kBias>
+__device__ __forceinline__ float fwd_row_max(float mx, float scale) {
+    return kBias ? mx : __fmul_rn(mx, scale);
+}
+
+template <bool kBias>
+__device__ __forceinline__ float fwd_exp_scale(float scale) {
+    return kBias ? kLog2e : scale * kLog2e;
 }
 
 // Linear index of attention probability (bh, qr, kc): the dropout mask's
@@ -214,3 +266,4 @@ __device__ __forceinline__ void fragment_keep_t(const DropoutArgs& a, int bh,
 #pragma unroll
     for (int e = 0; e < 4; ++e) ks[e] = w[e] >= a.threshold ? a.scale : 0.f;
 }
+

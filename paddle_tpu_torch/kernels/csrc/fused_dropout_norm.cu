@@ -191,7 +191,7 @@ __global__ void dropout_add_layer_norm_fwd_kernel(
 
 constexpr int kGradThreads = 256;
 
-// out[i] = g[i] * keep_scale(i) over n elements; thread t owns elements
+// out[i] = g[i] * keep(i) / (1 - p) over n elements; thread t owns elements
 // 4t .. 4t + 3, which share one Philox call. The product is fp32, rounded
 // once to T on the store.
 template <typename T, bool kVec>

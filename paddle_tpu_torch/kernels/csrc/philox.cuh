@@ -67,10 +67,3 @@ __device__ __forceinline__ uint32_t philox_word(const PhiloxWords& r,
     const uint32_t hi = (lane & 1) ? r.w[3] : r.w[2];
     return (lane & 2) ? hi : lo;
 }
-
-// keep / (1 - p) of the element with linear index i: `scale` or 0.
-__device__ __forceinline__ float keep_scale(const DropoutArgs& a, uint64_t i) {
-    const PhiloxWords r = philox4x32_10(a.seed, a.offset, i >> 2);
-    return philox_word(r, static_cast<uint32_t>(i) & 3u) >= a.threshold
-               ? a.scale : 0.f;
-}

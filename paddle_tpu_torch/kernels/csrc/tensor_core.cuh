@@ -1,10 +1,11 @@
 // What the tensor-core kernels share: the m16n8k16 bf16 product and the
 // m16n8k8 TF32 product with fp32 accumulation (mma.sync), the split of an
 // fp32 value into two TF32 terms for the 3xTF32 product, fragment loads
-// from shared memory (ldmatrix, plain and transposed), 16- and 4-byte
-// asynchronous copies from global to shared memory (cp.async with
-// commit/wait groups), the XOR swizzle of bf16 tile rows and the padded
-// stride of fp32 tile rows.
+// from shared memory (ldmatrix, plain and transposed; the split tf32
+// fragments of padded fp32 tiles, and an accumulator as the next A
+// operand), 16- and 4-byte asynchronous copies from global to shared
+// memory (cp.async with commit/wait groups), the XOR swizzle of bf16 tile
+// rows and the padded stride of fp32 tile rows.
 //
 // Fragment layout of mma.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), lane = 4 * g + t (g = lane / 4, t = lane % 4):
@@ -153,6 +154,81 @@ __device__ __forceinline__ void mma_3xtf32(float (*d)[4],
     for (int n = 0; n < N; ++n) mma_tf32(d[n], a_hi, b_lo[n][0], b_lo[n][1]);
 #pragma unroll
     for (int n = 0; n < N; ++n) mma_tf32(d[n], a_hi, b_hi[n][0], b_hi[n][1]);
+}
+
+// The tf32 fragments of fp32 tiles in shared memory (rows of `stride`
+// floats, f32_stride below), each split into hi/lo as it is loaded. An 8 x 4
+// fp32 block is one 8 x 8 b16 matrix of ldmatrix: lane 4g + t receives
+// element (g, t).
+//
+// A (16 x 8): rows row0 .. row0 + 15, columns col0 .. col0 + 7; the four
+// 8 x 4 blocks (rows 0-7 | 8-15) x (columns 0-3 | 4-7) of one ldmatrix are
+// a0 .. a3.
+__device__ __forceinline__ void a_frag_tf32(const float* tile, int stride,
+                                            int row0, int col0,
+                                            uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
+    const int lane = threadIdx.x & 31;
+    uint32_t r[4];
+    ldmatrix_x4(r, tile +
+                       (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * stride +
+                       col0 + (lane >> 4) * 4);
+    split_tf32(r, hi, lo);
+}
+
+// B (8 x 8) of N n-tiles whose n index runs along the tile's rows (n-tile n:
+// rows 8n .. 8n + 7) and whose k index along columns col0 .. col0 + 7: b0 /
+// b1 of n-tiles 2np, 2np + 1 are the 8 x 4 blocks (rows 0-7 | 8-15 of the
+// pair) x (columns 0-3 | 4-7) of one ldmatrix.
+template <int N>
+__device__ __forceinline__ void b_frags_tf32(const float* tile, int stride,
+                                             int col0, uint32_t (&hi)[N][2],
+                                             uint32_t (&lo)[N][2]) {
+    static_assert(N % 2 == 0, "n-tiles in pairs");
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int np = 0; np < N / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4(r, tile +
+                           (np * 16 + (lane & 7) + (lane >> 4) * 8) * stride +
+                           col0 + ((lane >> 3) & 1) * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            split_tf32(__uint_as_float(r[i]), hi[2 * np + (i >> 1)][i & 1],
+                       lo[2 * np + (i >> 1)][i & 1]);
+    }
+}
+
+// B of N n-tiles whose k index runs DOWN the tile's rows row0 .. row0 + 7,
+// in the order a C fragment taken as A (c_as_a_tf32) gives them: B's rows t
+// and t + 4 are tile rows row0 + 2t and row0 + 2t + 1; n-tile n is columns
+// col0 + 8n .. + 7, read at column g. Plain 32-bit loads.
+template <int N>
+__device__ __forceinline__ void b_frags_col_tf32(const float* tile,
+                                                 int stride, int row0,
+                                                 int col0,
+                                                 uint32_t (&hi)[N][2],
+                                                 uint32_t (&lo)[N][2]) {
+    const int lane = threadIdx.x & 31;
+    const float* p = tile + (row0 + 2 * (lane & 3)) * stride + col0 +
+                     (lane >> 2);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+        split_tf32(p[8 * n], hi[n][0], lo[n][0]);
+        split_tf32(p[stride + 8 * n], hi[n][1], lo[n][1]);
+    }
+}
+
+// An fp32 accumulator fragment (16 x 8) as the A operand of the next
+// m16n8k8 product, split: (c0, c2, c1, c3), its columns permuted inside the
+// k8 block as the header says, so B must come from b_frags_col_tf32.
+__device__ __forceinline__ void c_as_a_tf32(const float (&c)[4],
+                                            uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
+    split_tf32(c[0], hi[0], lo[0]);
+    split_tf32(c[2], hi[1], lo[1]);
+    split_tf32(c[1], hi[2], lo[2]);
+    split_tf32(c[3], hi[3], lo[3]);
 }
 
 // two fp32 values rounded to nearest even into one bf16 pair, `lo` in the

@@ -38,9 +38,12 @@ every accumulator are fp32, and P (forward), P dropped and dS (backward)
 are rounded to the input dtype just before the products that take them,
 where the reference casts them (``flash_attention.py:154, :254, :316,
 :319``). The plain versions round at the same points; at fp32 the rounding
-is the identity. The fp32 forward kernel computes its two products as
-3xTF32 on the tensor cores (``csrc/flash_attention.cu``), within ~2^-21
-of each fp32 product; its plain version is still ``_attn_reference``.
+is the identity. The fp32 kernels compute every product as 3xTF32 on the
+tensor cores (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``),
+within ~2^-21 of each fp32 product; their plain versions are still
+``_attn_reference``, ``_dq_reference`` and ``_dkv_reference``. Every
+kernel rounds its scores as ``_scores`` does (``dot * scale``, then ``+
+bias``) and runs the softmax in natural units.
 """
 import math
 
