@@ -20,6 +20,10 @@ Phases, each printing one JSON line:
    dK/dV each at most SDPA's whole fp32 backward; a causal case whose
    first keys all carry BERT's bf16 key bias (-9984), at fp32 and bf16;
    the Philox dropout mask bit for bit against ``kernels/philox.py``;
+   add+LayerNorm on both of its routes (``ADD_LN_CASES``); the mask
+   gradient bit for bit against its plain version on its vector path, a
+   ragged tail and its scalar path (``dmask_bit_exact``), at most the
+   multiply by a stored mask;
 4. kernels bf16 — the same six kernels at bf16 on the bf16 train step's
    inputs (attention at (8, 16, 512, 64) as transpose(1, 2) views, p = 0.1;
    the norms at (4096, 1024) and (608, 1024); add+LayerNorm with 4
@@ -28,7 +32,9 @@ Phases, each printing one JSON line:
    bf16 tensor-core peak; L = 300 with D = 40 and a -inf batch row, and
    D = 128 causal; each wrapper called under an op log that sees no copy
    and no cast; the bf16 kernel's mask bit for bit as the fp32 kernel's;
-   the speed limits of the three tensor-core kernels against SDPA; then
+   the speed limits of the three tensor-core kernels against SDPA, of
+   add+LayerNorm against x + res then ``native_layer_norm`` and of the
+   mask gradient against a stored mask; then
    ``attention_mask_probe``: the attention dropout mask read back bit for
    bit through the forward, dQ and dK/dV at fp32 and bf16;
 5. rms    — ``nn.RMSNorm`` forward and backward (autograd) at fp32 and
@@ -42,7 +48,8 @@ Phases, each printing one JSON line:
    request through the worker thread; the kernel launch counts of this
    run must be exactly 1 LayerNorm, 48 add+LayerNorm and 24 flash
    attention launches per batch;
-8. profile — device time by kernel over one more bucket-16 batch;
+8. profile — device time by kernel over one more bucket-16 batch; every
+   add+LayerNorm call on the register path (``SERVE_ROUTES``);
 9. train parity — a full-width, 2-layer ``BertForPretraining``, batch 2 x
    512: loss and every gradient, GPU against CPU at p = 0, and kernel
    path against plain path on the GPU at p = 0.1 with the same seeds; the
@@ -51,7 +58,9 @@ Phases, each printing one JSON line:
    ``engine.build_train_step`` with AdamW: 2 warm-up and 18 timed steps on
    one batch; per step exactly 24 flash forward, 24 dQ, 24 dK/dV, 48
    add+LayerNorm, 48 mask-gradient and 2 LayerNorm launches; every loss
-   finite and the 20th below the 1st; then one profiled step;
+   finite and the 20th below the 1st; then one profiled step, every
+   add+LayerNorm and mask-gradient call on its fast route
+   (``TRAIN_ROUTES``);
 11. train parity bf16 — phase 9's model and batch under the reference's
    bf16 recipe (``bf16_recipe``, ``bench.py::bench_bert``): at p = 0
    against the fp32 step on the same weights, at p = 0.1 against the
@@ -124,15 +133,30 @@ def bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
 
 def closeness(row):
     """A row's time against its work: ``share_of_bound`` (bound ms over
-    kernel ms) and the achieved rates; ``_p0`` beside them for an
-    attention row's p = 0 time."""
+    kernel ms) and the achieved rates; ``_p0`` and ``_p0.1`` beside them
+    for a row's (or a nested case's) p = 0 and p = 0.1 times."""
     out = {}
-    for suffix, ms in (('', row.get('ms')), ('_p0', row.get('ms_p0'))):
+    for suffix in ('', '_p0', '_p0.1'):
+        ms = row.get(f'ms{suffix}')
         if ms:
             out[f'share_of_bound{suffix}'] = row['bound_ms'] / ms
             out[f'achieved_tflops{suffix}'] = row['flops'] / ms / 1e9
             out[f'achieved_tb_per_s{suffix}'] = row['bytes'] / ms / 1e9
+            if row.get('copy_ms'):
+                out[f'copy_share{suffix}'] = row['copy_ms'] / ms
     return out
+
+
+def copy_ms(nbytes, flush):
+    """Median ms of a device-to-device copy that moves ``nbytes`` in all,
+    half read and half written, timed as ``time_ms`` times a kernel: what
+    moving as many bytes takes with no arithmetic at all, a yardstick for
+    the norm and mask kernels. At 16-100 MB it sits well above the byte
+    bound (a few microseconds of each interval do not shrink with the
+    bytes). ``copy_share`` is it over kernel ms."""
+    src = torch.empty(int(nbytes) // 8, dtype=torch.float32, device='cuda')
+    dst = torch.empty_like(src)
+    return time_ms(lambda: dst.copy_(src), flush)
 
 
 def time_ms(fn, flush):
@@ -387,8 +411,10 @@ def phase_kernels(seed, flush):
         'plain_ms': time_ms(
             lambda: fused_dropout_norm.fused_dropout_add_layer_norm_plain(
                 x, res, w, b), flush),
-        'library_ms': None,        # no single PyTorch call adds and norms
-        **work, 'shape': [N, E]}
+        'library_ms': time_ms(lambda: torch.nn.functional.layer_norm(
+            x + res, (E,), w, b, 1e-5), flush),
+        'library': 'x + res, then F.layer_norm (two calls, one interval)',
+        'copy_ms': copy_ms(work['bytes'], flush), **work, 'shape': [N, E]}
     # the rows are printed once the train step's shapes are in them
     phase_train_kernels(randn, gen, flush, rows)
     return rows
@@ -578,6 +604,46 @@ def _attention_ms(fa, q, k, v, do, bias, p, seed, flush):
                            flush)}
 
 
+# add+LayerNorm against its plain version, (rows, width, p), at fp32 and
+# bf16, y, yin, mean and rstd out. The kernel takes a route by the width
+# (csrc/fused_dropout_norm.cu, dispatch_add_ln): the register path for
+# widths of whole 16-byte chunks up to 1024 -- the train shape at p = 0.1
+# and 0, BERT-base's 768 (3 chunks a lane at bf16, 6 at fp32) on a row
+# count that is not a multiple of a block's 4 rows, and 1000 (lanes past
+# the width masked) -- and the block path for the others: 1023 columns (not
+# a whole chunk) and 8192 (too wide; at bf16 the dropout sum parked in
+# shared memory)
+ADD_LN_CASES = ((TRAIN_BATCH * SEQ, 1024, 0.1), (TRAIN_BATCH * SEQ, 1024, 0.0),
+                (4099, 768, 0.1), (300, 1000, 0.1), (37, 1023, 0.25),
+                (16, 8192, 0.1))
+ADD_LN_LIBRARY = ('x + res, then torch.native_layer_norm (y, mean, rstd): '
+                  'two calls, one interval, p = 0')
+
+
+def dmask_bit_exact(fdn, g, randn, p, seed):
+    """The mask gradient bit for bit against its plain version on ``g``
+    flat (the vector path), on n = 37 * 1023 (the vector path and the
+    elements past its last 16-byte pack) and on a view that starts one
+    element into its storage (the scalar path) -> {case: elements}."""
+    from paddle_tpu_torch import kernels
+    flat = g.reshape(-1)
+    cases = {'flat': flat, 'ragged 37 * 1023': randn(37 * 1023),
+             'one element into its storage': randn(flat.numel() + 1)[1:]}
+    out = {}
+    for name, gc in cases.items():
+        got = fdn.dropout_grad(gc, p, seed, 9)
+        with kernels.plain_versions():
+            want = fdn.dropout_grad(gc, p, seed, 9)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"mask gradient {gc.dtype} ({name}): "
+                f"{int((got != want).sum())} elements differ from the plain "
+                f"version")
+        out[name] = gc.numel()
+    return out
+
+
 def phase_train_kernels(randn, gen, flush, rows):
     """The kernels the train step adds (dQ, dK/dV, the dropout-mask
     gradient) and the dropout branches of the two forward kernels, at the
@@ -758,7 +824,7 @@ def phase_train_kernels(randn, gen, flush, rows):
         + [r['max_abs_err'] for r in ln_train.values()])
     emit_kernel('layer_norm_fwd', rows)
     ln_errs = {}
-    for n_, e_, p in ((N, E, P), (N, E, 0.0), (37, 1023, 0.25)):
+    for n_, e_, p in ADD_LN_CASES:
         xs, rs_ = randn(n_, e_), randn(n_, e_)
         ws, bs = randn(e_), randn(e_)
         out = fdn._forward(xs, rs_, ws, bs, p, 1e-5, SEED, 5, True)
@@ -776,11 +842,17 @@ def phase_train_kernels(randn, gen, flush, rows):
             x, res, w, b, P, 1e-5, SEED, 5, True), flush)
     # training writes yin, mean and rstd too
     work = bound(9.0 * N * E, 4.0 * (4 * N * E + 2 * E + 2 * N))
-    rows['add_layer_norm_fwd'].update({
-        'train': {'shape': [N, E], 'outputs': 'y, yin, mean, rstd',
-                  'ms_p0': train_ms[0.0], 'ms_p0.1': train_ms[P],
-                  'plain_ms_p0.1': train_plain, **work,
-                  'max_abs_err': ln_errs}})
+    train = {'shape': [N, E], 'outputs': 'y, yin, mean, rstd',
+             'ms_p0': train_ms[0.0], 'ms_p0.1': train_ms[P],
+             'plain_ms_p0.1': train_plain,
+             'library_ms_p0': time_ms(lambda: torch.native_layer_norm(
+                 x + res, (E,), w, b, 1e-5), flush),
+             'library': ADD_LN_LIBRARY,
+             'copy_ms': copy_ms(work['bytes'], flush),
+             **work, 'max_abs_err': ln_errs}
+    train.update(closeness(train))
+    train['p0_over_library'] = train['ms_p0'] / train['library_ms_p0']
+    rows['add_layer_norm_fwd']['train'] = train
     emit_kernel('add_layer_norm_fwd', rows)
 
     dx = fdn.dropout_grad(g, P, SEED, 5)
@@ -788,6 +860,7 @@ def phase_train_kernels(randn, gen, flush, rows):
         rdx = fdn.dropout_grad(g, P, SEED, 5)
     err = max_err(dx, rdx)
     check('dropout mask gradient', err, TOL)
+    cases = dmask_bit_exact(fdn, g, randn, P, SEED)
     stored = philox.keep_scale(g.shape, P, SEED, 5, dev)
     with kernels.plain_versions():
         grad_plain = time_ms(lambda: fdn.dropout_grad(g, P, SEED, 5), flush)
@@ -798,9 +871,13 @@ def phase_train_kernels(randn, gen, flush, rows):
         'plain_ms': grad_plain,
         'library_ms': time_ms(lambda: g * stored, flush),
         'library': 'multiply by a stored (N, D) fp32 mask',
-        **work, 'shape': [N, E]}
+        'copy_ms': copy_ms(work['bytes'], flush), **work, 'shape': [N, E],
+        'bit_exact_cases': cases}
     emit_kernel('dropout_grad', rows, mask_bit_exact=True,
                 keep_rate=keep_rate)
+    grad = rows['dropout_grad']
+    check_speed('mask_gradient_speed_fp32', {
+        'dmask_fp32_over_stored_mask': grad['ms'] / grad['library_ms']})
 
 
 def _requests(rs, n, vocab):
@@ -929,16 +1006,30 @@ def phase_serve(seed, card):
           'batch_latency_ms': lat, 'launches': counts,
           'repeat_drift': drift})
     futs = [ep.submit(r) for r in reqs[:16]]
-    phase_profile('serve', eng.run_until_idle, bucket=16)
+    phase_profile('serve', eng.run_until_idle, SERVE_ROUTES, bucket=16)
     for f in futs:
         f.result(timeout=600)
     return counts
 
 
-def phase_profile(what, run, top_n=12, **extra):
+# Calls a profiled batch or step must show, by a word of the kernels' CUDA
+# names (csrc/fused_dropout_norm.cu): each of the 48 add+LayerNorm launches
+# on the register path (add_layer_norm_warp_kernel), none on the block path
+# (add_layer_norm_fwd_kernel, dropout_add_layer_norm_fwd_kernel); in
+# training also each of the 48 mask gradients on the vector kernel and none
+# on the scalar one
+SERVE_ROUTES = {'add_layer_norm_warp_kernel': 48,
+                'add_layer_norm_fwd_kernel': 0}
+TRAIN_ROUTES = {**SERVE_ROUTES, 'dropout_grad_vec_kernel': 48,
+                'dropout_grad_kernel': 0}
+
+
+def phase_profile(what, run, routes, top_n=12, **extra):
     """Device time by kernel over one call of ``run`` — one bucket-16
     batch, one train step — (torch.profiler's device-side events: kernels
-    and copies), and the device's idle share of that call's wall time."""
+    and copies), and the device's idle share of that call's wall time.
+    Raises unless, over every kernel name, the calls whose names hold a
+    word of ``routes`` number what it says."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -969,7 +1060,10 @@ def phase_profile(what, run, top_n=12, **extra):
         group = _kernel_group(name)
         g_ms, g_n = groups.get(group, (0.0, 0))
         groups[group] = (g_ms + ms, g_n + n)
+    calls = {word: sum(n for name, (_, n) in by_name.items() if word in name)
+             for word in routes}
     emit({'phase': 'profile', 'of': what, **extra, 'wall_ms': wall_ms,
+          'route_calls': calls,
           'device_busy_ms': busy_us / 1e3,
           'device_idle_share': (1.0 - busy_us / 1e3 / wall_ms
                                 if spans else None),
@@ -978,6 +1072,9 @@ def phase_profile(what, run, top_n=12, **extra):
                      sorted(groups.items(), key=lambda kv: -kv[1][0])},
           'top': [{'ms': ms, 'calls': n, 'name': name[:90]}
                   for name, (ms, n) in top]})
+    if calls != routes:
+        raise AssertionError(f"profile of {what}: kernel calls {calls}, "
+                             f"expected {routes}")
 
 
 # the port's kernels by their CUDA function names; the rest by the words
@@ -989,8 +1086,10 @@ _GROUPS = (('attention kernels', ('flash_fwd_tf32_kernel',
                                   'flash_dq_mma_kernel',
                                   'flash_dkv_mma_kernel')),
            ('norm and mask kernels', ('layer_norm_fwd_kernel',
+                                      'add_layer_norm_warp_kernel',
                                       'rms_norm_fwd_kernel',
-                                      'dropout_grad_kernel')),
+                                      'dropout_grad_kernel',
+                                      'dropout_grad_vec_kernel')),
            ('matrix products', ('gemm', 'xmma', 'cutlass', 'nvjet',
                                 'sgemm', 'splitk')),
            ('AdamW (multi_tensor_apply)', ('multi_tensor_apply',)),
@@ -1185,8 +1284,8 @@ def phase_train(seed, card, bf16=False):
           'max_memory_allocated_bytes': peak, 'losses': losses,
           'launches_per_step': TRAIN_LAUNCHES, 'launches': totals})
     phase_profile('train step bf16' if bf16 else 'train step',
-                  lambda: step(state, batch), top_n=20 if bf16 else 16,
-                  batch=[TRAIN_BATCH, SEQ])
+                  lambda: step(state, batch), TRAIN_ROUTES,
+                  top_n=20 if bf16 else 16, batch=[TRAIN_BATCH, SEQ])
     if bf16:
         copy_accounting(step, state, batch)
     return totals
@@ -1219,10 +1318,16 @@ BF16_GRAD_MEAN = 0.03
 # twice SDPA's forward, dK/dV and dQ each at most SDPA's whole backward (dQ,
 # dK, dV); the fp32 forward at most SDPA's fp32 forward, at the fp32 train
 # shape and at the serving shape with its key bias; the fp32 dQ and dK/dV
-# each at most SDPA's whole fp32 backward at the fp32 train shape
+# each at most SDPA's whole fp32 backward at the fp32 train shape. The mask
+# gradient at the train shape, bf16 and fp32, at most the multiply by a
+# stored mask of its dtype; the bf16 add+LayerNorm at the train shape, p =
+# 0, four outputs, at most x + res then torch.native_layer_norm
 SPEED_LIMITS = {'fwd_over_sdpa_fwd': 2.0, 'dkv_over_sdpa_bwd': 1.0,
                 'dq_over_sdpa_bwd': 1.0, 'fwd_fp32_over_sdpa_fwd': 1.0,
-                'dq_fp32_over_sdpa_bwd': 1.0, 'dkv_fp32_over_sdpa_bwd': 1.0}
+                'dq_fp32_over_sdpa_bwd': 1.0, 'dkv_fp32_over_sdpa_bwd': 1.0,
+                'dmask_over_stored_mask': 1.0,
+                'dmask_fp32_over_stored_mask': 1.0,
+                'add_ln_over_add_native_ln': 1.0}
 COPY_OPS = ('aten._to_copy.default', 'aten.copy_.default',
             'aten.clone.default')
 # the functions that check tensors and launch a kernel: none may copy or
@@ -1446,7 +1551,7 @@ def phase_kernels_bf16(seed, flush):
             'plain_ms': ln_plain,
             'library_ms': time_ms(lambda: torch.native_layer_norm(
                 xs, (E,), w, b, 1e-12), flush),
-            **work}
+            'copy_ms': copy_ms(work['bytes'], flush), **work}
     first = ln[str((TRAIN_BATCH, SEQ, E))]
     rows['layer_norm_fwd'] = {
         **first, 'library': 'torch.native_layer_norm (bf16, fp32 stats)',
@@ -1460,7 +1565,7 @@ def phase_kernels_bf16(seed, flush):
     N = TRAIN_BATCH * SEQ
     x, res, g = randn(N, E), randn(N, E), randn(N, E)
     add_errs = {}
-    for n_, e_, p in ((N, E, P), (N, E, 0.0), (37, 1023, 0.25)):
+    for n_, e_, p in ADD_LN_CASES:
         xs, rs_ = (randn(n_, e_) for _ in range(2))
         ws, bs = randn(e_), randn(e_)
         out, ops = no_copies('add + layer norm', lambda: fdn._forward(
@@ -1488,12 +1593,17 @@ def phase_kernels_bf16(seed, flush):
     rows['add_layer_norm_fwd'] = {
         'max_abs_err': max(r['max_abs_err'] for r in add_errs.values()),
         'ms': add_ms[P], 'ms_p0': add_ms[0.0], 'plain_ms': add_plain,
-        'library_ms': None, 'library': 'none (no single call adds and norms)',
+        'library_ms': time_ms(lambda: torch.native_layer_norm(
+            x + res, (E,), w, b, 1e-5), flush),
+        'library': ADD_LN_LIBRARY, 'copy_ms': copy_ms(work['bytes'], flush),
         **work, 'shape': [N, E],
         'dtype': 'bfloat16', 'outputs': 'y, yin, mean, rstd',
         'errors': add_errs}
     emit_kernel('add_layer_norm_fwd', rows, tolerance=BF16_TOL,
                 phase='kernel_bf16')
+    add_ln = rows['add_layer_norm_fwd']
+    check_speed('add_layer_norm_speed_bf16', {
+        'add_ln_over_add_native_ln': add_ln['ms_p0'] / add_ln['library_ms']})
 
     dx, wrapper_ops['dropout_grad'] = no_copies(
         'dropout mask gradient', lambda: fdn.dropout_grad(g, P, SEED, 5))
@@ -1503,6 +1613,7 @@ def phase_kernels_bf16(seed, flush):
     if not torch.equal(dx, rdx):      # one product, rounded once, both
         raise AssertionError("bf16 dropout mask gradient differs from its "
                              "plain version")
+    cases = dmask_bit_exact(fdn, g, randn, P, SEED)
     stored = philox.keep_scale(g.shape, P, SEED, 5, dev).to(BF16)
     with kernels.plain_versions():
         grad_plain = time_ms(lambda: fdn.dropout_grad(g, P, SEED, 5), flush)
@@ -1513,9 +1624,12 @@ def phase_kernels_bf16(seed, flush):
         'plain_ms': grad_plain,
         'library_ms': time_ms(lambda: g * stored, flush),
         'library': 'multiply by a stored (N, D) bf16 mask',
-        **work, 'shape': [N, E],
-        'dtype': 'bfloat16'}
+        'copy_ms': copy_ms(work['bytes'], flush), **work, 'shape': [N, E],
+        'dtype': 'bfloat16', 'bit_exact_cases': cases}
     emit_kernel('dropout_grad', rows, tolerance=0.0, phase='kernel_bf16')
+    grad = rows['dropout_grad']
+    check_speed('mask_gradient_speed_bf16', {
+        'dmask_over_stored_mask': grad['ms'] / grad['library_ms']})
     emit({'phase': 'wrappers_bf16', 'copies_or_casts': 0,
           'aten_ops': wrapper_ops})
     return rows
@@ -1608,7 +1722,7 @@ def phase_rms(seed, flush):
                         'library_ms': time_ms(
                             lambda: torch.nn.functional.rms_norm(
                                 xd, (d_,), wd, 1e-6), flush),
-                        **work}
+                        'copy_ms': copy_ms(work['bytes'], flush), **work}
         key = f'{str(dtype)[6:]} ({TRAIN_BATCH * SEQ}, 1024)'
         rows['fp32' if dtype == torch.float32 else 'bf16'] = {
             **timings[key],

@@ -1,7 +1,15 @@
-// Block-wide reductions shared by the row-normalisation kernels.
+// Warp- and block-wide reductions shared by the row-normalisation kernels.
 #pragma once
 
 #include <cuda_runtime.h>
+
+// Sum of `v` over the 32 lanes of a full warp, by an xor-shuffle tree
+// (offsets 16, 8, 4, 2, 1); every lane gets the same total.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
 
 // Sum of `v` over every thread of the block; each thread gets the total.
 // blockDim.x must be a multiple of 32 (full-warp shuffles). `scratch` is
@@ -10,14 +18,11 @@
 __device__ __forceinline__ float block_sum(float v, float* scratch) {
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    v = warp_sum(v);
     if (lane == 0) scratch[warp] = v;
     __syncthreads();
     const int n_warps = blockDim.x >> 5;
-    float t = lane < n_warps ? scratch[lane] : 0.f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+    const float t = warp_sum(lane < n_warps ? scratch[lane] : 0.f);
     __syncthreads();
     return t;
 }

@@ -17,18 +17,53 @@
 // once and writes y (and yin, mean, rstd in training): 6-8 bytes an
 // element in bf16, 12-16 in fp32, against ~9 flops plus a quarter of a
 // Philox call (~25 integer operations); the gradient reads and writes 4
-// bytes an element in bf16, 8 in fp32.
+// bytes an element in bf16, 8 in fp32. At the sizes training gives them
+// (16-100 MB moved) a device-to-device copy of as many bytes takes about
+// as long as either kernel, well above the byte bound: chip_smoke.py times
+// one beside each (copy_ms).
 //
-// Design: one thread block per row as in fused_norm.cu, each thread taking
-// 16 bytes a step (4 fp32 or 8 bf16 columns) when the width and pointers
-// allow, else 4 columns one by one. Without dropout the sum is formed again
-// in each of the three passes (mean, centred variance, output) instead of
-// stored, so serving writes one (N, D) array. With dropout one Philox call
-// (four words) serves four neighbouring columns; the fp32 sum is parked
-// once, so the generator runs once an element: in yin itself at fp32, in
-// dynamic shared memory (4 bytes a column) at bf16, where yin holds only
-// the rounded sum. The gradient kernel is flat over N * D: one thread, one
-// Philox call, four elements, one vector access when the pointers allow.
+// Design. The add+LayerNorm forward has two routes, chosen in C from the
+// width, the dtype and the pointers (dispatch_add_ln), never by the
+// caller:
+//
+// - the register path (add_layer_norm_warp_kernel), for rows whose width
+//   is a multiple of 16 bytes' worth of columns (G = 8 bf16, 4 fp32), at
+//   most kWarpRowColumns wide, with every pointer 16-byte aligned: the
+//   widths BERT uses (768, 1024). One warp a row, four rows a block. A
+//   lane holds K 16-byte chunks of x and of the residual (K = 1..4 bf16,
+//   1..8 fp32, a compile-time count), at columns (k * 32 + lane) * G, so
+//   each warp-wide access reads 512 contiguous bytes; all of a row's loads
+//   go out in one burst before the first arithmetic. With dropout the
+//   lane's keep bits (K * G <= 32, one word) come next, while the loads
+//   are in flight: one Philox call (four words) serves four neighbouring
+//   columns, and a chunk starts at a multiple of G, so no group of four
+//   straddles two chunks. The fp32 sum stays in registers, the mean and
+//   the centred variance are two passes over them, each reduced by xor
+//   shuffles: no shared memory, no barrier, and x and the residual are
+//   read once. yin is stored right after the sum, y in one pass with w and
+//   b read a chunk at a time (they stay in L2 across rows). 5-6 blocks of
+//   four warps an SM (warp_row_min_blocks): at 8, ptxas spills the bf16
+//   row of 1024 columns.
+// - the block path (add_layer_norm_fwd_kernel and, with dropout,
+//   dropout_add_layer_norm_fwd_kernel) for every other width: one thread
+//   block a row, each thread taking 16 bytes a step (4 fp32 or 8 bf16
+//   columns) when the width and pointers allow, else 4 columns one by one.
+//   Without dropout the sum is formed again in each of the three passes
+//   (mean, centred variance, output) instead of stored, so serving writes
+//   one (N, D) array. With dropout the fp32 sum is parked once, so the
+//   generator runs once an element: in yin itself at fp32, in dynamic
+//   shared memory (4 bytes a column) at bf16, where yin holds only the
+//   rounded sum.
+//
+// The mask gradient is flat over N * D. Where g and out are 16-byte
+// aligned (dropout_grad_vec_kernel) a thread loads kGradPacks 16-byte packs
+// (G elements each) before its first Philox call, so that the ten rounds
+// overlap the loads' latency; the grid is one wave (the SM count times the
+// blocks an SM holds at ptxas's register count) that strides over the
+// tensor; the n % G elements past the last pack go one a thread in the
+// same kernel. Otherwise (dropout_grad_kernel) a thread takes four
+// elements one by one. The register path and the vector mask gradient
+// take the Philox key schedule computed on the host (DropoutKeys).
 #include <cstdint>
 #include <type_traits>
 
@@ -37,6 +72,144 @@
 #include "philox.cuh"
 
 namespace {
+
+// the register path: rows (warps) a block, and the widest row it takes
+constexpr int kRowWarps = 4;
+constexpr int kWarpRowColumns = 1024;
+
+// 16-byte chunks of x (and of the residual) a lane holds on the register
+// path, at most: 4 bf16, 8 fp32
+template <typename T>
+constexpr int max_row_chunks() {
+    return kWarpRowColumns / (32 * (16 / static_cast<int>(sizeof(T))));
+}
+
+// Blocks of 32 * kRowWarps threads an SM should hold at K chunks a lane:
+// 6 (at most 80 registers a thread) while a lane's raw chunks of x and the
+// residual fit in 32 registers (bf16, and fp32 up to 512 columns), else 5
+// (at most 96). ptxas spills at 8 blocks (64 registers) for bf16 at 1024
+// columns, and at 6 for fp32 at 1024 columns with dropout.
+template <int K>
+constexpr int warp_row_min_blocks() {
+    return 2 * K * 16 / 4 <= 32 ? 6 : 5;
+}
+
+// y = LayerNorm(res + dropout(x)) for row blockIdx.x * kRowWarps + warp,
+// whole in registers; K 16-byte chunks a lane (see the note at the top).
+// kDrop: dropout on (drop used), else drop is ignored. yin, mean_out and
+// rstd_out may be null.
+template <typename T, int K, bool kDrop>
+__global__ void __launch_bounds__(32 * kRowWarps,
+                                  (warp_row_min_blocks<K>()))
+add_layer_norm_warp_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                           const T* __restrict__ w, const T* __restrict__ b,
+                           T* __restrict__ y, T* __restrict__ yin,
+                           float* __restrict__ mean_out,
+                           float* __restrict__ rstd_out, int64_t n,
+                           int64_t d, float eps, DropoutKeys drop) {
+    constexpr int G = 16 / static_cast<int>(sizeof(T));
+    static_assert(K * G <= 32, "a lane's keep bits fit in one word");
+    using Chunk = Pack<T, G>;
+    const int lane = threadIdx.x & 31;
+    const int64_t row =
+        static_cast<int64_t>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
+    if (row >= n) return;                     // a whole warp leaves
+    const int chunks = static_cast<int>(d / G);
+    const int64_t at = row * (d / G);          // the row's first chunk
+
+    Chunk xc[K], rc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        const int c = k * 32 + lane;
+        if (c < chunks) {
+            xc[k] = reinterpret_cast<const Chunk*>(x)[at + c];
+            rc[k] = reinterpret_cast<const Chunk*>(res)[at + c];
+        }
+    }
+
+    // the row's keep bits first, while its loads are in flight: bit
+    // k * G + e for column (k * 32 + lane) * G + e (K * G <= 32)
+    uint32_t keep = 0;
+    if constexpr (kDrop) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int c = k * 32 + lane;
+            if (c >= chunks) continue;
+            const uint64_t base4 = static_cast<uint64_t>(at + c) * (G / 4);
+#pragma unroll
+            for (int j = 0; j < G / 4; ++j) {
+                const PhiloxWords r =
+                    philox4x32_10(drop.keys, drop.offset, base4 + j);
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    keep |= static_cast<uint32_t>(r.w[q] >= drop.threshold)
+                            << (k * G + 4 * j + q);
+            }
+        }
+    }
+
+    float v[K][G];
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        const int c = k * 32 + lane;
+        if (c >= chunks) continue;
+        // with dropout x * ks is rounded, then added: the reference's two
+        // roundings, not one fused multiply-add
+#pragma unroll
+        for (int e = 0; e < G; ++e) {
+            if constexpr (kDrop)
+                v[k][e] = to_f32(rc[k].v[e]) +
+                          __fmul_rn(to_f32(xc[k].v[e]),
+                                    (keep >> (k * G + e)) & 1u ? drop.scale
+                                                               : 0.f);
+            else
+                v[k][e] = to_f32(rc[k].v[e]) + to_f32(xc[k].v[e]);
+        }
+#pragma unroll
+        for (int e = 0; e < G; ++e) s += v[k][e];
+        if (yin != nullptr) {
+            Chunk o;
+#pragma unroll
+            for (int e = 0; e < G; ++e) o.v[e] = from_f32<T>(v[k][e]);
+            reinterpret_cast<Chunk*>(yin)[at + c] = o;
+        }
+    }
+    const float mean = warp_sum(s) / static_cast<float>(d);
+
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        if (k * 32 + lane >= chunks) continue;
+#pragma unroll
+        for (int e = 0; e < G; ++e) {
+            const float c = v[k][e] - mean;
+            ss += c * c;
+        }
+    }
+    const float rstd = rsqrtf(warp_sum(ss) / static_cast<float>(d) + eps);
+
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        const int c = k * 32 + lane;
+        if (c >= chunks) continue;
+        Chunk wc, bc, o;
+        if (w != nullptr) wc = reinterpret_cast<const Chunk*>(w)[c];
+        if (b != nullptr) bc = reinterpret_cast<const Chunk*>(b)[c];
+#pragma unroll
+        for (int e = 0; e < G; ++e) {
+            float u = (v[k][e] - mean) * rstd;
+            if (w != nullptr) u *= to_f32(wc.v[e]);
+            if (b != nullptr) u += to_f32(bc.v[e]);
+            o.v[e] = from_f32<T>(u);
+        }
+        reinterpret_cast<Chunk*>(y)[at + c] = o;
+    }
+    if (lane == 0) {
+        if (mean_out != nullptr) mean_out[row] = mean;
+        if (rstd_out != nullptr) rstd_out[row] = rstd;
+    }
+}
 
 template <typename T, bool kVec>
 __global__ void add_layer_norm_fwd_kernel(const T* __restrict__ x,
@@ -190,11 +363,69 @@ __global__ void dropout_add_layer_norm_fwd_kernel(
 }
 
 constexpr int kGradThreads = 256;
+// 16-byte packs a thread of dropout_grad_vec_kernel loads before its first
+// Philox call
+constexpr int kGradPacks = 2;
 
-// out[i] = g[i] * keep(i) / (1 - p) over n elements; thread t owns elements
-// 4t .. 4t + 3, which share one Philox call. The product is fp32, rounded
-// once to T on the store.
-template <typename T, bool kVec>
+// out[i] = g[i] * keep(i) / (1 - p) over n elements, g and out 16-byte
+// aligned. Pack p holds elements G p .. G p + G - 1, which take G / 4
+// Philox calls (groups G / 4 p ..). A block's tile is kGradPacks *
+// kGradThreads packs, thread t taking packs t, t + kGradThreads, ... of it,
+// so that each warp-wide access reads 512 contiguous bytes; the grid
+// strides over the tiles. Block 0 then takes the n % G elements past the
+// last pack, one a thread. The product is fp32, rounded once to T.
+template <typename T>
+__global__ void __launch_bounds__(kGradThreads)
+dropout_grad_vec_kernel(const T* __restrict__ g, T* __restrict__ out,
+                        int64_t n, DropoutKeys drop) {
+    constexpr int G = 16 / static_cast<int>(sizeof(T));
+    using P = Pack<T, G>;
+    const int64_t packs = n / G;
+    constexpr int64_t kTile = static_cast<int64_t>(kGradPacks) * kGradThreads;
+    for (int64_t t0 = blockIdx.x * kTile; t0 < packs;
+         t0 += static_cast<int64_t>(gridDim.x) * kTile) {
+        P v[kGradPacks];
+#pragma unroll
+        for (int q = 0; q < kGradPacks; ++q) {
+            const int64_t pk = t0 + q * kGradThreads + threadIdx.x;
+            if (pk < packs) v[q] = reinterpret_cast<const P*>(g)[pk];
+        }
+#pragma unroll
+        for (int q = 0; q < kGradPacks; ++q) {
+            const int64_t pk = t0 + q * kGradThreads + threadIdx.x;
+            if (pk >= packs) continue;
+            P o;
+#pragma unroll
+            for (int j = 0; j < G / 4; ++j) {
+                const PhiloxWords r = philox4x32_10(
+                    drop.keys, drop.offset,
+                    static_cast<uint64_t>(pk) * (G / 4) + j);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float ks =
+                        r.w[e] >= drop.threshold ? drop.scale : 0.f;
+                    o.v[4 * j + e] = from_f32<T>(to_f32(v[q].v[4 * j + e]) *
+                                                 ks);
+                }
+            }
+            reinterpret_cast<P*>(out)[pk] = o;
+        }
+    }
+    const int64_t i = packs * G + threadIdx.x;
+    if (blockIdx.x == 0 && i < n) {
+        const PhiloxWords r = philox4x32_10(drop.keys, drop.offset,
+                                            static_cast<uint64_t>(i) >> 2);
+        const float ks =
+            philox_word(r, static_cast<uint32_t>(i) & 3u) >= drop.threshold
+                ? drop.scale : 0.f;
+        out[i] = from_f32<T>(to_f32(g[i]) * ks);
+    }
+}
+
+// The same product where g or out is not 16-byte aligned: thread t owns
+// elements 4t .. 4t + 3, which share one Philox call, read and written one
+// by one.
+template <typename T>
 __global__ void __launch_bounds__(kGradThreads)
 dropout_grad_kernel(const T* __restrict__ g, T* __restrict__ out, int64_t n,
                     DropoutArgs drop) {
@@ -204,23 +435,39 @@ dropout_grad_kernel(const T* __restrict__ g, T* __restrict__ out, int64_t n,
     if (i0 >= n) return;
     const PhiloxWords r = philox4x32_10(drop.seed, drop.offset,
                                         static_cast<uint64_t>(group));
-    float ks[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-        ks[e] = r.w[e] >= drop.threshold ? drop.scale : 0.f;
-    if (kVec && i0 + 3 < n) {
-        const Pack<T, 4> v = reinterpret_cast<const Pack<T, 4>*>(g)[group];
-        Pack<T, 4> o;
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-            o.v[e] = from_f32<T>(to_f32(v.v[e]) * ks[e]);
-        reinterpret_cast<Pack<T, 4>*>(out)[group] = o;
-    } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-            if (i0 + e < n)
-                out[i0 + e] = from_f32<T>(to_f32(g[i0 + e]) * ks[e]);
+        if (i0 + e < n) {
+            const float ks = r.w[e] >= drop.threshold ? drop.scale : 0.f;
+            out[i0 + e] = from_f32<T>(to_f32(g[i0 + e]) * ks);
+        }
+}
+
+// The blocks of `kernel` (`threads` threads, no dynamic shared memory)
+// that the current device holds at once -> *blocks: its SM count times the
+// blocks an SM takes at the kernel's register count, cached by device in
+// `cache` (0: not asked yet).
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t one_wave(Kernel kernel, int threads, int (&cache)[kMaxDevices],
+                     int* blocks) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < kMaxDevices && cache[dev] > 0) {
+        *blocks = cache[dev];
+        return cudaSuccess;
     }
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, 0);
+    if (e != cudaSuccess) return e;
+    *blocks = sms * per_sm > 0 ? sms * per_sm : 1;
+    if (dev < kMaxDevices) cache[dev] = *blocks;
+    return cudaSuccess;
 }
 
 // shared memory a bf16 dropout row parks its fp32 sum in; above 48 KB a
@@ -269,35 +516,94 @@ int launch_add_ln(const void* x, const void* res, const void* w,
     return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int K>
+int launch_warp_rows(const void* x, const void* res, const void* w,
+                     const void* b, void* y, void* yin, void* mean,
+                     void* rstd, int64_t n, int64_t d, float eps,
+                     const DropoutArgs& drop, cudaStream_t st) {
+    const auto grid = static_cast<unsigned>((n + kRowWarps - 1) / kRowWarps);
+    const auto xp = static_cast<const T*>(x);
+    const auto rp = static_cast<const T*>(res);
+    const auto wp = static_cast<const T*>(w);
+    const auto bp = static_cast<const T*>(b);
+    const auto yp = static_cast<T*>(y);
+    const auto sp = static_cast<T*>(yin);
+    const auto mp = static_cast<float*>(mean);
+    const auto rsp = static_cast<float*>(rstd);
+    if (drop.scale != 1.f)
+        add_layer_norm_warp_kernel<T, K, true><<<grid, 32 * kRowWarps, 0,
+                                                 st>>>(
+            xp, rp, wp, bp, yp, sp, mp, rsp, n, d, eps, dropout_keys(drop));
+    else
+        add_layer_norm_warp_kernel<T, K, false><<<grid, 32 * kRowWarps, 0,
+                                                  st>>>(
+            xp, rp, wp, bp, yp, sp, mp, rsp, n, d, eps, DropoutKeys{});
+    return static_cast<int>(cudaGetLastError());
+}
+
+// the register path at k chunks a lane: the instantiation K == k
+template <typename T, int K = 1>
+int dispatch_warp_rows(int k, const void* x, const void* res, const void* w,
+                       const void* b, void* y, void* yin, void* mean,
+                       void* rstd, int64_t n, int64_t d, float eps,
+                       const DropoutArgs& drop, cudaStream_t st) {
+    if (k == K)
+        return launch_warp_rows<T, K>(x, res, w, b, y, yin, mean, rstd, n, d,
+                                      eps, drop, st);
+    if constexpr (K < max_row_chunks<T>())
+        return dispatch_warp_rows<T, K + 1>(k, x, res, w, b, y, yin, mean,
+                                            rstd, n, d, eps, drop, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The route: the register path where the width is a whole number of
+// 16-byte chunks, at most kWarpRowColumns, and every pointer is 16-byte
+// aligned; else the block path, with 16-byte accesses where the width and
+// pointers allow them.
 template <typename T>
 int dispatch_add_ln(const void* x, const void* res, const void* w,
                     const void* b, void* y, void* yin, void* mean,
                     void* rstd, int64_t n, int64_t d, float eps,
                     const DropoutArgs& drop, cudaStream_t st) {
-    return rows_vectorise<T>(d, {x, res, w, b, y, yin})
-               ? launch_add_ln<T, true>(x, res, w, b, y, yin, mean, rstd, n,
-                                        d, eps, drop, st)
-               : launch_add_ln<T, false>(x, res, w, b, y, yin, mean, rstd, n,
-                                         d, eps, drop, st);
+    constexpr int G = 16 / static_cast<int>(sizeof(T));
+    if (!rows_vectorise<T>(d, {x, res, w, b, y, yin}))
+        return launch_add_ln<T, false>(x, res, w, b, y, yin, mean, rstd, n,
+                                       d, eps, drop, st);
+    if (d <= kWarpRowColumns)
+        return dispatch_warp_rows<T>(static_cast<int>((d / G + 31) / 32), x,
+                                     res, w, b, y, yin, mean, rstd, n, d,
+                                     eps, drop, st);
+    return launch_add_ln<T, true>(x, res, w, b, y, yin, mean, rstd, n, d,
+                                  eps, drop, st);
 }
 
 template <typename T>
 int launch_grad(const void* g, void* out, int64_t n, const DropoutArgs& drop,
                 cudaStream_t st) {
-    const int64_t groups = (n + 3) / 4;
-    const auto grid =
-        static_cast<unsigned>((groups + kGradThreads - 1) / kGradThreads);
-    const size_t align = 4 * sizeof(T);
-    const bool vec = reinterpret_cast<uintptr_t>(g) % align == 0 &&
-                     reinterpret_cast<uintptr_t>(out) % align == 0;
     const auto gp = static_cast<const T*>(g);
     const auto op = static_cast<T*>(out);
-    if (vec)
-        dropout_grad_kernel<T, true><<<grid, kGradThreads, 0, st>>>(gp, op, n,
-                                                                    drop);
-    else
-        dropout_grad_kernel<T, false><<<grid, kGradThreads, 0, st>>>(gp, op, n,
-                                                                     drop);
+    if (reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+        constexpr int64_t G = 16 / static_cast<int64_t>(sizeof(T));
+        constexpr int64_t kTile = static_cast<int64_t>(kGradPacks) *
+                                  kGradThreads;
+        static int wave[kMaxDevices] = {};
+        int blocks = 0;
+        const cudaError_t e = one_wave(dropout_grad_vec_kernel<T>,
+                                       kGradThreads, wave, &blocks);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        const int64_t tiles = (n / G + kTile - 1) / kTile;
+        const auto grid = static_cast<unsigned>(
+            tiles < 1 ? 1 : (tiles < blocks ? tiles : blocks));
+        dropout_grad_vec_kernel<T><<<grid, kGradThreads, 0, st>>>(
+            gp, op, n, dropout_keys(drop));
+    } else {
+        const int64_t groups = (n + 3) / 4;
+        const auto grid =
+            static_cast<unsigned>((groups + kGradThreads - 1) / kGradThreads);
+        dropout_grad_kernel<T><<<grid, kGradThreads, 0, st>>>(gp, op, n,
+                                                              drop);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -305,9 +611,10 @@ int launch_grad(const void* g, void* out, int64_t n, const DropoutArgs& drop,
 
 // x, res, y, yin: (n, d) contiguous, fp32 (dtype kF32) or bf16 (kBF16). w,
 // b: (d,) in the same dtype, or null. mean, rstd: (n,) fp32 or null.
-// Dropout is on iff drop_scale != 1; yin must then be given (at bf16, d is
-// at most 58080: the row's fp32 sum sits in shared memory), otherwise it is
-// null unless wanted. Returns cudaGetLastError() after the launch.
+// Dropout is on iff drop_scale != 1; yin must then be given (at bf16 on
+// the block path, d is at most 58080: the row's fp32 sum sits in shared
+// memory), otherwise it is null unless wanted. Returns cudaGetLastError()
+// after the launch.
 extern "C" int ptt_add_layer_norm_fwd(const void* x, const void* res,
                                       const void* w, const void* b, void* y,
                                       void* yin, void* mean, void* rstd,

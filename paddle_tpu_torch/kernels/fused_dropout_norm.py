@@ -41,8 +41,10 @@ _FWD_ARGTYPES = (_build.P,) * 8 + (_build.I64, _build.I64, _build.F32) + \
     _build.DROPOUT_ARGTYPES + (_build.I32, _build.P)
 _GRAD_ARGTYPES = (_build.P, _build.P, _build.I64) + \
     _build.DROPOUT_ARGTYPES + (_build.I32, _build.P)
-# at bf16 the dropout branch keeps a row's fp32 sum in shared memory: 4
-# bytes a column of the 227 KB a block may have, less its 128-byte scratch
+# at bf16 the block path's dropout branch (the widths the register path
+# does not take, csrc/fused_dropout_norm.cu) keeps a row's fp32 sum in
+# shared memory: 4 bytes a column of the 227 KB a block may have, less its
+# 128-byte scratch
 MAX_BF16_DROPOUT_WIDTH = (232448 - 128) // 4
 
 
@@ -131,7 +133,8 @@ def _forward(x, residual, weight, bias, dropout_p, epsilon, seed, offset,
                          f"rows of at most {MAX_BF16_DROPOUT_WIDTH} columns, "
                          f"got {d}")
     y = torch.empty_like(x)
-    # the dropout branch parks the sum in yin between its passes
+    # with dropout the entry point takes yin: the fp32 block path parks the
+    # sum there between its passes
     yin = torch.empty_like(x) if want_saved or dropout_p > 0.0 else None
     mean = rstd = None
     if want_saved:
