@@ -33,14 +33,17 @@ Phases, each printing one JSON line:
    D = 128 causal; each wrapper called under an op log that sees no copy
    and no cast; the bf16 kernel's mask bit for bit as the fp32 kernel's;
    the speed limits of the three tensor-core kernels against SDPA, of
-   add+LayerNorm against x + res then ``native_layer_norm`` and of the
-   mask gradient against a stored mask; then
+   add+LayerNorm against x + res then ``native_layer_norm``, of LayerNorm
+   against ``native_layer_norm`` and of the mask gradient against a stored
+   mask; the LayerNorm's ``fixed_cost`` (4096 and 16384 rows, beside a
+   copy of as many bytes); then
    ``attention_mask_probe``: the attention dropout mask read back bit for
    bit through the forward, dQ and dK/dV at fp32 and bf16;
 5. rms    — ``nn.RMSNorm`` forward and backward (autograd) at fp32 and
    bf16, with and without a weight, at (4096, 1024), (4096, 4096) and
    (300, 1000), against the plain version, with exactly one RMSNorm launch
-   per forward; the kernel's time beside ``F.rms_norm``'s and the bound;
+   per forward; the kernel's time beside ``F.rms_norm``'s and the bound,
+   at bf16 at most ``F.rms_norm``'s; its ``fixed_cost`` at bf16;
 6. parity — a full-width, 2-layer BERT served through ``ServingEngine`` on
    the GPU against the same weights run on the CPU (plain path);
 7. serve  — BERT-large (24 layers, hidden 1024, seq 512) served through
@@ -49,7 +52,8 @@ Phases, each printing one JSON line:
    run must be exactly 1 LayerNorm, 48 add+LayerNorm and 24 flash
    attention launches per batch;
 8. profile — device time by kernel over one more bucket-16 batch; every
-   add+LayerNorm call on the register path (``SERVE_ROUTES``);
+   LayerNorm and add+LayerNorm call on the register path
+   (``SERVE_ROUTES``);
 9. train parity — a full-width, 2-layer ``BertForPretraining``, batch 2 x
    512: loss and every gradient, GPU against CPU at p = 0, and kernel
    path against plain path on the GPU at p = 0.1 with the same seeds; the
@@ -59,7 +63,7 @@ Phases, each printing one JSON line:
    one batch; per step exactly 24 flash forward, 24 dQ, 24 dK/dV, 48
    add+LayerNorm, 48 mask-gradient and 2 LayerNorm launches; every loss
    finite and the 20th below the 1st; then one profiled step, every
-   add+LayerNorm and mask-gradient call on its fast route
+   LayerNorm, add+LayerNorm and mask-gradient call on its fast route
    (``TRAIN_ROUTES``);
 11. train parity bf16 — phase 9's model and batch under the reference's
    bf16 recipe (``bf16_recipe``, ``bench.py::bench_bert``): at p = 0
@@ -69,7 +73,10 @@ Phases, each printing one JSON line:
 12. train bf16 — phase 10 under the bf16 recipe on the same weights and
    batch, with the same launch counts; one profiled step, and one step
    under the op log, whose copies and casts are listed by the line that
-   asked for them (none from a kernel wrapper).
+   asked for them (none from a kernel wrapper);
+13. routes — the kernel each LayerNorm and RMSNorm shape takes at fp32
+   and bf16 (``LN_ROUTES``, ``RMS_ROUTES``: the register path or the
+   block path), read from one profiler session.
 
 Every kernel row carries ``share_of_bound`` (bound ms over kernel ms) and
 the achieved TFLOP/s and TB/s beside the library call's time. Then a
@@ -157,6 +164,33 @@ def copy_ms(nbytes, flush):
     src = torch.empty(int(nbytes) // 8, dtype=torch.float32, device='cuda')
     dst = torch.empty_like(src)
     return time_ms(lambda: dst.copy_(src), flush)
+
+
+def fixed_cost(run_at, nbytes_at, flush, rows=TRAIN_BATCH * SEQ):
+    """How much of a short interval is a fixed cost and how much moves with
+    the bytes: ``run_at(n)`` (a function that launches the kernel on n
+    rows) and a device copy of as many bytes (``copy_ms``), each timed at
+    ``rows`` and at 4 * ``rows`` (``nbytes_at(n)`` bytes) with the same
+    timer and flush -> for each, its two times, ``marginal_tbps`` (the
+    extra bytes over the extra time), ``fixed_ms`` (the time at ``rows``
+    less its bytes at that rate) and ``marginal_share`` (the marginal rate
+    over the HBM peak). A kernel whose marginal share is near the copy's
+    loses its share of the byte bound to the interval, not to its own
+    work. No gate reads them."""
+    n = [rows, 4 * rows]
+    nbytes = [nbytes_at(r) for r in n]
+    out = {}
+    for what, ms in (('kernel', [time_ms(run_at(r), flush) for r in n]),
+                     ('copy', [copy_ms(b, flush) for b in nbytes])):
+        rate = (nbytes[1] - nbytes[0]) / (ms[1] - ms[0]) / 1e9 \
+            if ms[1] > ms[0] else None
+        out[what] = {'rows': n, 'bytes': nbytes, 'ms': ms,
+                     'marginal_tbps': rate,
+                     'fixed_ms': (ms[0] - nbytes[0] / rate / 1e9
+                                  if rate else None),
+                     'marginal_share': (rate * 1e12 / PEAK_HBM_BYTES
+                                        if rate else None)}
+    return out
 
 
 def time_ms(fn, flush):
@@ -397,7 +431,7 @@ def phase_kernels(seed, flush):
             x, w, b, 1e-12), flush),
         'library_ms': time_ms(lambda: torch.nn.functional.layer_norm(
             x, (E,), w, b, 1e-12), flush),
-        **work, 'shape': [N, E]}
+        'copy_ms': copy_ms(work['bytes'], flush), **work, 'shape': [N, E]}
 
     y = fused_dropout_norm.fused_dropout_add_layer_norm(x, res, w, b)
     err = max_err(y, fused_dropout_norm.fused_dropout_add_layer_norm_plain(
@@ -618,6 +652,24 @@ ADD_LN_CASES = ((TRAIN_BATCH * SEQ, 1024, 0.1), (TRAIN_BATCH * SEQ, 1024, 0.0),
                 (16, 8192, 0.1))
 ADD_LN_LIBRARY = ('x + res, then torch.native_layer_norm (y, mean, rstd): '
                   'two calls, one interval, p = 0')
+# The LayerNorm and RMSNorm shapes (rows, width) this script times and
+# checks, at fp32 and bf16, and the kernel each takes (csrc/fused_norm.cu,
+# dispatch_ln and dispatch_rms: the register path for widths of whole
+# 16-byte chunks up to 1024 columns, 16-byte aligned, else the block path).
+# LayerNorm: serving's embeddings (bucket 16), training's embeddings and
+# MLM head rows, and the 4x rows of fixed_cost; RMSNorm (nn.RMSNorm): the
+# train step's rows at the hidden and the intermediate width, and 1000
+# columns (at bf16 125 chunks: the last round of chunks masked past lane
+# 28). phase_routes reads each one's kernel on the card;
+# tests/test_torch_norm_fwd_rows.py reads the rule from the source and
+# checks these tables against it
+LN_ROUTES = {(16 * SEQ, 1024): 'ln_rows_warp_kernel',
+             (TRAIN_BATCH * SEQ, 1024): 'ln_rows_warp_kernel',
+             (TRAIN_BATCH * (SEQ * 15 // 100), 1024): 'ln_rows_warp_kernel',
+             (4 * TRAIN_BATCH * SEQ, 1024): 'ln_rows_warp_kernel'}
+RMS_ROUTES = {(TRAIN_BATCH * SEQ, 1024): 'rms_rows_warp_kernel',
+              (TRAIN_BATCH * SEQ, 4096): 'rms_norm_fwd_kernel',
+              (300, 1000): 'rms_rows_warp_kernel'}
 
 
 def dmask_bit_exact(fdn, g, randn, p, seed):
@@ -816,7 +868,7 @@ def phase_train_kernels(randn, gen, flush, rows):
                 xs, w, b, 1e-12, True), flush), 'plain_ms': ln_plain,
             'library_ms': time_ms(lambda: torch.native_layer_norm(
                 xs, (E,), w, b, 1e-12), flush),
-            **work}
+            'copy_ms': copy_ms(work['bytes'], flush), **work}
     rows['layer_norm_fwd']['train'] = {'outputs': 'y, mean, rstd',
                                        **ln_train}
     rows['layer_norm_fwd']['max_abs_err'] = max(
@@ -1013,15 +1065,19 @@ def phase_serve(seed, card):
 
 
 # Calls a profiled batch or step must show, by a word of the kernels' CUDA
-# names (csrc/fused_dropout_norm.cu): each of the 48 add+LayerNorm launches
-# on the register path (add_layer_norm_warp_kernel), none on the block path
-# (add_layer_norm_fwd_kernel, dropout_add_layer_norm_fwd_kernel); in
-# training also each of the 48 mask gradients on the vector kernel and none
-# on the scalar one
+# names (csrc/fused_dropout_norm.cu, csrc/fused_norm.cu): each of the 48
+# add+LayerNorm launches on the register path (add_layer_norm_warp_kernel),
+# none on the block path (add_layer_norm_fwd_kernel,
+# dropout_add_layer_norm_fwd_kernel); each LayerNorm launch (1 a batch, 2 a
+# step) on the register path (ln_rows_warp_kernel), none on a block kernel
+# (the word layer_norm_fwd_kernel also names the two add+LayerNorm block
+# kernels); in training also each of the 48 mask gradients on the vector
+# kernel and none on the scalar one
 SERVE_ROUTES = {'add_layer_norm_warp_kernel': 48,
-                'add_layer_norm_fwd_kernel': 0}
-TRAIN_ROUTES = {**SERVE_ROUTES, 'dropout_grad_vec_kernel': 48,
-                'dropout_grad_kernel': 0}
+                'add_layer_norm_fwd_kernel': 0, 'ln_rows_warp_kernel': 1,
+                'layer_norm_fwd_kernel': 0}
+TRAIN_ROUTES = {**SERVE_ROUTES, 'ln_rows_warp_kernel': 2,
+                'dropout_grad_vec_kernel': 48, 'dropout_grad_kernel': 0}
 
 
 def phase_profile(what, run, routes, top_n=12, **extra):
@@ -1087,7 +1143,9 @@ _GROUPS = (('attention kernels', ('flash_fwd_tf32_kernel',
                                   'flash_dkv_mma_kernel')),
            ('norm and mask kernels', ('layer_norm_fwd_kernel',
                                       'add_layer_norm_warp_kernel',
+                                      'ln_rows_warp_kernel',
                                       'rms_norm_fwd_kernel',
+                                      'rms_rows_warp_kernel',
                                       'dropout_grad_kernel',
                                       'dropout_grad_vec_kernel')),
            ('matrix products', ('gemm', 'xmma', 'cutlass', 'nvjet',
@@ -1321,13 +1379,16 @@ BF16_GRAD_MEAN = 0.03
 # each at most SDPA's whole fp32 backward at the fp32 train shape. The mask
 # gradient at the train shape, bf16 and fp32, at most the multiply by a
 # stored mask of its dtype; the bf16 add+LayerNorm at the train shape, p =
-# 0, four outputs, at most x + res then torch.native_layer_norm
+# 0, four outputs, at most x + res then torch.native_layer_norm; at bf16
+# and (4096, 1024), the LayerNorm with its statistics at most
+# torch.native_layer_norm, and the RMSNorm with rstd at most F.rms_norm
 SPEED_LIMITS = {'fwd_over_sdpa_fwd': 2.0, 'dkv_over_sdpa_bwd': 1.0,
                 'dq_over_sdpa_bwd': 1.0, 'fwd_fp32_over_sdpa_fwd': 1.0,
                 'dq_fp32_over_sdpa_bwd': 1.0, 'dkv_fp32_over_sdpa_bwd': 1.0,
                 'dmask_over_stored_mask': 1.0,
                 'dmask_fp32_over_stored_mask': 1.0,
-                'add_ln_over_add_native_ln': 1.0}
+                'add_ln_over_add_native_ln': 1.0,
+                'ln_over_native_ln': 1.0, 'rms_over_rms_norm': 1.0}
 COPY_OPS = ('aten._to_copy.default', 'aten.copy_.default',
             'aten.clone.default')
 # the functions that check tensors and launch a kernel: none may copy or
@@ -1553,12 +1614,20 @@ def phase_kernels_bf16(seed, flush):
                 xs, (E,), w, b, 1e-12), flush),
             'copy_ms': copy_ms(work['bytes'], flush), **work}
     first = ln[str((TRAIN_BATCH, SEQ, E))]
+
+    def ln_at(n_):
+        xs = randn(n_, E)
+        return lambda: fused_norm._forward(xs, w, b, 1e-12, True)
     rows['layer_norm_fwd'] = {
         **first, 'library': 'torch.native_layer_norm (bf16, fp32 stats)',
         'shape': [TRAIN_BATCH * SEQ, E], 'dtype': 'bfloat16',
-        'outputs': 'y, mean, rstd', 'shapes': ln}
+        'outputs': 'y, mean, rstd', 'shapes': ln,
+        'fixed_cost': fixed_cost(ln_at, lambda n_: 2.0 * (2 * n_ * E + 2 * E)
+                                 + 8.0 * n_, flush)}
     emit_kernel('layer_norm_fwd', rows, tolerance=BF16_TOL,
                 phase='kernel_bf16')
+    check_speed('layer_norm_speed_bf16', {
+        'ln_over_native_ln': first['ms'] / first['library_ms']})
 
     # -- dropout + add + LayerNorm in the bf16 step (4 outputs), and the
     # mask gradient ------------------------------------------------------
@@ -1652,8 +1721,7 @@ def phase_rms(seed, flush):
     checks, timings = [], {}
     rows = {}
     for dtype in (torch.float32, BF16):
-        for n_, d_ in ((TRAIN_BATCH * SEQ, 1024), (TRAIN_BATCH * SEQ, 4096),
-                       (300, 1000)):
+        for n_, d_ in RMS_ROUTES:
             x0 = torch.randn(n_, d_, device=dev, generator=gen).to(dtype)
             gy = torch.randn(n_, d_, device=dev, generator=gen).to(dtype)
             for weighted in (True, False):
@@ -1731,11 +1799,77 @@ def phase_rms(seed, flush):
             'library': 'torch.nn.functional.rms_norm', 'shape':
             [TRAIN_BATCH * SEQ, 1024], 'dtype': str(dtype)[6:],
             'outputs': 'y, rstd (the autograd path)'}
+    bf16 = timings[f'bfloat16 ({TRAIN_BATCH * SEQ}, 1024)']
+    wd = torch.randn(1024, device=dev, generator=gen).to(BF16)
+
+    def rms_at(n_):
+        xs = torch.randn(n_, 1024, device=dev, generator=gen).to(BF16)
+        return lambda: fused_norm._rms_forward(xs, wd, 1e-6, True)
+    # x read and y written once at bf16, the weight, fp32 rstd
+    bf16['fixed_cost'] = fixed_cost(
+        rms_at, lambda n_: 2.0 * (2 * n_ * 1024 + 1024) + 4.0 * n_, flush)
     emit({'phase': 'rms', 'module': 'paddle_tpu_torch.nn.RMSNorm',
           'tolerance': {'fp32': [TOL, GRAD_TOL], 'bf16': BF16_TOL},
           'checks': checks, 'timings': timings,
           'launches_per_forward': 1, 'launches': totals})
+    check_speed('rms_norm_speed_bf16', {
+        'rms_over_rms_norm': bf16['ms'] / bf16['library_ms']})
     return rows, totals
+
+
+def phase_routes(seed):
+    """The kernel each LayerNorm and RMSNorm shape of ``LN_ROUTES`` and
+    ``RMS_ROUTES`` takes on the card, at fp32 and bf16: one call a shape
+    and dtype, on fresh (16-byte aligned) tensors, read by name from one
+    torch.profiler session at the end of the run. A session may miss the
+    kernels launched first in it, and short sessions opened earlier in a
+    run made later ones (the serving profile's) miss kernels, so this is
+    the run's last session: it holds the stream first, then makes every
+    call twice, and the second round must show each call's kernel, in
+    order. Raises on another kernel. -> {call: kernel word}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.kernels import fused_norm
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 30)
+    calls = []
+    for dtype in (torch.float32, BF16):
+        for kind, routes in (('layer norm', LN_ROUTES),
+                             ('rms norm', RMS_ROUTES)):
+            for (n_, d_), want in routes.items():
+                x, w, b = (torch.randn(*shape, device=dev, generator=gen)
+                           .to(dtype) for shape in ((n_, d_), (d_,), (d_,)))
+                fn = ((lambda x=x, w=w, b=b: fused_norm._forward(
+                          x, w, b, 1e-12, True)) if kind == 'layer norm'
+                      else (lambda x=x, w=w: fused_norm._rms_forward(
+                          x, w, 1e-6, True)))
+                calls.append((f'{kind} {str(dtype)[6:]} ({n_}, {d_})', want,
+                              fn))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda.synchronize()
+        for _ in range(2):
+            for _, _, fn in calls:
+                fn()
+            torch.cuda.synchronize()
+    names = [e.name for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        key=lambda e: e.time_range.start)
+        if 'norm' in e.name or 'rows_warp' in e.name][-len(calls):]
+    got = {}
+    for (what, want, _), name in zip(calls, names):
+        if want not in name:
+            raise AssertionError(f"{what}: launched {name[:120]}, expected "
+                                 f"{want}")
+        got[what] = want
+    if len(got) != len(calls):
+        raise AssertionError(f"routes: the profiler saw {len(names)} of "
+                             f"{len(calls)} norm calls")
+    emit({'phase': 'routes', 'kernels': got})
+    return got
 
 
 def bf16_recipe(net):
@@ -1880,6 +2014,7 @@ def main():
     torch.cuda.empty_cache()
     phase_train_parity_bf16(args.seed)
     trained16 = phase_train(args.seed, card, bf16=True)
+    phase_routes(args.seed)
     # launches: each main path's counts, zeroed just before the path and
     # read just after (serving: 21 batches; each training run: 20 steps;
     # nn.RMSNorm: 12 forwards and their backward); the top-level numbers

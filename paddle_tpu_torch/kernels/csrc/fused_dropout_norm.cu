@@ -29,19 +29,10 @@
 // - the register path (add_layer_norm_warp_kernel), for rows whose width
 //   is a multiple of 16 bytes' worth of columns (G = 8 bf16, 4 fp32), at
 //   most kWarpRowColumns wide, with every pointer 16-byte aligned: the
-//   widths BERT uses (768, 1024). One warp a row, four rows a block. A
-//   lane holds K 16-byte chunks of x and of the residual (K = 1..4 bf16,
-//   1..8 fp32, a compile-time count), at columns (k * 32 + lane) * G, so
-//   each warp-wide access reads 512 contiguous bytes; all of a row's loads
-//   go out in one burst before the first arithmetic. With dropout the
-//   lane's keep bits (K * G <= 32, one word) come next, while the loads
-//   are in flight: one Philox call (four words) serves four neighbouring
-//   columns, and a chunk starts at a multiple of G, so no group of four
-//   straddles two chunks. The fp32 sum stays in registers, the mean and
-//   the centred variance are two passes over them, each reduced by xor
-//   shuffles: no shared memory, no barrier, and x and the residual are
-//   read once. yin is stored right after the sum, y in one pass with w and
-//   b read a chunk at a time (they stay in L2 across rows). 5-6 blocks of
+//   widths BERT uses (768, 1024). One warp a row, the row and the residual
+//   in registers, the keep bits drawn while the loads are in flight,
+//   shuffle reductions: norm_warp_row in norm_rows.cuh, which the
+//   LayerNorm and RMSNorm forwards (fused_norm.cu) share. 5-6 blocks of
 //   four warps an SM (warp_row_min_blocks): at 8, ptxas spills the bf16
 //   row of 1024 columns.
 // - the block path (add_layer_norm_fwd_kernel and, with dropout,
@@ -69,146 +60,25 @@
 
 #include "block_reduce.cuh"
 #include "dtype.cuh"
+#include "norm_rows.cuh"
 #include "philox.cuh"
 
 namespace {
 
-// the register path: rows (warps) a block, and the widest row it takes
-constexpr int kRowWarps = 4;
-constexpr int kWarpRowColumns = 1024;
-
-// 16-byte chunks of x (and of the residual) a lane holds on the register
-// path, at most: 4 bf16, 8 fp32
-template <typename T>
-constexpr int max_row_chunks() {
-    return kWarpRowColumns / (32 * (16 / static_cast<int>(sizeof(T))));
-}
-
-// Blocks of 32 * kRowWarps threads an SM should hold at K chunks a lane:
-// 6 (at most 80 registers a thread) while a lane's raw chunks of x and the
-// residual fit in 32 registers (bf16, and fp32 up to 512 columns), else 5
-// (at most 96). ptxas spills at 8 blocks (64 registers) for bf16 at 1024
-// columns, and at 6 for fp32 at 1024 columns with dropout.
-template <int K>
-constexpr int warp_row_min_blocks() {
-    return 2 * K * 16 / 4 <= 32 ? 6 : 5;
-}
-
-// y = LayerNorm(res + dropout(x)) for row blockIdx.x * kRowWarps + warp,
-// whole in registers; K 16-byte chunks a lane (see the note at the top).
-// kDrop: dropout on (drop used), else drop is ignored. yin, mean_out and
-// rstd_out may be null.
+// y = LayerNorm(res + dropout(x)), a row a warp, K 16-byte chunks a lane
+// (norm_rows.cuh). kDrop: dropout on (drop used), else drop is ignored.
+// yin, mean_out and rstd_out may be null.
 template <typename T, int K, bool kDrop>
 __global__ void __launch_bounds__(32 * kRowWarps,
-                                  (warp_row_min_blocks<K>()))
+                                  (warp_row_min_blocks<K, true>()))
 add_layer_norm_warp_kernel(const T* __restrict__ x, const T* __restrict__ res,
                            const T* __restrict__ w, const T* __restrict__ b,
                            T* __restrict__ y, T* __restrict__ yin,
                            float* __restrict__ mean_out,
                            float* __restrict__ rstd_out, int64_t n,
                            int64_t d, float eps, DropoutKeys drop) {
-    constexpr int G = 16 / static_cast<int>(sizeof(T));
-    static_assert(K * G <= 32, "a lane's keep bits fit in one word");
-    using Chunk = Pack<T, G>;
-    const int lane = threadIdx.x & 31;
-    const int64_t row =
-        static_cast<int64_t>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
-    if (row >= n) return;                     // a whole warp leaves
-    const int chunks = static_cast<int>(d / G);
-    const int64_t at = row * (d / G);          // the row's first chunk
-
-    Chunk xc[K], rc[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-        const int c = k * 32 + lane;
-        if (c < chunks) {
-            xc[k] = reinterpret_cast<const Chunk*>(x)[at + c];
-            rc[k] = reinterpret_cast<const Chunk*>(res)[at + c];
-        }
-    }
-
-    // the row's keep bits first, while its loads are in flight: bit
-    // k * G + e for column (k * 32 + lane) * G + e (K * G <= 32)
-    uint32_t keep = 0;
-    if constexpr (kDrop) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-            const int c = k * 32 + lane;
-            if (c >= chunks) continue;
-            const uint64_t base4 = static_cast<uint64_t>(at + c) * (G / 4);
-#pragma unroll
-            for (int j = 0; j < G / 4; ++j) {
-                const PhiloxWords r =
-                    philox4x32_10(drop.keys, drop.offset, base4 + j);
-#pragma unroll
-                for (int q = 0; q < 4; ++q)
-                    keep |= static_cast<uint32_t>(r.w[q] >= drop.threshold)
-                            << (k * G + 4 * j + q);
-            }
-        }
-    }
-
-    float v[K][G];
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-        const int c = k * 32 + lane;
-        if (c >= chunks) continue;
-        // with dropout x * ks is rounded, then added: the reference's two
-        // roundings, not one fused multiply-add
-#pragma unroll
-        for (int e = 0; e < G; ++e) {
-            if constexpr (kDrop)
-                v[k][e] = to_f32(rc[k].v[e]) +
-                          __fmul_rn(to_f32(xc[k].v[e]),
-                                    (keep >> (k * G + e)) & 1u ? drop.scale
-                                                               : 0.f);
-            else
-                v[k][e] = to_f32(rc[k].v[e]) + to_f32(xc[k].v[e]);
-        }
-#pragma unroll
-        for (int e = 0; e < G; ++e) s += v[k][e];
-        if (yin != nullptr) {
-            Chunk o;
-#pragma unroll
-            for (int e = 0; e < G; ++e) o.v[e] = from_f32<T>(v[k][e]);
-            reinterpret_cast<Chunk*>(yin)[at + c] = o;
-        }
-    }
-    const float mean = warp_sum(s) / static_cast<float>(d);
-
-    float ss = 0.f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-        if (k * 32 + lane >= chunks) continue;
-#pragma unroll
-        for (int e = 0; e < G; ++e) {
-            const float c = v[k][e] - mean;
-            ss += c * c;
-        }
-    }
-    const float rstd = rsqrtf(warp_sum(ss) / static_cast<float>(d) + eps);
-
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-        const int c = k * 32 + lane;
-        if (c >= chunks) continue;
-        Chunk wc, bc, o;
-        if (w != nullptr) wc = reinterpret_cast<const Chunk*>(w)[c];
-        if (b != nullptr) bc = reinterpret_cast<const Chunk*>(b)[c];
-#pragma unroll
-        for (int e = 0; e < G; ++e) {
-            float u = (v[k][e] - mean) * rstd;
-            if (w != nullptr) u *= to_f32(wc.v[e]);
-            if (b != nullptr) u += to_f32(bc.v[e]);
-            o.v[e] = from_f32<T>(u);
-        }
-        reinterpret_cast<Chunk*>(y)[at + c] = o;
-    }
-    if (lane == 0) {
-        if (mean_out != nullptr) mean_out[row] = mean;
-        if (rstd_out != nullptr) rstd_out[row] = rstd;
-    }
+    norm_warp_row<T, K, true, kDrop, true>(x, res, w, b, y, yin, mean_out,
+                                           rstd_out, n, d, eps, drop);
 }
 
 template <typename T, bool kVec>
@@ -516,12 +386,13 @@ int launch_add_ln(const void* x, const void* res, const void* w,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int K>
+// the register path at K chunks a lane (norm_rows.cuh)
+template <typename T>
 int launch_warp_rows(const void* x, const void* res, const void* w,
                      const void* b, void* y, void* yin, void* mean,
                      void* rstd, int64_t n, int64_t d, float eps,
                      const DropoutArgs& drop, cudaStream_t st) {
-    const auto grid = static_cast<unsigned>((n + kRowWarps - 1) / kRowWarps);
+    const unsigned grid = warp_row_blocks(n);
     const auto xp = static_cast<const T*>(x);
     const auto rp = static_cast<const T*>(res);
     const auto wp = static_cast<const T*>(w);
@@ -530,30 +401,20 @@ int launch_warp_rows(const void* x, const void* res, const void* w,
     const auto sp = static_cast<T*>(yin);
     const auto mp = static_cast<float*>(mean);
     const auto rsp = static_cast<float*>(rstd);
-    if (drop.scale != 1.f)
-        add_layer_norm_warp_kernel<T, K, true><<<grid, 32 * kRowWarps, 0,
-                                                 st>>>(
-            xp, rp, wp, bp, yp, sp, mp, rsp, n, d, eps, dropout_keys(drop));
-    else
-        add_layer_norm_warp_kernel<T, K, false><<<grid, 32 * kRowWarps, 0,
-                                                  st>>>(
-            xp, rp, wp, bp, yp, sp, mp, rsp, n, d, eps, DropoutKeys{});
-    return static_cast<int>(cudaGetLastError());
-}
-
-// the register path at k chunks a lane: the instantiation K == k
-template <typename T, int K = 1>
-int dispatch_warp_rows(int k, const void* x, const void* res, const void* w,
-                       const void* b, void* y, void* yin, void* mean,
-                       void* rstd, int64_t n, int64_t d, float eps,
-                       const DropoutArgs& drop, cudaStream_t st) {
-    if (k == K)
-        return launch_warp_rows<T, K>(x, res, w, b, y, yin, mean, rstd, n, d,
-                                      eps, drop, st);
-    if constexpr (K < max_row_chunks<T>())
-        return dispatch_warp_rows<T, K + 1>(k, x, res, w, b, y, yin, mean,
-                                            rstd, n, d, eps, drop, st);
-    return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch_row_chunks<T>(row_chunks<T>(d), [&](auto chunks) {
+        constexpr int K = decltype(chunks)::value;
+        if (drop.scale != 1.f)
+            add_layer_norm_warp_kernel<T, K, true>
+                <<<grid, 32 * kRowWarps, 0, st>>>(xp, rp, wp, bp, yp, sp, mp,
+                                                  rsp, n, d, eps,
+                                                  dropout_keys(drop));
+        else
+            add_layer_norm_warp_kernel<T, K, false>
+                <<<grid, 32 * kRowWarps, 0, st>>>(xp, rp, wp, bp, yp, sp, mp,
+                                                  rsp, n, d, eps,
+                                                  DropoutKeys{});
+        return static_cast<int>(cudaGetLastError());
+    });
 }
 
 // The route: the register path where the width is a whole number of
@@ -565,14 +426,12 @@ int dispatch_add_ln(const void* x, const void* res, const void* w,
                     const void* b, void* y, void* yin, void* mean,
                     void* rstd, int64_t n, int64_t d, float eps,
                     const DropoutArgs& drop, cudaStream_t st) {
-    constexpr int G = 16 / static_cast<int>(sizeof(T));
     if (!rows_vectorise<T>(d, {x, res, w, b, y, yin}))
         return launch_add_ln<T, false>(x, res, w, b, y, yin, mean, rstd, n,
                                        d, eps, drop, st);
     if (d <= kWarpRowColumns)
-        return dispatch_warp_rows<T>(static_cast<int>((d / G + 31) / 32), x,
-                                     res, w, b, y, yin, mean, rstd, n, d,
-                                     eps, drop, st);
+        return launch_warp_rows<T>(x, res, w, b, y, yin, mean, rstd, n, d,
+                                   eps, drop, st);
     return launch_add_ln<T, true>(x, res, w, b, y, yin, mean, rstd, n, d,
                                   eps, drop, st);
 }

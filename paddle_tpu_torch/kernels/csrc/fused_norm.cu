@@ -14,17 +14,33 @@
 // element in bf16, 8 in fp32) for about 8 flops an element, far below the
 // ridge of either the fp32 pipes or the tensor cores.
 //
-// Design: one thread block per row, each thread taking 16 bytes of the row
-// a step (4 fp32 or 8 bf16 values, one vector load) when the width and the
-// pointers allow, else 4 elements one by one; warp shuffles plus a
-// 32-float shared scratch for the block sums. The row is read from device
-// memory once; the later passes hit L1 (a BERT-large row is 2-4 KB). Null
-// weight/bias mean no affine; null statistics mean the caller does not
+// Design. Each forward has two routes, chosen in C from the width, the
+// dtype and the pointers (dispatch_ln, dispatch_rms), never by the caller:
+//
+// - the register path (ln_rows_warp_kernel, rms_rows_warp_kernel) for rows
+//   whose width is a whole number of 16-byte chunks (8 bf16 or 4 fp32
+//   columns), at most kWarpRowColumns wide, with every pointer 16-byte
+//   aligned: the widths BERT uses (768, 1024). One warp a row, the row in
+//   registers, shuffle reductions: norm_warp_row in norm_rows.cuh, which
+//   the add+LayerNorm forward (fused_dropout_norm.cu) shares. x is read
+//   from device memory once and never again from L1.
+// - the block path (layer_norm_fwd_kernel, rms_norm_fwd_kernel) for every
+//   other row: one thread block a row, each thread taking 16 bytes of the
+//   row a step (4 fp32 or 8 bf16 values, one vector load) when the width
+//   and the pointers allow, else 4 elements one by one; warp shuffles plus
+//   a 32-float shared scratch for the block sums. The row is read from
+//   device memory once; the later passes hit L1. Past kWarpRowColumns
+//   (row_threads gives each thread one 16-byte chunk up to 8192 bf16 or
+//   4096 fp32 columns) a register row spread over several warps would save
+//   only those L1 re-reads.
+//
+// Null weight/bias mean no affine; null statistics mean the caller does not
 // want them (serving).
 #include <cstdint>
 
 #include "block_reduce.cuh"
 #include "dtype.cuh"
+#include "norm_rows.cuh"
 
 namespace {
 
@@ -127,6 +143,33 @@ __global__ void rms_norm_fwd_kernel(const T* __restrict__ x,
     if (threadIdx.x == 0 && rstd_out != nullptr) rstd_out[row] = rstd;
 }
 
+// LayerNorm of a row a warp, K 16-byte chunks a lane (norm_rows.cuh). w,
+// b, mean_out and rstd_out may be null.
+template <typename T, int K>
+__global__ void __launch_bounds__(32 * kRowWarps,
+                                  (warp_row_min_blocks<K, false>()))
+ln_rows_warp_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const T* __restrict__ b, T* __restrict__ y,
+                    float* __restrict__ mean_out,
+                    float* __restrict__ rstd_out, int64_t n, int64_t d,
+                    float eps) {
+    norm_warp_row<T, K, false, false, true>(x, nullptr, w, b, y, nullptr,
+                                            mean_out, rstd_out, n, d, eps,
+                                            DropoutKeys{});
+}
+
+// RMSNorm of a row a warp. w and rstd_out may be null.
+template <typename T, int K>
+__global__ void __launch_bounds__(32 * kRowWarps,
+                                  (warp_row_min_blocks<K, false>()))
+rms_rows_warp_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                     T* __restrict__ y, float* __restrict__ rstd_out,
+                     int64_t n, int64_t d, float eps) {
+    norm_warp_row<T, K, false, false, false>(x, nullptr, w, nullptr, y,
+                                             nullptr, nullptr, rstd_out, n,
+                                             d, eps, DropoutKeys{});
+}
+
 template <typename T, bool kVec>
 int launch_ln(const void* x, const void* w, const void* b, void* y,
               void* mean, void* rstd, int64_t n, int64_t d, float eps,
@@ -140,13 +183,27 @@ int launch_ln(const void* x, const void* w, const void* b, void* y,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The route: the register path where the width is a whole number of
+// 16-byte chunks, at most kWarpRowColumns, and every pointer is 16-byte
+// aligned; else the block path, with 16-byte accesses where the width and
+// pointers allow them.
 template <typename T>
 int dispatch_ln(const void* x, const void* w, const void* b, void* y,
                 void* mean, void* rstd, int64_t n, int64_t d, float eps,
                 cudaStream_t st) {
-    return rows_vectorise<T>(d, {x, w, b, y})
-               ? launch_ln<T, true>(x, w, b, y, mean, rstd, n, d, eps, st)
-               : launch_ln<T, false>(x, w, b, y, mean, rstd, n, d, eps, st);
+    if (!rows_vectorise<T>(d, {x, w, b, y}))
+        return launch_ln<T, false>(x, w, b, y, mean, rstd, n, d, eps, st);
+    if (d > kWarpRowColumns)
+        return launch_ln<T, true>(x, w, b, y, mean, rstd, n, d, eps, st);
+    return dispatch_row_chunks<T>(row_chunks<T>(d), [&](auto chunks) {
+        ln_rows_warp_kernel<T, decltype(chunks)::value>
+            <<<warp_row_blocks(n), 32 * kRowWarps, 0, st>>>(
+                static_cast<const T*>(x), static_cast<const T*>(w),
+                static_cast<const T*>(b), static_cast<T*>(y),
+                static_cast<float*>(mean), static_cast<float*>(rstd), n, d,
+                eps);
+        return static_cast<int>(cudaGetLastError());
+    });
 }
 
 template <typename T, bool kVec>
@@ -159,12 +216,21 @@ int launch_rms(const void* x, const void* w, void* y, void* rstd, int64_t n,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The route, as dispatch_ln's
 template <typename T>
 int dispatch_rms(const void* x, const void* w, void* y, void* rstd,
                  int64_t n, int64_t d, float eps, cudaStream_t st) {
-    return rows_vectorise<T>(d, {x, w, y})
-               ? launch_rms<T, true>(x, w, y, rstd, n, d, eps, st)
-               : launch_rms<T, false>(x, w, y, rstd, n, d, eps, st);
+    if (!rows_vectorise<T>(d, {x, w, y}))
+        return launch_rms<T, false>(x, w, y, rstd, n, d, eps, st);
+    if (d > kWarpRowColumns)
+        return launch_rms<T, true>(x, w, y, rstd, n, d, eps, st);
+    return dispatch_row_chunks<T>(row_chunks<T>(d), [&](auto chunks) {
+        rms_rows_warp_kernel<T, decltype(chunks)::value>
+            <<<warp_row_blocks(n), 32 * kRowWarps, 0, st>>>(
+                static_cast<const T*>(x), static_cast<const T*>(w),
+                static_cast<T*>(y), static_cast<float*>(rstd), n, d, eps);
+        return static_cast<int>(cudaGetLastError());
+    });
 }
 
 }  // namespace

@@ -4,12 +4,14 @@ On the card the add+LayerNorm forward takes rows whose width is a whole
 number of 16-byte chunks (G = 8 bf16 or 4 fp32 columns), at most
 ``kWarpRowColumns`` wide, on its register path
 (``add_layer_norm_warp_kernel`` in
-``paddle_tpu_torch/kernels/csrc/fused_dropout_norm.cu``): one warp a row,
-lane ``l`` holding chunks ``k * 32 + l`` (k = 0 .. K - 1) of x and the
-residual, and the mask gradient takes 16-byte aligned tensors on its
-vector kernel (``dropout_grad_vec_kernel``). ``chip_smoke.py`` holds both
-to their plain versions on the card; this file shows on the CPU what their
-order of work does.
+``paddle_tpu_torch/kernels/csrc/fused_dropout_norm.cu``, on the row routine
+``norm_warp_row`` of ``csrc/norm_rows.cuh``): one warp a row, lane ``l``
+holding chunks ``k * 32 + l`` (k = 0 .. K - 1) of x and the residual, and
+the mask gradient takes 16-byte aligned tensors on its vector kernel
+(``dropout_grad_vec_kernel``). ``chip_smoke.py`` holds both to their plain
+versions on the card; this file shows on the CPU what their order of work
+does (``tests/test_torch_norm_fwd_rows.py`` does the same for the
+LayerNorm and RMSNorm forwards on that routine).
 
 - The reduction order: each lane sums its chunks' fp32 sums in the
   kernel's order (chunk by chunk, column by column), then an xor-shuffle
@@ -41,16 +43,17 @@ from paddle_tpu.kernels import fused_dropout_norm as jfdn
 from paddle_tpu_torch.kernels import fused_dropout_norm as tfdn
 from paddle_tpu_torch.kernels import philox
 
-SOURCE = (Path(tfdn.__file__).parent / 'csrc' /
-          'fused_dropout_norm.cu').read_text()
+CSRC = Path(tfdn.__file__).parent / 'csrc'
+ROWS_SOURCE = (CSRC / 'norm_rows.cuh').read_text()
+SOURCE = (CSRC / 'fused_dropout_norm.cu').read_text()
 
 
-def _constant(name):
-    return int(re.search(rf'constexpr int {name} = (\d+);', SOURCE).group(1))
+def _constant(name, source=SOURCE):
+    return int(re.search(rf'constexpr int {name} = (\d+);', source).group(1))
 
 
-ROW_WARPS = _constant('kRowWarps')
-ROW_COLUMNS = _constant('kWarpRowColumns')
+ROW_WARPS = _constant('kRowWarps', ROWS_SOURCE)
+ROW_COLUMNS = _constant('kWarpRowColumns', ROWS_SOURCE)
 GRAD_THREADS = _constant('kGradThreads')
 GRAD_PACKS = _constant('kGradPacks')
 LANES = 32
@@ -80,29 +83,40 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _register_path(x, res, w, b, eps):
-    """The register path at p = 0, emulated -> (y, yin, mean, rstd)."""
-    n, d = x.shape
-    g = _chunk_width(x.dtype)
+def _lanes(v, g):
+    """An (n, d) fp32 row block as the register path holds it -> (lanes
+    [row, k, lane, e], valid [k, lane]): lane l's chunk k is columns
+    (k * 32 + l) * G .. + G - 1, which exist where valid."""
+    n, d = v.shape
     chunks = d // g
     k_chunks = -(-chunks // LANES)
-    v = res.float() + x.float()
     pad = torch.zeros(n, k_chunks * LANES * g)
     pad[:, :d] = v
-    lanes = pad.reshape(n, k_chunks, LANES, g)      # [row, k, lane, e]
     valid = (torch.arange(k_chunks)[:, None] * LANES
              + torch.arange(LANES)[None, :]) < chunks
-    s = torch.zeros(n, LANES)
-    for k in range(k_chunks):
-        for e in range(g):
-            s = torch.where(valid[k], s + lanes[:, k, :, e], s)
-    mean = _warp_sum(s)[:, :1] / d
-    ss = torch.zeros(n, LANES)
-    for k in range(k_chunks):
-        for e in range(g):
-            c = lanes[:, k, :, e] - mean
-            ss = torch.where(valid[k], _fma(c, c, ss), ss)
-    rstd = torch.rsqrt(_warp_sum(ss)[:, :1] / d + eps)
+    return pad.reshape(n, k_chunks, LANES, g), valid
+
+
+def _lane_sum(lanes, valid, step):
+    """Each lane's fp32 sum in the kernel's order, chunk by chunk and
+    column by column (``step(sum, value)`` -> the next sum), then the
+    xor-shuffle tree -> (n, 1)."""
+    s = torch.zeros(lanes.shape[0], LANES)
+    for k in range(lanes.shape[1]):
+        for e in range(lanes.shape[3]):
+            s = torch.where(valid[k], step(s, lanes[:, k, :, e]), s)
+    return _warp_sum(s)[:, :1]
+
+
+def _register_path(x, res, w, b, eps):
+    """The register path at p = 0, emulated -> (y, yin, mean, rstd)."""
+    d = x.shape[1]
+    v = res.float() + x.float()
+    lanes, valid = _lanes(v, _chunk_width(x.dtype))
+    mean = _lane_sum(lanes, valid, lambda s, a: s + a) / d
+    var = _lane_sum(lanes, valid,
+                    lambda s, a: _fma(a - mean, a - mean, s)) / d
+    rstd = torch.rsqrt(var + eps)
     y = _fma((v - mean) * rstd, w.float(), b.float())
     return y.to(x.dtype), v.to(x.dtype), mean[:, 0], rstd[:, 0]
 
