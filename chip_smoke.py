@@ -9,8 +9,8 @@ Phases, each printing one JSON line:
 2. build  — compile the port's CUDA kernels from ``paddle_tpu_torch/
    kernels/csrc`` with nvcc for sm_90a (set-up time), and count each
    kernel's tensor-core instructions in its SASS (``cuobjdump``): the
-   flash forward, dQ and dK/dV at bf16 and at fp32 (3xTF32) must have
-   them;
+   flash forward, dQ and dK/dV at bf16, at fp16 and at fp32 (3xTF32) must
+   have them in every instantiation;
 3. kernels — each of the six fp32 kernels against its plain PyTorch
    version on the card at the shapes BERT-large serving and training give
    it and at awkward ones, without and with dropout, with its time, the
@@ -36,11 +36,14 @@ Phases, each printing one JSON line:
    add+LayerNorm against x + res then ``native_layer_norm``, of LayerNorm
    against ``native_layer_norm`` and of the mask gradient against a stored
    mask; the LayerNorm's ``fixed_cost`` (4096 and 16384 rows, beside a
-   copy of as many bytes); then
-   ``attention_mask_probe``: the attention dropout mask read back bit for
-   bit through the forward, dQ and dK/dV at fp32 and bf16;
-5. rms    — ``nn.RMSNorm`` forward and backward (autograd) at fp32 and
-   bf16, with and without a weight, at (4096, 1024), (4096, 4096) and
+   copy of as many bytes); then the same at fp16 (``kernel_fp16``: the
+   f16 instantiations against their plain versions within ``FP16_TOL``,
+   timed beside SDPA and ``native_layer_norm`` at fp16, the ratios
+   printed, not held); then ``attention_mask_probe``: the attention
+   dropout mask read back bit for bit through the forward, dQ and dK/dV
+   at fp32, bf16 and fp16;
+5. rms    — ``nn.RMSNorm`` forward and backward (autograd) at fp32, bf16
+   and fp16, with and without a weight, at (4096, 1024), (4096, 4096) and
    (300, 1000), against the plain version, with exactly one RMSNorm launch
    per forward; the kernel's time beside ``F.rms_norm``'s and the bound,
    at bf16 at most ``F.rms_norm``'s; its ``fixed_cost`` at bf16;
@@ -74,14 +77,28 @@ Phases, each printing one JSON line:
    batch, with the same launch counts; one profiled step, and one step
    under the op log, whose copies and casts are listed by the line that
    asked for them (none from a kernel wrapper);
-13. routes — the kernel each LayerNorm and RMSNorm shape takes at fp32
+13. train parity bf16 flat, train bf16 flat — ``bench_bert``'s flat mode
+   (``FlatFusedUpdate(compute_dtype=bf16)``, ``flat_recipe``): three
+   2-layer steps against the per-parameter recipe's (1e-6), then phase
+   12 on it, with the AdamW update profiled alone;
+14. train parity fp16, train fp16 amp — ``amp.auto_cast(level='O1',
+   dtype='float16')`` on fp32 parameters: the 2-layer step against the
+   fp32 step (p = 0) and the plain versions (p = 0.1) under the bf16
+   gates, and a ``microbatch=2`` call bitwise equal to two single ones;
+   then 20 BERT-large steps with ``GradScaler`` and ``nan_guard=True``
+   under ``torch.cuda.set_sync_debug_mode('error')``, with phase 10's
+   launch counts, ``sync``, and ``amp_overflow``: the scale set to 2^40,
+   two steps that leave the state bitwise unchanged and halve it;
+15. routes — the kernel each LayerNorm and RMSNorm shape takes at fp32
    and bf16 (``LN_ROUTES``, ``RMS_ROUTES``: the register path or the
-   block path), read from one profiler session.
+   block path), and the O1 fp16 step's attention launches (each an f16
+   instantiation, ``AMP_ATTENTION``), read from one profiler session.
 
 Every kernel row carries ``share_of_bound`` (bound ms over kernel ms) and
 the achieved TFLOP/s and TB/s beside the library call's time. Then a
 ``{"kernels": [...]}`` line (all seven kernels, bf16 numbers at the top
-level and under ``bf16``, fp32 under ``fp32``, launches by path) and,
+level and under ``bf16``, fp32 under ``fp32``, fp16 under ``fp16``,
+launches by path) and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero; without a CUDA device (or without the package beside this file)
 it exits non-zero and prints no result. fp32 matrix products run in full
@@ -248,11 +265,15 @@ def phase_card():
 
 # the kernels that must run on the tensor cores -> their instantiations
 # (two head dims, with and without dropout; the forwards also with and
-# without a key bias): each needs mma.sync (HMMA) or wgmma (HGMMA)
-# instructions in its SASS
-TENSOR_CORE_KERNELS = {'flash_fwd_mma_kernel': 8, 'flash_dkv_mma_kernel': 4,
-                       'flash_dq_mma_kernel': 4, 'flash_fwd_tf32_kernel': 8,
+# without a key bias; the 16-bit ones at bf16 and at fp16): each needs
+# mma.sync (HMMA) or wgmma (HGMMA) instructions in its SASS
+TENSOR_CORE_KERNELS = {'flash_fwd_mma_kernel': 16, 'flash_dkv_mma_kernel': 8,
+                       'flash_dq_mma_kernel': 8, 'flash_fwd_tf32_kernel': 8,
                        'flash_dq_tf32_kernel': 4, 'flash_dkv_tf32_kernel': 4}
+# of which the f16 instantiations (the first template argument __half)
+F16_TENSOR_CORE_KERNELS = {'flash_fwd_mma_kernel': 8,
+                           'flash_dkv_mma_kernel': 4,
+                           'flash_dq_mma_kernel': 4}
 
 
 def phase_build():
@@ -267,7 +288,10 @@ def phase_build():
             if n.split('<')[0] in TENSOR_CORE_KERNELS}
     found = {k: sum(n.split('<')[0] == k for n in need)
              for k in TENSOR_CORE_KERNELS}
-    if found != TENSOR_CORE_KERNELS or not all(need.values()):
+    f16 = {k: sum(n.startswith(k + '<__half') for n in need)
+           for k in F16_TENSOR_CORE_KERNELS}
+    if (found != TENSOR_CORE_KERNELS or f16 != F16_TENSOR_CORE_KERNELS
+            or not all(need.values())):
         raise AssertionError(f"tensor-core kernels without HMMA/HGMMA "
                              f"instructions, or missing: {need}")
     emit({'phase': 'build', 'seconds': seconds, 'library': lib._name,
@@ -599,14 +623,14 @@ def attention_mask_probe(dtype, device, length, p, seed, offset, heads=2):
 
 
 def phase_mask_probe(seed):
-    """``attention_mask_probe`` on the card at fp32 and bf16, at a length
-    that 4 divides (the bf16 kernels' lanes share each Philox call's four
-    words) and one it does not (a call per probability): every bit must be
-    philox.py's."""
+    """``attention_mask_probe`` on the card at fp32, bf16 and fp16, at a
+    length that 4 divides (the 16-bit kernels' lanes share each Philox
+    call's four words) and one it does not (a call per probability): every
+    bit must be philox.py's."""
     dev = torch.device('cuda', 0)
     P, SEED = 0.1, 0x1234567890ABCDEF + seed
     probes = []
-    for dtype in (torch.float32, BF16):
+    for dtype in (torch.float32, BF16, FP16):
         for length in (300, 333):
             res = attention_mask_probe(dtype, dev, length, P, SEED, 17)
             torch.cuda.synchronize()
@@ -1176,22 +1200,34 @@ def _pretraining_batch(rs, batch, vocab):
     return x, y
 
 
-def _loss_and_grads(model, x, y, device, bf16=False):
+# the loss scale of the fp16 parity's backward: GradScaler's initial one
+FP16_LOSS_SCALE = 2.0 ** 15
+
+
+def _loss_and_grads(model, x, y, device, bf16=False, fp16=False):
     """One forward and backward of ``pretraining_loss`` -> (loss, {name:
     fp32 gradient on the host}), with the model's dropout state rewound to
     offset 0; with ``bf16``, under the reference's recipe
-    (``bf16_recipe``)."""
+    (``bf16_recipe``); with ``fp16``, under ``amp.auto_cast(level='O1',
+    dtype='float16')`` on the fp32 parameters, the backward taken from the
+    loss times ``FP16_LOSS_SCALE`` and divided by it, as the loss scaler
+    does (unscaled, fp16 activation gradients of ~1e-6 would lose their
+    bits below fp16's smallest normal, 6.1e-5)."""
+    from paddle_tpu_torch import amp
     model.dropout_state.offset = 0
     params = dict(model.named_parameters())
     feeds = {k: torch.from_numpy(v).to(device) for k, v in x.items()}
     labels = tuple(torch.from_numpy(v).to(device) for v in y)
+    scale = FP16_LOSS_SCALE if fp16 else 1.0
     if bf16:
         loss, _ = bf16_recipe(model)(params, (feeds, labels))
     else:
-        loss = model.pretraining_loss(*model(**feeds), *labels)
-    grads = torch.autograd.grad(loss, list(params.values()))
+        with amp.auto_cast(enable=fp16, level='O1', dtype='float16'):
+            loss = model.pretraining_loss(*model(**feeds), *labels)
+    grads = torch.autograd.grad(loss * scale, list(params.values()))
     return (float(loss.detach()),
-            {n: g.detach().float().cpu() for n, g in zip(params, grads)})
+            {n: (g.detach().float() / scale).cpu()
+             for n, g in zip(params, grads)})
 
 
 def _compare_grads(what, got, want, tol=GRAD_TOL, mean_tol=None):
@@ -1269,13 +1305,41 @@ TRAIN_LAUNCHES = {'flash_attention_fwd': 24, 'flash_attention_dq': 24,
                   'rms_norm_fwd': 0}
 
 
-def phase_train(seed, card, bf16=False):
-    """BERT-large pretraining steps through ``build_train_step``: fp32, or
-    with ``bf16`` the reference's recipe (``bf16_recipe``) on the same
-    weights (the same seed) and batch."""
+TRAIN_MODES = {
+    'fp32': 'float32',
+    'bf16': 'bfloat16 compute, fp32 master weights (bench_bert recipe)',
+    'bf16_flat': ('bfloat16 compute on views of one flat bf16 buffer, one '
+                  'flat fp32 master (bench_bert flat mode, FlatFusedUpdate)'),
+    'fp16_amp': ('amp.auto_cast O1 float16 on fp32 parameters, '
+                 'GradScaler, nan_guard'),
+}
+
+
+def _amp_step(step, debug=True):
+    """One call of ``step`` under ``auto_cast(level='O1', dtype=
+    'float16')``; with ``debug``, with CUDA's sync debug mode at 'error':
+    a step that made the host wait for the device would raise."""
+    from paddle_tpu_torch import amp
+
+    def run(state, batch):
+        with amp.auto_cast(level='O1', dtype='float16'):
+            torch.cuda.set_sync_debug_mode('error' if debug else 'default')
+            try:
+                return step(state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+    return run
+
+
+def phase_train(seed, card, mode='fp32'):
+    """BERT-large pretraining steps through ``build_train_step`` on the
+    same weights (the same seed) and batch: ``mode`` of ``TRAIN_MODES``.
+    -> (this path's launch counts, a callable that runs one more step)."""
     from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.amp import GradScaler
     from paddle_tpu_torch.engine import build_train_step
-    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import AdamW, FlatFusedUpdate
+    from paddle_tpu_torch.resilience import NanGuard
     from paddle_tpu_torch.text.bert import BertForPretraining, bert_large
     dev = torch.device('cuda', 0)
     gen = torch.Generator(device=dev)
@@ -1284,12 +1348,26 @@ def phase_train(seed, card, bf16=False):
     t0 = time.perf_counter()
     model = BertForPretraining(cfg, device=dev, generator=gen).train()
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01)
-    if bf16:
-        step = build_train_step(bf16_recipe(model), opt,
-                                params=dict(model.named_parameters()))
+    params = dict(model.named_parameters())
+    scaler = guard = None
+    if mode == 'bf16':
+        step = build_train_step(bf16_recipe(model), opt, params=params)
+    elif mode == 'bf16_flat':
+        step = build_train_step(
+            flat_recipe(model), FlatFusedUpdate(opt, params,
+                                                compute_dtype=BF16),
+            params=params)
+    elif mode == 'fp16_amp':
+        scaler, guard = GradScaler(), NanGuard()
+        step = build_train_step(net=model, loss=model.pretraining_loss,
+                                optimizer=opt, scaler=scaler,
+                                nan_guard=True)
     else:
         step = build_train_step(net=model, loss=model.pretraining_loss,
                                 optimizer=opt)
+    run = _amp_step(step) if mode == 'fp16_amp' else step
+    # the profile and the op log run outside the sync debug mode
+    quiet = _amp_step(step, debug=False) if mode == 'fp16_amp' else step
     state = step.init_state()
     x, y = _pretraining_batch(np.random.RandomState(seed), TRAIN_BATCH,
                               cfg.vocab_size)
@@ -1309,44 +1387,133 @@ def phase_train(seed, card, bf16=False):
     for i in range(warmup + timed):
         kernels.reset_launch_counts()          # the main path: one step
         t1 = time.perf_counter()
-        state, result = step(state, batch)
+        state, result = run(state, batch)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t1))
         counts = kernels.launch_counts()       # ... read right after it
         if counts != TRAIN_LAUNCHES:
-            raise AssertionError(f"train step {i} (bf16={bf16}): launches "
+            raise AssertionError(f"train step {i} ({mode}): launches "
                                  f"{counts}, expected {TRAIN_LAUNCHES}")
         for name, n in counts.items():
             totals[name] += n
         losses.append(float(result.loss))
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train: non-finite loss in {losses}")
+        raise AssertionError(f"train {mode}: non-finite loss in {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: loss did not fall: {losses}")
+        raise AssertionError(f"train {mode}: loss did not fall: {losses}")
     ms = step_ms[warmup:]
-    if bf16 and result.outputs[0].dtype != BF16:
-        raise AssertionError("bf16 train: the logits are not bf16")
-    emit({'phase': 'train_bf16' if bf16 else 'train',
-          'model': 'bert_large pretraining', 'layers':
-          cfg.num_hidden_layers, 'hidden': cfg.hidden_size,
-          'batch': [TRAIN_BATCH, SEQ],
-          'dtype': ('bfloat16 compute, fp32 master weights (bench_bert '
-                    'recipe)' if bf16 else 'float32'),
-          'dropout': cfg.hidden_dropout_prob, 'optimizer':
-          'AdamW(lr=1e-4, weight_decay=0.01)', 'card': card,
-          'setup_s': setup_s, 'warmup_steps': warmup, 'timed_steps': timed,
-          'step_ms': {'median': float(np.median(ms)), 'min': min(ms),
-                      'max': max(ms), 'warmup': step_ms[:warmup]},
-          'samples_per_s': TRAIN_BATCH / (float(np.median(ms)) / 1e3),
-          'max_memory_allocated_bytes': peak, 'losses': losses,
-          'launches_per_step': TRAIN_LAUNCHES, 'launches': totals})
-    phase_profile('train step bf16' if bf16 else 'train step',
-                  lambda: step(state, batch), TRAIN_ROUTES,
-                  top_n=20 if bf16 else 16, batch=[TRAIN_BATCH, SEQ])
-    if bf16:
-        copy_accounting(step, state, batch)
-    return totals
+    if mode.startswith('bf16') and result.outputs[0].dtype != BF16:
+        raise AssertionError(f"{mode} train: the logits are not bf16")
+    out = {'phase': 'train' if mode == 'fp32' else f'train_{mode}',
+           'model': 'bert_large pretraining', 'layers':
+           cfg.num_hidden_layers, 'hidden': cfg.hidden_size,
+           'batch': [TRAIN_BATCH, SEQ], 'dtype': TRAIN_MODES[mode],
+           'dropout': cfg.hidden_dropout_prob, 'optimizer':
+           'AdamW(lr=1e-4, weight_decay=0.01)', 'card': card,
+           'setup_s': setup_s, 'warmup_steps': warmup, 'timed_steps': timed,
+           'step_ms': {'median': float(np.median(ms)), 'min': min(ms),
+                       'max': max(ms), 'warmup': step_ms[:warmup]},
+           'samples_per_s': TRAIN_BATCH / (float(np.median(ms)) / 1e3),
+           'max_memory_allocated_bytes': peak, 'losses': losses,
+           'launches_per_step': TRAIN_LAUNCHES, 'launches': totals}
+    if mode == 'fp16_amp':
+        # the counters the steps kept on the device, into the host objects
+        out['sync'] = step.sync(state, nan_guard=guard, scaler=scaler)
+        if guard.total_steps != warmup + timed:
+            raise AssertionError(f"fp16 amp: the guard counted "
+                                 f"{guard.total_steps} steps")
+        out['steps_run_under_sync_debug_mode'] = 'error'
+    emit(out)
+    phase_profile(f'train step {mode}' if mode != 'fp32' else 'train step',
+                  lambda: quiet(state, batch), TRAIN_ROUTES,
+                  top_n=16 if mode == 'fp32' else 20,
+                  batch=[TRAIN_BATCH, SEQ])
+    if mode != 'fp32':
+        copy_accounting(mode, lambda: quiet(state, batch))
+    if mode in ('bf16', 'bf16_flat'):
+        optimizer_profile(mode, step, state)
+    if mode == 'fp16_amp':
+        amp_overflow(step, state, lambda: run(state, batch), scaler, guard)
+    return totals, lambda: quiet(state, batch)
+
+
+def flat_recipe(net):
+    """``bench.py::bench_bert``'s flat mode as a ``loss_fn`` for
+    ``build_train_step`` with a ``FlatFusedUpdate(compute_dtype=bf16)``:
+    the step hands it bf16 views of the flat buffer, which go to the model
+    through ``torch.func.functional_call``; the loss on fp32 logits."""
+    def loss_fn(params, batch):
+        x, y = batch
+        logits, nsp = torch.func.functional_call(net, params, (), x)
+        loss = net.pretraining_loss(logits.float(), nsp.float(), *y)
+        return loss, (logits, nsp)
+    return loss_fn
+
+
+def optimizer_profile(mode, step, state):
+    """Device time and events of one AdamW update alone (zero gradients,
+    the same arithmetic) on the step's state: the flat update of the
+    whole buffer, or the per-parameter one over ~400 tensors."""
+    flat = step._flat
+    if flat is not None:
+        g = torch.zeros_like(state['params'])
+        run = lambda: flat.update(state['params'], g, state['opt'])  # noqa
+    else:
+        grads = {n: torch.zeros_like(p) for n, p in state['params'].items()}
+        run = lambda: step.optimizer.functional_update(  # noqa: E731
+            state['params'], grads, state['opt'])
+    run()
+    torch.cuda.synchronize()
+    phase_profile(f'AdamW update alone ({mode})', run, {})
+
+
+def amp_overflow(step, state, run, scaler, guard):
+    """Force fp16 gradients past 65504: the device scale set to 2^40, then
+    ``decr_every_n_nan_or_inf`` steps. Each must leave parameters, moments
+    and beta*_pow bitwise as they were; after them the scale has halved;
+    ``sync`` brings the host GradScaler and NanGuard to the device's
+    counts."""
+    from paddle_tpu_torch import kernels
+    step.sync(state, nan_guard=guard, scaler=scaler)   # the steps so far
+    state['scaler']['scale'].fill_(2.0 ** 40)
+    steps0 = guard.total_steps
+    for i in range(scaler._decr_every):
+        before = [t.clone() for t in _state_tensors(state)]
+        kernels.reset_launch_counts()
+        state, result = run()
+        torch.cuda.synchronize()
+        if kernels.launch_counts() != TRAIN_LAUNCHES:
+            raise AssertionError("fp16 amp overflow step: launches "
+                                 f"{kernels.launch_counts()}")
+        changed = [j for j, (a, b) in enumerate(zip(
+            before, _state_tensors(state))) if not torch.equal(a, b)]
+        if changed:
+            raise AssertionError(f"fp16 amp: the overflowed step {i} moved "
+                                 f"{len(changed)} state tensors")
+        del before
+    synced = step.sync(state, nan_guard=guard, scaler=scaler)
+    want = {'scale': 2.0 ** 39, 'good': 0, 'bad': 0}
+    if scaler.state_dict() != want or synced['scaler'] != want:
+        raise AssertionError(f"fp16 amp: after the overflow the scaler is "
+                             f"{scaler.state_dict()}, expected {want}")
+    if guard.total_steps != steps0 + scaler._decr_every:
+        raise AssertionError("fp16 amp: the guard's step count")
+    emit({'phase': 'amp_overflow', 'scale_set': 2.0 ** 40,
+          'bad_steps': scaler._decr_every, 'state_bitwise_unchanged': True,
+          'scale_after': scaler.get_loss_scaling(), 'sync': synced,
+          'last_loss': float(result.loss)})
+
+
+def _state_tensors(state):
+    """Every parameter, moment and beta*_pow tensor of a step's state."""
+    out = list(state['params'].values())
+    pows = {}
+    for st in state['opt'].values():
+        out += [st['moment1'], st['moment2']]
+        for s_ in ('beta1_pow', 'beta2_pow'):
+            pows[id(st[s_])] = st[s_]
+    return out + list(pows.values())
 
 
 # ---------------------------------------------------------------------------
@@ -1355,13 +1522,19 @@ def phase_train(seed, card, bf16=False):
 # ---------------------------------------------------------------------------
 
 BF16 = torch.bfloat16
+FP16 = torch.float16
 # kernel vs plain version at bf16, max abs error over the output's (or
 # gradient's) max abs value: both compute in fp32 and round at the same
 # points, so they differ by one bf16 step (2^-8 = 3.9e-3 relative) where
 # sums taken in another order straddle a rounding boundary, and again where
 # a rounded P or dS feeds a product
 BF16_TOL = 1e-2
-# fp32 statistics (lse, mean, rstd) of bf16 inputs: summation order only
+# kernel vs plain version at fp16, as BF16_TOL: fp16 keeps 3 more mantissa
+# bits (2^-11 = 4.9e-4 relative a step), so the one-step differences are
+# an eighth of bf16's; the same arithmetic and rounding points otherwise
+# (the f16 instantiations of the same kernels)
+FP16_TOL = 2e-3
+# fp32 statistics (lse, mean, rstd) of 16-bit inputs: summation order only
 STAT_TOL = 1e-4
 # a bf16 model step against another path (fp32 weights and path, or the
 # plain versions), per gradient tensor over its max abs value: rounding
@@ -1450,16 +1623,29 @@ def no_copies(what, fn):
     return out, sorted(set(log.ops))
 
 
-def phase_kernels_bf16(seed, flush):
-    """The six kernels at bf16 on the bf16 train step's own inputs, each
-    against its plain version on the card, with its time, the plain
-    version's, a PyTorch library call's and the bound; the wrappers called
-    under the op log (no copy, no cast); the awkward attention cases; the
-    Philox mask of the bf16 kernel bit for bit as at fp32."""
+def phase_kernels_16(seed, flush, dtype=None):
+    """The six kernels at a 16-bit dtype (bf16, or fp16: the same designs'
+    f16 instantiations) on the bf16 train step's own inputs, each against
+    its plain version on the card (``BF16_TOL`` / ``FP16_TOL``), with its
+    time, the plain version's, a PyTorch library call's at that dtype and
+    the bound at the 16-bit tensor-core peak; the wrappers called under
+    the op log (no copy, no cast); the awkward attention cases; the Philox
+    mask of the 16-bit kernel bit for bit as at fp32. The speed limits are
+    bf16's; at fp16 the same ratios are printed, not held."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_dropout_norm as fdn
     from paddle_tpu_torch.kernels import fused_norm, philox
+    dtype = dtype or BF16
+    tag = 'bf16' if dtype == BF16 else 'fp16'
+    tol = BF16_TOL if dtype == BF16 else FP16_TOL
+    name16 = str(dtype)[6:]
+
+    def speed(phase, ratios):
+        if dtype == BF16:
+            check_speed(f'{phase}_{tag}', ratios)
+        else:
+            emit({'phase': f'{phase}_{tag}', **ratios, 'limits': None})
     dev = torch.device('cuda', 0)
     F = torch.nn.functional
     gen = torch.Generator(device=dev)
@@ -1469,28 +1655,30 @@ def phase_kernels_bf16(seed, flush):
     rows, wrapper_ops = {}, {}
 
     def randn(*shape):
-        return torch.randn(*shape, device=dev, generator=gen).to(BF16)
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
 
     def bf16_bound(flops, nbytes):
+        # the dense bf16 and fp16 tensor-core peaks are one number
         return bound(flops, nbytes, PEAK_BF16_FLOPS)
 
-    # -- the mask: the bf16 kernel's bits are the fp32 kernel's and
-    # philox.py's; a kept element is 1/(1-p) rounded once to bf16 ---------
+    # -- the mask: the 16-bit kernel's bits are the fp32 kernel's and
+    # philox.py's; a kept element is 1/(1-p) rounded once to the dtype ----
     n = 4 * 2 ** 20 + 3
-    m16 = fdn.dropout_grad(torch.ones(n, device=dev, dtype=BF16), P, SEED, 7)
+    m16 = fdn.dropout_grad(torch.ones(n, device=dev, dtype=dtype), P, SEED,
+                           7)
     m32 = fdn.dropout_grad(torch.ones(n, device=dev), P, SEED, 7)
     keep = philox.keep_mask((n,), P, SEED, 7, dev)
     torch.cuda.synchronize()
     if not (torch.equal(m16 != 0, keep) and torch.equal(m32 != 0, keep)
-            and torch.equal(m16, m32.to(BF16))):
-        raise AssertionError("dropout mask: the bf16 kernel's bits differ "
-                             "from the fp32 kernel's and kernels/philox.py")
-    emit({'phase': 'philox_bf16', 'elements': n, 'p': P,
+            and torch.equal(m16, m32.to(dtype))):
+        raise AssertionError(f"dropout mask: the {tag} kernel's bits differ "
+                             f"from the fp32 kernel's and kernels/philox.py")
+    emit({'phase': f'philox_{tag}', 'elements': n, 'p': P,
           'bit_exact_with_fp32_kernel_and_philox_py': True,
           'keep_rate': float(keep.double().mean())})
     del m16, m32, keep
 
-    # -- attention at the bf16 train step's inputs: (8, 16, 512, 64), no
+    # -- attention at the train step's inputs: (8, 16, 512, 64), no
     # mask, q/k/v/dO seen through transpose(1, 2) -------------------------
     B, H, L, D = TRAIN_BATCH, 16, SEQ, 64
     shape = (B, H, L, D)
@@ -1517,12 +1705,12 @@ def phase_kernels_bf16(seed, flush):
                           'p': p, **e})
     for case in [dict(errs[0.0], p=0.0, shape=list(shape)),
                  dict(errs[P], p=P, shape=list(shape))] + cases:
-        what = f"bf16 flash {case['shape']} p={case['p']}"
-        check(f'{what}: o over its max', case['o_rel'], BF16_TOL)
+        what = f"{tag} flash {case['shape']} p={case['p']}"
+        check(f'{what}: o over its max', case['o_rel'], tol)
         check(f'{what}: lse', case['lse'], STAT_TOL)
         for g in ('dq', 'dk', 'dv'):
-            check(f'{what}: {g}', case[g], BF16_TOL)
-    # the wrappers as the step calls them: bf16 in, bf16 out, no cast
+            check(f'{what}: {g}', case[g], tol)
+    # the wrappers as the step calls them: 16-bit in and out, no cast
     drop = (P, SEED, 3)
     (o, lse), wrapper_ops['flash_attention_fwd'] = no_copies(
         'flash forward', lambda: fa.flash_attention_forward(
@@ -1533,9 +1721,9 @@ def phase_kernels_bf16(seed, flush):
         'flash dQ', lambda: fa.flash_attention_dq(q, k, v, do, *rest))
     (dk, dv), wrapper_ops['flash_attention_dkv'] = no_copies(
         'flash dK/dV', lambda: fa.flash_attention_dkv(q, k, v, do, *rest))
-    if not (o.dtype == dq.dtype == dk.dtype == dv.dtype == BF16
+    if not (o.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
             and lse.dtype == torch.float32):
-        raise AssertionError("flash attention: bf16 in, not bf16 out")
+        raise AssertionError(f"flash attention: {tag} in, not {tag} out")
     ms = {p: _attention_ms(fa, q, k, v, do, None, p, SEED, flush)
           for p in (0.0, P)}
     with kernels.plain_versions():
@@ -1548,11 +1736,11 @@ def phase_kernels_bf16(seed, flush):
                        flush)
     del ol, ql, kl, vl
     # the work: every key of every row (no mask); q, k, v, dO read once and
-    # each output written once in bf16, lse and delta in fp32
+    # each output written once in 16 bits, lse and delta in fp32
     n_qd = 2.0 * B * H * L * D
     side = 4.0 * B * H * L
     products = float(B * H) * L * L * D
-    library = 'bf16 SDPA backward (dQ, dK, dV together), p = 0'
+    library = f'{tag} SDPA backward (dQ, dK, dV together), p = 0'
     for name, kind, outs, per, tensors, extra in (
             ('flash_attention_fwd', 'fwd', ('o_rel',), 4.0, 4, side),
             ('flash_attention_dq', 'dq', ('dq',), 6.0, 5, 2 * side),
@@ -1563,27 +1751,27 @@ def phase_kernels_bf16(seed, flush):
             'error_is': 'relative to the max abs value',
             'ms': ms[P][kind], 'ms_p0': ms[0.0][kind], 'plain_ms': plain[kind],
             'library_ms': sdpa_fwd if kind == 'fwd' else sdpa_bwd,
-            'library': ('bf16 SDPA forward, p = 0' if kind == 'fwd'
+            'library': (f'{tag} SDPA forward, p = 0' if kind == 'fwd'
                         else library),
             **work, 'shape': list(shape),
             'layout': '(B, L, H, D) seen through transpose(1, 2)',
-            'dtype': 'bfloat16', 'tolerance': BF16_TOL}
+            'dtype': name16, 'tolerance': tol}
     rows['flash_attention_fwd'].update(
         lse_abs_err=max(errs[p]['lse'] for p in (0.0, P)), cases=cases)
     for name in ('flash_attention_fwd', 'flash_attention_dq',
                  'flash_attention_dkv'):
-        emit_kernel(name, rows, tolerance=BF16_TOL, phase='kernel_bf16')
+        emit_kernel(name, rows, tolerance=tol, phase=f'kernel_{tag}')
     # the tensor-core kernels against one library call each, p = 0
-    check_speed('attention_speed_bf16', {
+    speed('attention_speed', {
         'fwd_over_sdpa_fwd': ms[0.0]['fwd'] / sdpa_fwd,
         'dkv_over_sdpa_bwd': ms[0.0]['dkv'] / sdpa_bwd,
         'dq_over_sdpa_bwd': ms[0.0]['dq'] / sdpa_bwd})
     del q, k, v, do, o, dq, dk, dv
 
-    # -- LayerNorm as the bf16 step launches it, y/mean/rstd out, eps
+    # -- LayerNorm as the 16-bit step launches it, y/mean/rstd out, eps
     # 1e-12, on the embeddings (4096 rows) and the MLM head (608 rows) ----
     E = 1024
-    w, b = (1.0 + 0.1 * randn(E).float()).to(BF16), 0.1 * randn(E)
+    w, b = (1.0 + 0.1 * randn(E).float()).to(dtype), 0.1 * randn(E)
     ln = {}
     for lead in ((TRAIN_BATCH, SEQ), (TRAIN_BATCH, SEQ * 15 // 100)):
         xs = randn(*lead, E)
@@ -1595,9 +1783,9 @@ def phase_kernels_bf16(seed, flush):
         torch.cuda.synchronize()
         err_y, err_st = rel_err(out[0], ref[0]), max(
             max_err(out[1], ref[1]), max_err(out[2], ref[2]))
-        check(f'bf16 layer norm {(*lead, E)}: y over its max', err_y,
-              BF16_TOL)
-        check(f'bf16 layer norm {(*lead, E)}: mean, rstd', err_st, STAT_TOL)
+        check(f'{tag} layer norm {(*lead, E)}: y over its max', err_y, tol)
+        check(f'{tag} layer norm {(*lead, E)}: mean, rstd', err_st,
+              STAT_TOL)
         n_ = lead[0] * lead[1]
         work = bf16_bound(8.0 * n_ * E, 2.0 * (2 * n_ * E + 2 * E)
                                 + 8.0 * n_)
@@ -1619,17 +1807,17 @@ def phase_kernels_bf16(seed, flush):
         xs = randn(n_, E)
         return lambda: fused_norm._forward(xs, w, b, 1e-12, True)
     rows['layer_norm_fwd'] = {
-        **first, 'library': 'torch.native_layer_norm (bf16, fp32 stats)',
-        'shape': [TRAIN_BATCH * SEQ, E], 'dtype': 'bfloat16',
-        'outputs': 'y, mean, rstd', 'shapes': ln,
-        'fixed_cost': fixed_cost(ln_at, lambda n_: 2.0 * (2 * n_ * E + 2 * E)
-                                 + 8.0 * n_, flush)}
-    emit_kernel('layer_norm_fwd', rows, tolerance=BF16_TOL,
-                phase='kernel_bf16')
-    check_speed('layer_norm_speed_bf16', {
+        **first, 'library': f'torch.native_layer_norm ({tag}, fp32 stats)',
+        'shape': [TRAIN_BATCH * SEQ, E], 'dtype': name16,
+        'outputs': 'y, mean, rstd', 'shapes': ln}
+    if dtype == BF16:
+        rows['layer_norm_fwd']['fixed_cost'] = fixed_cost(
+            ln_at, lambda n_: 2.0 * (2 * n_ * E + 2 * E) + 8.0 * n_, flush)
+    emit_kernel('layer_norm_fwd', rows, tolerance=tol, phase=f'kernel_{tag}')
+    speed('layer_norm_speed', {
         'ln_over_native_ln': first['ms'] / first['library_ms']})
 
-    # -- dropout + add + LayerNorm in the bf16 step (4 outputs), and the
+    # -- dropout + add + LayerNorm in the 16-bit step (4 outputs), and the
     # mask gradient ------------------------------------------------------
     N = TRAIN_BATCH * SEQ
     x, res, g = randn(N, E), randn(N, E), randn(N, E)
@@ -1645,8 +1833,8 @@ def phase_kernels_bf16(seed, flush):
         torch.cuda.synchronize()
         e_rel = max(rel_err(out[0], ref[0]), rel_err(out[1], ref[1]))
         e_st = max(max_err(out[2], ref[2]), max_err(out[3], ref[3]))
-        what = f'bf16 dropout + add + layer norm ({n_}, {e_}) p={p}'
-        check(f'{what}: y, yin over their max', e_rel, BF16_TOL)
+        what = f'{tag} dropout + add + layer norm ({n_}, {e_}) p={p}'
+        check(f'{what}: y, yin over their max', e_rel, tol)
         check(f'{what}: mean, rstd', e_st, STAT_TOL)
         add_errs[f'({n_}, {e_}) p={p}'] = {
             'max_abs_err': max(max_err(out[0], ref[0]),
@@ -1666,12 +1854,12 @@ def phase_kernels_bf16(seed, flush):
             x + res, (E,), w, b, 1e-5), flush),
         'library': ADD_LN_LIBRARY, 'copy_ms': copy_ms(work['bytes'], flush),
         **work, 'shape': [N, E],
-        'dtype': 'bfloat16', 'outputs': 'y, yin, mean, rstd',
+        'dtype': name16, 'outputs': 'y, yin, mean, rstd',
         'errors': add_errs}
-    emit_kernel('add_layer_norm_fwd', rows, tolerance=BF16_TOL,
-                phase='kernel_bf16')
+    emit_kernel('add_layer_norm_fwd', rows, tolerance=tol,
+                phase=f'kernel_{tag}')
     add_ln = rows['add_layer_norm_fwd']
-    check_speed('add_layer_norm_speed_bf16', {
+    speed('add_layer_norm_speed', {
         'add_ln_over_add_native_ln': add_ln['ms_p0'] / add_ln['library_ms']})
 
     dx, wrapper_ops['dropout_grad'] = no_copies(
@@ -1680,10 +1868,10 @@ def phase_kernels_bf16(seed, flush):
         rdx = fdn.dropout_grad(g, P, SEED, 5)
     torch.cuda.synchronize()
     if not torch.equal(dx, rdx):      # one product, rounded once, both
-        raise AssertionError("bf16 dropout mask gradient differs from its "
-                             "plain version")
+        raise AssertionError(f"{tag} dropout mask gradient differs from "
+                             f"its plain version")
     cases = dmask_bit_exact(fdn, g, randn, P, SEED)
-    stored = philox.keep_scale(g.shape, P, SEED, 5, dev).to(BF16)
+    stored = philox.keep_scale(g.shape, P, SEED, 5, dev).to(dtype)
     with kernels.plain_versions():
         grad_plain = time_ms(lambda: fdn.dropout_grad(g, P, SEED, 5), flush)
     work = bf16_bound(1.0 * N * E, 2.0 * 2 * N * E)
@@ -1692,20 +1880,20 @@ def phase_kernels_bf16(seed, flush):
         'ms': time_ms(lambda: fdn.dropout_grad(g, P, SEED, 5), flush),
         'plain_ms': grad_plain,
         'library_ms': time_ms(lambda: g * stored, flush),
-        'library': 'multiply by a stored (N, D) bf16 mask',
+        'library': f'multiply by a stored (N, D) {tag} mask',
         'copy_ms': copy_ms(work['bytes'], flush), **work, 'shape': [N, E],
-        'dtype': 'bfloat16', 'bit_exact_cases': cases}
-    emit_kernel('dropout_grad', rows, tolerance=0.0, phase='kernel_bf16')
+        'dtype': name16, 'bit_exact_cases': cases}
+    emit_kernel('dropout_grad', rows, tolerance=0.0, phase=f'kernel_{tag}')
     grad = rows['dropout_grad']
-    check_speed('mask_gradient_speed_bf16', {
+    speed('mask_gradient_speed', {
         'dmask_over_stored_mask': grad['ms'] / grad['library_ms']})
-    emit({'phase': 'wrappers_bf16', 'copies_or_casts': 0,
+    emit({'phase': f'wrappers_{tag}', 'copies_or_casts': 0,
           'aten_ops': wrapper_ops})
     return rows
 
 
 def phase_rms(seed, flush):
-    """``nn.RMSNorm`` forward and backward (autograd) at fp32 and bf16,
+    """``nn.RMSNorm`` forward and backward (autograd) at fp32, bf16 and fp16,
     with and without a weight, at the BERT-large train step's rows by its
     hidden and intermediate widths and at an odd shape, against the plain
     version on the card; exactly one RMSNorm launch per forward; times at
@@ -1720,7 +1908,7 @@ def phase_rms(seed, flush):
     one = {**dict.fromkeys(kernels.KERNELS, 0), 'rms_norm_fwd': 1}
     checks, timings = [], {}
     rows = {}
-    for dtype in (torch.float32, BF16):
+    for dtype in (torch.float32, BF16, FP16):
         for n_, d_ in RMS_ROUTES:
             x0 = torch.randn(n_, d_, device=dev, generator=gen).to(dtype)
             gy = torch.randn(n_, d_, device=dev, generator=gen).to(dtype)
@@ -1751,12 +1939,13 @@ def phase_rms(seed, flush):
                     rgrads = torch.autograd.grad(
                         yr, [xr] + ([mod.weight] if weighted else []), gy)
                 torch.cuda.synchronize()
+                tol16 = BF16_TOL if dtype == BF16 else FP16_TOL
                 if dtype == torch.float32:
                     e_y, tol_y = max_err(y, yr), TOL
                 else:
-                    e_y, tol_y = rel_err(y, yr), BF16_TOL
+                    e_y, tol_y = rel_err(y, yr), tol16
                 e_g = max(rel_err(a, c) for a, c in zip(grads, rgrads))
-                tol_g = GRAD_TOL if dtype == torch.float32 else BF16_TOL
+                tol_g = GRAD_TOL if dtype == torch.float32 else tol16
                 what = f'nn.RMSNorm {str(dtype)[6:]} ({n_}, {d_}) ' \
                        f'weight={weighted}'
                 check(f'{what}: y', e_y, tol_y)
@@ -1792,7 +1981,7 @@ def phase_rms(seed, flush):
                                 xd, (d_,), wd, 1e-6), flush),
                         'copy_ms': copy_ms(work['bytes'], flush), **work}
         key = f'{str(dtype)[6:]} ({TRAIN_BATCH * SEQ}, 1024)'
-        rows['fp32' if dtype == torch.float32 else 'bf16'] = {
+        rows[{torch.float32: 'fp32', BF16: 'bf16', FP16: 'fp16'}[dtype]] = {
             **timings[key],
             'max_abs_err': max(c['max_abs_err'] for c in checks
                                if c['dtype'] == str(dtype)[6:]),
@@ -1809,7 +1998,8 @@ def phase_rms(seed, flush):
     bf16['fixed_cost'] = fixed_cost(
         rms_at, lambda n_: 2.0 * (2 * n_ * 1024 + 1024) + 4.0 * n_, flush)
     emit({'phase': 'rms', 'module': 'paddle_tpu_torch.nn.RMSNorm',
-          'tolerance': {'fp32': [TOL, GRAD_TOL], 'bf16': BF16_TOL},
+          'tolerance': {'fp32': [TOL, GRAD_TOL], 'bf16': BF16_TOL,
+                        'fp16': FP16_TOL},
           'checks': checks, 'timings': timings,
           'launches_per_forward': 1, 'launches': totals})
     check_speed('rms_norm_speed_bf16', {
@@ -1817,7 +2007,14 @@ def phase_rms(seed, flush):
     return rows, totals
 
 
-def phase_routes(seed):
+# the attention kernels one O1 fp16 BERT-large step launches, each an f16
+# instantiation (phase_routes reads them)
+AMP_ATTENTION = {'flash_fwd_mma_kernel<__half': 24,
+                 'flash_dq_mma_kernel<__half': 24,
+                 'flash_dkv_mma_kernel<__half': 24}
+
+
+def phase_routes(seed, amp_step=None):
     """The kernel each LayerNorm and RMSNorm shape of ``LN_ROUTES`` and
     ``RMS_ROUTES`` takes on the card, at fp32 and bf16: one call a shape
     and dtype, on fresh (16-byte aligned) tensors, read by name from one
@@ -1826,7 +2023,10 @@ def phase_routes(seed):
     run made later ones (the serving profile's) miss kernels, so this is
     the run's last session: it holds the stream first, then makes every
     call twice, and the second round must show each call's kernel, in
-    order. Raises on another kernel. -> {call: kernel word}."""
+    order. Raises on another kernel. With ``amp_step`` (one more O1 fp16
+    train step), that step runs first in the same session, and its
+    attention launches must be the f16 instantiations ``AMP_ATTENTION``
+    names, and no other attention kernel. -> {call: kernel word}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.kernels import fused_norm
@@ -1851,6 +2051,9 @@ def phase_routes(seed):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(HOLD_CYCLES)
         torch.cuda.synchronize()
+        if amp_step is not None:
+            amp_step()
+            torch.cuda.synchronize()
         for _ in range(2):
             for _, _, fn in calls:
                 fn()
@@ -1868,7 +2071,17 @@ def phase_routes(seed):
     if len(got) != len(calls):
         raise AssertionError(f"routes: the profiler saw {len(names)} of "
                              f"{len(calls)} norm calls")
-    emit({'phase': 'routes', 'kernels': got})
+    amp = None
+    if amp_step is not None:
+        attention = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and 'flash_' in e.name]
+        amp = {w: sum(w in n for n in attention) for w in AMP_ATTENTION}
+        if amp != AMP_ATTENTION or len(attention) != sum(amp.values()):
+            raise AssertionError(f"routes: the O1 fp16 step launched "
+                                 f"{amp} of {len(attention)} attention "
+                                 f"kernels, expected {AMP_ATTENTION}")
+    emit({'phase': 'routes', 'kernels': got, 'amp_fp16_attention': amp})
     return got
 
 
@@ -1940,12 +2153,162 @@ def phase_train_parity_bf16(seed):
     emit(out)
 
 
-def copy_accounting(step, state, batch):
-    """One more bf16 step under the op log: every copy or cast, grouped by
-    (from, to, the line that asked for it). None may come from a kernel
-    wrapper."""
+def phase_train_parity_fp16(seed):
+    """A full-width 2-layer BertForPretraining, batch 2 x 512, under
+    ``amp.auto_cast(level='O1', dtype='float16')`` on fp32 parameters (the
+    backward of the loss times ``FP16_LOSS_SCALE``, unscaled): at p = 0
+    against the fp32 step on the same weights and batch, at p = 0.1
+    against the plain versions on the card, under the bf16 recipe's gates;
+    then a ``microbatch=2`` call of ``build_train_step(scaler=,
+    nan_guard=True)`` under O1 fp16 against two ``microbatch=1`` calls on
+    a model of the same seed: every parameter, moment and counter bitwise
+    equal."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.engine import build_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.bert import BertForPretraining, bert_large
+    dev = torch.device('cuda', 0)
+    x, y = _pretraining_batch(np.random.RandomState(seed), 2, 30522)
+    out = {'phase': 'train_parity_fp16', 'layers': 2, 'batch': [2, SEQ],
+           'recipe': 'amp.auto_cast O1 float16, fp32 parameters',
+           'loss_scale': FP16_LOSS_SCALE,
+           'gates': {'loss_rel': BF16_LOSS_TOL, 'grad_max': BF16_GRAD_MAX,
+                     'grad_mean': BF16_GRAD_MEAN}}
+
+    def model_of(p):
+        cfg = bert_large(hidden_dropout_prob=p,
+                         attention_probs_dropout_prob=p)
+        cfg.num_hidden_layers = 2
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 2)
+        return BertForPretraining(cfg, device=dev, generator=gen).train()
+    for p in (0.0, 0.1):
+        model = model_of(p)
+        kernels.reset_launch_counts()
+        loss, grads = _loss_and_grads(model, x, y, dev, fp16=True)
+        counts = kernels.launch_counts()
+        if p == 0.0:
+            ref_loss, ref_grads = _loss_and_grads(model, x, y, dev)
+            other = 'the fp32 step (kernels) on the same weights'
+        else:
+            with kernels.plain_versions():
+                ref_loss, ref_grads = _loss_and_grads(model, x, y, dev,
+                                                      fp16=True)
+            other = 'plain versions on the GPU, O1 fp16'
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        check(f'fp16 train parity p={p}: loss', loss_err, BF16_LOSS_TOL)
+        worst, name, mean = _compare_grads(
+            f'fp16 train parity p={p}', grads, ref_grads, BF16_GRAD_MAX,
+            BF16_GRAD_MEAN)
+        out[f'p={p}'] = {'against': other, 'loss': loss,
+                         'reference_loss': ref_loss, 'loss_rel_err': loss_err,
+                         'worst_grad_rel_err': worst, 'worst_grad': name,
+                         'mean_grad_rel_err': mean, 'gradients': len(grads),
+                         'launches': counts}
+        del model
+        torch.cuda.empty_cache()
+    feeds = {k: torch.from_numpy(v).to(dev) for k, v in x.items()}
+    labels = tuple(torch.from_numpy(v).to(dev) for v in y)
+    final = {}
+    for k in (2, 1):
+        model = model_of(0.1)
+        train = build_train_step(
+            net=model, loss=model.pretraining_loss,
+            optimizer=AdamW(learning_rate=1e-4, weight_decay=0.01),
+            scaler=GradScaler(), nan_guard=True, microbatch=k)
+        run = _amp_step(train)
+        state = train.init_state()
+        if k == 2:
+            state, res = run(state, (
+                {n: torch.stack([v, v]) for n, v in feeds.items()},
+                tuple(torch.stack([v, v]) for v in labels)))
+            losses = res.losses
+        else:
+            losses = []
+            for _ in range(2):
+                state, res = run(state, (feeds, labels))
+                losses.append(res.losses)
+            losses = torch.stack(losses)
+        torch.cuda.synchronize()
+        final[k] = ([t.clone() for t in _state_tensors(state)], losses,
+                    train.sync(state))
+        del model, train, state
+    (t2, l2, s2), (t1, l1, s1) = final[2], final[1]
+    if not (len(t2) == len(t1) and s2 == s1 and torch.equal(l2, l1)
+            and all(torch.equal(a_, b_) for a_, b_ in zip(t2, t1))):
+        raise AssertionError("fp16 amp: a microbatch=2 call differs from "
+                             "two microbatch=1 calls")
+    out['microbatch_2_equals_two_steps'] = {
+        'bitwise': True, 'state_tensors': len(t2),
+        'losses': [float(v) for v in l2], 'sync': s2}
+    emit(out)
+    torch.cuda.empty_cache()
+
+
+def phase_train_parity_flat(seed):
+    """A full-width 2-layer BertForPretraining, batch 2 x 512, p = 0.1:
+    three steps of the flat bf16 path (``FlatFusedUpdate`` with
+    ``compute_dtype=bf16``, ``flat_recipe``) and of the per-parameter bf16
+    recipe on the same weights and batch; every parameter and moment
+    within 1e-6 of its largest value (bitwise, where it is, is printed)."""
+    from paddle_tpu_torch.engine import build_train_step
+    from paddle_tpu_torch.optimizer import AdamW, FlatFusedUpdate
+    from paddle_tpu_torch.text.bert import BertForPretraining, bert_large
+    dev = torch.device('cuda', 0)
+    x, y = _pretraining_batch(np.random.RandomState(seed), 2, 30522)
+    batch = ({k: torch.from_numpy(v).to(dev) for k, v in x.items()},
+             tuple(torch.from_numpy(v).to(dev) for v in y))
+    got = {}
+    for flat in (False, True):
+        cfg = bert_large()
+        cfg.num_hidden_layers = 2
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 2)
+        model = BertForPretraining(cfg, device=dev, generator=gen).train()
+        params = dict(model.named_parameters())
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01)
+        if flat:
+            fl = FlatFusedUpdate(opt, params, compute_dtype=BF16)
+            step = build_train_step(flat_recipe(model), fl, params=params)
+        else:
+            step = build_train_step(bf16_recipe(model), opt, params=params)
+        state = step.init_state()
+        losses = []
+        for _ in range(3):
+            state, res = step(state, batch)
+            losses.append(float(res.loss))
+        if flat:
+            m1, m2 = (fl.unflatten(state['opt'][s_])
+                      for s_ in ('moment1', 'moment2'))
+            slots = {n: (m1[n], m2[n]) for n in params}
+        else:
+            slots = {n: (st['moment1'], st['moment2'])
+                     for n, st in state['opt'].items()}
+        got[flat] = ({n: p.detach().clone() for n, p in params.items()},
+                     {n: tuple(t.clone() for t in v)
+                      for n, v in slots.items()}, losses)
+        del model, step, state
+    (p0, m0, l0), (p1, m1_, l1) = got[False], got[True]
+    worst, bitwise = 0.0, True
+    for n in p0:
+        for a_, b_ in ((p1[n], p0[n]), *zip(m1_[n], m0[n])):
+            bitwise &= bool(torch.equal(a_, b_))
+            worst = max(worst, rel_err(a_, b_))
+    check('flat bf16 parity: parameters and moments', worst, 1e-6)
+    emit({'phase': 'train_parity_bf16_flat', 'layers': 2, 'batch': [2, SEQ],
+          'steps': 3, 'p': 0.1, 'tolerance': 1e-6, 'worst_rel_err': worst,
+          'bitwise': bitwise, 'losses_flat': l1, 'losses_per_parameter': l0,
+          'tensors': len(p0)})
+    torch.cuda.empty_cache()
+
+
+def copy_accounting(mode, run):
+    """One more step (``run``) under the op log: every copy or cast,
+    grouped by (from, to, the line that asked for it). None may come from
+    a kernel wrapper."""
     with OpLog() as log:
-        step(state, batch)
+        run()
         torch.cuda.synchronize()
     groups = {}
     for src, dst, _, site in log.copies:
@@ -1954,9 +2317,9 @@ def copy_accounting(step, state, batch):
     bad = [k for k in groups if '/kernels/' in k
            and k.rsplit(' ', 1)[-1] in WRAPPERS]
     if bad:
-        raise AssertionError(f"bf16 step: a kernel wrapper copied or cast: "
-                             f"{bad}")
-    emit({'phase': 'copies_bf16_step', 'ops': len(log.ops),
+        raise AssertionError(f"{mode} step: a kernel wrapper copied or "
+                             f"cast: {bad}")
+    emit({'phase': f'copies_{mode}_step', 'ops': len(log.ops),
           'copies_or_casts': len(log.copies), 'from_kernel_wrappers': 0,
           'by_site': dict(sorted(groups.items(), key=lambda kv: -kv[1]))})
 
@@ -2000,31 +2363,42 @@ def main():
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
                         device='cuda')   # 256 MB, five times the L2
     rows = phase_kernels(args.seed, flush)
-    rows16 = phase_kernels_bf16(args.seed, flush)
+    rows16 = phase_kernels_16(args.seed, flush)
+    rowsh = phase_kernels_16(args.seed, flush, FP16)
     phase_mask_probe(args.seed)
     rms_rows, rms_path = phase_rms(args.seed, flush)
-    rows['rms_norm_fwd'], rows16['rms_norm_fwd'] = rms_rows['fp32'], \
-        rms_rows['bf16']
+    rows['rms_norm_fwd'], rows16['rms_norm_fwd'], rowsh['rms_norm_fwd'] = \
+        rms_rows['fp32'], rms_rows['bf16'], rms_rows['fp16']
     del flush
     phase_parity(args.seed)
     served = phase_serve(args.seed, card)
     torch.cuda.empty_cache()
     phase_train_parity(args.seed)
-    trained = phase_train(args.seed, card)
+    # [0]: the step's callable, and with it its model and state, goes
+    trained = phase_train(args.seed, card)[0]
     torch.cuda.empty_cache()
     phase_train_parity_bf16(args.seed)
-    trained16 = phase_train(args.seed, card, bf16=True)
-    phase_routes(args.seed)
+    trained16 = phase_train(args.seed, card, 'bf16')[0]
+    torch.cuda.empty_cache()
+    phase_train_parity_flat(args.seed)
+    trained_flat = phase_train(args.seed, card, 'bf16_flat')[0]
+    torch.cuda.empty_cache()
+    phase_train_parity_fp16(args.seed)
+    trained_amp, amp_again = phase_train(args.seed, card, 'fp16_amp')
+    phase_routes(args.seed, amp_again)
+    del amp_again
+    torch.cuda.empty_cache()
     # launches: each main path's counts, zeroed just before the path and
     # read just after (serving: 21 batches; each training run: 20 steps;
-    # nn.RMSNorm: 12 forwards and their backward); the top-level numbers
+    # nn.RMSNorm: 18 forwards and their backward); the top-level numbers
     # are bf16's, the dtype of the reference's training recipe
     paths = {'serve': served, 'train_fp32': trained,
-             'train_bf16': trained16, 'nn.RMSNorm': rms_path}
+             'train_bf16': trained16, 'train_bf16_flat': trained_flat,
+             'train_fp16_amp': trained_amp, 'nn.RMSNorm': rms_path}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'share_of_bound', 'achieved_tflops',
             'achieved_tb_per_s')
-    for row in (*rows.values(), *rows16.values()):
+    for row in (*rows.values(), *rows16.values(), *rowsh.values()):
         row.update(closeness(row))
     emit({'kernels': [
         {'name': name, 'route': 'cuda', 'source': SOURCES[name][0],
@@ -2033,7 +2407,8 @@ def main():
          'launches_by_path': {p: c[name] for p, c in paths.items()},
          **{k: rows16[name][k] for k in keys},
          'fp32': {k: rows[name][k] for k in keys},
-         'bf16': {k: rows16[name][k] for k in keys}}
+         'bf16': {k: rows16[name][k] for k in keys},
+         'fp16': {k: rowsh[name][k] for k in keys}}
         for name in SOURCES]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

@@ -17,7 +17,8 @@ moves like any embedding table.
 ``to_paddle_tpu_state`` is the inverse (parameters, or their ``.grad``s),
 and ``load_paddle_tpu_opt_state`` / ``to_paddle_tpu_opt_state`` move the
 optimizer's per-parameter state — ``{key: {'moment1', 'moment2',
-'beta1_pow', 'beta2_pow'}}`` on both sides — the same way, so a test can
+'beta1_pow', 'beta2_pow'}}`` on both sides, the powers 0-dim arrays of the
+parameter's dtype — the same way, so a test can
 lay gradients, updated weights and moments beside the reference's.
 """
 import numpy as np
@@ -113,7 +114,10 @@ def load_paddle_tpu_opt_state(module, opt_state, ref_state):
                 slots[slot].copy_(torch.tensor(value,
                                                dtype=slots[slot].dtype))
         for slot in _POWS:
-            slots[slot] = type(slots[slot])(np.asarray(ref_state[key][slot]))
+            # 0-dim tensors of the parameter's dtype, one pair a parameter
+            slots[slot] = torch.tensor(
+                np.array(ref_state[key][slot]), dtype=slots[slot].dtype,
+                device=slots[slot].device)
     return opt_state
 
 
@@ -129,5 +133,5 @@ def to_paddle_tpu_opt_state(module, opt_state):
             out[key][slot] = (value.T.copy() if key in linear_weights
                               else value.copy())
         for slot in _POWS:
-            out[key][slot] = slots[slot]
+            out[key][slot] = slots[slot].detach().cpu().numpy()
     return out

@@ -13,8 +13,8 @@ Every C entry point takes ``void*`` pointers (``tensor.data_ptr()``) and
 the CUDA stream, launches on that stream and returns
 ``cudaGetLastError()``; ``call`` raises on a non-zero code and otherwise
 adds one to the launched kernel's count in ``launches``. Each kernel is
-instantiated for fp32 and bf16 and reads and writes its tensors in HBM in
-that dtype (statistics, ``lse``, ``delta`` and the key bias are always
+instantiated for fp32, bf16 and fp16 and reads and writes its tensors in
+HBM in that dtype (statistics, ``lse``, ``delta`` and the key bias are always
 fp32); the entry point takes the code ``dtype_code`` gives.
 
 ``use_kernels(tensor)`` is the one place that decides between a kernel and
@@ -59,8 +59,8 @@ KERNELS = ('flash_attention_fwd', 'flash_attention_dq', 'flash_attention_dkv',
            'layer_norm_fwd', 'rms_norm_fwd', 'add_layer_norm_fwd',
            'dropout_grad')
 # the element types the kernels are built for -> the code the C entry
-# points take (csrc/dtype.cuh, ElemType); float16 comes with amp/
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# points take (csrc/dtype.cuh, ElemType)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # kernel launches since the last reset, by kernel (kernels.launch_counts)
 launches = dict.fromkeys(KERNELS, 0)
 _force_plain = False
@@ -208,14 +208,13 @@ def dtype_code(t):
 def require(t, name, device, shape=None, contiguous=True, dtype=None):
     """Raise ``ValueError`` unless ``t`` is a contiguous CUDA tensor on
     ``device`` of a dtype the kernels take — ``dtype`` when given (the
-    call's own dtype, or fp32 for statistics and the key bias), else fp32
-    or bf16 — and with ``shape``, when given. With ``contiguous=False`` the
-    caller checks the layout itself. Nothing is converted: a tensor of
-    another dtype is refused, never cast."""
+    call's own dtype, or fp32 for statistics and the key bias), else fp32,
+    bf16 or fp16 — and with ``shape``, when given. With
+    ``contiguous=False`` the caller checks the layout itself. Nothing is
+    converted: a tensor of another dtype is refused, never cast."""
     if t.dtype not in DTYPES:
-        raise ValueError(f"{name}: the CUDA kernels take float32 or "
-                         f"bfloat16, got {t.dtype} (float16 is not ported "
-                         f"yet)")
+        raise ValueError(f"{name}: the CUDA kernels take float32, bfloat16 "
+                         f"or float16, got {t.dtype}")
     if dtype is not None and t.dtype != dtype:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}: every "
                          f"tensor of one call has the call's dtype, and "

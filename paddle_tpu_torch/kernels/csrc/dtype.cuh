@@ -1,6 +1,6 @@
-// The two element types the kernels take, fp32 and bf16, and how a kernel
-// reads and writes them. Whatever the element type, arithmetic is fp32: a
-// value is widened on load and rounded (to nearest even, as torch's and
+// The three element types the kernels take, fp32, bf16 and fp16, and how a
+// kernel reads and writes them. Whatever the element type, arithmetic is fp32:
+// a value is widened on load and rounded (to nearest even, as torch's and
 // JAX's casts round) on store. round_to<T> is the round trip a value makes
 // where the reference casts it to the input dtype before a product.
 #pragma once
@@ -9,15 +9,17 @@
 #include <initializer_list>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 // what the C entry points take to pick the instantiation
-enum ElemType : int { kF32 = 0, kBF16 = 1 };
+enum ElemType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
     return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -26,6 +28,12 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
     return __float2bfloat16_rn(v);
+}
+// past 65504 (the largest fp16) a value rounds to inf, as torch's and
+// JAX's casts round it
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+    return __float2half_rn(v);
 }
 
 template <typename T>
@@ -40,8 +48,8 @@ struct alignas(sizeof(T) * N) Pack {
 };
 
 // A row kernel's thread takes G neighbouring columns a step, starting at a
-// multiple of G. kVec: 16-byte accesses (G = 4 fp32 or 8 bf16), which the
-// caller allows only when the row width is a multiple of G and every
+// multiple of G. kVec: 16-byte accesses (G = 4 fp32, 8 bf16 or fp16), which
+// the caller allows only when the row width is a multiple of G and every
 // pointer is 16-byte aligned. Otherwise G = 4 and the accesses are element
 // by element, with the columns past d read as 0 and not written.
 template <typename T, bool kVec>

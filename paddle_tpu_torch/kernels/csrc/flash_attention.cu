@@ -1,4 +1,5 @@
-// Flash attention forward, fp32 or bf16: o = softmax(q k^T * scale + bias) v,
+// Flash attention forward, fp32, bf16 or fp16: o = softmax(q k^T * scale +
+// bias) v,
 // plus the per-row logsumexp.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py, _fwd_kernel (launched
@@ -14,48 +15,48 @@
 // the softmax statistics and the output accumulate in fp32 as on the TPU's
 // MXU; P (dropped, unnormalised) is rounded to bf16 before the P.V
 // product, where the reference casts it to v's dtype; o is stored in bf16
-// and lse in fp32.
+// and lse in fp32. fp16 is the same kernel with the f16 product and
+// conversions (P rounds to fp16, and a P or an o past 65504 would round to
+// inf, as the reference's cast does).
 //
-// Two kernels, one per dtype, both on the tensor cores.
+// Two kernels, both on the tensor cores: flash_fwd_mma_kernel<T> for the
+// 16-bit types, flash_fwd_tf32_kernel for fp32.
 //
-// flash_fwd_mma_kernel (bf16). Bound on the H100: 4 L^2 D flops a head
-// against 8 L D bytes (q, k, v read, o written, bf16), so at L = 512,
-// D = 64 it does 256 flops a byte: below the 295 flop/byte ridge of the
-// bf16 tensor cores (989 TFLOP/s over 3.35 TB/s), so HBM bounds it, and
-// only just; either way the products must run on the tensor cores and q,
-// k, v must be read about once. So every product is a tensor-core
-// mma.sync (m16n8k16, fp32 accumulators), and K/V tiles of 64 keys stream
-// from HBM (or L2) through a two-stage cp.async ring, the next tile in
-// flight while this one computes. 4 warps; each owns kMT m-tiles of 16
-// query rows, and its Q fragments stay in registers for the whole row.
-// Each K/V fragment loaded with ldmatrix serves the warp's kMT m-tiles, so
-// at D <= 64 without dropout a warp takes two (128 rows a block), which
-// halves shared-memory reads per product; with dropout or at D = 128 one
-// (64 rows), which leaves registers for the Philox work and the wider
-// accumulator. S = Q K^T comes out as fp32 fragments; the online softmax
+// flash_fwd_mma_kernel (bf16; fp16 alike). Bound on the H100: 4 L^2 D flops a
+// head against 8 L D bytes (q, k, v read, o written, bf16), so at L = 512, D =
+// 64 it does 256 flops a byte: below the 295 flop/byte ridge of the bf16
+// tensor cores (989 TFLOP/s over 3.35 TB/s), so HBM bounds it, and only just;
+// either way the products must run on the tensor cores and q, k, v must be
+// read about once. So every product is a tensor-core mma.sync (m16n8k16, fp32
+// accumulators), and K/V tiles of 64 keys stream from HBM (or L2) through a
+// two-stage cp.async ring, the next tile in flight while this one computes. 4
+// warps; each owns kMT m-tiles of 16 query rows, and its Q fragments stay in
+// registers for the whole row. Each K/V fragment loaded with ldmatrix serves
+// the warp's kMT m-tiles, so at D <= 64 without dropout a warp takes two (128
+// rows a block), which halves shared-memory reads per product; with dropout or
+// at D = 128 one (64 rows), which leaves registers for the Philox work and the
+// wider accumulator. S = Q K^T comes out as fp32 fragments; the online softmax
 // runs on them in natural units, on scores rounded as the reference rounds
-// them (fragment_scores in flash_common.cuh says why: the log2 domain put
-// lse 2^-10 off next to a -1e4 key bias), a probability one FFMA and one
-// ex2 (exp_offset, row_lse), and without a key bias the scale taken into
-// that FFMA (fwd_scores; one instantiation with a bias and one without, the
-// latter bit for bit the same softmax at D = 64, one multiply a score
-// cheaper); a row's max over a 4-lane quad, the masks only on a tile that
-// reaches past L or above the diagonal, the output rescaled only when a
-// row's max moved; P is converted in registers into the A
-// operand of P.V (V read with ldmatrix.trans), never through shared
-// memory; l sums per lane and is reduced once at the end. Tiles are bf16
-// rows with an XOR swizzle of their 16-byte chunks (tensor_core.cuh),
-// which keeps ldmatrix free of bank conflicts. Ragged edges stay inside
-// the kernel: cp.async fills rows past L and columns past d with zeros,
-// keys past L score -inf, rows past L are not stored; the head dim is
-// padded to 64 or 128. When d, the strides or a pointer is not whole
-// 16-byte chunks (d % 8 != 0), the same kernel loads element by element
-// into the same layout. Under dropout each lane makes one Philox call per
-// four probabilities and uses all four words (fragment_keep in
-// flash_common.cuh: the two lanes of a quad pair share their calls through
-// one shuffle) when L % 4 == 0, else a call per probability. It reaches
-// ~17 % of its bound, ~1.8x the library's forward (PERF.md): wgmma with
-// TMA is the next step.
+// them (fragment_scores in flash_common.cuh says why: the log2 domain put lse
+// 2^-10 off next to a -1e4 key bias), a probability one FFMA and one ex2
+// (exp_offset, row_lse), and without a key bias the scale taken into that FFMA
+// (fwd_scores; one instantiation with a bias and one without, the latter bit
+// for bit the same softmax at D = 64, one multiply a score cheaper); a row's
+// max over a 4-lane quad, the masks only on a tile that reaches past L or
+// above the diagonal, the output rescaled only when a row's max moved; P is
+// converted in registers into the A operand of P.V (V read with
+// ldmatrix.trans), never through shared memory; l sums per lane and is reduced
+// once at the end. Tiles are bf16 rows with an XOR swizzle of their 16-byte
+// chunks (tensor_core.cuh), which keeps ldmatrix free of bank conflicts.
+// Ragged edges stay inside the kernel: cp.async fills rows past L and columns
+// past d with zeros, keys past L score -inf, rows past L are not stored; the
+// head dim is padded to 64 or 128. When d, the strides or a pointer is not
+// whole 16-byte chunks (d % 8 != 0), the same kernel loads element by element
+// into the same layout. Under dropout each lane makes one Philox call per four
+// probabilities and uses all four words (fragment_keep in flash_common.cuh:
+// the two lanes of a quad pair share their calls through one shuffle) when L %
+// 4 == 0, else a call per probability. It reaches ~17 % of its bound, ~1.8x
+// the library's forward (PERF.md): wgmma with TMA is the next step.
 //
 // flash_fwd_tf32_kernel (fp32). 4 L^2 D flops against 16 L D bytes, 128
 // flops a byte at L = 512: just under the 148 flop/byte ridge of the TF32
@@ -106,11 +107,11 @@ constexpr int kFwdStages = 2;
 // (chunks_of_16). Each of the 4 warps owns kMT m-tiles of 16 query rows: a
 // block takes 64 kMT rows. Without a key bias (!kBias) the scale moves into
 // the exponent (fwd_scores in flash_common.cuh).
-template <int DP, int kMT, bool kDrop, bool kBias>
+template <typename T, int DP, int kMT, bool kDrop, bool kBias>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const float* __restrict__ bias, bf16* __restrict__ o,
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
+                     const float* __restrict__ bias, T* __restrict__ o,
                      float* __restrict__ lse, int L, int d, int H,
                      int64_t sb, int64_t sh, int64_t sl, float scale,
                      int causal, int vec, DropoutArgs drop) {
@@ -120,9 +121,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     constexpr int kOutN = DP / 8;     // n-tiles of the output
     constexpr int kKeyN = kBK / 8;    // n-tiles of a score tile
     extern __shared__ __align__(128) unsigned char smem_raw[];
-    bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-    bf16* sk = sq + kRowsB * DP;      // kFwdStages stages
-    bf16* sv = sk + kFwdStages * kKTile; // kFwdStages stages
+    T* sq = reinterpret_cast<T*>(smem_raw);
+    T* sk = sq + kRowsB * DP;      // kFwdStages stages
+    T* sv = sk + kFwdStages * kKTile; // kFwdStages stages
 
     const int bh = blockIdx.x, b = bh / H, h = bh % H;
     const int q0 = blockIdx.y * kRowsB;
@@ -186,8 +187,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         cp_async_wait<kFwdStages - 2>();   // tile t is in shared memory ...
         __syncthreads();   // ... for every thread, and tile t - 1's stage is
         load_keys(t + kFwdStages - 1);   // free for the next tile
-        const bf16* skt = sk + (t % kFwdStages) * kKTile;
-        const bf16* svt = sv + (t % kFwdStages) * kKTile;
+        const T* skt = sk + (t % kFwdStages) * kKTile;
+        const T* svt = sv + (t % kFwdStages) * kKTile;
 
         // S = Q K^T: keys 16np .. 16np + 15 as n-tiles 2np, 2np + 1; each K
         // fragment serves the warp's kMT m-tiles
@@ -208,8 +209,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                               s * 16 + ((lane >> 3) & 1) * 8));
 #pragma unroll
                 for (int mt = 0; mt < kMT; ++mt) {
-                    mma_bf16(sc[mt][2 * np], qf[mt][s], kb[0], kb[1]);
-                    mma_bf16(sc[mt][2 * np + 1], qf[mt][s], kb[2], kb[3]);
+                    mma_16816<T>(sc[mt][2 * np], qf[mt][s], kb[0], kb[1]);
+                    mma_16816<T>(sc[mt][2 * np + 1], qf[mt][s], kb[2], kb[3]);
                 }
             }
 
@@ -268,11 +269,11 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             uint32_t pa[kMT][4];
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt) {
-                pa[mt][0] = pack_bf16(sc[mt][2 * s][0], sc[mt][2 * s][1]);
-                pa[mt][1] = pack_bf16(sc[mt][2 * s][2], sc[mt][2 * s][3]);
-                pa[mt][2] = pack_bf16(sc[mt][2 * s + 1][0],
+                pa[mt][0] = pack16<T>(sc[mt][2 * s][0], sc[mt][2 * s][1]);
+                pa[mt][1] = pack16<T>(sc[mt][2 * s][2], sc[mt][2 * s][3]);
+                pa[mt][2] = pack16<T>(sc[mt][2 * s + 1][0],
                                       sc[mt][2 * s + 1][1]);
-                pa[mt][3] = pack_bf16(sc[mt][2 * s + 1][2],
+                pa[mt][3] = pack16<T>(sc[mt][2 * s + 1][2],
                                       sc[mt][2 * s + 1][3]);
             }
 #pragma unroll
@@ -284,8 +285,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 ldmatrix_x4_trans(vb, svt + vat);
 #pragma unroll
                 for (int mt = 0; mt < kMT; ++mt) {
-                    mma_bf16(acc[mt][2 * np], pa[mt], vb[0], vb[1]);
-                    mma_bf16(acc[mt][2 * np + 1], pa[mt], vb[2], vb[3]);
+                    mma_16816<T>(acc[mt][2 * np], pa[mt], vb[0], vb[1]);
+                    mma_16816<T>(acc[mt][2 * np + 1], pa[mt], vb[2], vb[3]);
                 }
             }
         }
@@ -299,7 +300,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const float li = quad_sum(l[mt][i]);
             if (row >= L) continue;
             const float denom = fmaxf(li, 1e-30f);
-            bf16* orow = o + base + row * sl;
+            T* orow = o + base + row * sl;
 #pragma unroll
             for (int n = 0; n < kOutN; ++n) {
                 const int col = 8 * n + 2 * t4;
@@ -308,10 +309,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 if (vec) {
                     if (col < d)
                         *reinterpret_cast<uint32_t*>(orow + col) =
-                            pack_bf16(v0, v1);
+                            pack16<T>(v0, v1);
                 } else {
-                    if (col < d) orow[col] = __float2bfloat16_rn(v0);
-                    if (col + 1 < d) orow[col + 1] = __float2bfloat16_rn(v1);
+                    if (col < d) orow[col] = from_f32<T>(v0);
+                    if (col + 1 < d) orow[col + 1] = from_f32<T>(v1);
                 }
             }
             if (lse != nullptr && t4 == 0)
@@ -320,60 +321,60 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
 }
 
-template <int DP, int kMT, bool kDrop, bool kBias>
-int launch_mma(const bf16* q, const bf16* k, const bf16* v,
-               const float* bias, bf16* o, float* lse, int64_t bh, int L,
+template <typename T, int DP, int kMT, bool kDrop, bool kBias>
+int launch_mma(const T* q, const T* k, const T* v,
+               const float* bias, T* o, float* lse, int64_t bh, int L,
                int d, int H, int64_t sb, int64_t sh, int64_t sl, float scale,
                int causal, const DropoutArgs& drop, cudaStream_t stream) {
     constexpr int rows = 16 * kMT * (kThreads / 32);
     // Q, kFwdStages stages of K and of V
-    constexpr size_t bytes = sizeof(bf16) * (rows + 2 * kFwdStages * kBK) * DP;
+    constexpr size_t bytes = sizeof(T) * (rows + 2 * kFwdStages * kBK) * DP;
     static bool configured = false;
     if (!configured) {
         const cudaError_t e = cudaFuncSetAttribute(
-            flash_fwd_mma_kernel<DP, kMT, kDrop, kBias>,
+            flash_fwd_mma_kernel<T, DP, kMT, kDrop, kBias>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(bytes));
         if (e != cudaSuccess) return static_cast<int>(e);
         configured = true;
     }
     const int64_t strides[3] = {sb, sh, sl};
-    const int vec = chunks_of_16<bf16>(d, strides, {q, k, v, o});
+    const int vec = chunks_of_16<T>(d, strides, {q, k, v, o});
     const dim3 grid(static_cast<unsigned>(bh),
                     static_cast<unsigned>((L + rows - 1) / rows));
-    flash_fwd_mma_kernel<DP, kMT, kDrop, kBias>
+    flash_fwd_mma_kernel<T, DP, kMT, kDrop, kBias>
         <<<grid, kThreads, bytes, stream>>>(
         q, k, v, bias, o, lse, L, d, H, sb, sh, sl, scale, causal, vec, drop);
     return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 on the tensor cores: the head dim padded to 64 or 128
-template <bool kBias>
+// bf16 or fp16 (T) on the tensor cores: the head dim padded to 64 or 128
+template <typename T, bool kBias>
 int dispatch_mma(const void* q, const void* k, const void* v,
                  const float* bias, void* o, float* lse, int64_t bh, int L,
                  int d, int H, int64_t sb, int64_t sh, int64_t sl,
                  float scale, int causal, const DropoutArgs& drop,
                  cudaStream_t st) {
-    const auto qp = static_cast<const bf16*>(q);
-    const auto kp = static_cast<const bf16*>(k);
-    const auto vp = static_cast<const bf16*>(v);
-    const auto op = static_cast<bf16*>(o);
+    const auto qp = static_cast<const T*>(q);
+    const auto kp = static_cast<const T*>(k);
+    const auto vp = static_cast<const T*>(v);
+    const auto op = static_cast<T*>(o);
     const bool dropout = drop.scale != 1.f;
     // D <= 64: two m-tiles a warp (128 rows a block) halve the K/V fragment
     // loads per product; under dropout one m-tile, whose registers leave
     // room for the Philox work (PERF.md)
     if (d <= 64)
-        return dropout ? launch_mma<64, 1, true, kBias>(
+        return dropout ? launch_mma<T, 64, 1, true, kBias>(
                              qp, kp, vp, bias, op, lse, bh, L, d, H, sb, sh,
                              sl, scale, causal, drop, st)
-                       : launch_mma<64, 2, false, kBias>(
+                       : launch_mma<T, 64, 2, false, kBias>(
                              qp, kp, vp, bias, op, lse, bh, L, d, H, sb, sh,
                              sl, scale, causal, drop, st);
     if (d <= 128)
-        return dropout ? launch_mma<128, 1, true, kBias>(
+        return dropout ? launch_mma<T, 128, 1, true, kBias>(
                              qp, kp, vp, bias, op, lse, bh, L, d, H, sb, sh,
                              sl, scale, causal, drop, st)
-                       : launch_mma<128, 1, false, kBias>(
+                       : launch_mma<T, 128, 1, false, kBias>(
                              qp, kp, vp, bias, op, lse, bh, L, d, H, sb, sh,
                              sl, scale, causal, drop, st);
     return static_cast<int>(cudaErrorInvalidValue);
@@ -634,11 +635,11 @@ int dispatch_tf32(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, k, v, o: (B, H, L, D), fp32 (dtype kF32) or bf16 (kBF16), with shared
-// strides (sb, sh, sl) and a contiguous head dim; bh = B * H. bias: (B, L)
-// contiguous fp32 or null. lse: (B*H, L) contiguous fp32 or null. D <= 128.
-// Dropout is on iff drop_scale != 1. Returns cudaGetLastError() after the
-// launch.
+// q, k, v, o: (B, H, L, D), fp32 (dtype kF32), bf16 (kBF16) or fp16 (kF16),
+// with shared strides (sb, sh, sl) and a contiguous head dim; bh = B * H.
+// bias: (B, L) contiguous fp32 or null. lse: (B*H, L) contiguous fp32 or null.
+// D <= 128. Dropout is on iff drop_scale != 1. Returns cudaGetLastError()
+// after the launch.
 extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        void* o, void* lse, int64_t bh,
@@ -657,12 +658,15 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
     const int Li = static_cast<int>(L), di = static_cast<int>(d),
               Hi = static_cast<int>(H);
     const DropoutArgs drop{seed, offset, threshold, drop_scale};
-    if (dtype != kF32 && dtype != kBF16)
+    if (dtype != kF32 && dtype != kBF16 && dtype != kF16)
         return static_cast<int>(cudaErrorInvalidValue);
     // one instantiation with a key bias and one without (fwd_scores)
     const auto dispatch =
-        dtype == kF32 ? (bp ? dispatch_tf32<true> : dispatch_tf32<false>)
-                      : (bp ? dispatch_mma<true> : dispatch_mma<false>);
+        dtype == kF32    ? (bp ? dispatch_tf32<true> : dispatch_tf32<false>)
+        : dtype == kBF16 ? (bp ? dispatch_mma<bf16, true>
+                               : dispatch_mma<bf16, false>)
+                         : (bp ? dispatch_mma<f16, true>
+                               : dispatch_mma<f16, false>);
     return dispatch(q, k, v, bp, o, lp, bh, Li, di, Hi, sb, sh, sl, scale,
                     causal, drop, st);
 }

@@ -1,6 +1,6 @@
-// Flash attention backward, fp32 or bf16: dQ, and dK/dV, from (q, k, v, dO,
-// lse, delta) with delta = rowsum(dO * O). Neither stores an (L, L) matrix:
-// each rebuilds P = exp(S - lse) tile by tile, with
+// Flash attention backward, fp32, bf16 or fp16: dQ, and dK/dV, from (q, k,
+// v, dO, lse, delta) with delta = rowsum(dO * O). Neither stores an (L, L)
+// matrix: each rebuilds P = exp(S - lse) tile by tile, with
 //   dP = dO V^T (times keep / (1 - p) under dropout),
 //   dS = P * (dP - delta),
 //   dQ = scale * dS K,   dK = scale * dS^T Q,   dV = (P * keep/(1-p))^T dO.
@@ -20,28 +20,31 @@
 // query tile (dQ) or a key tile (dK/dV): no atomics, every result is
 // deterministic.
 //
-// Four kernels, all on the tensor cores: mma.sync m16n8k16 at bf16, 3xTF32
-// m16n8k8 at fp32. Grid (B*H, ceil(L/64)), 4 warps of 16 fragment rows: in
-// dQ the rows are queries, as in the forward, and K/V tiles of 64 keys
-// stream through a two-stage cp.async ring (the TPU kernel's sequential
-// grid axis is this loop, up to the diagonal tile when causal); in dK/dV
-// the rows are keys, K and V stay resident and Q, dO, lse and delta tiles
-// stream through a ring from the diagonal on when causal. S (S^T) and dP
-// (dP^T) come out of the tensor cores as fp32 fragments, P and dS are
-// formed on them, and the fragments are directly the A operands of the
-// next products (dQ += dS K; dV += P^T dO, dK += dS^T Q): P and dS never go
-// through shared memory and a tile needs one barrier. Under dropout each
-// lane makes one Philox call per four probabilities when L % 4 == 0
-// (fragment_keep with queries as rows, fragment_keep_t with keys as rows).
-// Ragged edges as the forward's (cp.async zero fill, masks only on edge
-// tiles, element loads when a row is not whole 16-byte chunks); rows past L
-// load lse = 1e30 and store nothing; the head dim is padded to 64 or 128.
+// Four kernels, all on the tensor cores: mma.sync m16n8k16 at bf16 and fp16
+// (one template, flash_*_mma_kernel<T>), 3xTF32 m16n8k8 at fp32. Grid (B*H,
+// ceil(L/64)), 4 warps of 16 fragment rows: in dQ the rows are queries, as in
+// the forward, and K/V tiles of 64 keys stream through a two-stage cp.async
+// ring (the TPU kernel's sequential grid axis is this loop, up to the diagonal
+// tile when causal); in dK/dV the rows are keys, K and V stay resident and Q,
+// dO, lse and delta tiles stream through a ring from the diagonal on when
+// causal. S (S^T) and dP (dP^T) come out of the tensor cores as fp32
+// fragments, P and dS are formed on them, and the fragments are directly the A
+// operands of the next products (dQ += dS K; dV += P^T dO, dK += dS^T Q): P
+// and dS never go through shared memory and a tile needs one barrier. Under
+// dropout each lane makes one Philox call per four probabilities when
+// L % 4 == 0 (fragment_keep with queries as rows, fragment_keep_t with keys
+// as rows).
+// Ragged edges as the forward's (cp.async zero fill, masks only on edge tiles,
+// element loads when a row is not whole 16-byte chunks); rows past L load lse
+// = 1e30 and store nothing; the head dim is padded to 64 or 128.
 //
 // At bf16 q/k/v/dO are read as bf16 (their products are exact in fp32) and
 // lse, delta and every accumulator stay fp32; P (dropped) and dS are
 // rounded to bf16 before the dV, dQ and dK products, where the reference
 // casts them to the input dtype (flash_attention.py:254, :316, :319);
-// dq/dk/dv are stored in bf16.
+// dq/dk/dv are stored in bf16. fp16 alike: a dS past 65504 (a scaled loss's
+// gradient) rounds to inf there, as the reference's cast does, and a loss
+// scaler then skips the step.
 //
 // flash_dkv_mma_kernel (dK/dV at bf16). Bound on the H100: four products
 // (S, dP, P^T dO, dS^T Q), 8 L^2 D flops a head, against 12 L D bytes (q,
@@ -115,15 +118,15 @@ struct Strides {
 // ldmatrix.trans): no trip through shared memory.
 constexpr int kDkvStages = 3;
 
-template <int DP, bool kDrop>
+template <typename T, int DP, bool kDrop>
 __global__ void __launch_bounds__(kThreads, DP == 64 && !kDrop ? 3 : 1)
-flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout,
+flash_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
+                     const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     const float* __restrict__ bias, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int L, int d, int H, Strides s,
+                     const float* __restrict__ bias, T* __restrict__ dk,
+                     T* __restrict__ dv, int L, int d, int H, Strides s,
                      Strides gs, float scale, int causal, int vec, int gvec,
                      DropoutArgs drop) {
     constexpr int kTile = kBQ * DP;     // elements of a Q/dO/K/V tile
@@ -132,10 +135,10 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     constexpr int kOutN = DP / 8;       // n-tiles of dK and dV
     static_assert(kBK == 16 * (kThreads / 32), "a warp owns 16 keys");
     extern __shared__ __align__(128) unsigned char smem_raw[];
-    bf16* sk = reinterpret_cast<bf16*>(smem_raw);
-    bf16* sv = sk + kTile;
-    bf16* sq = sv + kTile;                  // kDkvStages stages
-    bf16* sdo = sq + kDkvStages * kTile;    // kDkvStages stages
+    T* sk = reinterpret_cast<T*>(smem_raw);
+    T* sv = sk + kTile;
+    T* sq = sv + kTile;                  // kDkvStages stages
+    T* sdo = sq + kDkvStages * kTile;    // kDkvStages stages
     float* slse = reinterpret_cast<float*>(sdo + kDkvStages * kTile);
     float* sdelta = slse + kDkvStages * kBQ;
 
@@ -193,8 +196,8 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         cp_async_wait<kDkvStages - 2>();   // tile t is in shared memory ...
         __syncthreads();   // ... for every thread, and tile t - 1's stage is
         load_queries(t + kDkvStages - 1);  // free for the tile 2 ahead
-        const bf16* sqt = sq + st * kTile;
-        const bf16* sdot = sdo + st * kTile;
+        const T* sqt = sq + st * kTile;
+        const T* sdot = sdo + st * kTile;
         const float* slt = slse + st * kBQ;
         const float* sdt = sdelta + st * kBQ;
 
@@ -219,10 +222,10 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                         kk * 16 + ((lane >> 3) & 1) * 8);
                 ldmatrix_x4(qb, sqt + qat);
                 ldmatrix_x4(gb, sdot + qat);
-                mma_bf16(sc[2 * np], ka, qb[0], qb[1]);
-                mma_bf16(sc[2 * np + 1], ka, qb[2], qb[3]);
-                mma_bf16(dp[2 * np], va, gb[0], gb[1]);
-                mma_bf16(dp[2 * np + 1], va, gb[2], gb[3]);
+                mma_16816<T>(sc[2 * np], ka, qb[0], qb[1]);
+                mma_16816<T>(sc[2 * np + 1], ka, qb[2], qb[3]);
+                mma_16816<T>(dp[2 * np], va, gb[0], gb[1]);
+                mma_16816<T>(dp[2 * np + 1], va, gb[2], gb[3]);
             }
         }
 
@@ -258,14 +261,14 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int kq = 0; kq < kBQ / 16; ++kq) {
             uint32_t pa[4], da[4];
-            pa[0] = pack_bf16(sc[2 * kq][0], sc[2 * kq][1]);
-            pa[1] = pack_bf16(sc[2 * kq][2], sc[2 * kq][3]);
-            pa[2] = pack_bf16(sc[2 * kq + 1][0], sc[2 * kq + 1][1]);
-            pa[3] = pack_bf16(sc[2 * kq + 1][2], sc[2 * kq + 1][3]);
-            da[0] = pack_bf16(dp[2 * kq][0], dp[2 * kq][1]);
-            da[1] = pack_bf16(dp[2 * kq][2], dp[2 * kq][3]);
-            da[2] = pack_bf16(dp[2 * kq + 1][0], dp[2 * kq + 1][1]);
-            da[3] = pack_bf16(dp[2 * kq + 1][2], dp[2 * kq + 1][3]);
+            pa[0] = pack16<T>(sc[2 * kq][0], sc[2 * kq][1]);
+            pa[1] = pack16<T>(sc[2 * kq][2], sc[2 * kq][3]);
+            pa[2] = pack16<T>(sc[2 * kq + 1][0], sc[2 * kq + 1][1]);
+            pa[3] = pack16<T>(sc[2 * kq + 1][2], sc[2 * kq + 1][3]);
+            da[0] = pack16<T>(dp[2 * kq][0], dp[2 * kq][1]);
+            da[1] = pack16<T>(dp[2 * kq][2], dp[2 * kq][3]);
+            da[2] = pack16<T>(dp[2 * kq + 1][0], dp[2 * kq + 1][1]);
+            da[3] = pack16<T>(dp[2 * kq + 1][2], dp[2 * kq + 1][3]);
 #pragma unroll
             for (int np = 0; np < kOutN / 2; ++np) {
                 uint32_t gb[4], qb[4];
@@ -274,10 +277,10 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     np * 16 + (lane >> 4) * 8);
                 ldmatrix_x4_trans(gb, sdot + at);
                 ldmatrix_x4_trans(qb, sqt + at);
-                mma_bf16(acc_v[2 * np], pa, gb[0], gb[1]);
-                mma_bf16(acc_v[2 * np + 1], pa, gb[2], gb[3]);
-                mma_bf16(acc_k[2 * np], da, qb[0], qb[1]);
-                mma_bf16(acc_k[2 * np + 1], da, qb[2], qb[3]);
+                mma_16816<T>(acc_v[2 * np], pa, gb[0], gb[1]);
+                mma_16816<T>(acc_v[2 * np + 1], pa, gb[2], gb[3]);
+                mma_16816<T>(acc_k[2 * np], da, qb[0], qb[1]);
+                mma_16816<T>(acc_k[2 * np + 1], da, qb[2], qb[3]);
             }
         }
     }
@@ -286,8 +289,8 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 2; ++i) {
         const int key = kr + 8 * i;
         if (key >= L) continue;
-        bf16* dkrow = dk + base + key * s.l;
-        bf16* dvrow = dv + base + key * s.l;
+        T* dkrow = dk + base + key * s.l;
+        T* dvrow = dv + base + key * s.l;
 #pragma unroll
         for (int n = 0; n < kOutN; ++n) {
             const int col = 8 * n + 2 * t4;
@@ -297,18 +300,18 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             if (vec) {
                 if (col < d) {
                     *reinterpret_cast<uint32_t*>(dkrow + col) =
-                        pack_bf16(k0v, k1v);
+                        pack16<T>(k0v, k1v);
                     *reinterpret_cast<uint32_t*>(dvrow + col) =
-                        pack_bf16(v0v, v1v);
+                        pack16<T>(v0v, v1v);
                 }
             } else {
                 if (col < d) {
-                    dkrow[col] = __float2bfloat16_rn(k0v);
-                    dvrow[col] = __float2bfloat16_rn(v0v);
+                    dkrow[col] = from_f32<T>(k0v);
+                    dvrow[col] = from_f32<T>(v0v);
                 }
                 if (col + 1 < d) {
-                    dkrow[col + 1] = __float2bfloat16_rn(k1v);
-                    dvrow[col + 1] = __float2bfloat16_rn(v1v);
+                    dkrow[col + 1] = from_f32<T>(k1v);
+                    dvrow[col + 1] = from_f32<T>(v1v);
                 }
             }
         }
@@ -325,13 +328,13 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // through shared memory.
 constexpr int kDqStages = 2;
 
-template <int DP, bool kDrop>
+template <typename T, int DP, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    const float* __restrict__ bias, bf16* __restrict__ dq,
+                    const float* __restrict__ bias, T* __restrict__ dq,
                     int L, int d, int H, Strides s, Strides gs, float scale,
                     int causal, int vec, int gvec, DropoutArgs drop) {
     constexpr int kTile = kBK * DP;     // elements of a Q/dO/K/V tile
@@ -340,10 +343,10 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     constexpr int kOutN = DP / 8;       // n-tiles of dQ
     static_assert(kBQ == 16 * (kThreads / 32), "a warp owns 16 rows");
     extern __shared__ __align__(128) unsigned char smem_raw[];
-    bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-    bf16* sdo = sq + kTile;
-    bf16* sk = sdo + kTile;                 // kDqStages stages
-    bf16* sv = sk + kDqStages * kTile;      // kDqStages stages
+    T* sq = reinterpret_cast<T*>(smem_raw);
+    T* sdo = sq + kTile;
+    T* sk = sdo + kTile;                 // kDqStages stages
+    T* sv = sk + kDqStages * kTile;      // kDqStages stages
 
     const int bh = blockIdx.x, b = bh / H, h = bh % H;
     const int q0 = blockIdx.y * kBQ;
@@ -409,8 +412,8 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         cp_async_wait<kDqStages - 2>();   // tile t is in shared memory ...
         __syncthreads();   // ... for every thread, and tile t - 1's stage is
         load_keys(t + kDqStages - 1);    // free for the next tile
-        const bf16* skt = sk + (t % kDqStages) * kTile;
-        const bf16* svt = sv + (t % kDqStages) * kTile;
+        const T* skt = sk + (t % kDqStages) * kTile;
+        const T* svt = sv + (t % kDqStages) * kTile;
 
         // S = Q K^T and dP = dO V^T: keys 16np .. 16np + 15 as n-tiles
         // 2np, 2np + 1; K and V read at the same addresses
@@ -428,10 +431,10 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                        st * 16 + ((lane >> 3) & 1) * 8);
                 ldmatrix_x4(kb, skt + at);
                 ldmatrix_x4(vb, svt + at);
-                mma_bf16(sc[2 * np], qf[st], kb[0], kb[1]);
-                mma_bf16(sc[2 * np + 1], qf[st], kb[2], kb[3]);
-                mma_bf16(dp[2 * np], gf[st], vb[0], vb[1]);
-                mma_bf16(dp[2 * np + 1], gf[st], vb[2], vb[3]);
+                mma_16816<T>(sc[2 * np], qf[st], kb[0], kb[1]);
+                mma_16816<T>(sc[2 * np + 1], qf[st], kb[2], kb[3]);
+                mma_16816<T>(dp[2 * np], gf[st], vb[0], vb[1]);
+                mma_16816<T>(dp[2 * np + 1], gf[st], vb[2], vb[3]);
             }
 
         // P = exp(S - lse) and dS = P (dP keep/(1-p) - delta), in place of
@@ -461,18 +464,18 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int kq = 0; kq < kBK / 16; ++kq) {
             uint32_t da[4];
-            da[0] = pack_bf16(sc[2 * kq][0], sc[2 * kq][1]);
-            da[1] = pack_bf16(sc[2 * kq][2], sc[2 * kq][3]);
-            da[2] = pack_bf16(sc[2 * kq + 1][0], sc[2 * kq + 1][1]);
-            da[3] = pack_bf16(sc[2 * kq + 1][2], sc[2 * kq + 1][3]);
+            da[0] = pack16<T>(sc[2 * kq][0], sc[2 * kq][1]);
+            da[1] = pack16<T>(sc[2 * kq][2], sc[2 * kq][3]);
+            da[2] = pack16<T>(sc[2 * kq + 1][0], sc[2 * kq + 1][1]);
+            da[3] = pack16<T>(sc[2 * kq + 1][2], sc[2 * kq + 1][3]);
 #pragma unroll
             for (int np = 0; np < kOutN / 2; ++np) {
                 uint32_t kb[4];
                 ldmatrix_x4_trans(kb, skt + swz<DP>(
                     kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
                     np * 16 + (lane >> 4) * 8));
-                mma_bf16(acc[2 * np], da, kb[0], kb[1]);
-                mma_bf16(acc[2 * np + 1], da, kb[2], kb[3]);
+                mma_16816<T>(acc[2 * np], da, kb[0], kb[1]);
+                mma_16816<T>(acc[2 * np + 1], da, kb[2], kb[3]);
             }
         }
     }
@@ -481,7 +484,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 2; ++i) {
         const int row = qr + 8 * i;
         if (row >= L) continue;
-        bf16* dqrow = dq + base + row * s.l;
+        T* dqrow = dq + base + row * s.l;
 #pragma unroll
         for (int n = 0; n < kOutN; ++n) {
             const int col = 8 * n + 2 * t4;
@@ -490,10 +493,10 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             if (vec) {
                 if (col < d)
                     *reinterpret_cast<uint32_t*>(dqrow + col) =
-                        pack_bf16(v0, v1);
+                        pack16<T>(v0, v1);
             } else {
-                if (col < d) dqrow[col] = __float2bfloat16_rn(v0);
-                if (col + 1 < d) dqrow[col + 1] = __float2bfloat16_rn(v1);
+                if (col < d) dqrow[col] = from_f32<T>(v0);
+                if (col + 1 < d) dqrow[col + 1] = from_f32<T>(v1);
             }
         }
     }
@@ -907,7 +910,7 @@ int launch_dq(const BwdArgs& a) {
         if constexpr (kF32)
             return flash_dq_tf32_kernel<DP, kDrop>;
         else
-            return flash_dq_mma_kernel<DP, kDrop>;
+            return flash_dq_mma_kernel<T, DP, kDrop>;
     }();
     static bool configured = false;
     const cudaError_t e = allow_shared(kernel, bytes, &configured);
@@ -943,7 +946,7 @@ int launch_dkv(const BwdArgs& a) {
         if constexpr (kF32)
             return flash_dkv_tf32_kernel<DP, kDrop>;
         else
-            return flash_dkv_mma_kernel<DP, kDrop>;
+            return flash_dkv_mma_kernel<T, DP, kDrop>;
     }();
     static bool configured = false;
     const cudaError_t e = allow_shared(kernel, bytes, &configured);
@@ -990,6 +993,7 @@ int dispatch(const BwdArgs& a, int dtype) {
         return static_cast<int>(cudaErrorInvalidValue);
     if (dtype == kF32) return dispatch_dim<float, kDkv>(a);
     if (dtype == kBF16) return dispatch_dim<bf16, kDkv>(a);
+    if (dtype == kF16) return dispatch_dim<f16, kDkv>(a);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1011,12 +1015,11 @@ BwdArgs make_args(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, k, v, dq: (B, H, L, D), fp32 (dtype kF32) or bf16 (kBF16), with
-// shared strides (sb, sh, sl); dO, in the same dtype, with its own (gsb,
+// q, k, v, dq: (B, H, L, D), fp32 (dtype kF32), bf16 (kBF16) or fp16 (kF16),
+// with shared strides (sb, sh, sl); dO, in the same dtype, with its own (gsb,
 // gsh, gsl); every head dim contiguous; bh = B * H. lse, delta: (B*H, L)
-// contiguous fp32. bias: (B, L) contiguous fp32 or null.
-// D <= 128. Dropout is on iff drop_scale != 1. Returns cudaGetLastError()
-// after the launch.
+// contiguous fp32. bias: (B, L) contiguous fp32 or null. D <= 128. Dropout is
+// on iff drop_scale != 1. Returns cudaGetLastError() after the launch.
 extern "C" int ptt_flash_attention_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* bias, void* dq,

@@ -1,5 +1,5 @@
 // Dropout + residual add + LayerNorm forward over the last axis, and the
-// dropout-mask gradient, fp32 or bf16:
+// dropout-mask gradient, fp32, bf16 or fp16:
 //   yin = residual + x * keep / (1 - p),  y = LayerNorm(yin)
 //   dx  = d_yin * keep / (1 - p)          (the same mask, regenerated)
 //
@@ -11,7 +11,7 @@
 // reference, the sum is formed in fp32 and the statistics come from that
 // fp32 sum; y and yin are stored in the input dtype, mean and rstd in
 // fp32. The backward (torch ops) forms xhat from the stored yin, so at
-// bf16 it sees the rounded sum, as the reference's _fdln_bwd does.
+// bf16 and fp16 it sees the rounded sum, as the reference's _fdln_bwd does.
 //
 // Bound on the H100: bytes, both kernels. The forward reads x and residual
 // once and writes y (and yin, mean, rstd in training): 6-8 bytes an
@@ -152,7 +152,7 @@ __global__ void add_layer_norm_fwd_kernel(const T* __restrict__ x,
 // The dropout branch. yin is always written (the caller allocates it). The
 // fp32 sum is parked where the second and third pass read it back: yin at
 // fp32, `park_smem` (d floats of dynamic shared memory, 16-byte aligned)
-// at bf16, each read and written like the row itself (RowIO);
+// at bf16 and fp16, each read and written like the row itself (RowIO);
 // block_sum's barriers order those reads after every thread's writes.
 template <typename T, bool kVec>
 __global__ void dropout_add_layer_norm_fwd_kernel(
@@ -340,8 +340,8 @@ cudaError_t one_wave(Kernel kernel, int threads, int (&cache)[kMaxDevices],
     return cudaSuccess;
 }
 
-// shared memory a bf16 dropout row parks its fp32 sum in; above 48 KB a
-// block's shared memory must be opted into, which the first launch at each
+// shared memory a bf16 or fp16 dropout row parks its fp32 sum in; above 48 KB
+// a block's shared memory must be opted into, which the first launch at each
 // width does (idempotent, so a race between two first callers is harmless)
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t bytes, size_t* allowed) {
@@ -468,12 +468,12 @@ int launch_grad(const void* g, void* out, int64_t n, const DropoutArgs& drop,
 
 }  // namespace
 
-// x, res, y, yin: (n, d) contiguous, fp32 (dtype kF32) or bf16 (kBF16). w,
-// b: (d,) in the same dtype, or null. mean, rstd: (n,) fp32 or null.
-// Dropout is on iff drop_scale != 1; yin must then be given (at bf16 on
-// the block path, d is at most 58080: the row's fp32 sum sits in shared
-// memory), otherwise it is null unless wanted. Returns cudaGetLastError()
-// after the launch.
+// x, res, y, yin: (n, d) contiguous, fp32 (dtype kF32), bf16 (kBF16) or fp16
+// (kF16). w, b: (d,) in the same dtype, or null. mean, rstd: (n,) fp32 or
+// null. Dropout is on iff drop_scale != 1; yin must then be given (at bf16 and
+// fp16 on the block path, d is at most 58080: the row's fp32 sum sits in
+// shared memory), otherwise it is null unless wanted. Returns
+// cudaGetLastError() after the launch.
 extern "C" int ptt_add_layer_norm_fwd(const void* x, const void* res,
                                       const void* w, const void* b, void* y,
                                       void* yin, void* mean, void* rstd,
@@ -491,11 +491,14 @@ extern "C" int ptt_add_layer_norm_fwd(const void* x, const void* res,
     if (dtype == kBF16)
         return dispatch_add_ln<__nv_bfloat16>(x, res, w, b, y, yin, mean,
                                               rstd, n, d, eps, drop, st);
+    if (dtype == kF16)
+        return dispatch_add_ln<__half>(x, res, w, b, y, yin, mean, rstd, n, d,
+                                       eps, drop, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// g, out: n contiguous fp32 or bf16 (dtype) elements (the flattened (N, D)
-// gradient). Returns cudaGetLastError() after the launch.
+// g, out: n contiguous fp32, bf16 or fp16 (dtype) elements (the flattened (N,
+// D) gradient). Returns cudaGetLastError() after the launch.
 extern "C" int ptt_dropout_grad(const void* g, void* out, int64_t n,
                                 uint64_t seed, uint64_t offset,
                                 uint32_t threshold, float drop_scale,
@@ -508,5 +511,6 @@ extern "C" int ptt_dropout_grad(const void* g, void* out, int64_t n,
     const DropoutArgs drop{seed, offset, threshold, drop_scale};
     if (dtype == kF32) return launch_grad<float>(g, out, n, drop, st);
     if (dtype == kBF16) return launch_grad<__nv_bfloat16>(g, out, n, drop, st);
+    if (dtype == kF16) return launch_grad<__half>(g, out, n, drop, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

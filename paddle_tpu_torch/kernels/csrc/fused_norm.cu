@@ -1,4 +1,4 @@
-// LayerNorm and RMSNorm forward over the last axis, fp32 or bf16.
+// LayerNorm and RMSNorm forward over the last axis, fp32, bf16 or fp16.
 //
 // Replaces: paddle_tpu/kernels/fused_norm.py, _ln_fwd_kernel (launched by
 // _ln_forward) and _rms_fwd_kernel (launched by _rms_forward). Same
@@ -235,8 +235,8 @@ int dispatch_rms(const void* x, const void* w, void* y, void* rstd,
 
 }  // namespace
 
-// x, y: (n, d) contiguous, fp32 (dtype kF32) or bf16 (kBF16). w, b: (d,)
-// in the same dtype, or null. mean, rstd: (n,) fp32 or null. Returns
+// x, y: (n, d) contiguous, fp32 (dtype kF32), bf16 (kBF16) or fp16 (kF16). w,
+// b: (d,) in the same dtype, or null. mean, rstd: (n,) fp32 or null. Returns
 // cudaGetLastError() after the launch.
 extern "C" int ptt_layer_norm_fwd(const void* x, const void* w, const void* b,
                                   void* y, void* mean, void* rstd, int64_t n,
@@ -250,11 +250,13 @@ extern "C" int ptt_layer_norm_fwd(const void* x, const void* w, const void* b,
     if (dtype == kBF16)
         return dispatch_ln<__nv_bfloat16>(x, w, b, y, mean, rstd, n, d, eps,
                                           st);
+    if (dtype == kF16)
+        return dispatch_ln<__half>(x, w, b, y, mean, rstd, n, d, eps, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// x, y: (n, d) contiguous fp32 or bf16 (dtype). w: (d,) in the same dtype,
-// or null. rstd: (n,) fp32, or null when the caller does not want it.
+// x, y: (n, d) contiguous fp32, bf16 or fp16 (dtype). w: (d,) in the same
+// dtype, or null. rstd: (n,) fp32, or null when the caller does not want it.
 // Returns cudaGetLastError() after the launch.
 extern "C" int ptt_rms_norm_fwd(const void* x, const void* w, void* y,
                                 void* rstd, int64_t n, int64_t d, float eps,
@@ -266,5 +268,7 @@ extern "C" int ptt_rms_norm_fwd(const void* x, const void* w, void* y,
         return dispatch_rms<float>(x, w, y, rstd, n, d, eps, st);
     if (dtype == kBF16)
         return dispatch_rms<__nv_bfloat16>(x, w, y, rstd, n, d, eps, st);
+    if (dtype == kF16)
+        return dispatch_rms<__half>(x, w, y, rstd, n, d, eps, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,11 +1,13 @@
-// What the tensor-core kernels share: the m16n8k16 bf16 product and the
-// m16n8k8 TF32 product with fp32 accumulation (mma.sync), the split of an
-// fp32 value into two TF32 terms for the 3xTF32 product, fragment loads
-// from shared memory (ldmatrix, plain and transposed; the split tf32
-// fragments of padded fp32 tiles, and an accumulator as the next A
-// operand), 16- and 4-byte asynchronous copies from global to shared
-// memory (cp.async with commit/wait groups), the XOR swizzle of bf16 tile
-// rows and the padded stride of fp32 tile rows.
+// What the tensor-core kernels share: the m16n8k16 bf16 and fp16 products and
+// the m16n8k8 TF32 product with fp32 accumulation (mma.sync), the split of an
+// fp32 value into two TF32 terms for the 3xTF32 product, fragment loads from
+// shared memory (ldmatrix, plain and transposed; the split tf32 fragments of
+// padded fp32 tiles, and an accumulator as the next A operand), 16- and 4-byte
+// asynchronous copies from global to shared memory (cp.async with commit/wait
+// groups), the XOR swizzle of 16-bit tile rows and the padded stride of fp32
+// tile rows. The fp16 product and pack are the bf16 ones' twins: ldmatrix, the
+// fragment layouts and the swizzle are those of any 16-bit type, so one kernel
+// template serves both (mma_16816<T>, pack16<T>).
 //
 // Fragment layout of mma.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), lane = 4 * g + t (g = lane / 4, t = lane % 4):
@@ -38,11 +40,15 @@
 #include <initializer_list>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "dtype.cuh"
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -104,6 +110,29 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b on the tensor cores: fp16 operands, fp32 accumulator
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the m16n8k16 product of the 16-bit type T (bf16 or fp16)
+template <typename T>
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+    static_assert(std::is_same_v<T, bf16> || std::is_same_v<T, f16>,
+                  "a 16-bit tensor-core type");
+    if constexpr (std::is_same_v<T, bf16>)
+        mma_bf16(d, a, b0, b1);
+    else
+        mma_f16(d, a, b0, b1);
 }
 
 // d += a b on the tensor cores: tf32 operands (fp32 bit patterns whose low
@@ -238,7 +267,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Element offset of (row, col) in a shared tile of bf16 rows W wide (W a
+// as pack_bf16, into one fp16 pair (past 65504 a value becomes inf, as a
+// cast to fp16 makes it)
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// two fp32 values into one pair of the 16-bit type T
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+    if constexpr (std::is_same_v<T, bf16>)
+        return pack_bf16(lo, hi);
+    else
+        return pack_f16(lo, hi);
+}
+
+// Element offset of (row, col) in a shared tile of 16-bit rows W wide (W a
 // multiple of 64, so a row is at least eight 16-byte chunks): the chunk
 // index is XORed with row % 8, so the eight row addresses of one ldmatrix
 // matrix (one chunk column of eight rows) fall in eight different bank
@@ -255,10 +300,10 @@ __device__ __forceinline__ int swz(int row, int col) {
 // cp.async (the caller allows it only when d, the strides and the pointer
 // are whole 16-byte chunks); else element loads and stores, synchronous,
 // into the same layout.
-template <int R, int W, int NT>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int64_t base, int64_t sl, int row0,
-                                          int L, int d, bool vec) {
+template <int R, int W, int NT, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t base,
+                                          int64_t sl, int row0, int L, int d,
+                                          bool vec) {
     if (vec) {
         constexpr int kChunks = W / 8;
         for (int i = threadIdx.x; i < R * kChunks; i += NT) {
@@ -272,7 +317,7 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
             const int r = i / W, c = i % W, row = row0 + r;
             dst[swz<W>(r, c)] = (row < L && c < d)
                                     ? src[base + row * sl + c]
-                                    : __float2bfloat16_rn(0.f);
+                                    : from_f32<T>(0.f);
         }
     }
 }

@@ -27,23 +27,25 @@ probabilities, that never stores an (L, L) matrix in either direction.
 
 The dropout mask is a function of ``(seed, offset)`` and the element
 (b * H + h, query row, key column) — see ``philox.py`` — so ``dropout_p >
-0`` needs both. On CUDA the kernels take fp32 or bf16 (q, k, v and dO in
-one dtype; ``lse``, ``delta`` and the key bias fp32), Lq == Lk, D <= 128,
+0`` needs both. On CUDA the kernels take fp32, bf16 or fp16 (q, k, v and
+dO in one dtype; ``lse``, ``delta`` and the key bias fp32), Lq == Lk, D <= 128,
 and q/k/v with one common layout whose head dim is contiguous (a (B, L, H,
 D) tensor seen through ``transpose(1, 2)`` needs no copy); the outputs and
 gradients come back in that dtype and layout.
 
-At bf16 the arithmetic is the reference's: scores, softmax statistics and
-every accumulator are fp32, and P (forward), P dropped and dS (backward)
-are rounded to the input dtype just before the products that take them,
-where the reference casts them (``flash_attention.py:154, :254, :316,
-:319``). The plain versions round at the same points; at fp32 the rounding
-is the identity. The fp32 kernels compute every product as 3xTF32 on the
-tensor cores (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``),
-within ~2^-21 of each fp32 product; their plain versions are still
-``_attn_reference``, ``_dq_reference`` and ``_dkv_reference``. Every
-kernel rounds its scores as ``_scores`` does (``dot * scale``, then ``+
-bias``) and runs the softmax in natural units.
+At bf16 and fp16 the arithmetic is the reference's: scores, softmax
+statistics and every accumulator are fp32, and P (forward), P dropped and
+dS (backward) are rounded to the input dtype just before the products that
+take them, where the reference casts them (``flash_attention.py:154, :254,
+:316, :319``). The plain versions round at the same points; at fp32 the
+rounding is the identity. At fp16 a P or dS past 65504 rounds to ``inf``
+there, as the reference's cast does (a scaled loss's gradient can reach it;
+the loss scaler then skips the step). The fp32 kernels compute every
+product as 3xTF32 on the tensor cores (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``), within ~2^-21 of each fp32 product; their
+plain versions are still ``_attn_reference``, ``_dq_reference`` and
+``_dkv_reference``. Every kernel rounds its scores as ``_scores`` does
+(``dot * scale``, then ``+ bias``) and runs the softmax in natural units.
 """
 import math
 

@@ -20,12 +20,12 @@ in the reference) followed, when ``p > 0``, by the mask-gradient kernel
 ``dx = d_yin * keep / (1 - p)``. In eval and under ``torch.no_grad()`` the
 forward writes ``y`` only.
 
-Both kernels take fp32 or bf16, every tensor of a call in one dtype. As in
-the reference, the sum ``residual + dropout(x)`` is formed in fp32 and the
-statistics are taken from that fp32 sum, while ``y`` and ``yin`` are
-stored in the input dtype; the backward forms ``xhat`` from the stored
-(at bf16, rounded) ``yin``, and the mask gradient multiplies in fp32 and
-rounds once.
+Both kernels take fp32, bf16 or fp16, every tensor of a call in one
+dtype. As in the reference, the sum ``residual + dropout(x)`` is formed in
+fp32 and the statistics are taken from that fp32 sum, while ``y`` and
+``yin`` are stored in the input dtype; the backward forms ``xhat`` from
+the stored (at bf16 and fp16, rounded) ``yin``, and the mask gradient
+multiplies in fp32 and rounds once.
 """
 import torch
 
@@ -41,11 +41,12 @@ _FWD_ARGTYPES = (_build.P,) * 8 + (_build.I64, _build.I64, _build.F32) + \
     _build.DROPOUT_ARGTYPES + (_build.I32, _build.P)
 _GRAD_ARGTYPES = (_build.P, _build.P, _build.I64) + \
     _build.DROPOUT_ARGTYPES + (_build.I32, _build.P)
-# at bf16 the block path's dropout branch (the widths the register path
-# does not take, csrc/fused_dropout_norm.cu) keeps a row's fp32 sum in
+# at bf16 and fp16 the block path's dropout branch (the widths the register
+# path does not take, csrc/fused_dropout_norm.cu) keeps a row's fp32 sum in
 # shared memory: 4 bytes a column of the 227 KB a block may have, less its
-# 128-byte scratch
-MAX_BF16_DROPOUT_WIDTH = (232448 - 128) // 4
+# 128-byte scratch. fp16 has bf16's limit: a 2-byte yin cannot hold the
+# fp32 sum between the passes either (fp32 parks it in yin, unlimited)
+MAX_16BIT_DROPOUT_WIDTH = (232448 - 128) // 4
 
 
 def _check_dropout(name, dropout_p, seed, offset):
@@ -90,8 +91,8 @@ def dropout_grad_plain(g, dropout_p, seed, offset):
 
 def dropout_grad(g, dropout_p, seed, offset):
     """The dropout-mask gradient ``dx = g * keep / (1 - p)``, the mask
-    regenerated from ``(seed, offset)``. CUDA tensors run the kernel (fp32
-    or bf16, contiguous); CPU tensors the plain version."""
+    regenerated from ``(seed, offset)``. CUDA tensors run the kernel (fp32,
+    bf16 or fp16, contiguous); CPU tensors the plain version."""
     _check_dropout('dropout_grad', dropout_p, seed, offset)
     if dropout_p == 0.0:
         return g
@@ -127,11 +128,11 @@ def _forward(x, residual, weight, bias, dropout_p, epsilon, seed, offset,
             _build.require(t, f'{name}: {label}', x.device, (d,),
                            dtype=x.dtype)
     _build.require(x, f'{name}: x', x.device)
-    if (dropout_p > 0.0 and x.dtype == torch.bfloat16
-            and d > MAX_BF16_DROPOUT_WIDTH):
-        raise ValueError(f"{name}: with dropout at bfloat16 the kernel takes "
-                         f"rows of at most {MAX_BF16_DROPOUT_WIDTH} columns, "
-                         f"got {d}")
+    if (dropout_p > 0.0 and x.dtype != torch.float32
+            and d > MAX_16BIT_DROPOUT_WIDTH):
+        raise ValueError(f"{name}: with dropout at {x.dtype} the kernel "
+                         f"takes rows of at most {MAX_16BIT_DROPOUT_WIDTH} "
+                         f"columns, got {d}")
     y = torch.empty_like(x)
     # with dropout the entry point takes yin: the fp32 block path parks the
     # sum there between its passes
@@ -182,8 +183,8 @@ def fused_dropout_add_layer_norm(x, residual, weight=None, bias=None,
                                  offset=None):
     """``y = LayerNorm(residual + dropout(x))`` over the last axis.
     ``dropout_p > 0`` needs the call's Philox ``seed`` and ``offset``. CUDA
-    tensors run the kernels (fp32 or bf16, contiguous, one dtype for every
-    tensor); CPU tensors the plain versions; differentiable on both."""
+    tensors run the kernels (fp32, bf16 or fp16, contiguous, one dtype for
+    every tensor); CPU tensors the plain versions; differentiable on both."""
     dropout_p = float(dropout_p)
     _check_dropout('fused_dropout_add_layer_norm', dropout_p, seed, offset)
     if torch.is_grad_enabled() and any(

@@ -8,7 +8,8 @@ normalise over the last axis: a CUDA tensor goes to the kernel, a CPU
 tensor to the plain version (``layer_norm_stats``, ``rms_norm_stats``),
 which writes the same arithmetic out in PyTorch.
 
-Both take fp32 or bf16, with the weight (and bias) in the input's dtype:
+Both take fp32, bf16 or fp16, with the weight (and bias) in the input's
+dtype:
 ``x`` is widened to fp32, ``y`` comes back in ``x``'s dtype and the row
 statistics in fp32, as in the reference. When a gradient is wanted the
 call goes through a ``torch.autograd.Function``: the forward also returns
@@ -131,8 +132,8 @@ class _LayerNorm(torch.autograd.Function):
 
 def fused_layer_norm(x, weight=None, bias=None, eps=1e-5):
     """LayerNorm over the LAST axis of ``x`` (any leading shape). CUDA
-    tensors run the kernel (fp32 or bf16, contiguous, weight and bias in
-    ``x``'s dtype); CPU tensors the plain version; differentiable on
+    tensors run the kernel (fp32, bf16 or fp16, contiguous, weight and bias
+    in ``x``'s dtype); CPU tensors the plain version; differentiable on
     both."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, weight, bias)):
@@ -216,8 +217,8 @@ class _RMSNorm(torch.autograd.Function):
 
 def fused_rms_norm(x, weight=None, eps=1e-6):
     """RMSNorm over the LAST axis of ``x`` (any leading shape). CUDA tensors
-    run the kernel at any width (fp32 or bf16, contiguous, the weight in
-    ``x``'s dtype); CPU tensors the plain version; differentiable on
+    run the kernel at any width (fp32, bf16 or fp16, contiguous, the weight
+    in ``x``'s dtype); CPU tensors the plain version; differentiable on
     both."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, weight)):

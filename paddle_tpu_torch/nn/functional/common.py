@@ -1,5 +1,9 @@
 """Common functionals. Counterpart of ``paddle_tpu/nn/functional/common.py``
-(``dropout``).
+(``linear``, ``dropout``).
+
+``linear`` asks ``amp.maybe_cast_for('matmul', x, w)`` first, as the
+reference's does: under ``auto_cast`` (O1, or O2) ``x`` and ``w`` become
+the amp dtype, and the bias is cast to the product's dtype.
 
 The reference draws each dropout call's key from its global key chain
 (``core.rng.next_key``); the port has no implicit generator: a call that
@@ -11,9 +15,20 @@ code in the reference too, not a Pallas kernel.
 """
 import torch
 
+from ...amp import maybe_cast_for
 from ...kernels.philox import keep_mask
 
-__all__ = ['dropout', 'next_dropout_call']
+__all__ = ['linear', 'dropout', 'next_dropout_call']
+
+
+def linear(x, weight, bias=None):
+    """``x W^T + b`` with ``weight`` stored (out, in), torch's layout (the
+    reference stores (in, out)). Under ``auto_cast`` the product takes the
+    amp dtype and the bias follows it."""
+    x, weight = maybe_cast_for('matmul', x, weight)
+    if bias is not None:
+        bias = bias.to(torch.promote_types(x.dtype, weight.dtype))
+    return torch.nn.functional.linear(x, weight, bias)
 
 
 def next_dropout_call(dropout_state, p_eff, what):
@@ -32,9 +47,10 @@ def next_dropout_call(dropout_state, p_eff, what):
 
 def dropout(x, p=0.5, training=True, dropout_state=None):
     """Inverted dropout: in training each element is zeroed with
-    probability ``p`` and the rest scaled by ``1 / (1 - p)``, in ``x``'s
-    dtype (at bf16 the kept values are ``x / (1 - p)`` rounded once, as the
-    reference's ``where(keep, v / (1 - p), 0)``)."""
+    probability ``p`` and the rest divided by ``1 - p``, in ``x``'s dtype:
+    the reference's ``where(keep, v / (1 - p), 0)``, whose ``1 - p`` is a
+    weakly typed scalar and so takes ``x``'s dtype (0.9 becomes 0.8999 in
+    fp16, 0.8984 in bf16); the quotient is rounded once."""
     p_eff = float(p) if training else 0.0
     if not 0.0 <= p_eff < 1.0:
         if p_eff == 1.0:
@@ -44,4 +60,5 @@ def dropout(x, p=0.5, training=True, dropout_state=None):
     if seed is None:
         return x
     keep = keep_mask(x.shape, p_eff, seed, offset, x.device)
-    return torch.where(keep, x * (1.0 / (1.0 - p_eff)), 0.0)
+    kept = float(torch.tensor(1.0 - p_eff, dtype=x.dtype))
+    return torch.where(keep, x / kept, 0.0)

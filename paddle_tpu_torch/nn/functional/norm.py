@@ -8,8 +8,26 @@ reference's gates (``x.shape[-1] % 128 == 0`` and
 ``_FUSED_DROPOUT_NORM_MIN_ROWS = 4096``) were measured on a TPU v5e and do
 not carry over: on CUDA the kernels run at every size until thresholds are
 measured on the card.
+
+Mixed dtypes, as ``amp.auto_cast`` makes them (the kernels take one dtype
+a call, and a wrapper never casts, so the casts are here):
+
+- ``layer_norm`` of a low-precision ``x`` with fp32 parameters (the MLM
+  head's LayerNorm under O1, fed by an fp16 ``Linear``): the parameters
+  are cast to ``x``'s dtype and the kernel runs at that dtype. The
+  reference's kernel reads them in fp32 and writes ``y`` in ``x``'s dtype,
+  so the port's ``y`` is the same up to the parameters' rounding;
+- ``fused_dropout_add_layer_norm`` of a low-precision sublayer output
+  ``x`` with an fp32 ``residual`` (every post-norm epilogue under O1):
+  ``x`` is cast up and the kernel runs in fp32. The reference's composed
+  path (``paddle_tpu/nn/functional/norm.py:310-314``) drops ``x`` in its
+  own dtype and adds in fp32: at ``p = 0`` the two are the same sum; at
+  ``p > 0`` the port scales the kept values in fp32, rounding once where
+  the reference rounds once in ``x``'s dtype (ROADMAP.md, Queue 3).
 """
 import math
+
+import torch
 
 from ...kernels.fused_dropout_norm import \
     fused_dropout_add_layer_norm as _add_ln_kernel
@@ -28,6 +46,8 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     n_norm = len(normalized_shape)
     d = math.prod(normalized_shape)
     shape = x.shape
+    weight, bias = (None if t is None else t.to(x.dtype)
+                    for t in (weight, bias))
     y = fused_layer_norm(
         x.reshape(*shape[:x.dim() - n_norm], d),
         None if weight is None else weight.reshape(d),
@@ -52,5 +72,8 @@ def fused_dropout_add_layer_norm(x, residual, weight=None, bias=None,
     p_eff = float(dropout_p) if training else 0.0
     seed, offset = next_dropout_call(dropout_state, p_eff,
                                      'fused_dropout_add_layer_norm')
+    ct = torch.promote_types(x.dtype, residual.dtype)
+    x, residual, weight, bias = (None if t is None else t.to(ct)
+                                 for t in (x, residual, weight, bias))
     return _add_ln_kernel(x, residual, weight, bias, dropout_p=p_eff,
                           epsilon=epsilon, seed=seed, offset=offset)

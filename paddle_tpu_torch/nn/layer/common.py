@@ -22,9 +22,11 @@ __all__ = ['Linear', 'Embedding', 'Dropout']
 
 
 class Linear(nn.Module):
-    """``y = x W^T + b``. ``weight`` is stored (out_features, in_features)
-    as in ``torch.nn.Linear`` — the transpose of the reference's (in, out);
-    ``interop.load_paddle_tpu_state`` transposes on load."""
+    """``y = x W^T + b`` through ``F.linear`` (so under ``amp.auto_cast``
+    the product takes the amp dtype). ``weight`` is stored (out_features,
+    in_features) as in ``torch.nn.Linear`` — the transpose of the
+    reference's (in, out); ``interop.load_paddle_tpu_state`` transposes on
+    load."""
 
     def __init__(self, in_features, out_features, *, device=None,
                  generator=None):
@@ -44,7 +46,7 @@ class Linear(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
-        return torch.nn.functional.linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight, self.bias)
 
     def extra_repr(self):
         return f"in_features={self.in_features}, " \

@@ -10,7 +10,8 @@ the exact erf form, and a (B, L) padding mask becomes the additive
 mask) attend uniformly and stay finite. The MLM decoder is tied to the
 word embeddings: one (vocab, hidden) parameter, listed once in the state
 dict under ``bert.embeddings.word_embeddings.weight`` as in the reference,
-used untransposed (``h @ W^T``). In training every dropout site of a model
+used untransposed (``h @ W^T``), outside ``amp.auto_cast``'s reach as the
+reference's ``matmul`` is. In training every dropout site of a model
 draws from the model's one ``DropoutState``, which the model creates,
 seeds from the ``generator`` it was built with and hands to its layers.
 """
@@ -172,8 +173,12 @@ class BertPretrainingHeads(nn.Module):
             sequence_output = sequence_output[
                 batch_idx, masked_positions.to(torch.int64)]
         h = self.layer_norm(self.activation(self.transform(sequence_output)))
-        logits = torch.nn.functional.linear(h, self.decoder_weight,
-                                            self.decoder_bias)
+        # the reference's h.matmul(W, transpose_y=True) + bias: a matmul
+        # that auto_cast leaves alone, so under O1 the fp16/bf16 h meets the
+        # fp32 weight and bias, and the product promotes to fp32
+        dt = torch.promote_types(h.dtype, self.decoder_weight.dtype)
+        logits = torch.nn.functional.linear(
+            h.to(dt), self.decoder_weight.to(dt), self.decoder_bias.to(dt))
         return logits, self.seq_relationship(pooled_output)
 
 

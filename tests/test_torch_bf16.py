@@ -209,14 +209,17 @@ def test_add_layer_norm_bf16_dropout_keeps_the_fp32_mask():
 
 
 def test_functional_dropout_bf16_rounds_once():
-    # the reference's where(keep, v / (1 - p), 0) at bf16: one rounding
+    # the reference's where(keep, v / (1 - p), 0) at bf16: the weakly typed
+    # 1 - p takes v's dtype (0.9 -> 0.8984375), the quotient rounds once
     from paddle_tpu_torch.kernels.philox import DropoutState
     x = _t(_rand(8, 16, 64, scale=2.0))
     state = DropoutState(11)
     y = TF.dropout(x, 0.1, True, state)
     assert y.dtype == BF
     keep = philox.keep_mask(x.shape, 0.1, 11, 0)
-    want = torch.where(keep, x.float() * (1.0 / 0.9), 0.0).to(BF)
+    want = torch.from_numpy(np.where(keep.numpy(), np.asarray(
+        (_j(_rand(8, 16, 64, scale=2.0)) / (1.0 - 0.1)).astype(jnp.float32)),
+        0.0)).to(BF)
     assert torch.equal(y, want)
     # twice rounded (the scale to bf16, then the product) would differ
     twice = x * (keep.to(BF) * (1.0 / 0.9))
@@ -329,23 +332,28 @@ def _meta(*shape, dtype=torch.float32):
     return torch.empty(*shape, device='meta', dtype=dtype)
 
 
+# the ids name float16, which the kernels refused until they took it; the
+# cases now hold float64, which they refuse
+F64 = torch.float64
+
+
 @pytest.mark.parametrize("call,match", [
-    (lambda: tfn.fused_layer_norm(_meta(4, 8, dtype=torch.float16)),
-     'float32 or bfloat16, got torch.float16'),
+    (lambda: tfn.fused_layer_norm(_meta(4, 8, dtype=F64)),
+     'float32, bfloat16 or float16, got torch.float64'),
     (lambda: tfn.fused_layer_norm(_meta(4, 8, dtype=BF), _meta(8)),
      'weight: dtype torch.float32, expected torch.bfloat16'),
     (lambda: tfdn.fused_dropout_add_layer_norm(
         _meta(4, 8, dtype=BF), _meta(4, 8)),
      'residual: dtype torch.float32, expected torch.bfloat16'),
-    (lambda: tfdn.dropout_grad(_meta(4, 8, dtype=torch.float16), 0.1, 1, 0),
-     'got torch.float16'),
+    (lambda: tfdn.dropout_grad(_meta(4, 8, dtype=F64), 0.1, 1, 0),
+     'got torch.float64'),
     (lambda: tfa.flash_attention_bhld(
         _meta(1, 2, 8, 4, dtype=BF), _meta(1, 2, 8, 4),
         _meta(1, 2, 8, 4, dtype=BF)),
      'k: dtype torch.float32, expected torch.bfloat16'),
     (lambda: tfa.flash_attention_bhld(
-        *(_meta(1, 2, 8, 4, dtype=torch.float16),) * 3),
-     'got torch.float16'),
+        *(_meta(1, 2, 8, 4, dtype=F64),) * 3),
+     'got torch.float64'),
 ], ids=["ln-fp16", "ln-mixed", "add-ln-mixed", "dropout-grad-fp16",
         "flash-mixed", "flash-fp16"])
 def test_kernel_wrappers_refuse_other_dtypes(call, match):
@@ -359,7 +367,8 @@ def test_require_keeps_statistics_fp32():
                                          'expected torch.float32'):
         _build.require(_meta(2, 8, dtype=BF), 'flash attention: lse',
                        torch.device('meta'), dtype=torch.float32)
-    assert _build.DTYPES == {torch.float32: 0, torch.bfloat16: 1}
+    assert _build.DTYPES == {torch.float32: 0, torch.bfloat16: 1,
+                             torch.float16: 2}
 
 
 # ---------------------------------------------------------------------------

@@ -221,7 +221,6 @@ def test_adam_l2_decay_and_untouched_parameters():
 
 
 @pytest.mark.parametrize("option", [
-    dict(scaler=object()), dict(nan_guard=True), dict(microbatch=2),
     dict(remat='full'), dict(sharding=object()),
     dict(in_shardings=object())], ids=lambda o: next(iter(o)))
 def test_unsupported_options_raise(option):
@@ -229,6 +228,40 @@ def test_unsupported_options_raise(option):
     with pytest.raises(NotImplementedError, match=next(iter(option))):
         build_train_step(net=net, loss=net.pretraining_loss,
                          optimizer=topt.AdamW(), device='cpu', **option)
+
+
+@pytest.mark.parametrize("option", [
+    dict(scaler=True), dict(nan_guard=True), dict(microbatch=2)],
+    ids=lambda o: next(iter(o)))
+def test_options_work(option):
+    # once refused, now ported: two steps of the small model move its
+    # weights and give finite losses (tests/test_torch_scaler_guard.py
+    # holds each against the reference)
+    from paddle_tpu_torch.amp import GradScaler
+    if 'scaler' in option:
+        option = dict(scaler=GradScaler())
+    net = _small()
+    step = build_train_step(net=net, loss=net.pretraining_loss,
+                            optimizer=topt.AdamW(learning_rate=LR),
+                            device='cpu', **option)
+    state = step.init_state()
+    x, y = _batch(b=2)
+    k = option.get('microbatch', 1)
+    if k > 1:
+        x = {n: np.stack([v] * k) for n, v in x.items()}
+        y = tuple(np.stack([v] * k) for v in y)
+    before = net.cls.decoder_bias.detach().clone()
+    for _ in range(2):
+        state, result = step(state, (x, y))
+    assert np.isfinite(float(result.loss))
+    assert tuple(result.losses.shape) == ((k,) if k > 1 else ())
+    assert (result.outputs is None) == (k > 1)
+    assert not torch.equal(net.cls.decoder_bias.detach(), before)
+    synced = step.sync(state)
+    if 'nan_guard' in option:
+        assert synced['guard']['steps'] == 2
+    if 'scaler' in option:
+        assert synced['scaler'] == {'scale': 2.0 ** 15, 'good': 2, 'bad': 0}
 
 
 def test_builder_argument_errors_and_device():

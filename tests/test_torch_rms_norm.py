@@ -193,8 +193,9 @@ def _meta(*shape, dtype=torch.float32):
 
 @pytest.mark.parametrize("call,match", [
     (lambda: tfn.fused_rms_norm(_meta(4, 8)), 'expected a CUDA tensor'),
-    (lambda: tfn.fused_rms_norm(_meta(4, 8, dtype=torch.float16)),
-     'float32 or bfloat16, got torch.float16'),
+    # id "fp16" from before the kernels took float16; float64 they refuse
+    (lambda: tfn.fused_rms_norm(_meta(4, 8, dtype=torch.float64)),
+     'float32, bfloat16 or float16, got torch.float64'),
     (lambda: tfn.fused_rms_norm(_meta(4, 8, dtype=torch.bfloat16),
                                 _meta(8)),
      'weight: dtype torch.float32, expected torch.bfloat16'),
