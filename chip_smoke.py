@@ -89,7 +89,26 @@ Phases, each printing one JSON line:
    under ``torch.cuda.set_sync_debug_mode('error')``, with phase 10's
    launch counts, ``sync``, and ``amp_overflow``: the scale set to 2^40,
    two steps that leave the state bitwise unchanged and halve it;
-15. routes — the kernel each LayerNorm and RMSNorm shape takes at fp32
+15. train parity fit — a full-width 2-layer ``engine.fit`` (fp32, p = 0,
+   Lamb with the global-norm clip, a ``ParamAttr`` learning rate, an
+   ``L1Decay`` parameter, ``StepDecay`` stepped between two calls) with
+   the kernels against the plain versions and the CPU; ``remat='full'``
+   and ``'dots'`` at p = 0.1 under O1 fp16 against no remat after 3
+   steps (1e-6), with their launches; the pre-norm encoder layer at
+   BERT-large width against its plain versions;
+16. train fit — BERT-large pretraining through ``engine.fit``: O1 fp16,
+   ``GradScaler``, ``nan_guard=True``, ``microbatch=2``, ``log_every=5``,
+   Lamb (no decay on LayerNorm and biases) with
+   ``ClipGradByGlobalNorm(1.0)`` under ``fit_schedule``; two calls of 10
+   dispatches on the repeated batch, the scheduler stepped between them;
+   exact launch counts, no more host syncs (sync debug mode 'warn') than
+   the loss fetches and the guard and scaler reconciles, finite losses,
+   the last logged below the first; step ms and samples/s, peak memory;
+   one profiled step, Lamb's update and the clip profiled alone, and
+   ``amp_overflow`` on the Lamb + clip step;
+17. remat memory — 3 BERT-large O1 fp16 steps with ``remat='full'`` and
+   without: each one's peak memory, the remat one lower;
+18. routes — the kernel each LayerNorm and RMSNorm shape takes at fp32
    and bf16 (``LN_ROUTES``, ``RMS_ROUTES``: the register path or the
    block path), and the O1 fp16 step's attention launches (each an f16
    instantiation, ``AMP_ATTENTION``), read from one profiler session.
@@ -105,6 +124,7 @@ it exits non-zero and prints no result. fp32 matrix products run in full
 fp32 (TF32 off).
 """
 import argparse
+import contextlib
 import copy
 import json
 import subprocess
@@ -1109,18 +1129,22 @@ def phase_profile(what, run, routes, top_n=12, **extra):
     batch, one train step — (torch.profiler's device-side events: kernels
     and copies), and the device's idle share of that call's wall time.
     Raises unless, over every kernel name, the calls whose names hold a
-    word of ``routes`` number what it says."""
+    word of ``routes`` number what it says. -> the printed row."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a session can lose its first device events: a short sleep kernel
+        # goes first, waited for, and is not counted
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or 'spin_kernel' in e.name:
             continue
         t0_us, t1_us = e.time_range.start, e.time_range.end
         spans.append((t0_us, t1_us))
@@ -1142,19 +1166,21 @@ def phase_profile(what, run, routes, top_n=12, **extra):
         groups[group] = (g_ms + ms, g_n + n)
     calls = {word: sum(n for name, (_, n) in by_name.items() if word in name)
              for word in routes}
-    emit({'phase': 'profile', 'of': what, **extra, 'wall_ms': wall_ms,
-          'route_calls': calls,
-          'device_busy_ms': busy_us / 1e3,
-          'device_idle_share': (1.0 - busy_us / 1e3 / wall_ms
-                                if spans else None),
-          'device_events': len(spans),
-          'groups': {g: {'ms': ms, 'calls': n} for g, (ms, n) in
-                     sorted(groups.items(), key=lambda kv: -kv[1][0])},
-          'top': [{'ms': ms, 'calls': n, 'name': name[:90]}
-                  for name, (ms, n) in top]})
+    row = {'phase': 'profile', 'of': what, **extra, 'wall_ms': wall_ms,
+           'route_calls': calls,
+           'device_busy_ms': busy_us / 1e3,
+           'device_idle_share': (1.0 - busy_us / 1e3 / wall_ms
+                                 if spans else None),
+           'device_events': len(spans),
+           'groups': {g: {'ms': ms, 'calls': n} for g, (ms, n) in
+                      sorted(groups.items(), key=lambda kv: -kv[1][0])},
+           'top': [{'ms': ms, 'calls': n, 'name': name[:90]}
+                   for name, (ms, n) in top]}
+    emit(row)
     if calls != routes:
         raise AssertionError(f"profile of {what}: kernel calls {calls}, "
                              f"expected {routes}")
+    return row
 
 
 # the port's kernels by their CUDA function names; the rest by the words
@@ -1468,12 +1494,14 @@ def optimizer_profile(mode, step, state):
     phase_profile(f'AdamW update alone ({mode})', run, {})
 
 
-def amp_overflow(step, state, run, scaler, guard):
+def amp_overflow(step, state, run, scaler, guard, of='AdamW'):
     """Force fp16 gradients past 65504: the device scale set to 2^40, then
     ``decr_every_n_nan_or_inf`` steps. Each must leave parameters, moments
-    and beta*_pow bitwise as they were; after them the scale has halved;
-    ``sync`` brings the host GradScaler and NanGuard to the device's
-    counts."""
+    and beta*_pow bitwise as they were (``of``: the optimizer, and the
+    clip, the step runs: an inf gradient gives an inf global norm and NaN
+    clipped gradients, which the select must discard); after them the
+    scale has halved; ``sync`` brings the host GradScaler and NanGuard to
+    the device's counts."""
     from paddle_tpu_torch import kernels
     step.sync(state, nan_guard=guard, scaler=scaler)   # the steps so far
     state['scaler']['scale'].fill_(2.0 ** 40)
@@ -1499,21 +1527,21 @@ def amp_overflow(step, state, run, scaler, guard):
                              f"{scaler.state_dict()}, expected {want}")
     if guard.total_steps != steps0 + scaler._decr_every:
         raise AssertionError("fp16 amp: the guard's step count")
-    emit({'phase': 'amp_overflow', 'scale_set': 2.0 ** 40,
+    emit({'phase': 'amp_overflow', 'of': of, 'scale_set': 2.0 ** 40,
           'bad_steps': scaler._decr_every, 'state_bitwise_unchanged': True,
           'scale_after': scaler.get_loss_scaling(), 'sync': synced,
           'last_loss': float(result.loss)})
 
 
 def _state_tensors(state):
-    """Every parameter, moment and beta*_pow tensor of a step's state."""
-    out = list(state['params'].values())
-    pows = {}
+    """Every parameter and optimizer-state tensor of a step's state (the
+    moments, beta*_pow, ... of whatever optimizer), each once."""
+    out = {id(t): t for t in state['params'].values()}
     for st in state['opt'].values():
-        out += [st['moment1'], st['moment2']]
-        for s_ in ('beta1_pow', 'beta2_pow'):
-            pows[id(st[s_])] = st[s_]
-    return out + list(pows.values())
+        for t in st.values():
+            if isinstance(t, torch.Tensor):
+                out.setdefault(id(t), t)
+    return list(out.values())
 
 
 # ---------------------------------------------------------------------------
@@ -2324,6 +2352,490 @@ def copy_accounting(mode, run):
           'by_site': dict(sorted(groups.items(), key=lambda kv: -kv[1]))})
 
 
+# ---------------------------------------------------------------------------
+# the training loop users run: engine.fit with Lamb, a schedule, the
+# global-norm clip, O1 fp16, the scaler, the guard and microbatches
+# ---------------------------------------------------------------------------
+
+# Lamb's peak learning rate on the repeated batch (LinearWarmup from half
+# of it over the first call's 10 dispatches, then PolynomialDecay): chosen
+# so that the loss falls within the 20 steps (PERF.md, section 4)
+FIT_PEAK_LR = 2e-3
+FIT_DISPATCHES = 10          # a fit call: 10 dispatches of 2 microbatches
+FIT_LOG_EVERY = 5
+
+
+def _no_decay(name):
+    """Lamb's exclusion: the LayerNorm parameters and the biases."""
+    return 'norm' in name or name.endswith('bias')
+
+
+def fit_schedule(peak):
+    from paddle_tpu_torch.optimizer import lr
+    return lr.LinearWarmup(lr.PolynomialDecay(peak, 2 * FIT_DISPATCHES,
+                                              end_lr=peak / 10),
+                           FIT_DISPATCHES, peak / 2, peak)
+
+
+def fit_optimizer(peak=FIT_PEAK_LR, epsilon=1e-6):
+    """BERT pretraining's optimizer setup: Lamb(weight decay 0.01, none on
+    LayerNorm and biases) under a warm-up and decay schedule, the gradient
+    clipped to a global norm of 1.0."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import Lamb
+    sched = fit_schedule(peak)
+    return Lamb(learning_rate=sched, lamb_weight_decay=0.01, epsilon=epsilon,
+                exclude_from_weight_decay_fn=_no_decay,
+                grad_clip=ClipGradByGlobalNorm(1.0)), sched
+
+
+def _count_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode('warn')`` -> (its
+    result, the number of host syncs it made)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    syncs = [w for w in caught if 'synchroniz' in str(w.message)]
+    return out, len(syncs), sorted({str(w.message)[:120] for w in syncs})
+
+
+def phase_train_fit(seed, card):
+    """BERT-large pretraining through ``engine.fit``: fp32 parameters under
+    ``auto_cast(level='O1', dtype='float16')``, ``GradScaler``,
+    ``nan_guard=True``, ``microbatch=2``, ``log_every=5``, Lamb with the
+    global-norm clip under ``fit_schedule``; two calls of 10 dispatches
+    on the repeated batch, the scheduler stepped 10 times between them.
+    Exact launch counts (20 steps a call, ``TRAIN_LAUNCHES`` each), no
+    more host syncs than the loss fetches and reconciles, finite losses,
+    the last logged below the first. Then one profiled step (the same
+    optimizer and clip, microbatch 1), Lamb's update and the clip
+    profiled alone, and ``amp_overflow`` on the Lamb + clip step.
+    -> (the fit calls' launch counts, a row of numbers)."""
+    from paddle_tpu_torch import amp, engine, kernels
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.resilience import NanGuard
+    from paddle_tpu_torch.text.bert import BertForPretraining, bert_large
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 3)
+    cfg = bert_large()
+    # what earlier phases still hold (the O1 cell's step, for phase_routes)
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = BertForPretraining(cfg, device=dev, generator=gen).train()
+    opt, sched = fit_optimizer()
+    scaler, guard = GradScaler(), NanGuard()
+    x, y = _pretraining_batch(np.random.RandomState(seed), TRAIN_BATCH,
+                              cfg.vocab_size)
+    k = 2
+    data = [(x, y)] * (k * FIT_DISPATCHES)   # host numpy, as a loader gives
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reports, totals, syncs, budgets, lrs, wall = [], dict.fromkeys(
+        TRAIN_LAUNCHES, 0), [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for call in range(2):
+        lrs.append(opt.get_lr())
+
+        def run():
+            with amp.auto_cast(level='O1', dtype='float16'):
+                return engine.fit(model, model.pretraining_loss, opt,
+                                  data, microbatch=k,
+                                  log_every=FIT_LOG_EVERY,
+                                  nan_guard=guard, scaler=scaler,
+                                  prefetch=2)
+        kernels.reset_launch_counts()       # the main path: one call
+        t1 = time.perf_counter()
+        report, n_sync, where = _count_syncs(run)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t1)
+        counts = kernels.launch_counts()    # ... read right after it
+        want = {n: k * FIT_DISPATCHES * c
+                for n, c in TRAIN_LAUNCHES.items()}
+        if counts != want:
+            raise AssertionError(f"train_fit call {call}: launches "
+                                 f"{counts}, expected {want}")
+        for n, c in counts.items():
+            totals[n] += c
+        # the loss fetches, the reconciles at the cadence, the last one
+        sync_every = min(FIT_LOG_EVERY,
+                         -(-guard.max_consecutive_skips // k))
+        budget = len(report['loss']) + \
+            report['dispatches'] // sync_every + 1
+        if n_sync > budget:
+            raise AssertionError(
+                f"train_fit call {call}: {n_sync} host syncs, the fit "
+                f"cadence allows {budget}: {where}")
+        syncs.append(n_sync)
+        budgets.append(budget)
+        reports.append(report)
+        for _ in range(FIT_DISPATCHES):     # fit never steps a schedule
+            sched.step()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [v for r in reports for v in r['loss']]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_fit: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_fit: the loss did not fall: {losses}")
+    if guard.total_steps != 2 * k * FIT_DISPATCHES:
+        raise AssertionError(f"train_fit: the guard counted "
+                             f"{guard.total_steps} steps")
+    # the loop's rate: each call's steps over its wall time, prefetch, loss
+    # fetches and reconciles included (the first call warms up)
+    ms = [1e3 * w / r['steps'] for w, r in zip(wall, reports)]
+    row = {'phase': 'train_fit', 'model': 'bert_large pretraining',
+           'entry': 'engine.fit', 'layers': cfg.num_hidden_layers,
+           'hidden': cfg.hidden_size, 'batch': [TRAIN_BATCH, SEQ],
+           'dtype': 'amp.auto_cast O1 float16 on fp32 parameters',
+           'dropout': cfg.hidden_dropout_prob,
+           'optimizer': ('Lamb(lamb_weight_decay=0.01, no decay on '
+                         'LayerNorm and biases), ClipGradByGlobalNorm(1.0)'),
+           'schedule': (f'LinearWarmup(PolynomialDecay({FIT_PEAK_LR}, '
+                        f'{2 * FIT_DISPATCHES}, end_lr={FIT_PEAK_LR / 10}), '
+                        f'{FIT_DISPATCHES}, {FIT_PEAK_LR / 2}, '
+                        f'{FIT_PEAK_LR}), stepped {FIT_DISPATCHES} times '
+                        f'between the calls'),
+           'lr_per_call': lrs, 'microbatch': k, 'log_every': FIT_LOG_EVERY,
+           'card': card, 'setup_s': setup_s,
+           'reports': [{key: v for key, v in r.items() if key != 'state'}
+                       for r in reports],
+           'losses_logged': losses,
+           'step_ms': {'median': float(np.median(ms)), 'min': min(ms),
+                       'max': max(ms), 'per_call': ms},
+           'samples_per_s': [TRAIN_BATCH * r['steps'] / w
+                             for w, r in zip(wall, reports)],
+           'fit_call_wall_s': wall,
+           'max_memory_allocated_bytes': peak,
+           'held_before_bytes': held,
+           'host_syncs_per_call': syncs, 'host_sync_budget': budgets,
+           'launches_per_step': TRAIN_LAUNCHES, 'launches': totals,
+           'guard': {'steps': guard.total_steps,
+                     'skipped': guard.skipped_steps},
+           'scale': scaler.get_loss_scaling()}
+    emit(row)
+    state = reports[-1]['state']
+    del reports
+    # one step of the same setup, microbatch 1, profiled; then Lamb's
+    # update and the clip alone on its state
+    step = engine.build_train_step(net=model, loss=model.pretraining_loss,
+                                   optimizer=opt, scaler=scaler,
+                                   nan_guard=True)
+    state = step.init_state(opt_state=state['opt'], nan_guard=guard,
+                            scaler=scaler)
+    batch = ({n: torch.from_numpy(v).to(dev) for n, v in x.items()},
+             tuple(torch.from_numpy(v).to(dev) for v in y))
+    quiet = _amp_step(step, debug=False)
+    quiet(state, batch)
+    torch.cuda.synchronize()
+    phase_profile('train step fit (Lamb, clip, O1 fp16)',
+                  lambda: quiet(state, batch), TRAIN_ROUTES, top_n=20,
+                  batch=[TRAIN_BATCH, SEQ])
+    update, clip = update_profiles(step, state)
+    for key, prof in (('lamb_update', update), ('clip', clip)):
+        row[key] = {'device_busy_ms': prof['device_busy_ms'],
+                    'device_events': prof['device_events']}
+    emit({'phase': 'train_fit_update', 'lamb_update_alone': row[
+        'lamb_update'], 'global_norm_clip_alone': row['clip'],
+        'parameters': len(state['params'])})
+    amp_overflow(step, state, lambda: _amp_step(step)(state, batch), scaler,
+                 guard, of='Lamb + ClipGradByGlobalNorm(1.0)')
+    del step, state, model, opt
+    torch.cuda.empty_cache()
+    return totals, row
+
+
+def update_profiles(step, state):
+    """Device time and events of Lamb's update alone (zero gradients, the
+    skip select of a scaler step) and of the global-norm clip alone, on a
+    step's state -> the two profile rows' numbers."""
+    opt = step.optimizer
+    params = state['params']
+    grads = {n: torch.zeros_like(p) for n, p in params.items()
+             if p.requires_grad}
+    ok = torch.ones((), dtype=torch.bool, device=next(iter(
+        params.values())).device)
+    clip, opt._grad_clip = opt._grad_clip, None
+    metas = step._params_meta
+    try:
+        def lamb():
+            opt.functional_update(params, grads, state['opt'], ok=ok,
+                                  params_meta=metas)
+        lamb()
+        torch.cuda.synchronize()
+        a = phase_profile(f'{type(opt).__name__} update alone (fit)', lamb,
+                          {})
+    finally:
+        opt._grad_clip = clip
+    pairs = [(metas[n], g) for n, g in grads.items()]
+
+    def clipped():
+        clip(pairs)
+    clipped()
+    torch.cuda.synchronize()
+    b = phase_profile(f'{type(clip).__name__} alone (fit)', clipped, {})
+    return a, b
+
+
+def _fit_parity_model(seed, dev, p=0.0):
+    """A full-width, 2-layer BertForPretraining of the parity phases, with
+    one parameter at half the learning rate and one under L1Decay
+    (``ParamAttr``)."""
+    from paddle_tpu_torch.nn.initializer import ParamAttr, apply_param_attr
+    from paddle_tpu_torch.nn.regularizer import L1Decay
+    from paddle_tpu_torch.text.bert import BertForPretraining, bert_large
+    cfg = bert_large(hidden_dropout_prob=p, attention_probs_dropout_prob=p)
+    cfg.num_hidden_layers = 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    model = BertForPretraining(cfg, device=dev, generator=gen).train()
+    named = dict(model.named_parameters())
+    apply_param_attr(named['bert.encoder.layers.0.linear1.weight'],
+                     ParamAttr(learning_rate=0.5))
+    apply_param_attr(named['bert.encoder.layers.1.linear2.weight'],
+                     ParamAttr(regularizer=L1Decay(1e-4)))
+    return model
+
+
+# per layer and per step of a 2-layer model: without remat, with 'full'
+# (each layer's forward kernels again in the backward) and 'dots' (the
+# attention outputs kept)
+PARITY_LAUNCHES = {'flash_attention_fwd': 2, 'flash_attention_dq': 2,
+                   'flash_attention_dkv': 2, 'add_layer_norm_fwd': 4,
+                   'dropout_grad': 4, 'layer_norm_fwd': 2, 'rms_norm_fwd': 0}
+REMAT_EXTRA = {'full': {'flash_attention_fwd': 2, 'add_layer_norm_fwd': 4},
+               'dots': {'add_layer_norm_fwd': 4}}
+
+
+def phase_train_parity_fit(seed):
+    """Three checks at full width, 2 layers, batch 2 x 512:
+    1. ``engine.fit`` (fp32, p = 0; Lamb with the global-norm clip,
+       ``epsilon=1e-4``; one ``ParamAttr(learning_rate=0.5)`` parameter,
+       one ``L1Decay``; ``StepDecay`` stepped between two calls of two
+       dispatches) with the kernels, against the same under
+       ``kernels.plain_versions()`` and on the CPU: every parameter within
+       ``GRAD_TOL`` of its tensor's largest value (the key biases, whose
+       true gradient is zero, of the model's largest entry);
+    2. ``remat='full'`` and ``'dots'`` at p = 0.1 under O1 fp16 with the
+       scaler: the parameters after 3 steps against those without remat,
+       within 1e-6 of each tensor's largest value (bitwise is printed),
+       and the launches of a remat step;
+    3. the pre-norm encoder layer (``normalize_before=True``) at BERT-large
+       width, p = 0.1, forward and backward against its plain versions."""
+    from paddle_tpu_torch import amp, engine, kernels
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.nn.initializer import copy_param_attrs
+    from paddle_tpu_torch.optimizer import AdamW, Lamb, lr
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    dev = torch.device('cuda', 0)
+    x, y = _pretraining_batch(np.random.RandomState(seed), 2, 30522)
+    out = {'phase': 'train_parity_fit', 'layers': 2, 'batch': [2, SEQ]}
+
+    # 1. fit, kernels / plain versions / CPU
+    got = {}
+    base = _fit_parity_model(seed, dev)
+    for where in ('kernels', 'plain', 'cpu'):
+        model = copy_param_attrs(base, copy.deepcopy(base))
+        device = dev
+        if where == 'cpu':
+            model, device = model.to('cpu'), torch.device('cpu')
+        sched = lr.StepDecay(1e-3, step_size=1, gamma=0.5)
+        opt = Lamb(learning_rate=sched, lamb_weight_decay=0.01,
+                   epsilon=1e-4, grad_clip=ClipGradByGlobalNorm(1.0))
+        kernels.reset_launch_counts()
+        with (kernels.plain_versions() if where == 'plain'
+              else contextlib.nullcontext()):
+            losses = []
+            for _ in range(2):
+                rep = engine.fit(model, model.pretraining_loss, opt,
+                                 [(x, y)] * 2, log_every=1, device=device)
+                losses += rep['loss']
+                sched.step()
+        counts = kernels.launch_counts()
+        # 4 steps at p = 0: no mask gradient
+        want = {n: 4 * c if n != 'dropout_grad' else 0
+                for n, c in PARITY_LAUNCHES.items()} \
+            if where == 'kernels' else dict.fromkeys(PARITY_LAUNCHES, 0)
+        if counts != want:
+            raise AssertionError(f"train_parity_fit {where}: launches "
+                                 f"{counts}, expected {want}")
+        got[where] = ({n: p.detach().float().cpu()
+                       for n, p in model.named_parameters()}, losses)
+        del model, opt
+    del base
+    ref = got['kernels'][0]
+    # the attention key biases have no true gradient (softmax ignores a
+    # shift of a row's scores): Lamb steps them on rounding noise, so they
+    # are held to the model's largest entry, the rest to their own
+    top = max(float(t.abs().max()) for t in ref.values())
+    for other in ('plain', 'cpu'):
+        worst, name = max((max_err(got[other][0][n], ref[n]) / (
+            top if n.endswith('self_attn.k_proj.bias')
+            else float(ref[n].abs().max())), n) for n in ref)
+        check(f'train_parity_fit: fit, kernels against {other} ({name})',
+              worst, GRAD_TOL)
+        out[f'fit_vs_{other}'] = {'worst_rel_err': worst, 'worst': name,
+                                  'losses': got[other][1]}
+    out['fit_kernels_losses'] = got['kernels'][1]
+    del got, ref
+    torch.cuda.empty_cache()
+
+    # 2. remat at p = 0.1 under O1 fp16
+    feeds = ({n: torch.from_numpy(v).to(dev) for n, v in x.items()},
+             tuple(torch.from_numpy(v).to(dev) for v in y))
+    runs = {}
+    for remat in (None, 'full', 'dots'):
+        model = _fit_parity_model(seed, dev, p=0.1)
+        step = engine.build_train_step(
+            net=model, loss=model.pretraining_loss,
+            optimizer=AdamW(learning_rate=1e-4, weight_decay=0.01),
+            scaler=GradScaler(), remat=remat)
+        state = step.init_state()
+        run = _amp_step(step)
+        per_step = []
+        for _ in range(3):
+            kernels.reset_launch_counts()
+            state, res = run(state, feeds)
+            torch.cuda.synchronize()
+            per_step.append(kernels.launch_counts())
+        want = dict(PARITY_LAUNCHES)
+        for n, c in REMAT_EXTRA.get(remat, {}).items():
+            want[n] += c
+        if any(c != want for c in per_step):
+            raise AssertionError(f"train_parity_fit remat={remat}: launches "
+                                 f"{per_step}, expected {want}")
+        runs[remat] = ([t.detach().clone() for t in _state_tensors(state)],
+                       float(res.loss), want)
+        del model, step, state
+    for remat in ('full', 'dots'):
+        worst = max(rel_err(a_, b_) for a_, b_ in
+                    zip(runs[remat][0], runs[None][0]))
+        check(f'train_parity_fit: remat={remat} against no remat', worst,
+              1e-6)
+        out[f'remat_{remat}'] = {
+            'worst_rel_err': worst,
+            'bitwise': all(torch.equal(a_, b_) for a_, b_ in
+                           zip(runs[remat][0], runs[None][0])),
+            'loss': runs[remat][1], 'launches_per_step': runs[remat][2]}
+    out['remat_none'] = {'loss': runs[None][1],
+                         'launches_per_step': runs[None][2]}
+    del runs
+    torch.cuda.empty_cache()
+
+    # 3. the pre-norm layer at full width against its plain versions
+    from paddle_tpu_torch.kernels.philox import DropoutState
+    from paddle_tpu_torch.nn import TransformerEncoderLayer
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 5)
+    state = DropoutState(seed + 11)
+    layer = TransformerEncoderLayer(1024, 16, 4096, dropout=0.1,
+                                    activation='gelu', act_dropout=0.0,
+                                    normalize_before=True, device=dev,
+                                    generator=gen, dropout_state=state)
+    src = torch.randn(2, SEQ, 1024, device=dev, generator=gen)
+    dout = torch.randn(2, SEQ, 1024, device=dev, generator=gen)
+    res = {}
+    for where in ('kernels', 'plain'):
+        state.offset = 0
+        xs = src.clone().requires_grad_()
+        kernels.reset_launch_counts()
+        with (kernels.plain_versions() if where == 'plain'
+              else contextlib.nullcontext()):
+            o = layer(xs)
+            grads = torch.autograd.grad(o, [xs, *layer.parameters()], dout)
+        res[where] = (o.detach(), grads, kernels.launch_counts())
+    want = {'flash_attention_fwd': 1, 'flash_attention_dq': 1,
+            'flash_attention_dkv': 1, 'layer_norm_fwd': 2}
+    got_counts = {n: c for n, c in res['kernels'][2].items() if c}
+    if got_counts != want or any(res['plain'][2].values()):
+        raise AssertionError(f"pre-norm layer: launches {res['kernels'][2]}"
+                             f", plain {res['plain'][2]}, expected {want}")
+    out_err = rel_err(res['kernels'][0], res['plain'][0])
+    check('pre-norm layer: output', out_err, TOL)
+    names = ['input'] + [n for n, _ in layer.named_parameters()]
+    grad_err, grad_name, _ = _compare_grads(
+        'pre-norm layer', dict(zip(names, res['kernels'][1])),
+        dict(zip(names, res['plain'][1])))
+    out['pre_norm_layer'] = {'shape': [2, SEQ, 1024], 'p': 0.1,
+                             'output_rel_err': out_err,
+                             'worst_grad_rel_err': grad_err,
+                             'worst_grad': grad_name,
+                             'launches': got_counts}
+    emit(out)
+    torch.cuda.empty_cache()
+
+
+def phase_remat_memory(seed, card):
+    """Peak device memory of 3 full-width O1 fp16 steps (BERT-large, batch
+    8 x 512, p = 0.1) with ``remat='full'`` against the same steps without
+    remat, both printed, the remat one lower. The optimizer is SGD, which
+    keeps no state and updates in place, so that each step's peak is its
+    forward and backward's, the part remat changes; a remat step launches
+    each encoder layer's forward kernels once more."""
+    from paddle_tpu_torch import engine, kernels
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.text.bert import BertForPretraining, bert_large
+    dev = torch.device('cuda', 0)
+    x, y = _pretraining_batch(np.random.RandomState(seed), TRAIN_BATCH,
+                              30522)
+    batch = ({n: torch.from_numpy(v).to(dev) for n, v in x.items()},
+             tuple(torch.from_numpy(v).to(dev) for v in y))
+    row = {'phase': 'remat_memory', 'model': 'bert_large pretraining',
+           'batch': [TRAIN_BATCH, SEQ], 'steps': 3,
+           'dtype': 'amp.auto_cast O1 float16 on fp32 parameters',
+           'optimizer': 'SGD(1e-4)', 'card': card}
+    for remat in (None, 'full'):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 3)
+        model = BertForPretraining(bert_large(), device=dev,
+                                   generator=gen).train()
+        step = engine.build_train_step(net=model,
+                                       loss=model.pretraining_loss,
+                                       optimizer=SGD(learning_rate=1e-4),
+                                       remat=remat)
+        run = _amp_step(step)
+        state = step.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        want = dict(TRAIN_LAUNCHES)
+        if remat:
+            want['flash_attention_fwd'] += 24
+            want['add_layer_norm_fwd'] += 48
+        losses, ms = [], []
+        for _ in range(3):
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            state, res = run(state, batch)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+            if kernels.launch_counts() != want:
+                raise AssertionError(f"remat_memory remat={remat}: launches "
+                                     f"{kernels.launch_counts()}, expected "
+                                     f"{want}")
+            losses.append(float(res.loss))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"remat_memory: losses {losses}")
+        row[f'remat={remat}'] = {
+            'max_memory_allocated_bytes': torch.cuda.max_memory_allocated(),
+            'allocated_before_bytes': base, 'losses': losses, 'step_ms': ms,
+            'launches_per_step': want}
+        del model, step, state, run
+        torch.cuda.empty_cache()
+    peak_none = row['remat=None']['max_memory_allocated_bytes']
+    peak_full = row['remat=full']['max_memory_allocated_bytes']
+    row['peak_ratio'] = peak_full / peak_none
+    emit(row)
+    if not peak_full < peak_none:
+        raise AssertionError(f"remat_memory: peak {peak_full} with remat, "
+                             f"{peak_none} without")
+
+
+
 SOURCES = {
     'flash_attention_fwd': ('paddle_tpu_torch/kernels/csrc/flash_attention.cu',
                             'paddle_tpu/kernels/flash_attention.py:95'),
@@ -2385,16 +2897,22 @@ def main():
     torch.cuda.empty_cache()
     phase_train_parity_fp16(args.seed)
     trained_amp, amp_again = phase_train(args.seed, card, 'fp16_amp')
+    torch.cuda.empty_cache()
+    phase_train_parity_fit(args.seed)
+    trained_fit = phase_train_fit(args.seed, card)[0]
+    phase_remat_memory(args.seed, card)
     phase_routes(args.seed, amp_again)
     del amp_again
     torch.cuda.empty_cache()
     # launches: each main path's counts, zeroed just before the path and
     # read just after (serving: 21 batches; each training run: 20 steps;
-    # nn.RMSNorm: 18 forwards and their backward); the top-level numbers
+    # train_fit: 2 fit calls, 40 steps; nn.RMSNorm: 18 forwards and their
+    # backward); the top-level numbers
     # are bf16's, the dtype of the reference's training recipe
     paths = {'serve': served, 'train_fp32': trained,
              'train_bf16': trained16, 'train_bf16_flat': trained_flat,
-             'train_fp16_amp': trained_amp, 'nn.RMSNorm': rms_path}
+             'train_fp16_amp': trained_amp, 'train_fit': trained_fit,
+             'nn.RMSNorm': rms_path}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'share_of_bound', 'achieved_tflops',
             'achieved_tb_per_s')

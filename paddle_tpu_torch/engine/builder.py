@@ -40,19 +40,34 @@ loss scaler and the NaN guard run on the device too.
   gathers their gradients into one flat buffer, casts it to the master's
   dtype once and runs the flat update.
 
+- The optimizer's regularizers and clip run inside the step, after the
+  gradients are unscaled and before the ``ok`` select, with each
+  parameter's ``ParamAttr`` settings (``params_meta``: by default the
+  net's named parameters, or ``params``); the learning rate is read from
+  the optimizer (a float, or its scheduler's current value) at every
+  call, so ``scheduler.step()`` between calls takes effect at once.
+- ``remat=`` ``'full'`` / ``'dots'`` / a selective-checkpoint policy
+  (``nn.remat``): every ``TransformerEncoder`` layer the loss runs
+  through is checkpointed (``torch.utils.checkpoint``, non-reentrant),
+  its dropout masks and precision replayed in the recompute. A ``net``
+  that holds no ``TransformerEncoder``, or a ``loss_fn``, is checkpointed
+  whole from the first call, as the reference's ``jax.checkpoint`` of the
+  loss.
+
 Mixed precision: ``amp.auto_cast`` around the step (the model's
 ``Linear``s cast their inputs), or, as in the reference's ``bench_bert``,
 a ``loss_fn`` that casts the fp32 parameters with ``.to(torch.bfloat16)``
 (differentiable) and runs the model on the copies through
 ``torch.func.functional_call``, or a ``FlatFusedUpdate`` with
-``compute_dtype``. ``remat=``, ``sharding=`` and ``in_shardings=`` raise
-``NotImplementedError``: rematerialisation and sharding come with
-``distributed/``.
+``compute_dtype``. ``sharding=`` and ``in_shardings=`` raise
+``NotImplementedError``: sharding comes with ``distributed/``.
 """
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..nn import remat as _remat
+from ..nn.layer.transformer import TransformerEncoder
 from ..optimizer.fused import FlatFusedUpdate
 from ..optimizer.optimizer import _each
 
@@ -128,16 +143,14 @@ def _net_loss_fn(net, loss, functional):
 
 
 _LATER = {
-    'remat': "rematerialisation (torch.utils.checkpoint) comes with the "
-             "distributed slice",
     'sharding': "sharded state comes with the distributed slice",
     'in_shardings': "sharded feeds come with the distributed slice",
 }
 
 
 def build_train_step(loss_fn=None, optimizer=None, *, net=None, loss=None,
-                     params=None, trainable=None, scaler=None,
-                     nan_guard=False, microbatch=1, remat=None,
+                     params=None, params_meta=None, trainable=None,
+                     scaler=None, nan_guard=False, microbatch=1, remat=None,
                      in_shardings=None, sharding=None, device=None):
     """Build ONE train step.
 
@@ -148,14 +161,18 @@ def build_train_step(loss_fn=None, optimizer=None, *, net=None, loss=None,
     optimizer (its ``functional_update`` is the update) or a
     ``FlatFusedUpdate`` over those parameters.
 
+    - ``params_meta``: ``{name: parameter}`` whose ``ParamAttr``
+      attributes (learning rate, regularizer, ``need_clip``) the update
+      honours; by default the parameters themselves.
     - ``trainable``: optional set of parameter names to update (an empty
       set updates nothing); the others flow through untouched.
-    - ``scaler``, ``nan_guard``, ``microbatch``: see the module docstring.
+    - ``scaler``, ``nan_guard``, ``microbatch``, ``remat``: see the
+      module docstring.
     - ``device``: where the step runs — the CUDA device unless
       ``device='cpu'``; the parameters must already live there, feeds are
       moved there.
     """
-    asked = {'remat': remat is not None, 'sharding': sharding is not None,
+    asked = {'sharding': sharding is not None,
              'in_shardings': in_shardings is not None}
     k = int(microbatch)
     if k < 1:
@@ -188,10 +205,16 @@ def build_train_step(loss_fn=None, optimizer=None, *, net=None, loss=None,
         raise ValueError("build_train_step: trainable= filters the "
                          "per-parameter update; a FlatFusedUpdate updates "
                          "its whole buffer")
+    remat = _remat.resolve(remat)
+    by_layer = remat is not None and net is not None and any(
+        isinstance(m, TransformerEncoder) for m in net.modules())
     return TrainStep(loss_fn, optimizer, dict(params),
                      frozenset(trainable) if trainable is not None else None,
                      resolve_device(device), scaler=scaler,
-                     nan_guard=bool(nan_guard), microbatch=k)
+                     nan_guard=bool(nan_guard), microbatch=k,
+                     params_meta=(dict(params) if params_meta is None
+                                  else dict(params_meta)),
+                     remat=remat, remat_by_layer=by_layer)
 
 
 def _unscale_and_check(grads, scale):
@@ -213,14 +236,18 @@ class TrainStep:
     """A train step: ``state, result = step(state, batch)``."""
 
     def __init__(self, loss_fn, optimizer, params, trainable, device,
-                 scaler=None, nan_guard=False, microbatch=1):
+                 scaler=None, nan_guard=False, microbatch=1,
+                 params_meta=None, remat=None, remat_by_layer=False):
         self.optimizer = optimizer
         self.device = device
         self.scaler = scaler
         self.guard_enabled = nan_guard
         self.k = microbatch
+        self.remat = remat
+        self.remat_by_layer = remat_by_layer
         self._loss_fn = loss_fn
         self._trainable = trainable
+        self._params_meta = params_meta
         for name, p in params.items():
             if p.device != device:
                 raise ValueError(
@@ -249,8 +276,9 @@ class TrainStep:
         state = {'params': self._params, 'opt': opt_state}
 
         def i32(v):
-            return torch.tensor(int(v), dtype=torch.int32,
-                                device=self.device)
+            # a fill, not a copy from the host: nothing waits
+            return torch.full((), int(v), dtype=torch.int32,
+                              device=self.device)
         if self.guard_enabled:
             g = nan_guard
             state['guard'] = {
@@ -264,9 +292,8 @@ class TrainStep:
         if self.scaler is not None:
             s = scaler or self.scaler
             state['scaler'] = {
-                'scale': torch.tensor(float(s.get_loss_scaling()),
-                                      dtype=torch.float32,
-                                      device=self.device),
+                'scale': torch.full((), float(s.get_loss_scaling()),
+                                    dtype=torch.float32, device=self.device),
                 'good': i32(s._good_steps), 'bad': i32(s._bad_steps)}
         return state
 
@@ -326,11 +353,22 @@ class TrainStep:
         grads.clear()
         return buf.to(master.dtype)
 
+    def _loss(self, leaves, batch):
+        """The loss function, under the step's rematerialisation: each
+        encoder layer checkpointed, or the whole loss."""
+        r = self.remat
+        if r is None:
+            return self._loss_fn(leaves, batch)
+        if not self.remat_by_layer:
+            return r(self._loss_fn, leaves, batch)
+        with _remat.scope(r):
+            return self._loss_fn(leaves, batch)
+
     def _one_step(self, state, batch):
         use_scaler = self.scaler is not None
         use_guard = self.guard_enabled
         leaves, names = self._leaves(state)
-        out = self._loss_fn(leaves, batch)
+        out = self._loss(leaves, batch)
         loss, outs = out if isinstance(out, tuple) else (out, None)
         scale = state['scaler']['scale'] if use_scaler else None
         ok = torch.isfinite(loss) if (use_scaler or use_guard) else None
@@ -353,7 +391,7 @@ class TrainStep:
             else:
                 self.optimizer.functional_update(
                     state['params'], dict(zip(names, grads)), state['opt'],
-                    ok=ok)
+                    ok=ok, params_meta=self._params_meta)
         if use_guard:
             g = state['guard']
             skipped = ~loss_ok
@@ -396,11 +434,18 @@ class TrainStep:
         checkpointing): the live loss scale into the ``GradScaler``, the
         guard's counters into ``NanGuard`` (warning about the steps skipped
         since the last sync), which raises ``NanStepError`` at its limit.
-        -> ``{'guard': {...}, 'scaler': {...}}`` as numbers."""
-        fetched = {slot: {k: v.item() for k, v in state[slot].items()}
-                   for slot in ('guard', 'scaler') if slot in state}
-        if not fetched:
+        -> ``{'guard': {...}, 'scaler': {...}}`` as numbers, read in one
+        copy."""
+        keys = [(slot, k) for slot in ('guard', 'scaler') if slot in state
+                for k in state[slot]]
+        if not keys:
             return {}
+        # float64 holds every int32 counter and the fp32 scale exactly
+        values = torch.stack([state[slot][k].to(torch.float64)
+                              for slot, k in keys]).tolist()
+        fetched = {}
+        for (slot, k), v in zip(keys, values):
+            fetched.setdefault(slot, {})[k] = v if k == 'scale' else int(v)
         if 'guard' in fetched:
             # rebase the since-last-sync streak maximum BEFORE judging, so
             # that a caught NanStepError does not re-raise at every sync

@@ -16,10 +16,13 @@ moves like any embedding table.
 
 ``to_paddle_tpu_state`` is the inverse (parameters, or their ``.grad``s),
 and ``load_paddle_tpu_opt_state`` / ``to_paddle_tpu_opt_state`` move the
-optimizer's per-parameter state — ``{key: {'moment1', 'moment2',
-'beta1_pow', 'beta2_pow'}}`` on both sides, the powers 0-dim arrays of the
-parameter's dtype — the same way, so a test can
-lay gradients, updated weights and moments beside the reference's.
+optimizer's per-parameter state — ``{key: {slot: array}}`` under the same
+slot names on both sides (``moment1``, ``velocity``, ``inf_norm``,
+``avg_squared_grad``, ``mean_square``, ``squared``, ``moment2_max``, ...),
+the powers 0-dim arrays of the parameter's dtype — the same way, and
+``load_paddle_tpu_scheduler_state`` / ``to_paddle_tpu_scheduler_state``
+a learning-rate scheduler's ``state_dict``, so a test can lay gradients,
+updated weights, slots and schedules beside the reference's.
 """
 import numpy as np
 import torch
@@ -27,7 +30,9 @@ import torch
 from .nn.layer.common import Linear
 
 __all__ = ['load_paddle_tpu_state', 'to_paddle_tpu_state',
-           'load_paddle_tpu_opt_state', 'to_paddle_tpu_opt_state']
+           'load_paddle_tpu_opt_state', 'to_paddle_tpu_opt_state',
+           'load_paddle_tpu_scheduler_state',
+           'to_paddle_tpu_scheduler_state']
 
 
 def _linear_weights(module):
@@ -85,15 +90,15 @@ def to_paddle_tpu_state(module, grads=False):
     return out
 
 
-_MOMENTS = ('moment1', 'moment2')
-_POWS = ('beta1_pow', 'beta2_pow')
-
-
 def load_paddle_tpu_opt_state(module, opt_state, ref_state):
-    """Copy the reference's Adam/AdamW state ``ref_state`` (``{key: {slot:
-    array}}``) into the port's ``opt_state`` (of
-    ``optimizer.init_state_values``) for ``module``'s parameters. Raises
-    ``ValueError`` on missing, unexpected or mis-shaped entries."""
+    """Copy the reference's optimizer state ``ref_state`` (``{key: {slot:
+    array}}``, any optimizer's slots) into the port's ``opt_state`` (of
+    ``optimizer.init_state_values``) for ``module``'s parameters: slots of
+    the parameter's shape are copied in (transposed for ``Linear``
+    weights), 0-dim ones (``beta*_pow``) become 0-dim tensors of their
+    dtype, one a parameter. ``Dpsgd``'s ``key`` (a JAX PRNG key there, a
+    ``torch.Generator`` here) is left as it is. Raises ``ValueError`` on
+    missing, unexpected or mis-shaped entries."""
     linear_weights = _linear_weights(module)
     if set(ref_state) != set(opt_state):
         raise ValueError(
@@ -101,37 +106,61 @@ def load_paddle_tpu_opt_state(module, opt_state, ref_state):
             f"{sorted(set(opt_state) - set(ref_state))[:8]}, unexpected keys "
             f"{sorted(set(ref_state) - set(opt_state))[:8]}")
     for key, slots in opt_state.items():
-        for slot in _MOMENTS:
+        own = {s: t for s, t in slots.items() if isinstance(t, torch.Tensor)}
+        theirs = {s for s in ref_state[key] if s != 'key'}
+        if set(own) != theirs:
+            raise ValueError(
+                f"load_paddle_tpu_opt_state: {key} has slots {sorted(own)}, "
+                f"the reference's {sorted(theirs)}")
+        for slot, target in own.items():
             value = np.asarray(ref_state[key][slot])
+            if target.dim() == 0:
+                slots[slot] = torch.tensor(value, dtype=target.dtype,
+                                           device=target.device)
+                continue
             if key in linear_weights:
                 value = value.T
-            if value.shape != tuple(slots[slot].shape):
+            if value.shape != tuple(target.shape):
                 raise ValueError(
                     f"load_paddle_tpu_opt_state: {key}.{slot} has shape "
                     f"{np.asarray(ref_state[key][slot]).shape}, which does "
-                    f"not fit a parameter of {tuple(slots[slot].shape)}")
+                    f"not fit a parameter of {tuple(target.shape)}")
             with torch.no_grad():
-                slots[slot].copy_(torch.tensor(value,
-                                               dtype=slots[slot].dtype))
-        for slot in _POWS:
-            # 0-dim tensors of the parameter's dtype, one pair a parameter
-            slots[slot] = torch.tensor(
-                np.array(ref_state[key][slot]), dtype=slots[slot].dtype,
-                device=slots[slot].device)
+                target.copy_(torch.tensor(value, dtype=target.dtype))
     return opt_state
 
 
 def to_paddle_tpu_opt_state(module, opt_state):
-    """The port's Adam/AdamW state as ``{reference key: {slot: numpy}}`` in
-    the reference's layout."""
+    """The port's optimizer state as ``{reference key: {slot: numpy}}`` in
+    the reference's layout (``Dpsgd``'s generators left out)."""
     linear_weights = _linear_weights(module)
     out = {}
     for key, slots in opt_state.items():
         out[key] = {}
-        for slot in _MOMENTS:
-            value = slots[slot].detach().cpu().numpy()
+        for slot, t in slots.items():
+            if not isinstance(t, torch.Tensor):
+                continue
+            value = t.detach().cpu().numpy()
             out[key][slot] = (value.T.copy() if key in linear_weights
-                              else value.copy())
-        for slot in _POWS:
-            out[key][slot] = slots[slot].detach().cpu().numpy()
+                              and value.ndim == 2 else value.copy())
     return out
+
+
+def load_paddle_tpu_scheduler_state(scheduler, ref_state):
+    """Set a port ``optimizer.lr`` scheduler to the reference scheduler's
+    ``state_dict()`` (plain numbers on both sides, under the same keys);
+    raises ``ValueError`` when the keys differ."""
+    own = scheduler.state_dict()
+    if set(own) != set(ref_state):
+        raise ValueError(
+            f"load_paddle_tpu_scheduler_state: keys {sorted(ref_state)}, "
+            f"expected {sorted(own)}")
+    scheduler.set_state_dict({k: (v.item() if isinstance(v, np.generic)
+                                  else v) for k, v in ref_state.items()})
+    return scheduler
+
+
+def to_paddle_tpu_scheduler_state(scheduler):
+    """A port scheduler's ``state_dict()`` for the reference scheduler's
+    ``set_state_dict`` (the same keys and numbers)."""
+    return dict(scheduler.state_dict())

@@ -9,9 +9,10 @@ optional (B, Lk) additive key-padding bias and dropout on the normalised
 probabilities, that never stores an (L, L) matrix in either direction.
 
 - ``flash_attention_bhld`` -> ``o`` (what the attention layer calls). When
-  a gradient is wanted it goes through a ``torch.autograd.Function`` that
-  saves ``(q, k, v, o, lse)`` and the dropout ``(seed, offset)``, never a
-  mask, and whose backward computes ``delta = rowsum(dO * O)`` in a torch
+  a gradient is wanted it goes through a registered op
+  (``torch.library.custom_op``, ``paddle_tpu_torch::flash_attention``)
+  whose autograd saves ``(q, k, v, o, lse)`` and the dropout ``(seed,
+  offset)``, never a mask, and whose backward computes ``delta = rowsum(dO * O)`` in a torch
   op (as the reference does) and launches the dQ and the dK/dV kernel. The
   bias gets no gradient;
 - ``flash_attention_forward`` -> ``(o, lse)``, the outputs of the
@@ -48,6 +49,7 @@ plain versions are still ``_attn_reference``, ``_dq_reference`` and
 (``dot * scale``, then ``+ bias``) and runs the softmax in natural units.
 """
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -301,24 +303,57 @@ def flash_attention_backward(q, k, v, o, lse, do, causal=False, scale=None,
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, kpad_bias, causal, scale, dropout_p, seed,
-                offset):
-        o, lse = _forward(q, k, v, causal, scale, kpad_bias,
-                          (dropout_p, seed, offset), True)
-        ctx.save_for_backward(q, k, v, o, lse, kpad_bias)
-        ctx.args = (causal, scale)
-        ctx.dropout = (dropout_p, seed, offset)
-        return o
+_U64 = 1 << 64
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, o, lse, kpad_bias = ctx.saved_tensors
-        causal, scale = ctx.args
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, o, lse, g, causal, scale, kpad_bias, *ctx.dropout)
-        return dq, dk, dv, None, None, None, None, None, None
+
+def _dropout(dropout_p, seed, offset):
+    """The op's int64 ``seed`` and ``offset`` -> the unsigned words the
+    kernels take (None where there is no dropout)."""
+    if dropout_p > 0.0:
+        return dropout_p, seed % _U64, offset % _U64
+    return dropout_p, None, None
+
+
+@torch.library.custom_op('paddle_tpu_torch::flash_attention',
+                         mutates_args=())
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kpad_bias: Optional[torch.Tensor], causal: bool,
+                     scale: float, dropout_p: float, seed: int,
+                     offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable forward -> ``(o, lse)``, an op the dispatcher
+    sees: selective checkpointing (``nn/remat.py``, ``'dots'``) keeps its
+    outputs by name. ``seed`` and ``offset`` come as int64 (the schema has
+    no unsigned type)."""
+    return _forward(q, k, v, causal, scale, kpad_bias,
+                    _dropout(dropout_p, seed, offset), True)
+
+
+def _save_for_backward(ctx, inputs, output):
+    q, k, v, kpad_bias, causal, scale, dropout_p, seed, offset = inputs
+    ctx.save_for_backward(q, k, v, *output, kpad_bias)
+    # lse gets no gradient: no zero tensor is made for it
+    ctx.set_materialize_grads(False)
+    ctx.args = (causal, scale)
+    ctx.dropout = _dropout(dropout_p, seed, offset)
+
+
+def _flash_attention_backward(ctx, g, _):
+    if g is None:                   # o took no gradient either
+        return (None,) * 9
+    q, k, v, o, lse, kpad_bias = ctx.saved_tensors
+    causal, scale = ctx.args
+    dq, dk, dv = flash_attention_backward(
+        q, k, v, o, lse, g, causal, scale, kpad_bias, *ctx.dropout)
+    return dq, dk, dv, None, None, None, None, None, None
+
+
+_flash_attention.register_autograd(_flash_attention_backward,
+                                   setup_context=_save_for_backward)
+
+
+def _int64(word):
+    """An unsigned 64-bit word as the int64 of the same bits."""
+    return (word + (1 << 63)) % _U64 - (1 << 63)
 
 
 def flash_attention_forward(q, k, v, causal=False, scale=None,
@@ -345,7 +380,8 @@ def flash_attention_bhld(q, k, v, causal=False, scale=None, kpad_bias=None,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, kpad_bias, causal, scale,
-                                     dropout_p, seed, offset)
+        return _flash_attention(q, k, v, kpad_bias, bool(causal),
+                                float(scale), dropout_p, _int64(seed or 0),
+                                _int64(offset or 0))[0]
     return _forward(q, k, v, causal, scale, kpad_bias,
                     (dropout_p, seed, offset), False)[0]

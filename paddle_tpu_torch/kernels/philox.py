@@ -18,10 +18,12 @@ mask never waits for the device. All arithmetic is int64 holding 32-bit
 words; the 32 x 32 -> 64-bit products are formed from 16-bit halves so that
 no intermediate overflows.
 """
+import weakref
+
 import torch
 
-__all__ = ['DropoutState', 'philox4x32', 'threshold', 'keep_mask',
-           'keep_scale']
+__all__ = ['DropoutState', 'live_states', 'philox4x32', 'threshold',
+           'keep_mask', 'keep_scale']
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -36,6 +38,7 @@ class DropoutState:
     def __init__(self, seed):
         self.seed = int(seed) & 0xFFFFFFFFFFFFFFFF
         self.offset = 0
+        _live.add(self)
 
     @classmethod
     def from_generator(cls, generator):
@@ -55,6 +58,16 @@ class DropoutState:
 
     def __repr__(self):
         return f"DropoutState(seed={self.seed}, offset={self.offset})"
+
+
+# every DropoutState alive: a rematerialised forward sets their offsets back
+# (nn/remat.py)
+_live = weakref.WeakSet()
+
+
+def live_states():
+    """Every ``DropoutState`` alive now."""
+    return list(_live)
 
 
 def _mulhilo(a, b):

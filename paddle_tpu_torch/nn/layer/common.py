@@ -1,6 +1,11 @@
 """Common layers. Counterpart of ``paddle_tpu/nn/layer/common.py``
 (``Linear``, ``Embedding``, ``Dropout``).
 
+``weight_attr=`` / ``bias_attr=`` take a ``nn.initializer.ParamAttr`` (its
+learning rate, regularizer, ``trainable`` and ``need_clip`` go on the
+parameter), a name, or None; ``bias_attr=False`` builds no bias, as in the
+reference.
+
 Initialisers follow the reference's distributions — Xavier-uniform
 ``Linear`` weights with zero biases, Normal(0, std) embeddings — and draw
 from the ``generator`` passed in (the device's default generator when it
@@ -17,6 +22,7 @@ from torch import nn
 
 from ...device import resolve_device
 from .. import functional as F
+from ..initializer import ParamAttr, apply_param_attr
 
 __all__ = ['Linear', 'Embedding', 'Dropout']
 
@@ -28,22 +34,27 @@ class Linear(nn.Module):
     reference's (in, out); ``interop.load_paddle_tpu_state`` transposes on
     load."""
 
-    def __init__(self, in_features, out_features, *, device=None,
-                 generator=None):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, *, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = nn.Parameter(
-            torch.empty(out_features, in_features, device=device))
-        self.bias = nn.Parameter(torch.empty(out_features, device=device))
+        self.weight = apply_param_attr(nn.Parameter(
+            torch.empty(out_features, in_features, device=device)),
+            weight_attr)
+        bias_attr = ParamAttr._to_attr(bias_attr)
+        self.bias = None if bias_attr is False else apply_param_attr(
+            nn.Parameter(torch.empty(out_features, device=device)),
+            bias_attr)
         self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
         limit = math.sqrt(6.0 / (self.in_features + self.out_features))
         self.weight.uniform_(-limit, limit, generator=generator)
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -58,11 +69,12 @@ class Embedding(nn.Module):
     Normal(0, ``std``)."""
 
     def __init__(self, num_embeddings, embedding_dim, std=1.0, *,
-                 device=None, generator=None):
+                 weight_attr=None, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
-        self.weight = nn.Parameter(
-            torch.empty(num_embeddings, embedding_dim, device=device))
+        self.weight = apply_param_attr(nn.Parameter(
+            torch.empty(num_embeddings, embedding_dim, device=device)),
+            weight_attr)
         with torch.no_grad():
             self.weight.normal_(0.0, std, generator=generator)
 

@@ -5,25 +5,32 @@ from torch import nn
 
 from ...device import resolve_device
 from .. import functional as F
+from ..initializer import ParamAttr, apply_param_attr
 
 __all__ = ['LayerNorm', 'RMSNorm']
 
 
 class LayerNorm(nn.Module):
     """LayerNorm over the trailing ``normalized_shape`` axes; weight ones,
-    bias zeros."""
+    bias zeros. ``weight_attr`` / ``bias_attr``: a ``ParamAttr``, a name,
+    None, or False for no weight / no bias, as in the reference."""
 
-    def __init__(self, normalized_shape, epsilon=1e-5, *, device=None):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, *, device=None):
         super().__init__()
         device = resolve_device(device)
         if isinstance(normalized_shape, int):
             normalized_shape = (normalized_shape,)
         self.normalized_shape = tuple(normalized_shape)
         self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
-                                              device=device))
-        self.bias = nn.Parameter(torch.zeros(self.normalized_shape,
-                                             device=device))
+        weight_attr = ParamAttr._to_attr(weight_attr)
+        bias_attr = ParamAttr._to_attr(bias_attr)
+        self.weight = None if weight_attr is False else apply_param_attr(
+            nn.Parameter(torch.ones(self.normalized_shape, device=device)),
+            weight_attr)
+        self.bias = None if bias_attr is False else apply_param_attr(
+            nn.Parameter(torch.zeros(self.normalized_shape, device=device)),
+            bias_attr)
 
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,

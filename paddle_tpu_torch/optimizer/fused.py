@@ -26,16 +26,32 @@ into one flat buffer and casts that to fp32 once — ``bench.py::
 bench_bert``'s flat mode. The numbers are those of casting each parameter
 on its own: a cast is elementwise.
 
-Works with ``Adam`` and ``AdamW``; AdamW's decay predicate becomes a 0/1
-mask buffer (``decay_mask``), and coupled (L2) ``weight_decay`` is added
-to the gradient first, as in the reference. Without a mask AdamW decays
-the whole buffer, as the reference's ``_rule`` does.
+Works with every optimizer whose rule is elementwise: ``SGD``,
+``Momentum``, ``Adam`` / ``AdamW`` (with ``amsgrad``), ``Adamax``,
+``Adadelta``, ``Adagrad``, ``RMSProp``, ``DecayedAdagrad``, ``Ftrl``.
+``Lamb``, ``LarsMomentum`` and ``Dpsgd`` are refused: their step depends
+on each tensor's own norm, which one buffer does not have (the
+reference's ``update`` would run Lamb's trust ratio over the whole buffer:
+ROADMAP.md, Queue 3). The per-parameter settings become buffers of the
+layout, built once: AdamW's decay predicate a 0/1 mask (``decay_mask``);
+per-parameter learning rates (``ParamAttr(learning_rate=)``) a scale
+buffer, so the rule runs at ``lr * scale``; per-parameter regularizers
+an L2 and an L1 coefficient buffer. The optimizer's own
+``weight_decay`` (coupled, added to the gradient) is a scalar when no
+parameter has its own. The optimizer's ``grad_clip`` is applied on the
+flat gradient (the reference's ``update`` drops it): ``ClipGradByValue``
+elementwise, ``ClipGradByGlobalNorm`` as one reduction over the buffer
+(the zeros of the gaps change no norm); ``ClipGradByNorm``, a norm per
+tensor, is refused. Without a mask AdamW decays the whole buffer, as the
+reference's ``_rule`` does.
 """
 import math
 
 import torch
 
-from .optimizer import AdamW
+from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from ..nn.regularizer import L1Decay, L2Decay
+from .optimizer import AdamW, Dpsgd, Lamb, LarsMomentum, _NoMeta
 
 __all__ = ['FlatFusedUpdate', 'ALIGN']
 
@@ -51,10 +67,26 @@ class FlatFusedUpdate:
         state = flat.init_state(flat_p)
         tree = flat.unflatten(flat_p)          # views, for the forward
         flat_p, state = flat.update(flat_p, grads, state)   # in place
+
+    ``params_meta``: ``{name: parameter}`` whose ``ParamAttr`` settings
+    (learning rate, regularizer, ``need_clip``) the update honours; by
+    default ``param_values`` themselves.
     """
 
     def __init__(self, opt, param_values, decay_mask=None,
-                 compute_dtype=None):
+                 compute_dtype=None, params_meta=None):
+        if isinstance(opt, (Lamb, LarsMomentum, Dpsgd)):
+            raise ValueError(
+                f"FlatFusedUpdate: {type(opt).__name__}'s step depends on "
+                f"each tensor's own norm (a trust ratio or a per-tensor "
+                f"clip), which one flat buffer does not have; update its "
+                f"parameters one by one (Optimizer.functional_update)")
+        if isinstance(opt._grad_clip, ClipGradByNorm):
+            raise ValueError(
+                "FlatFusedUpdate: ClipGradByNorm scales each gradient by its "
+                "own norm, which one flat buffer does not have; use "
+                "ClipGradByGlobalNorm or ClipGradByValue, or update the "
+                "parameters one by one")
         self.opt = opt
         self.compute_dtype = compute_dtype
         self.names = sorted(param_values)
@@ -81,6 +113,37 @@ class FlatFusedUpdate:
                     o = self.offsets[k]
                     mask[o:o + self.sizes[k]] = 1.0
             self._decay_mask = mask
+        # ParamAttr settings: read from params_meta, or from the parameters
+        # themselves when they carry them
+        meta = params_meta if params_meta is not None else param_values
+        metas = {k: meta.get(k, _NoMeta) for k in self.names}
+        lrs = {k: float(getattr(m, 'optimize_attr', {}).get(
+            'learning_rate', 1.0)) for k, m in metas.items()}
+        # 1 in the gaps: a rule may divide by the rate (Ftrl)
+        self._lr_scale = self._segments(lrs, 1.0) \
+            if any(v != 1.0 for v in lrs.values()) else None
+        regs = {k: getattr(m, 'regularizer', None) for k, m in metas.items()}
+        self._reg_coeffs = None
+        if any(r is not None for r in regs.values()):
+            regs = {k: r or opt._weight_decay for k, r in regs.items()}
+            self._reg_coeffs = [
+                self._segments({k: r.coeff for k, r in regs.items()
+                                if isinstance(r, kind)}, 0.0)
+                for kind in (L2Decay, L1Decay)]
+        clip_off = {k: 0.0 if getattr(m, 'need_clip', True) is False else 1.0
+                    for k, m in metas.items()}
+        self._clip_mask = None if all(clip_off.values()) else \
+            self._segments(clip_off, 0.0) > 0
+
+    def _segments(self, values, fill):
+        """A layout buffer holding ``values[name]`` over each named segment
+        and ``fill`` elsewhere."""
+        buf = torch.full((self.numel,), float(fill), dtype=torch.float32,
+                         device=self.device)
+        for k, v in values.items():
+            o = self.offsets[k]
+            buf[o:o + self.sizes[k]] = v
+        return buf
 
     # -- layout ----------------------------------------------------------
     def flatten(self, tree, dtype=torch.float32):
@@ -118,9 +181,37 @@ class FlatFusedUpdate:
         if self._decay_mask is None:
             return [p.mul_(1.0 - lr * self.opt._coeff) if in_place
                     else p * (1.0 - lr * self.opt._coeff)]
-        f = -lr * self.opt._coeff
-        return [p.addcmul_(self._decay_mask, p, value=f) if in_place
-                else torch.addcmul(p, self._decay_mask, p, value=f)]
+        if isinstance(lr, torch.Tensor):        # per-element rates
+            mask, f = self._decay_mask * lr, -self.opt._coeff
+        else:
+            mask, f = self._decay_mask, -lr * self.opt._coeff
+        return [p.addcmul_(mask, p, value=f) if in_place
+                else torch.addcmul(p, mask, p, value=f)]
+
+    def _regularized(self, g, p):
+        """The flat gradient plus the regularizer terms: the optimizer's
+        (a scalar coefficient), or each parameter's (coefficient
+        buffers)."""
+        if self._reg_coeffs is not None:
+            l2, l1 = self._reg_coeffs
+            return g.addcmul(l2, p).addcmul_(l1, torch.sign(p))
+        wd = self.opt._weight_decay
+        return g if wd is None else wd.add_grad_terms([g], [p])[0]
+
+    def _clipped(self, g):
+        """The optimizer's clip on the flat gradient (where ``need_clip``)."""
+        clip = self.opt._grad_clip
+        if clip is None:
+            return g
+        if isinstance(clip, ClipGradByValue):
+            new = torch.clamp(g, clip.min, clip.max)
+        elif isinstance(clip, ClipGradByGlobalNorm):
+            part = g if self._clip_mask is None else g * self._clip_mask
+            new = g * clip.scale([part])
+        else:
+            raise ValueError(f"FlatFusedUpdate: unknown clip {clip!r}")
+        return new if self._clip_mask is None else \
+            torch.where(self._clip_mask, new, g)
 
     @torch.no_grad()
     def update(self, flat_p, grads, state, lr=None, ok=None):
@@ -130,10 +221,9 @@ class FlatFusedUpdate:
         lr = self.opt.get_lr() if lr is None else float(lr)
         g = grads if isinstance(grads, torch.Tensor) else \
             self.flatten(grads, flat_p.dtype)
-        wd = self.opt._weight_decay
-        if wd is not None:
-            g = g + wd * flat_p
-        decay = self._decay if isinstance(self.opt, AdamW) else None
-        self.opt._update(['flat'], [flat_p], [g], [state], lr, ok,
-                         decay=decay)
+        g = self._clipped(self._regularized(g, flat_p))
+        if self._lr_scale is not None:
+            lr = lr * self._lr_scale
+        kw = {'decay': self._decay} if isinstance(self.opt, AdamW) else {}
+        self.opt._update(['flat'], [flat_p], [g], [state], lr, ok, **kw)
         return flat_p, state

@@ -214,15 +214,18 @@ def test_adam_l2_decay_and_untouched_parameters():
     torch.testing.assert_close(p['a'], torch.full((3,), 0.9))
     assert torch.equal(p['b'], torch.ones(3))
     assert state['b']['beta1_pow'] == 1.0 and state['a']['beta1_pow'] < 1.0
+    # schedulers, clips and amsgrad are ported (tests/test_torch_lr.py,
+    # test_torch_optimizers.py); what is none of them is refused
     for bad in (dict(learning_rate=object()), dict(grad_clip=object()),
-                dict(amsgrad=True)):
-        with pytest.raises(NotImplementedError):
+                dict(weight_decay=object())):
+        with pytest.raises(TypeError):
             topt.Adam(**bad)
+    assert topt.Adam(amsgrad=True)._amsgrad
 
 
 @pytest.mark.parametrize("option", [
-    dict(remat='full'), dict(sharding=object()),
-    dict(in_shardings=object())], ids=lambda o: next(iter(o)))
+    dict(sharding=object()), dict(in_shardings=object())],
+    ids=lambda o: next(iter(o)))
 def test_unsupported_options_raise(option):
     net = _small()
     with pytest.raises(NotImplementedError, match=next(iter(option))):
@@ -231,8 +234,8 @@ def test_unsupported_options_raise(option):
 
 
 @pytest.mark.parametrize("option", [
-    dict(scaler=True), dict(nan_guard=True), dict(microbatch=2)],
-    ids=lambda o: next(iter(o)))
+    dict(scaler=True), dict(nan_guard=True), dict(microbatch=2),
+    dict(remat='full')], ids=lambda o: next(iter(o)))
 def test_options_work(option):
     # once refused, now ported: two steps of the small model move its
     # weights and give finite losses (tests/test_torch_scaler_guard.py

@@ -318,7 +318,7 @@ def test_flash_backward_matches_pallas(causal, with_bias):
     tb = None if bias is None else torch.from_numpy(bias)
     ts = _torch_qkv(q, k, v)
     o = tfa.flash_attention_bhld(*ts, causal=causal, kpad_bias=tb)
-    assert 'FlashAttention' in type(o.grad_fn).__name__
+    assert 'paddle_tpu_torch_flash_attention' in type(o.grad_fn).__name__
     _cos_loss(o).backward()
     for t, r, name in zip(ts, ref, 'qkv'):
         np.testing.assert_allclose(t.grad.numpy(), _np(r), rtol=RTOL,
