@@ -108,7 +108,27 @@ Phases, each printing one JSON line:
    ``amp_overflow`` on the Lamb + clip step;
 17. remat memory — 3 BERT-large O1 fp16 steps with ``remat='full'`` and
    without: each one's peak memory, the remat one lower;
-18. routes — the kernel each LayerNorm and RMSNorm shape takes at fp32
+18. kernel gpt (run before the parity phases, with the kernel phases'
+   flush buffer) — the two kernels GPT's generate launches at its shapes:
+   the fp32 causal flash forward at (8, 12, 512, 64) beside SDPA causal
+   fp32, the fp32 LayerNorm at width 768 on 4096 and 8 rows beside
+   ``F.layer_norm`` and a copy;
+19. generate — GPT ``generate`` at gpt_small's full size (vocab 50304,
+   hidden 768, 12 layers and heads), fp32: 8 prompts of 512 ids, 256 new
+   tokens, greedy; a warm-up and 5 timed calls with exactly 12 flash
+   forward and 6400 LayerNorm launches each; time to first token, decode
+   ms a token, tokens/s, peak memory, host syncs; a 2-layer parity
+   (kernels against plain versions against the CPU), every emitted token
+   against the plain no-cache forward (``TEACHER_TOL``), a sampled call
+   repeating under its seed inside the filtered support, an eos call
+   padding as the reference does; profiles of the prefill (attention on
+   ``flash_fwd_tf32_kernel``) and of one decode step;
+20. serve generative — the engine's generative path on ``TinyCausalLM``
+   at gpt_small's widths: 48 requests (16-512 tokens, 16 sharing a
+   256-token prefix, 64 new tokens) paged, slot, with a draft and under
+   page pressure; every request OK and within ``TEACHER_TOL`` of the
+   no-cache forward, a prefix hit, a preemption, no kernel launched;
+21. routes — the kernel each LayerNorm and RMSNorm shape takes at fp32
    and bf16 (``LN_ROUTES``, ``RMS_ROUTES``: the register path or the
    block path), and the O1 fp16 step's attention launches (each an f16
    instantiation, ``AMP_ATTENTION``), read from one profiler session.
@@ -116,8 +136,9 @@ Phases, each printing one JSON line:
 Every kernel row carries ``share_of_bound`` (bound ms over kernel ms) and
 the achieved TFLOP/s and TB/s beside the library call's time. Then a
 ``{"kernels": [...]}`` line (all seven kernels, bf16 numbers at the top
-level and under ``bf16``, fp32 under ``fp32``, fp16 under ``fp16``,
-launches by path) and,
+level and under ``bf16``, fp32 under ``fp32``, fp16 under ``fp16``, the
+GPT cases under ``gpt``, launches by path: ``serve``, the training
+paths, ``nn.RMSNorm``, ``generate`` and ``serve_generative``) and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero; without a CUDA device (or without the package beside this file)
 it exits non-zero and prints no result. fp32 matrix products run in full
@@ -701,7 +722,8 @@ ADD_LN_LIBRARY = ('x + res, then torch.native_layer_norm (y, mean, rstd): '
 # dispatch_ln and dispatch_rms: the register path for widths of whole
 # 16-byte chunks up to 1024 columns, 16-byte aligned, else the block path).
 # LayerNorm: serving's embeddings (bucket 16), training's embeddings and
-# MLM head rows, and the 4x rows of fixed_cost; RMSNorm (nn.RMSNorm): the
+# MLM head rows, the 4x rows of fixed_cost, and GPT generate's prefill and
+# decode-step rows at width 768; RMSNorm (nn.RMSNorm): the
 # train step's rows at the hidden and the intermediate width, and 1000
 # columns (at bf16 125 chunks: the last round of chunks masked past lane
 # 28). phase_routes reads each one's kernel on the card;
@@ -710,7 +732,9 @@ ADD_LN_LIBRARY = ('x + res, then torch.native_layer_norm (y, mean, rstd): '
 LN_ROUTES = {(16 * SEQ, 1024): 'ln_rows_warp_kernel',
              (TRAIN_BATCH * SEQ, 1024): 'ln_rows_warp_kernel',
              (TRAIN_BATCH * (SEQ * 15 // 100), 1024): 'ln_rows_warp_kernel',
-             (4 * TRAIN_BATCH * SEQ, 1024): 'ln_rows_warp_kernel'}
+             (4 * TRAIN_BATCH * SEQ, 1024): 'ln_rows_warp_kernel',
+             (8 * SEQ, 768): 'ln_rows_warp_kernel',       # GPT's prefill
+             (8, 768): 'ln_rows_warp_kernel'}             # a decode step
 RMS_ROUTES = {(TRAIN_BATCH * SEQ, 1024): 'rms_rows_warp_kernel',
               (TRAIN_BATCH * SEQ, 4096): 'rms_norm_fwd_kernel',
               (300, 1000): 'rms_rows_warp_kernel'}
@@ -2836,6 +2860,546 @@ def phase_remat_memory(seed, card):
 
 
 
+# -- generative serving (GPT generate, the serving engine's generative path)
+# GPT's prefill attention (gpt_small, batch 8 x 512) and its LayerNorms:
+# the prefill's 8 x 512 rows and one decode step's 8, width 768, fp32
+GPT_PREFILL = (8, 12, SEQ, 64)
+GPT_LN_ROWS = (8 * SEQ, 8)
+GPT_BATCH, GPT_NEW = 8, 256
+GPT_TIMED_CALLS = 5
+# one generate call at (8, 512) + 256 new tokens: the prefill (12 flash
+# forwards, 25 LayerNorms) and 255 decode steps (25 LayerNorms each, no
+# kernel attention: the cached attention is plain torch, as the
+# reference's is composed XLA)
+GPT_LAUNCHES = {'flash_attention_fwd': 12, 'layer_norm_fwd': 25 * GPT_NEW}
+# a profiled prefill: 12 attention launches, each the fp32 3xTF32
+# kernel; 25 LayerNorms on the register path. A decode step: 25
+# LayerNorms, no attention kernel
+GPT_PREFILL_ROUTES = {'flash_fwd_tf32_kernel': 12, 'flash_fwd_mma_kernel': 0,
+                      'ln_rows_warp_kernel': 25, 'layer_norm_fwd_kernel': 0}
+GPT_DECODE_ROUTES = {'flash_': 0, 'ln_rows_warp_kernel': 25,
+                     'layer_norm_fwd_kernel': 0}
+# teacher-forced check: an emitted token's logit in the no-cache forward
+# (plain versions) lies within this share of the position's max |logit|
+# of the position's maximum
+TEACHER_TOL = 1e-4
+
+
+# _count_syncs also counts this one-time notice of the debug mode, which
+# is no sync
+_SYNC_NOTICE = 'Synchronization debug mode is a prototype feature'
+
+
+def phase_kernels_gpt(seed, flush):
+    """The two kernels GPT's generate launches, at its shapes: the fp32
+    causal flash forward at the prefill's (8, 12, 512, 64), p = 0, no key
+    bias (bound: bytes, and the work's TF32 time beside its 3xTF32 time),
+    against its plain version and timed beside SDPA causal fp32 (a
+    yardstick, on no path); the fp32 LayerNorm at width 768 on the
+    prefill's 4096 rows and a decode step's 8, beside ``F.layer_norm``
+    and a device copy of as many bytes. -> {kernel: {case: row}}."""
+    from paddle_tpu_torch.kernels import flash_attention, fused_norm
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 42)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    out = {'flash_attention_fwd': {}, 'layer_norm_fwd': {}}
+    B, H, L, D = GPT_PREFILL
+    q, k, v = randn(B, H, L, D), randn(B, H, L, D), randn(B, H, L, D)
+    scale = 1.0 / D ** 0.5
+    o, lse = flash_attention.flash_attention_forward(q, k, v, causal=True)
+    ro, rlse = flash_attention._attn_reference(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    err = max(max_err(o, ro), max_err(lse, rlse))
+    check('flash attention, GPT prefill causal fp32', err, TOL)
+    # the causal work: query row i against keys 0..i
+    pairs = B * H * L * (L + 1) / 2
+    flops = 4.0 * D * pairs
+    row = {'max_abs_err': err, 'shape': [B, H, L, D], 'causal': True,
+           'ms': time_ms(lambda: flash_attention.flash_attention_bhld(
+               q, k, v, causal=True), flush),
+           'plain_ms': time_ms(lambda: flash_attention._attn_reference(
+               q, k, v, True, scale), flush),
+           'library_ms': time_ms(
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, is_causal=True), flush),
+           'library': 'F.scaled_dot_product_attention(is_causal=True) fp32',
+           **bound(flops, 4.0 * 4 * B * H * L * D, PEAK_TF32_FLOPS),
+           'bound_3xtf32_ms': 1e3 * 3 * flops / PEAK_TF32_FLOPS}
+    row.update(closeness(row))
+    row['over_library'] = row['ms'] / row['library_ms']
+    out['flash_attention_fwd']['gpt_prefill_fp32'] = row
+    E = 768
+    w, b = 1.0 + 0.1 * randn(E), 0.1 * randn(E)
+    for n in GPT_LN_ROWS:
+        x = randn(n, E)
+        y = fused_norm.fused_layer_norm(x, w, b, 1e-5)
+        err = max_err(y, fused_norm.fused_layer_norm_plain(x, w, b, 1e-5))
+        check(f'layer norm ({n}, {E})', err, TOL)
+        work = bound(8.0 * n * E, 4.0 * (2 * n * E + 2 * E))
+        row = {'max_abs_err': err, 'shape': [n, E],
+               'ms': time_ms(lambda: fused_norm.fused_layer_norm(
+                   x, w, b, 1e-5), flush),
+               'plain_ms': time_ms(lambda: fused_norm.fused_layer_norm_plain(
+                   x, w, b, 1e-5), flush),
+               'library_ms': time_ms(lambda: torch.nn.functional.layer_norm(
+                   x, (E,), w, b, 1e-5), flush),
+               'copy_ms': copy_ms(work['bytes'], flush), **work}
+        row.update(closeness(row))
+        out['layer_norm_fwd'][f'gpt_{"prefill" if n > 8 else "decode"}'
+                              f'_fp32_{n}x{E}'] = row
+    for name, cases in out.items():
+        for case, row in cases.items():
+            emit({'phase': 'kernel_gpt', 'name': name, 'case': case,
+                  'tolerance': TOL, **row})
+    return out
+
+
+class _StepEvents:
+    """CUDA events at the start of every model call (a forward pre-hook)
+    and at its end (a forward hook): the prefill is call 0, decode step i
+    call i + 1. Measurement only; removed by ``close``."""
+
+    def __init__(self, model):
+        self.starts, self.ends = [], []
+        self._hooks = [model.register_forward_pre_hook(self._pre),
+                       model.register_forward_hook(self._post)]
+
+    @staticmethod
+    def _event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def _pre(self, module, args):
+        self.starts.append(self._event())
+
+    def _post(self, module, args, out):
+        self.ends.append(self._event())
+
+    def close(self):
+        for h in self._hooks:
+            h.remove()
+
+
+def _teacher_forced(model, out, prompt_len, upto=None):
+    """The no-cache forward (plain versions) of each generated sequence:
+    -> (positions whose emitted token's logit is farther than TEACHER_TOL
+    x max |logit| below the maximum, emitted tokens that are not the plain
+    argmax, tokens checked). ``upto`` (B,) limits each row's checked
+    tokens (those before its first eos)."""
+    from paddle_tpu_torch import kernels
+    dev = torch.device('cuda', 0)
+    seq = out.to(dev, torch.int64)
+    with torch.no_grad(), kernels.plain_versions():
+        logits = model(seq[:, :-1])[:, prompt_len - 1:]       # (B, N, V)
+    toks = seq[:, prompt_len:]
+    picked = logits.gather(-1, toks[..., None])[..., 0]
+    top = logits.amax(-1)
+    tol = TEACHER_TOL * logits.abs().amax(-1)
+    bad = picked < top - tol
+    not_argmax = logits.argmax(-1) != toks
+    keep = torch.ones_like(bad)
+    if upto is not None:
+        keep = torch.arange(toks.shape[1], device=dev)[None, :] < \
+            upto.to(dev)[:, None]
+    return (int((bad & keep).sum()), int((not_argmax & keep).sum()),
+            int(keep.sum()))
+
+
+def _support_violations(model, out, prompt_len, top_k, top_p, temperature):
+    """Sampled tokens outside the filtered support, judged on the no-cache
+    forward (plain versions), with TEACHER_TOL of slack at each filter's
+    edge: the token must rank below ``top_k`` among logits larger than its
+    own by more than the slack, and those larger logits' mass under the
+    softmax of the top-k-filtered logits at ``temperature`` (what the
+    top-p filter reads) must be under ``top_p`` (+ 1e-3)."""
+    from paddle_tpu_torch import kernels
+    dev = torch.device('cuda', 0)
+    seq = out.to(dev, torch.int64)
+    with torch.no_grad(), kernels.plain_versions():
+        logits = model(seq[:, :-1])[:, prompt_len - 1:]
+    toks = seq[:, prompt_len:]
+    picked = logits.gather(-1, toks[..., None])
+    tol = TEACHER_TOL * logits.abs().amax(-1, keepdim=True)
+    above = logits > picked + tol
+    rank = above.sum(-1)
+    scaled = logits / temperature
+    kth = torch.topk(scaled, top_k, dim=-1).values[..., -1:]
+    probs = torch.softmax(scaled.masked_fill(scaled < kth, float('-inf')),
+                          dim=-1)
+    mass = (probs * above).sum(-1)
+    return int(((rank >= top_k) | (mass >= top_p + 1e-3)).sum())
+
+
+def _gpt_parity(seed):
+    """2 layers at gpt_small's widths: the prefill logits (8 x 512) and the
+    logits of 8 decode steps (fixed random tokens), kernels against plain
+    versions on the card and against the CPU (plain path)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTModel
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 41)
+    cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12)
+    model = GPTModel(cfg, device=dev, generator=gen).eval()
+    cpu_model = copy.deepcopy(model).to('cpu')
+    rs = np.random.RandomState(seed + 41)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, size=(
+        GPT_BATCH, SEQ)).astype(np.int64))
+    steps = torch.from_numpy(rs.randint(0, cfg.vocab_size, size=(
+        GPT_BATCH, 8)).astype(np.int64))
+
+    def run(m, device):
+        caches = m.init_caches(GPT_BATCH, SEQ + steps.shape[1])
+        with torch.no_grad():
+            pre, caches = m(ids.to(device), caches, 0)
+            dec = []
+            for i in range(steps.shape[1]):
+                lg, caches = m(steps[:, i:i + 1].to(device), caches, SEQ + i)
+                dec.append(lg[:, 0])
+        return pre, torch.stack(dec, 1)
+
+    kernels.reset_launch_counts()
+    pre_k, dec_k = run(model, dev)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    with kernels.plain_versions():
+        pre_p, dec_p = run(model, dev)
+    pre_c, dec_c = run(cpu_model, 'cpu')
+    errs = {'prefill_kernels_vs_plain': rel_err(pre_k, pre_p),
+            'decode_kernels_vs_plain': rel_err(dec_k, dec_p),
+            'prefill_kernels_vs_cpu': rel_err(pre_k.cpu(), pre_c),
+            'decode_kernels_vs_cpu': rel_err(dec_k.cpu(), dec_c),
+            'prefill_plain_vs_cpu': rel_err(pre_p.cpu(), pre_c)}
+    for what, e in errs.items():
+        check(f'GPT 2-layer parity, {what} (relative)', e, MODEL_TOL)
+    want = {**dict.fromkeys(launches, 0), 'flash_attention_fwd': 2,
+            'layer_norm_fwd': 5 * (1 + steps.shape[1])}
+    if launches != want:
+        raise AssertionError(f"GPT 2-layer parity launches {launches}, "
+                             f"expected {want}")
+    return {'layers': 2, 'hidden': 768, 'batch': GPT_BATCH, 'prompt': SEQ,
+            'decode_steps': int(steps.shape[1]), 'tolerance': MODEL_TOL,
+            'relative_errors': errs, 'launches': launches}
+
+
+def phase_generate(seed, card):
+    """GPT ``generate`` at gpt_small's full width (vocab 50304, hidden
+    768, 12 layers, 12 heads, max_seq 1024), random weights from
+    ``seed``, eval, fp32, TF32 off: batch 8 prompts of 512 random ids,
+    256 new tokens, greedy, no eos; one warm-up call and 5 timed calls.
+    Prints time to first token (CUDA events from the call's start to the
+    prefill's end), decode ms per token (events at each decode step's
+    start, p50 and p99), tokens/s (8 x 256 over each call's wall time),
+    peak device memory, host syncs a call (sync debug mode 'warn', an
+    extra call), and profiles of the prefill and one decode step. Gates:
+    exactly 12 flash forward and 25 x 256 LayerNorm launches a call and
+    no other kernel; the prefill's attention on ``flash_fwd_tf32_kernel``
+    (the build phase holds every instantiation to HMMA) and every
+    LayerNorm on the register path; the 2-layer parity (``_gpt_parity``);
+    every emitted token within TEACHER_TOL of its position's maximum in
+    the plain no-cache forward; a sampled call (top_k 50, top_p 0.95,
+    temperature 0.8) repeating itself under one seed, inside the filtered
+    support; an eos call padding after each row's first eos as the
+    reference does. -> the main path's launch counts (the 5 timed
+    calls)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.text.generation import greedy_token
+    from paddle_tpu_torch.text.gpt import gpt_small
+    parity = _gpt_parity(seed)
+    torch.cuda.empty_cache()
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 40)
+    t0 = time.perf_counter()
+    model = gpt_small(device=dev, generator=gen).eval()
+    setup_s = time.perf_counter() - t0
+    cfg = model.config
+    rs = np.random.RandomState(seed + 40)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, size=(
+        GPT_BATCH, SEQ)).astype(np.int64)).to(dev)
+
+    def call(**kw):
+        return model.generate(ids, max_new_tokens=GPT_NEW, **kw)
+
+    first = call()                                      # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ev = _StepEvents(model)
+    outs, walls, ttft, step_ms = [], [], [], []
+    kernels.reset_launch_counts()           # the main path starts here
+    for _ in range(GPT_TIMED_CALLS):
+        ev.starts.clear()
+        ev.ends.clear()
+        begin = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        begin.record()
+        outs.append(call())
+        walls.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        if len(ev.starts) != GPT_NEW:
+            raise AssertionError(f"generate: {len(ev.starts)} model steps, "
+                                 f"expected {GPT_NEW}")
+        ttft.append(begin.elapsed_time(ev.ends[0]))
+        step_ms += [a.elapsed_time(b) for a, b in
+                    zip(ev.starts[1:], ev.starts[2:])]
+    counts = kernels.launch_counts()        # ... and ends here
+    ev.close()
+    peak = torch.cuda.max_memory_allocated()
+    want = {**dict.fromkeys(counts, 0),
+            **{k: n * GPT_TIMED_CALLS for k, n in GPT_LAUNCHES.items()}}
+    if counts != want:
+        raise AssertionError(f"generate launches {counts} over "
+                             f"{GPT_TIMED_CALLS} calls, expected {want}")
+    (_, syncs, sync_sites) = _count_syncs(call)
+    syncs -= _SYNC_NOTICE in ' '.join(sync_sites)
+    for o in outs + [first]:
+        if o.shape != (GPT_BATCH, SEQ + GPT_NEW) or \
+                not torch.equal(o[:, :SEQ], ids.cpu().to(torch.int32)):
+            raise AssertionError(f"generate: output {tuple(o.shape)} or "
+                                 "its prompt is wrong")
+    bad, not_argmax, checked = _teacher_forced(model, outs[0], SEQ)
+    repeats = [int((o != outs[0]).sum()) for o in outs[1:] + [first]]
+    for o, r in zip(outs[1:] + [first], repeats):
+        if r:
+            b2, n2, c2 = _teacher_forced(model, o, SEQ)
+            bad, not_argmax, checked = bad + b2, not_argmax + n2, checked + c2
+    if bad:
+        raise AssertionError(f"generate: {bad} of {checked} emitted tokens "
+                             "are not within the teacher-forced tolerance")
+    # sampling: repeatable under a seed, inside the filtered support
+    skw = dict(do_sample=True, top_k=50, top_p=0.95, temperature=0.8,
+               seed=seed + 43)
+    s1, s2 = call(**skw), call(**skw)
+    if not torch.equal(s1, s2):
+        raise AssertionError("generate: a sampled call does not repeat "
+                             "under its seed")
+    outside = _support_violations(model, s1, SEQ, 50, 0.95, 0.8)
+    if outside:
+        raise AssertionError(f"generate: {outside} sampled tokens outside "
+                             "the filtered support")
+    # eos: row 0's token 8 steps in; every later token of a row that
+    # emitted it must be eos
+    eos = int(outs[0][0, SEQ + 8])
+    (e_out, eos_syncs, e_sites) = _count_syncs(
+        lambda: call(eos_token_id=eos))
+    eos_syncs -= _SYNC_NOTICE in ' '.join(e_sites)
+    gen_part = e_out[:, SEQ:]
+    is_eos = gen_part == eos
+    first_eos = torch.where(is_eos.any(1), is_eos.int().argmax(1),
+                            torch.full((GPT_BATCH,), GPT_NEW))
+    after = torch.arange(GPT_NEW)[None, :] > first_eos[:, None]
+    if not (gen_part[after] == eos).all() or int(first_eos[0]) > 8:
+        raise AssertionError("generate: tokens after eos are not eos")
+    e_bad, _, e_checked = _teacher_forced(model, e_out, SEQ,
+                                          upto=first_eos + 1)
+    if e_bad:
+        raise AssertionError(f"generate eos: {e_bad} of {e_checked} tokens "
+                             "off the teacher-forced tolerance")
+    row = {'phase': 'generate', 'model': 'gpt_small', 'card': card,
+           'vocab': cfg.vocab_size, 'hidden': cfg.hidden_size,
+           'layers': cfg.num_layers, 'heads': cfg.num_heads,
+           'dtype': 'float32', 'batch': GPT_BATCH, 'prompt': SEQ,
+           'new_tokens': GPT_NEW, 'setup_s': setup_s,
+           'calls': GPT_TIMED_CALLS,
+           'ttft_ms': ttft, 'ttft_ms_median': float(np.median(ttft)),
+           'decode_ms_per_token_p50': float(np.percentile(step_ms, 50)),
+           'decode_ms_per_token_p99': float(np.percentile(step_ms, 99)),
+           'decode_steps_timed': len(step_ms),
+           'call_s': walls,
+           'tokens_per_s': [GPT_BATCH * GPT_NEW / w for w in walls],
+           'tokens_per_s_min': GPT_BATCH * GPT_NEW / max(walls),
+           'tokens_per_s_max': GPT_BATCH * GPT_NEW / min(walls),
+           'peak_memory_bytes': peak, 'allocated_before_bytes': base,
+           'host_syncs_per_call': syncs, 'sync_sites': sync_sites,
+           'host_syncs_eos_call': eos_syncs,
+           'launches_per_call': GPT_LAUNCHES,
+           'teacher_forced': {'tolerance': TEACHER_TOL, 'checked': checked,
+                              'outside': bad, 'not_plain_argmax':
+                              not_argmax},
+           'tokens_differing_between_calls': repeats,
+           'sampled': {'repeats': True, 'outside_support': outside},
+           'eos': {'token': eos, 'rows_with_eos': int(is_eos.any(1).sum()),
+                   'checked': e_checked},
+           'parity_2_layer': parity}
+    emit(row)
+    # profiles: the prefill (its 12 attention launches on the 3xTF32
+    # kernel) and one decode step
+    caches = model.init_caches(GPT_BATCH, SEQ + 2)
+    state = {}
+
+    def prefill():
+        with torch.no_grad():
+            lg, state['c'] = model(ids, caches, 0)
+            state['tok'] = greedy_token(lg[:, -1])[:, None].to(torch.int64)
+
+    def decode():
+        with torch.no_grad():
+            model(state['tok'], state['c'], SEQ)
+
+    phase_profile('generate prefill', prefill, GPT_PREFILL_ROUTES,
+                  batch=GPT_BATCH, prompt=SEQ)
+    phase_profile('generate decode step', decode, GPT_DECODE_ROUTES,
+                  batch=GPT_BATCH, position=SEQ)
+    del model, caches, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+# the engine's generative traffic: TinyCausalLM at gpt_small's widths
+SG_WAVES, SG_WAVE_SIZE, SG_NEW = 3, 16, 64
+SG_BUCKETS = (64, 128, 256)
+
+
+def _gen_requests(rs, vocab):
+    """48 prompts, lengths uniform in [16, 512]; every third one (16 in
+    all) is one shared 256-token prefix plus a tail of 1-256 tokens."""
+    prefix = rs.randint(1, vocab, size=256)
+    out = []
+    for i in range(SG_WAVES * SG_WAVE_SIZE):
+        if i % 3 == 0:
+            tail = rs.randint(1, vocab, size=int(rs.randint(1, 257)))
+            out.append(np.concatenate([prefix, tail]).astype(np.int32))
+        else:
+            out.append(rs.randint(1, vocab, size=int(rs.randint(16, 513)))
+                       .astype(np.int32))
+    return out
+
+
+def _serve_generative_run(lm, reqs, **register):
+    """Serve ``reqs`` in 3 waves of 16 (each wave pumped until the runner
+    is idle) -> (responses, row). Time to first token: from submit to the
+    end of the scheduler iteration that made the request's first token."""
+    from paddle_tpu_torch.serving import ServingEngine
+    dev = torch.device('cuda', 0)
+    eng = ServingEngine(queue_capacity=64, device=dev)
+    ep = eng.register('lm', generative=lm, **register)
+    warm = eng.warmup()['lm']
+    torch.cuda.synchronize()
+    runner = eng._models['lm']
+    futs, ttft = [], {}
+    t0 = time.perf_counter()
+    for w in range(SG_WAVES):
+        wave = reqs[w * SG_WAVE_SIZE:(w + 1) * SG_WAVE_SIZE]
+        futs += [ep.submit({'tokens': r}, max_new_tokens=SG_NEW)
+                 for r in wave]
+        while runner.has_work():
+            eng.pump()
+            for s in runner.slots:
+                if s is not None and s['tokens'] and \
+                        s['req'].id not in ttft:
+                    ttft[s['req'].id] = s['req'].sw.elapsed_ms()
+            for f in futs:
+                if f.done() and f.request_id not in ttft:
+                    ttft[f.request_id] = f._req.response.latency_ms
+    wall = time.perf_counter() - t0
+    resps = [f.result(timeout=60) for f in futs]
+    st = eng.stats()
+    first = [ttft[f.request_id] for f in futs]
+    gen_tokens = sum(len(r.outputs['tokens']) for r in resps)
+    row = {'requests': len(reqs), 'wall_s': wall,
+           'requests_per_s': len(reqs) / wall,
+           'tokens_per_s': gen_tokens / wall,
+           'ttft_ms_p50': float(np.percentile(first, 50)),
+           'ttft_ms_p99': float(np.percentile(first, 99)),
+           'programs_warmed': warm, 'stats': st['models']['lm'],
+           'kv': st['kv'].get('lm')}
+    return resps, row
+
+
+def phase_serve_generative(seed, card):
+    """The engine's generative path on ``TinyCausalLM`` at gpt_small's
+    widths (vocab 50304, embed 768, 12 heads, max_seq 1024, max_batch 8,
+    prompt buckets 64/128/256), fp32: 48 requests in 3 waves of 16,
+    prompts of 16-512 tokens (those over 256 take chunked prefill), 16 of
+    them sharing a 256-token prefix, 64 new tokens each. Four runs: (a)
+    paged, page_size 16, num_pages at its default; (b) the slot cache on
+    the requests of at most 256 tokens; (c) paged with a draft
+    (embed 256, 4 heads, seed + 1) and draft_k 4; (d) paged with
+    num_pages cut to a quarter of the default plus 1. Gates: every request
+    OK with 64 tokens, each run's tokens within TEACHER_TOL of the maximum
+    of ``TinyCausalLM.reference_logits`` (the no-cache forward of
+    ``reference_decode``) at every position, a prefix hit in (a), a
+    preemption in (d), and no launch of the port's kernels (TinyCausalLM
+    is composed, as the reference's is). -> the launch counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import TinyCausalLM
+    dev = torch.device('cuda', 0)
+    t0 = time.perf_counter()
+    lm = TinyCausalLM.random(vocab=50304, embed=768, num_heads=12,
+                             max_seq=1024, max_batch=8,
+                             prompt_buckets=SG_BUCKETS, seed=seed,
+                             device=dev)
+    draft = TinyCausalLM.random(vocab=50304, embed=256, num_heads=4,
+                                max_seq=1024, seed=seed + 1, device=dev)
+    setup_s = time.perf_counter() - t0
+    reqs = _gen_requests(np.random.RandomState(seed + 50), lm.vocab)
+    short = [r for r in reqs if len(r) <= SG_BUCKETS[-1]]
+    default_pages = 8 * (lm.max_seq // 16) + 1
+    runs = {'a_paged': (reqs, dict(page_size=16)),
+            'b_slot': (short, dict(kv_cache='slot')),
+            'c_paged_draft': (reqs, dict(page_size=16, draft=draft,
+                                         draft_k=4)),
+            'd_paged_pressure': (reqs, dict(page_size=16, num_pages=(
+                default_pages // 4 + 1)))}
+    kernels.reset_launch_counts()           # the main path starts here
+    results, rows = {}, {}
+    for name, (rq, reg) in runs.items():
+        results[name], rows[name] = _serve_generative_run(lm, rq, **reg)
+    counts = kernels.launch_counts()        # ... and ends here
+    if any(counts.values()):
+        raise AssertionError(f"serve_generative launched kernels {counts}; "
+                             "TinyCausalLM runs no kernel of the port")
+    ref_tokens = {}
+    for name, (rq, _) in runs.items():
+        bad = not_argmax = checked = 0
+        for prompt, resp in zip(rq, results[name]):
+            toks = np.asarray(resp.outputs['tokens'], np.int64)
+            if not resp.ok or len(toks) != SG_NEW:
+                raise AssertionError(f"serve_generative {name}: status "
+                                     f"{resp.status}, {len(toks)} tokens")
+            n = len(prompt)
+            with torch.no_grad():
+                lg = lm.reference_logits(np.concatenate(
+                    [prompt, toks[:-1]]))[n - 1:]
+            tt = torch.from_numpy(toks).to(dev)
+            picked = lg.gather(-1, tt[:, None])[:, 0]
+            tol = TEACHER_TOL * lg.abs().amax(-1)
+            bad += int((picked < lg.amax(-1) - tol).sum())
+            not_argmax += int((lg.argmax(-1) != tt).sum())
+            checked += len(toks)
+            ref_tokens.setdefault(tuple(prompt.tolist()), {})[name] = toks
+        rows[name]['teacher_forced'] = {'tolerance': TEACHER_TOL,
+                                        'checked': checked, 'outside': bad,
+                                        'not_plain_argmax': not_argmax}
+        if bad:
+            raise AssertionError(f"serve_generative {name}: {bad} of "
+                                 f"{checked} tokens off the teacher-forced "
+                                 "tolerance")
+    hits = rows['a_paged']['kv']['prefix_hits']
+    preempt = rows['d_paged_pressure']['stats']['preemptions']
+    if hits < 1 or preempt < 1:
+        raise AssertionError(f"serve_generative: prefix hits {hits} in (a), "
+                             f"preemptions {preempt} in (d)")
+    differ = {}
+    for name in ('b_slot', 'c_paged_draft', 'd_paged_pressure'):
+        pairs = [(v['a_paged'], v[name]) for v in ref_tokens.values()
+                 if name in v]
+        differ[name] = sum(int((x != y).sum()) for x, y in pairs)
+    emit({'phase': 'serve_generative', 'model': 'TinyCausalLM',
+          'card': card, 'vocab': lm.vocab, 'embed': 768, 'heads': 12,
+          'max_seq': lm.max_seq, 'max_batch': lm.max_batch,
+          'prompt_buckets': list(SG_BUCKETS), 'new_tokens': SG_NEW,
+          'setup_s': setup_s, 'runs': rows,
+          'tokens_differing_from_a': differ, 'launches': counts})
+    return counts
+
+
 SOURCES = {
     'flash_attention_fwd': ('paddle_tpu_torch/kernels/csrc/flash_attention.cu',
                             'paddle_tpu/kernels/flash_attention.py:95'),
@@ -2881,6 +3445,7 @@ def main():
     rms_rows, rms_path = phase_rms(args.seed, flush)
     rows['rms_norm_fwd'], rows16['rms_norm_fwd'], rowsh['rms_norm_fwd'] = \
         rms_rows['fp32'], rms_rows['bf16'], rms_rows['fp16']
+    gpt_rows = phase_kernels_gpt(args.seed, flush)
     del flush
     phase_parity(args.seed)
     served = phase_serve(args.seed, card)
@@ -2901,18 +3466,25 @@ def main():
     phase_train_parity_fit(args.seed)
     trained_fit = phase_train_fit(args.seed, card)[0]
     phase_remat_memory(args.seed, card)
+    torch.cuda.empty_cache()
+    generated = phase_generate(args.seed, card)
+    served_gen = phase_serve_generative(args.seed, card)
+    torch.cuda.empty_cache()
     phase_routes(args.seed, amp_again)
     del amp_again
     torch.cuda.empty_cache()
     # launches: each main path's counts, zeroed just before the path and
     # read just after (serving: 21 batches; each training run: 20 steps;
     # train_fit: 2 fit calls, 40 steps; nn.RMSNorm: 18 forwards and their
-    # backward); the top-level numbers
-    # are bf16's, the dtype of the reference's training recipe
+    # backward; generate: 5 calls of GPT's generate; serve_generative: the
+    # engine's four generative runs, which launch none); the top-level
+    # numbers are bf16's, the dtype of the reference's training recipe,
+    # and ``gpt`` holds the fp32 cases at generate's shapes
     paths = {'serve': served, 'train_fp32': trained,
              'train_bf16': trained16, 'train_bf16_flat': trained_flat,
              'train_fp16_amp': trained_amp, 'train_fit': trained_fit,
-             'nn.RMSNorm': rms_path}
+             'nn.RMSNorm': rms_path, 'generate': generated,
+             'serve_generative': served_gen}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'share_of_bound', 'achieved_tflops',
             'achieved_tb_per_s')
@@ -2926,7 +3498,10 @@ def main():
          **{k: rows16[name][k] for k in keys},
          'fp32': {k: rows[name][k] for k in keys},
          'bf16': {k: rows16[name][k] for k in keys},
-         'fp16': {k: rowsh[name][k] for k in keys}}
+         'fp16': {k: rowsh[name][k] for k in keys},
+         **({'gpt': {case: {k: row[k] for k in keys}
+                     for case, row in gpt_rows[name].items()}}
+            if name in gpt_rows else {})}
         for name in SOURCES]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

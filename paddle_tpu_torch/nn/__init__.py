@@ -6,12 +6,13 @@ from . import clip, functional, initializer, regularizer, remat
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_)
 from .initializer import ParamAttr
-from .layer import (Dropout, Embedding, LayerNorm, Linear,
-                    MultiHeadAttention, RMSNorm, TransformerEncoder,
-                    TransformerEncoderLayer)
+from .layer import (GELU, Dropout, Embedding, LayerList, LayerNorm, Linear,
+                    MultiHeadAttention, RMSNorm, Sequential,
+                    TransformerEncoder, TransformerEncoderLayer)
 
 __all__ = ['functional', 'clip', 'initializer', 'regularizer', 'remat',
            'ClipGradByGlobalNorm', 'ClipGradByNorm', 'ClipGradByValue',
-           'clip_grad_norm_', 'ParamAttr', 'Dropout', 'Embedding',
-           'LayerNorm', 'Linear', 'MultiHeadAttention', 'RMSNorm',
-           'TransformerEncoder', 'TransformerEncoderLayer']
+           'clip_grad_norm_', 'ParamAttr', 'GELU', 'Dropout', 'Embedding',
+           'LayerList', 'LayerNorm', 'Linear', 'MultiHeadAttention',
+           'RMSNorm', 'Sequential', 'TransformerEncoder',
+           'TransformerEncoderLayer']

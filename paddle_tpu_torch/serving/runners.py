@@ -1,21 +1,37 @@
-"""One-shot model runner: how one scheduler step turns queued requests into
-a batch. Counterpart of ``paddle_tpu/serving/runners.py`` (``BatchRunner``).
+"""Model runners: how one scheduler step turns queued requests into math.
+Counterpart of ``paddle_tpu/serving/runners.py`` (``BatchRunner``,
+``GenerativeRunner``).
 
-Each engine step re-packs the queue into the smallest bucket that fits
-(dynamic batching), moves the numpy feeds to the engine's device, runs the
-batch callable eagerly (the reference wraps it in ``CachedJit``; PyTorch
-has no counterpart the port needs) and hands each request its slice of
-the numpy outputs. The generative runners come with a later slice.
+- ``BatchRunner`` — one-shot models. Each engine step re-packs the queue
+  into the smallest bucket that fits (dynamic batching), moves the numpy
+  feeds to the engine's device, runs the batch callable eagerly and hands
+  each request its slice of the numpy outputs.
+- ``GenerativeRunner`` — iteration-level continuous batching over the
+  fixed-slot KV cache (``kv_cache.py``): every step admits waiting
+  requests into free slots (bucketed prefill), then runs one fixed-shape
+  greedy decode step for all active slots; finished sequences leave their
+  slot at once. This is the memory baseline (``register(...,
+  kv_cache='slot')``); the default generative path is
+  ``paged_runner.PagedGenerativeRunner``.
+
+The reference wraps every program in ``compilecache.CachedJit``; the port
+calls plain callables (PyTorch runs them eagerly), and ``warmup()`` still
+runs each program once so that first-call set-up (the kernel build) is
+not paid under traffic. The reference's telemetry calls (``_obs``) come
+with ``observability/``. Runners never block: ``step()`` does at most one
+batch or one decode iteration and returns whether it did work.
 """
+import collections
 import time
 
 import numpy as np
 import torch
 
-from .bucketing import BucketSpec, stack_examples
+from .bucketing import BucketSpec, pad_to_bucket, select_bucket, \
+    stack_examples
 from .scheduler import STATUS_DEADLINE, STATUS_ERROR, STATUS_OK
 
-__all__ = ['BatchRunner']
+__all__ = ['BatchRunner', 'GenerativeRunner']
 
 
 def _to_numpy(outs):
@@ -40,13 +56,18 @@ def _slice_outputs(outs, i):
 
 
 class _Stats:
-    """Plain always-on tallies."""
+    """Plain always-on tallies (``batches`` counts decode steps for the
+    generative runners)."""
 
     def __init__(self):
         self.completed = 0
         self.expired = 0
         self.errors = 0
         self.batches = 0
+        self.joins = 0
+        self.leaves = 0
+        self.decode_tokens = 0
+        self.prefill_tokens = 0
         self._occ_sum = 0.0
 
     def occupancy(self, frac):
@@ -56,10 +77,22 @@ class _Stats:
         return {
             'completed': self.completed, 'expired': self.expired,
             'errors': self.errors, 'batches': self.batches,
+            'joins': self.joins, 'leaves': self.leaves,
+            'decode_tokens': self.decode_tokens,
+            'prefill_tokens': self.prefill_tokens,
             'mean_batch_occupancy': (
                 round(self._occ_sum / self.batches, 4)
                 if self.batches else 0.0),
         }
+
+
+def _ms_since(t0):
+    return 1000.0 * (time.perf_counter() - t0)
+
+
+def _device_ints(a, device):
+    """A host int array as an int32 tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
 
 class BatchRunner:
@@ -147,3 +180,199 @@ class BatchRunner:
                 self.stats.expired += 1
             r.complete(status, out)
         return True
+
+
+class GenerativeRunner:
+    """Continuous batching: per-iteration join/leave over KV-cache slots.
+
+    ``spec`` is a ``kv_cache.GenerativeSpec``; ``device`` the engine's,
+    where token tensors are made. The runner owns the cache and the slot
+    table; requests are greedy-decoded. Its program set is one prefill per
+    prompt bucket plus one decode, all fixed shapes, run once by
+    ``warmup()``. Each step reads its chosen tokens back to the host (one
+    sync per prefill and per decode step), as the reference's does.
+    """
+
+    kind = 'generative'
+
+    def __init__(self, name, queue, spec, device, default_max_new_tokens=32):
+        self.name = name
+        self.queue = queue
+        self.spec = spec
+        self.device = device
+        self.default_max_new_tokens = int(default_max_new_tokens)
+        self.cache = spec.init_cache()
+        self.slots = [None] * spec.max_batch
+        self.stats = _Stats()
+        self.step_no = 0
+        # join/leave journal for tests/debugging: (event, request_id, step)
+        self.journal = collections.deque(maxlen=1024)
+
+        def _prefill(cache, toks, length, slot):
+            cache, logits = spec.prefill(cache, toks, length, slot)
+            return cache, torch.argmax(logits)
+
+        def _decode(cache, toks, pos):
+            cache, logits = spec.decode(cache, toks, pos)
+            return cache, torch.argmax(logits, dim=-1)
+
+        self._prefill = _prefill
+        self._decode = _decode
+
+    def _tensor(self, a):
+        return _device_ints(a, self.device)
+
+    def validate(self, req):
+        toks = np.asarray(req.inputs.get('tokens', ()))
+        if toks.size == 0:
+            raise ValueError(
+                f"serving[{self.name}]: generative request needs a "
+                "non-empty 'tokens' input")
+        if toks.ravel().shape[0] > self.spec.prompt_buckets[-1]:
+            raise ValueError(
+                f"serving[{self.name}]: prompt of {toks.ravel().shape[0]} "
+                f"tokens exceeds the largest prompt bucket "
+                f"{self.spec.prompt_buckets[-1]}")
+
+    def has_work(self):
+        return len(self.queue) > 0 or any(s is not None for s in self.slots)
+
+    def evict_in_flight(self):
+        """Vacate every occupied KV slot (engine shutdown): returns
+        ``[(request, partial_outputs)]`` so the engine can complete them
+        with their tokens so far."""
+        out = []
+        for slot, s in enumerate(self.slots):
+            if s is None:
+                continue
+            self.slots[slot] = None
+            self.stats.leaves += 1
+            self.journal.append(('leave', s['req'].id, self.step_no))
+            out.append((s['req'],
+                        {'tokens': np.asarray(s['tokens'], np.int32)}))
+        return out
+
+    def warmup(self):
+        """Run every prefill bucket and the decode step once, on slot 0
+        with zero tokens (a real join later overwrites the slot) -> the
+        number of programs run."""
+        n = 0
+        for lb in self.spec.prompt_buckets:
+            self.cache, nxt = self._prefill(
+                self.cache, self._tensor(np.zeros((lb,))), 1, 0)
+            int(nxt)
+            n += 1
+        z = self._tensor(np.zeros((self.spec.max_batch,)))
+        self.cache, nxt = self._decode(self.cache, z, z)
+        nxt.cpu()
+        return n + 1
+
+    # -- one scheduler iteration ---------------------------------------
+    def step(self):
+        self.step_no += 1
+        did = self._admit()
+        did = self._decode_step() or did
+        return did
+
+    def _admit(self):
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        if not free:
+            # still reap already-dead requests so they don't rot in queue
+            expired = self.queue.reap_expired()
+            for r in expired:
+                self._expire(r)
+            return bool(expired)
+        ready, expired = self.queue.pop_ready(len(free))
+        for r in expired:
+            self._expire(r)
+        did = bool(expired)
+        for r in ready:
+            did = True
+            slot = free.pop(0)
+            prompt = np.asarray(r.inputs['tokens'], np.int32).ravel()
+            lb = select_bucket(len(prompt), self.spec.prompt_buckets)
+            padded = pad_to_bucket(prompt, lb)
+            try:
+                t0 = time.perf_counter()
+                self.cache, nxt = self._prefill(
+                    self.cache, self._tensor(padded), len(prompt), slot)
+                first = int(nxt)
+                r.add_phase_ms('prefill', _ms_since(t0))
+            except Exception as e:                   # model bug: fail the
+                self.stats.errors += 1               # request, not the
+                free.insert(0, slot)                 # engine worker
+                r.complete(STATUS_ERROR, error=e)
+                continue
+            self.stats.joins += 1
+            self.stats.prefill_tokens += len(prompt)
+            self.journal.append(('join', r.id, self.step_no))
+            max_new = int(self.default_max_new_tokens
+                          if r.max_new_tokens is None else r.max_new_tokens)
+            self.slots[slot] = {'req': r, 'tokens': [first], 'last': first,
+                                'pos': len(prompt), 'max_new': max_new}
+            self._maybe_finish(slot)
+        return did
+
+    def _decode_step(self):
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if not active:
+            return False
+        b = self.spec.max_batch
+        toks = np.zeros((b,), np.int32)
+        pos = np.zeros((b,), np.int32)
+        for i in active:
+            toks[i] = self.slots[i]['last']
+            pos[i] = self.slots[i]['pos']
+        self.stats.batches += 1
+        self.stats.occupancy(len(active) / b)
+        try:
+            t0 = time.perf_counter()
+            self.cache, nxt = self._decode(self.cache, self._tensor(toks),
+                                           self._tensor(pos))
+            nxt = nxt.cpu().numpy()
+            ms = _ms_since(t0)
+        except Exception as e:                       # model bug: fail the
+            for i in active:                         # co-batched requests,
+                s = self.slots[i]                    # not the engine worker
+                self.slots[i] = None
+                self.stats.errors += 1
+                self.stats.leaves += 1
+                self.journal.append(('leave', s['req'].id, self.step_no))
+                s['req'].complete(
+                    STATUS_ERROR,
+                    {'tokens': np.asarray(s['tokens'], np.int32)}, error=e)
+            return True
+        for i in active:
+            s = self.slots[i]
+            s['pos'] += 1
+            tok = int(nxt[i])
+            s['tokens'].append(tok)
+            s['last'] = tok
+            s['req'].add_phase_ms('decode', ms)
+            self.stats.decode_tokens += 1
+            self._maybe_finish(i)
+        return True
+
+    # -- slot lifecycle -------------------------------------------------
+    def _maybe_finish(self, slot):
+        s = self.slots[slot]
+        r = s['req']
+        eos = self.spec.eos_id
+        done = (len(s['tokens']) >= s['max_new'] or
+                s['pos'] + 1 >= self.spec.max_seq or
+                (eos is not None and s['last'] == eos))
+        status = STATUS_OK
+        if r.expired():
+            done, status = True, STATUS_DEADLINE
+            self.stats.expired += 1
+        if not done:
+            return
+        self.slots[slot] = None
+        self.stats.leaves += 1
+        self.stats.completed += 1
+        self.journal.append(('leave', r.id, self.step_no))
+        r.complete(status, {'tokens': np.asarray(s['tokens'], np.int32)})
+
+    def _expire(self, req):
+        self.stats.expired += 1
+        req.complete(STATUS_DEADLINE)

@@ -12,10 +12,14 @@ Counterpart of ``paddle_tpu/serving/scheduler.py``.
   wait — a dead engine raises ``WatchdogTimeout`` instead of hanging the
   caller forever.
 
+The paged runner's admission hooks are here too: ``pop_ready_while``
+(admission gated on free KV pages, strict FIFO), ``push_front``
+(re-admission past the capacity check) and ``reap_expired``.
+
 The reference's ``observability.timing.Stopwatch`` and
 ``resilience.watchdog.WatchdogTimeout`` are replaced by the small
-``Stopwatch`` and ``WatchdogTimeout`` below. Cancellation and the
-paged-KV admission hooks come with the generative path.
+``Stopwatch`` and ``WatchdogTimeout`` below. Cancellation comes with the
+rest of serving.
 """
 import collections
 import itertools
@@ -56,24 +60,34 @@ class Stopwatch:
 
 class QueueFullError(RuntimeError):
     """Admission queue at capacity: the request was shed (429-style).
-    Raised at submit time; nothing was enqueued."""
+    Raised at submit time; nothing was enqueued. ``reason`` tells the two
+    ways a backlog builds apart: ``'queue_full'`` (offered load exceeds
+    the drain rate) or ``'page_exhaustion'`` (the paged KV cache is out of
+    pages, so admission stalled and the queue backed up behind it); the
+    engine stamps it from the runner's ``page_starved()``."""
 
-    def __init__(self, model, capacity):
+    def __init__(self, model, capacity, reason='queue_full'):
         super().__init__(
             f"serving: model {model!r} admission queue is full "
-            f"(capacity {capacity}) — request shed; retry with backoff")
+            f"(capacity {capacity}) — request shed ({reason}); retry "
+            "with backoff")
         self.model = model
         self.capacity = capacity
+        self.reason = reason
 
 
 class Response:
     """What a completed request resolves to.
 
-    ``status`` is ``'ok'``, ``'deadline'`` (expired; ``outputs`` None) or
-    ``'error'`` (``error`` holds the exception). ``latency_ms`` is
-    submit->complete, ``queue_ms`` the part spent waiting for a batch, and
-    ``breakdown`` the per-phase wall time the runner attributes (``run``:
-    the wall time of the batch the request rode in).
+    ``status`` is ``'ok'``, ``'deadline'`` (expired; ``outputs`` holds
+    any partial generative output, else None) or ``'error'`` (``error``
+    holds the exception; a generative request stopped mid-decode keeps
+    its partial tokens in ``outputs``). ``latency_ms`` is
+    submit->complete, ``queue_ms`` the part spent waiting for a batch,
+    and ``breakdown`` the per-phase wall time the runner attributes
+    (``run`` for one-shot batches; ``prefill``/``decode``/``draft``/
+    ``verify`` for generative models, each the wall time of the step the
+    request rode in).
     """
 
     __slots__ = ('status', 'outputs', 'model', 'request_id', 'latency_ms',
@@ -101,16 +115,19 @@ class Response:
 
 class Request:
     """One inference request moving through the engine. ``inputs`` is a
-    dict name -> per-example numpy array (no batch axis)."""
+    dict name -> per-example numpy array (no batch axis), or
+    ``{'tokens': int array [L]}`` (+ ``max_new_tokens``) for generative
+    models."""
 
-    __slots__ = ('id', 'model', 'inputs', 'deadline_ms', 'sw', 'queue_ms',
-                 'phase_ms', '_event', 'response')
+    __slots__ = ('id', 'model', 'inputs', 'deadline_ms', 'max_new_tokens',
+                 'sw', 'queue_ms', 'phase_ms', '_event', 'response')
 
-    def __init__(self, model, inputs, deadline_ms=None):
+    def __init__(self, model, inputs, deadline_ms=None, max_new_tokens=None):
         self.id = next(_ids)
         self.model = model
         self.inputs = inputs
         self.deadline_ms = None if deadline_ms is None else float(deadline_ms)
+        self.max_new_tokens = max_new_tokens
         self.sw = Stopwatch()          # lifetime clock, started at submit
         self.queue_ms = 0.0
         self.phase_ms = {}             # runner-attributed wall ms per phase
@@ -197,17 +214,51 @@ class AdmissionQueue:
                 raise QueueFullError(self.model, self.capacity)
             self._dq.append(req)
 
+    def push_front(self, req):
+        """Re-admit ``req`` at the head of the queue, bypassing the
+        capacity check: the request was already admitted once (a paged
+        runner stalling on KV pages) and must not be shed on its way
+        back in."""
+        with self._lock:
+            self._dq.appendleft(req)
+
     def pop_ready(self, max_n):
         """-> (ready, expired): up to ``max_n`` live requests in FIFO
         order, plus every expired request met on the way."""
+        return self.pop_ready_while(None, max_n)
+
+    def pop_ready_while(self, admit, max_n):
+        """Admission-gated pop: like ``pop_ready`` but stops at the first
+        live request ``admit(req)`` declines (strict FIFO — no head-of-line
+        jumping). The paged runner's predicate gates on free KV pages.
+        ``admit=None`` admits everything."""
         ready, expired = [], []
         with self._lock:
             while self._dq and len(ready) < max_n:
-                req = self._dq.popleft()
-                (expired if req.expired() else ready).append(req)
+                req = self._dq[0]
+                if req.expired():
+                    expired.append(self._dq.popleft())
+                    continue
+                if admit is not None and not admit(req):
+                    break
+                ready.append(self._dq.popleft())
         for r in ready + expired:
             r.queue_ms = r.sw.elapsed_ms()
         return ready, expired
+
+    def reap_expired(self):
+        """Remove and return every expired request anywhere in the queue
+        (used when no batch slot is free: a dead request must not wait for
+        one just to be told it is dead)."""
+        expired, live = [], []
+        with self._lock:
+            for r in self._dq:
+                (expired if r.expired() else live).append(r)
+            self._dq.clear()
+            self._dq.extend(live)
+        for r in expired:
+            r.queue_ms = r.sw.elapsed_ms()
+        return expired
 
     def drain(self):
         """Remove and return every queued request (engine shutdown)."""

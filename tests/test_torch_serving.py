@@ -326,7 +326,7 @@ def test_register_argument_errors():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {'generative': object()}, {'program': object()},
+    {'jit_compile': False}, {'program': object()},
     {'predictor': object()}, {'artifact_dir': '/nonexistent'},
     {'slo_ms': 10}, {'quantize': 'int8'}])
 def test_parts_not_ported_yet_raise(kwargs):
