@@ -131,14 +131,28 @@ Phases, each printing one JSON line:
 21. routes — the kernel each LayerNorm and RMSNorm shape takes at fp32
    and bf16 (``LN_ROUTES``, ``RMS_ROUTES``: the register path or the
    block path), and the O1 fp16 step's attention launches (each an f16
-   instantiation, ``AMP_ATTENTION``), read from one profiler session.
+   instantiation, ``AMP_ATTENTION``), read from one profiler session;
+22. train resume — ``engine.fit``'s checkpoint, resume and preemption
+   in train fit's configuration (p = 0.1, O1 fp16, scaler, guard,
+   microbatch 2, Lamb with the clip under the schedule, restored by the
+   caller): at 2 layers (BERT-large widths) a sync save, an async save
+   and a SIGTERM caught while an async save is in flight, each resumed
+   run bitwise the uninterrupted one, the async checkpoint bitwise the
+   sync one; at full width the restored state bitwise the saved one, the
+   resumed fit's launches exact (3 dispatches of 2 steps), its losses
+   within twice the spread of two uninterrupted runs; the checkpoint's
+   bytes, a sync save's ms, an async save's stall (at most a tenth of the
+   sync save's), commit ms, the device memory its snapshot adds, step ms
+   with and without a commit in flight, restore ms. It runs last: after
+   it a profiler session loses its first device events (PERF.md, 7).
 
 Every kernel row carries ``share_of_bound`` (bound ms over kernel ms) and
 the achieved TFLOP/s and TB/s beside the library call's time. Then a
 ``{"kernels": [...]}`` line (all seven kernels, bf16 numbers at the top
 level and under ``bf16``, fp32 under ``fp32``, fp16 under ``fp16``, the
 GPT cases under ``gpt``, launches by path: ``serve``, the training
-paths, ``nn.RMSNorm``, ``generate`` and ``serve_generative``) and,
+paths, ``train_resume``, ``nn.RMSNorm``, ``generate`` and
+``serve_generative``) and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero; without a CUDA device (or without the package beside this file)
 it exits non-zero and prints no result. fp32 matrix products run in full
@@ -148,8 +162,12 @@ import argparse
 import contextlib
 import copy
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -2860,6 +2878,425 @@ def phase_remat_memory(seed, card):
 
 
 
+# ---------------------------------------------------------------------------
+# checkpoint, resume and preemption in engine.fit (BERT-large, O1 fp16,
+# the scaler, the guard, microbatches, Lamb with the clip under a schedule)
+# ---------------------------------------------------------------------------
+
+RESUME_N = 3          # dispatches before the stop, and as many after it
+RESUME_K = 2          # microbatches a dispatch
+# a full-width resumed loss against the uninterrupted run's: within twice
+# the spread of two uninterrupted runs (the full-width step is not bitwise
+# repeatable, PERF.md section 7), and never tighter than this relative
+RESUME_LOSS_REL = 1e-4
+# the training thread's stall for an async save, over a sync save's time
+ASYNC_STALL_MAX = 0.10
+
+
+class _SignalAt:
+    """``batches`` every epoch; ``hook()`` runs when batch ``index`` of
+    epoch ``epoch`` is read (by the prefetcher, on the main thread)."""
+
+    def __init__(self, batches, epoch, index, hook):
+        self.batches, self.at, self.hook = batches, (epoch, index), hook
+        self.epoch = -1
+
+    def __iter__(self):
+        self.epoch += 1
+        for i, b in enumerate(self.batches):
+            if (self.epoch, i) == self.at:
+                self.hook()
+            yield b
+
+
+def _resume_run(seed, layers, data, epochs, sched_state=None, **kw):
+    """One O1 fp16 ``engine.fit`` of a fresh BERT-large (``layers`` deep)
+    from ``seed``, with a fresh ``fit_optimizer`` (its scheduler set to
+    ``sched_state`` when given), ``GradScaler`` and ``NanGuard`` ->
+    (model, scheduler, report)."""
+    from paddle_tpu_torch import amp, engine
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.resilience import NanGuard
+    from paddle_tpu_torch.text.bert import BertForPretraining, bert_large
+    dev = torch.device('cuda', 0)
+    cfg = bert_large()
+    cfg.num_hidden_layers = layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = BertForPretraining(cfg, device=dev, generator=gen).train()
+    opt, sched = fit_optimizer()
+    if sched_state is not None:      # the caller's, as in the reference
+        sched.set_state_dict(sched_state)
+    with amp.auto_cast(level='O1', dtype='float16'):
+        rep = engine.fit(model, model.pretraining_loss, opt, data,
+                         epochs=epochs, microbatch=RESUME_K, log_every=1,
+                         nan_guard=NanGuard(), scaler=GradScaler(),
+                         prefetch=2, **kw)
+    return model, sched, rep
+
+
+def _state_mismatches(a, b, where=''):
+    """Paths where two states (nested dicts of numpy arrays or tensors: a
+    checkpoint's host state, a live one) differ in dtype, shape or any
+    bit."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)) or \
+                set(a) != set(b):
+            return [where or '.']
+        return [m for k in a for m in _state_mismatches(a[k], b[k],
+                                                        f'{where}.{k}')]
+    a, b = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x) for x in (a, b))
+    same = a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+    return [] if same else [where]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` for the
+    block (the index backward of BERT's masked positions and embeddings
+    sums with atomics otherwise, so that two runs of the same step differ
+    in their last bits) -> a list that gets the warnings of the ops that
+    have no deterministic version; the previous setting comes back."""
+    import warnings
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    seen = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield seen
+        finally:
+            torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+            seen.extend(sorted({str(w.message)[:200] for w in caught
+                                if 'determinis' in str(w.message)}))
+
+
+def _resume_two_layers(seed, data, root):
+    """The 2-layer (BERT-large widths) checks: an uninterrupted run of 2N
+    dispatches, and three runs stopped at N and resumed from another
+    seed's model: a sync save, an async save, and a SIGTERM caught while
+    an async save is in flight. Each resumed run
+    equals the uninterrupted one bitwise (every logged loss, every
+    parameter); the async checkpoint at N equals the sync one bitwise."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.resilience import CheckpointManager
+    model, _, rep = _resume_run(seed, 2, data, 2)
+    want = {n: p.detach().clone() for n, p in model.named_parameters()}
+    want_loss = rep['loss']
+    del model, rep
+    out = {}
+    for how in ('sync', 'async', 'preempted'):
+        mgr = CheckpointManager(os.path.join(root, f'two_{how}'),
+                                max_keep=2)
+        seen = {}
+        src, kw = data, {}
+        if how == 'preempted':
+            def hook():
+                if signal.getsignal(signal.SIGTERM) in (signal.SIG_DFL,
+                                                        None):
+                    raise AssertionError("train_resume: fit installed no "
+                                         "SIGTERM handler")
+                seen['save_in_flight'] = mgr.in_flight()
+                signal.raise_signal(signal.SIGTERM)
+            # read when the second epoch starts: its first groups are
+            # prefetched while the save of dispatch N is committing
+            src, kw = _SignalAt(data, 1, RESUME_K, hook), \
+                dict(checkpoint_every=1)
+        model, sched, rep = _resume_run(
+            seed, 2, src, 1 if how != 'preempted' else 2, checkpoint=mgr,
+            async_save=how != 'sync', **kw)
+        stop = rep['dispatches']
+        if how == 'preempted' and not (rep['preempted'] and
+                                       seen.get('save_in_flight')):
+            raise AssertionError(f"train_resume 2 layers: preempted "
+                                 f"{rep['preempted']}, a save in flight "
+                                 f"{seen}")
+        sched_state = sched.state_dict()
+        del model, rep
+        kernels.reset_launch_counts()
+        model, _, rep = _resume_run(seed + 1, 2, data, 2,
+                                    sched_state=sched_state,
+                                    resume_from=mgr)
+        counts = kernels.launch_counts()
+        n_after = 2 * RESUME_N - stop
+        launches = {n: n_after * RESUME_K * c
+                    for n, c in PARITY_LAUNCHES.items()}
+        bad = [n for n, p in model.named_parameters()
+               if not torch.equal(p, want[n])]
+        if rep['resumed_from'] != stop or counts != launches or bad or \
+                rep['loss'] != want_loss[stop:]:
+            raise AssertionError(
+                f"train_resume 2 layers {how}: resumed from "
+                f"{rep['resumed_from']} (stopped at {stop}); launches "
+                f"{counts}, expected {launches}; parameters not bitwise "
+                f"{bad[:4]}; losses {rep['loss']} against {want_loss}")
+        out[how] = {'stopped_at': stop, 'resumed_losses': rep['loss'],
+                    'bitwise': True, **seen}
+        del model, rep
+    got = {how: CheckpointManager(os.path.join(root, f'two_{how}')).restore(
+        step=RESUME_N, return_extra=True) for how in ('sync', 'async')}
+    bad = _state_mismatches(got['sync'][0], got['async'][0])
+    if bad or got['sync'][2]['rng']['dropout'] != \
+            got['async'][2]['rng']['dropout']:
+        raise AssertionError(f"train_resume: the async checkpoint at "
+                             f"{RESUME_N} differs from the sync one: "
+                             f"{bad[:4]}")
+    out['async_checkpoint_equals_sync'] = True
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_resume(seed, card):
+    """``engine.fit``'s checkpoint, resume and preemption on BERT-large in
+    ``phase_train_fit``'s configuration (p = 0.1, O1 fp16, ``GradScaler``,
+    ``nan_guard``, ``microbatch=2``, Lamb with the global-norm clip under
+    ``fit_schedule``, restored by the caller through its ``state_dict``),
+    on ``RESUME_N`` x 2 distinct batches a epoch, checkpoints in a
+    temporary directory (at most 2 kept), removed at the end:
+
+    Parts 1 and 2 run under ``deterministic()``: without it two runs of
+    the same 2-layer fit differ in their last bits (two such runs are
+    printed), so no resume could equal one bitwise.
+
+    1. at 2 layers (BERT-large widths): ``_resume_two_layers`` (sync,
+       async, preempted; bitwise);
+    2. at full width: two uninterrupted runs of 2N dispatches (their loss
+       spread), a run of N with an async checkpoint, then a model from
+       another seed resumed from it for the last N. Every leaf of the
+       checkpoint equals the stopped run's live state, and the state
+       ``TrainStep.adopt_state`` restores equals the checkpoint, bit for
+       bit (parameters, Lamb's slots, the scaler's scale and counters, the
+       guard's counters), and so do the ``DropoutState`` offsets after
+       ``restore_rng``; the resumed fit launches exactly N x 2 x
+       ``TRAIN_LAUNCHES``; each of its losses within max(2 x the spread,
+       ``RESUME_LOSS_REL`` relative) of the first uninterrupted run's;
+    3. ``CheckpointManager.save`` on the stopped run's fit state: the
+       checkpoint's bytes, a sync save's ms, an async save's stall on the
+       training thread (at most ``ASYNC_STALL_MAX`` of the sync save's)
+       and its commit ms, the device memory its snapshot adds, step ms
+       with the commit in flight against without, restore ms.
+    -> the resumed full-width fit's launch counts."""
+    rs = np.random.RandomState(seed + 5)
+    data = [_pretraining_batch(rs, TRAIN_BATCH, 30522)
+            for _ in range(RESUME_N * RESUME_K)]
+    root = tempfile.mkdtemp(prefix='train_resume_')
+    t_phase = time.perf_counter()
+    row = {'phase': 'train_resume', 'model': 'bert_large pretraining',
+           'entry': 'engine.fit(checkpoint=, resume_from=, preempt_save=)',
+           'card': card, 'batch': [TRAIN_BATCH, SEQ],
+           'dtype': 'amp.auto_cast O1 float16 on fp32 parameters',
+           'dropout': 0.1, 'microbatch': RESUME_K,
+           'dispatches': {'before_stop': RESUME_N, 'after': RESUME_N}}
+    try:
+        # without the deterministic mode: two runs of the same 2-layer fit
+        # (printed, not held)
+        twice = [_resume_run(seed, 2, data, 2) for _ in range(2)]
+        row['two_layers_default_mode'] = {
+            'losses': [r[2]['loss'] for r in twice],
+            'bitwise_repeatable': all(
+                torch.equal(p, q) for p, q in zip(
+                    twice[0][0].parameters(), twice[1][0].parameters())),
+            'loss_spread': max(abs(a - b) for a, b in zip(
+                twice[0][2]['loss'], twice[1][2]['loss']))}
+        del twice
+        torch.cuda.empty_cache()
+        with deterministic() as nondeterministic:
+            row['two_layers'] = _resume_two_layers(seed, data, root)
+            row['two_layers_s'] = time.perf_counter() - t_phase
+            t_full = time.perf_counter()
+            model, fit_state, counts, row['full_width'] = \
+                _resume_full_width(seed, data, root)
+            row['full_width_s'] = time.perf_counter() - t_full
+        row['ops_without_a_deterministic_version'] = nondeterministic
+        # 3. the saves, on the stopped run's fit state, outside the
+        # deterministic mode (as a user's run would be)
+        t_save = time.perf_counter()
+        row['checkpoint'] = _save_costs(model, fit_state, data[0], root)
+        row['checkpoint'].update(row['full_width'].pop('costs'))
+        row['saves_s'] = time.perf_counter() - t_save
+        del model, fit_state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row['phase_s'] = time.perf_counter() - t_phase
+    emit(row)
+    return counts
+
+
+def _kept_restore_manager(path, max_keep):
+    """A ``CheckpointManager`` for ``fit(resume_from=)`` that keeps what
+    its last ``restore`` returned (the host state, meta and extras) and
+    the ms it took."""
+    from paddle_tpu_torch.resilience import CheckpointManager
+
+    class KeptRestore(CheckpointManager):
+        def restore(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            got = super().restore(*args, **kwargs)
+            self.restore_ms = 1e3 * (time.perf_counter() - t0)
+            self.restored = got
+            return got
+    return KeptRestore(path, max_keep=max_keep)
+
+
+def _resume_full_width(seed, data, root):
+    """Part 2 of ``phase_train_resume``: two uninterrupted full-width runs
+    of 2N dispatches (their spread), a run stopped at N with an async
+    checkpoint, the resumed run from another seed's model; then the state
+    that resume read against the stopped run's live state, and against
+    the state another model's ``TrainStep.adopt_state`` makes of it ->
+    (the stopped run's model and fit state, the resumed fit's launch
+    counts, a row)."""
+    from paddle_tpu_torch import engine, kernels
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.resilience import restore_rng
+    from paddle_tpu_torch.text.bert import BertForPretraining, bert_large
+    dev = torch.device('cuda', 0)
+    runs = []
+    for _ in range(2):
+        model, _, rep = _resume_run(seed, 24, data, 2)
+        runs.append(rep['loss'])
+        final_offset = model.dropout_state.offset
+        del model, rep
+        torch.cuda.empty_cache()
+    spread = max(abs(a - b) for a, b in zip(*runs))
+    mgr = _kept_restore_manager(os.path.join(root, 'full'), max_keep=2)
+    model, sched, rep = _resume_run(seed, 24, data, 1, checkpoint=mgr,
+                                    async_save=True)
+    fit_state = rep['state']
+    nbytes = sum(s['size'] for s in mgr.load_manifest(RESUME_N)[
+        'shards'].values())
+    kernels.reset_launch_counts()          # the main path: the resume
+    resumed, _, rep = _resume_run(seed + 1, 24, data, 2,
+                                  sched_state=sched.state_dict(),
+                                  resume_from=mgr)
+    counts = kernels.launch_counts()       # ... read right after it
+    want = {n: RESUME_N * RESUME_K * c for n, c in TRAIN_LAUNCHES.items()}
+    tol = [max(2 * spread, RESUME_LOSS_REL * abs(u))
+           for u in runs[0][RESUME_N:]]
+    off = [abs(a - b) for a, b in zip(rep['loss'], runs[0][RESUME_N:])]
+    if counts != want or rep['resumed_from'] != RESUME_N or \
+            len(off) != RESUME_N or any(o > t for o, t in zip(off, tol)) \
+            or resumed.dropout_state.offset != final_offset:
+        raise AssertionError(
+            f"train_resume full width: launches {counts}, expected "
+            f"{want}; resumed from {rep['resumed_from']}; losses "
+            f"{rep['loss']} against {runs[0]} (off {off}, tolerance "
+            f"{tol}); dropout offset {resumed.dropout_state.offset}, "
+            f"{final_offset} uninterrupted")
+    resumed_losses = rep['loss']
+    del resumed, rep
+    torch.cuda.empty_cache()
+    # what the resume read: the stopped run's live state, bit for bit
+    saved, _, extra = mgr.restored
+    bad = _state_mismatches(saved, fit_state)
+    offsets = extra['rng']['dropout']
+    if bad or offsets != {'bert.dropout_state': {
+            'seed': model.dropout_state.seed,
+            'offset': model.dropout_state.offset}}:
+        raise AssertionError(f"train_resume: the checkpoint differs from "
+                             f"the live state at {bad[:4]}, or its "
+                             f"dropout offsets {offsets}")
+    # ... and what adopt_state and restore_rng make of it on another model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    other = BertForPretraining(bert_large(), device=dev,
+                               generator=gen).train()
+    opt, _ = fit_optimizer()
+    step = engine.build_train_step(net=other, loss=other.pretraining_loss,
+                                   optimizer=opt, scaler=GradScaler(),
+                                   nan_guard=True, microbatch=RESUME_K)
+    t0 = time.perf_counter()
+    adopted = step.adopt_state(saved)
+    torch.cuda.synchronize()
+    adopt_ms = 1e3 * (time.perf_counter() - t0)
+    restore_rng(extra['rng'], other, adopted['opt'])
+    bad = _state_mismatches(saved, adopted)
+    if bad or other.dropout_state.offset != \
+            offsets['bert.dropout_state']['offset']:
+        raise AssertionError(f"train_resume: the adopted state differs "
+                             f"from the checkpoint at {bad[:4]}")
+    out = {'uninterrupted_losses': runs, 'spread': spread,
+           'resumed_losses': resumed_losses, 'loss_off': off,
+           'loss_tolerance': tol,
+           'restored_state_bitwise': True, 'launches': counts,
+           'costs': {'bytes': nbytes, 'restore_ms': mgr.restore_ms,
+                     'adopt_ms': adopt_ms}}
+    del other, opt, step, adopted, saved
+    torch.cuda.empty_cache()
+    return model, fit_state, counts, out
+
+
+def _save_costs(model, fit_state, batch, root):
+    """``CheckpointManager.save`` on a fit state: a sync save's ms; an
+    async save's stall on the training thread (at most ``ASYNC_STALL_MAX``
+    of the sync save's), the device memory its snapshot adds and its
+    commit ms (read after each step, so to within a step); O1 fp16 step ms
+    of the same model, Lamb, clip, scaler and guard (one microbatch of
+    ``batch``) without a commit in flight and while one is -> a dict."""
+    from paddle_tpu_torch import engine
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.resilience import CheckpointManager, NanGuard
+    dev = torch.device('cuda', 0)
+    mgr = CheckpointManager(os.path.join(root, 'measure'), max_keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(fit_state, step=0, world=1)
+    sync_ms = 1e3 * (time.perf_counter() - t0)
+    opt, _ = fit_optimizer()
+    scaler, guard = GradScaler(), NanGuard()
+    step = engine.build_train_step(net=model, loss=model.pretraining_loss,
+                                   optimizer=opt, scaler=scaler,
+                                   nan_guard=True)
+    state = step.init_state(opt_state=fit_state['opt'], nan_guard=guard,
+                            scaler=scaler)
+    x, y = batch
+    feed = ({n: torch.from_numpy(v).to(dev) for n, v in x.items()},
+            tuple(torch.from_numpy(v).to(dev) for v in y))
+    run = _amp_step(step, debug=False)
+
+    def timed():
+        # the training stream's own work: the writer's copies run on a
+        # side stream, which a device-wide synchronize would wait for
+        t = time.perf_counter()
+        run(state, feed)
+        torch.cuda.current_stream().synchronize()
+        return 1e3 * (time.perf_counter() - t)
+    timed()
+    quiet_ms = [timed() for _ in range(8)]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mgr.save(state, step=1, world=1, async_=True)
+    stall_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    snapshot_bytes = torch.cuda.max_memory_allocated() - base
+    busy_ms = []
+    while mgr.in_flight() and len(busy_ms) < 300:
+        busy_ms.append(timed())
+    mgr.fence(timeout=600)
+    commit_ms = 1e3 * (time.perf_counter() - t0)
+    out = {'sync_save_ms': sync_ms, 'async_stall_ms': stall_ms,
+           'stall_over_sync': stall_ms / sync_ms,
+           'async_commit_ms': commit_ms,
+           'snapshot_added_device_bytes': snapshot_bytes,
+           'step_ms_no_commit': quiet_ms,
+           'step_ms_commit_in_flight': busy_ms,
+           'step_ms_median': {'no_commit': float(np.median(quiet_ms)),
+                              'commit_in_flight': float(np.median(busy_ms))
+                              if busy_ms else None}}
+    del step, state
+    if stall_ms > ASYNC_STALL_MAX * sync_ms:
+        raise AssertionError(f"train_resume: an async save stalled the "
+                             f"training thread {stall_ms:.1f} ms, over "
+                             f"{ASYNC_STALL_MAX} of a sync save's "
+                             f"{sync_ms:.1f} ms")
+    return out
+
+
 # -- generative serving (GPT generate, the serving engine's generative path)
 # GPT's prefill attention (gpt_small, batch 8 x 512) and its LayerNorms:
 # the prefill's 8 x 512 rows and one decode step's 8, width 768, fp32
@@ -3473,9 +3910,14 @@ def main():
     phase_routes(args.seed, amp_again)
     del amp_again
     torch.cuda.empty_cache()
+    # last: after it, a torch.profiler session loses its first device
+    # events (PERF.md, section 7), and every profile phase counts them
+    resumed = phase_train_resume(args.seed, card)
+    torch.cuda.empty_cache()
     # launches: each main path's counts, zeroed just before the path and
     # read just after (serving: 21 batches; each training run: 20 steps;
-    # train_fit: 2 fit calls, 40 steps; nn.RMSNorm: 18 forwards and their
+    # train_fit: 2 fit calls, 40 steps; train_resume: the resumed
+    # full-width fit, 6 steps; nn.RMSNorm: 18 forwards and their
     # backward; generate: 5 calls of GPT's generate; serve_generative: the
     # engine's four generative runs, which launch none); the top-level
     # numbers are bf16's, the dtype of the reference's training recipe,
@@ -3483,8 +3925,8 @@ def main():
     paths = {'serve': served, 'train_fp32': trained,
              'train_bf16': trained16, 'train_bf16_flat': trained_flat,
              'train_fp16_amp': trained_amp, 'train_fit': trained_fit,
-             'nn.RMSNorm': rms_path, 'generate': generated,
-             'serve_generative': served_gen}
+             'train_resume': resumed, 'nn.RMSNorm': rms_path,
+             'generate': generated, 'serve_generative': served_gen}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'share_of_bound', 'achieved_tflops',
             'achieved_tb_per_s')

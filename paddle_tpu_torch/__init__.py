@@ -11,8 +11,10 @@ kernel for Hopper (``kernels/csrc/``), built with ``nvcc`` at first use.
 On CPU tensors each kernel wrapper runs its plain PyTorch version instead.
 
 Entry points run on the CUDA device unless the caller passes
-``device='cpu'`` (``device.resolve_device``).
+``device='cpu'`` (``device.resolve_device``). ``save`` / ``load`` are
+``framework``'s.
 """
 from .device import resolve_device
+from .framework import load, save
 
-__all__ = ['resolve_device']
+__all__ = ['resolve_device', 'save', 'load']

@@ -1,7 +1,7 @@
 """One train step: forward, backward, optimizer update. Counterpart of
 ``paddle_tpu/engine/builder.py`` (``build_train_step``, ``TrainStep``
-with ``_one_step``, ``_advance_scaler`` and ``sync``, ``StepResult``,
-``DeviceLoss``).
+with ``_one_step``, ``_advance_scaler``, ``sync`` and ``adopt_state``,
+``StepResult``, ``DeviceLoss``).
 
 The reference compiles a pure function ``(state, batch, key) -> (state,
 loss, outputs)`` with ``jax.jit`` and donates the old state. PyTorch runs
@@ -296,6 +296,82 @@ class TrainStep:
                                     dtype=torch.float32, device=self.device),
                 'good': i32(s._good_steps), 'bad': i32(s._bad_steps)}
         return state
+
+    @torch.no_grad()
+    def adopt_state(self, state):
+        """Align a restored state (``CheckpointManager.restore``'s: numpy
+        leaves or CPU tensors, in this step's layout) with this step and
+        return the step's live state, as the reference's ``adopt_state``
+        (``paddle_tpu/engine/builder.py:489``) does.
+
+        The step updates the network's parameters in place, so the
+        restored values are copied INTO them (on the flat path into the
+        ``FlatFusedUpdate``'s master buffer, which they are views of), and
+        into fresh optimizer slots of this step (keyed by module path, as
+        the step's own; 0-dim slots such as ``beta*_pow`` equal across
+        parameters become one shared tensor again). Guard and scaler slots
+        the checkpoint carries but this step does not use are dropped with
+        a warning; missing ones are seeded fresh. A missing, unexpected,
+        mis-shaped or mis-typed entry raises ``ValueError``; the values
+        are never converted."""
+        import warnings
+        state = dict(state)
+        if state.pop('buffers', None):
+            raise ValueError("TrainStep.adopt_state: the checkpoint carries "
+                             "buffers; the port's step keeps none")
+        fresh = self.init_state()
+        shared = {}
+
+        def adopt(live, saved, where):
+            if isinstance(live, dict):
+                if not isinstance(saved, dict):
+                    raise ValueError(f"TrainStep.adopt_state: {where} is "
+                                     f"not a dict in the checkpoint")
+                own = {k for k, v in live.items()
+                       if not isinstance(v, torch.Generator)}
+                if own != set(saved):
+                    raise ValueError(
+                        f"TrainStep.adopt_state: {where} has keys "
+                        f"{sorted(saved)[:8]}, the step's are "
+                        f"{sorted(own)[:8]}")
+                return {k: v if k not in own else
+                        adopt(v, saved[k], f'{where}.{k}')
+                        for k, v in live.items()}
+            src = saved if isinstance(saved, torch.Tensor) \
+                else torch.from_numpy(np.array(saved, order='C'))
+            if tuple(src.shape) != tuple(live.shape) or \
+                    src.dtype != live.dtype:
+                raise ValueError(
+                    f"TrainStep.adopt_state: {where} is {src.dtype} "
+                    f"{tuple(src.shape)} in the checkpoint, "
+                    f"{live.dtype} {tuple(live.shape)} in the step")
+            if live.dim() == 0 and not where.startswith('params'):
+                key = (where.rpartition('.')[2], src.dtype,
+                       src.detach().cpu().reshape(1).view(torch.uint8)
+                       .numpy().tobytes())
+                if key not in shared:
+                    shared[key] = src.detach().to(live.device, copy=True)
+                return shared[key]
+            live.copy_(src)
+            return live
+
+        if self._flat is not None:
+            adopt(self._params, state['params'], 'params')
+        else:
+            adopt(dict(self._params), state['params'], 'params')
+        out = {'params': self._params,
+               'opt': adopt(fresh['opt'], state['opt'], 'opt')}
+        for slot, enabled in (('guard', self.guard_enabled),
+                              ('scaler', self.scaler is not None)):
+            if enabled:
+                out[slot] = (adopt(fresh[slot], state[slot], slot)
+                             if slot in state else fresh[slot])
+            elif slot in state:
+                warnings.warn(
+                    f"TrainStep.adopt_state: the checkpoint carries a "
+                    f"{slot!r} slot this step was built without; dropping "
+                    f"it", RuntimeWarning, stacklevel=2)
+        return out
 
     def _to_device(self, batch):
         if isinstance(batch, dict):

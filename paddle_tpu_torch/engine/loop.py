@@ -1,6 +1,6 @@
 """The eager convenience loop over the train step. Counterpart of
 ``paddle_tpu/engine/loop.py`` (``fit``, ``write_back_state``,
-``adopt_optimizer_state``, ``_grouped``, ``_finish``)::
+``adopt_optimizer_state``, ``_grouped``, ``_finish``, ``_to_manager``)::
 
     report = engine.fit(net, loss_fn, opt, batches, epochs=2, microbatch=2)
 
@@ -29,12 +29,35 @@ them, as the reference's do.
 
 ``donate`` and ``matmul_precision`` are accepted and do nothing (there is
 no buffer donation in eager PyTorch; fp32 products follow
-``torch.backends.cuda.matmul.allow_tf32``). Checkpointing and resuming
-(``checkpoint``, ``resume_from``, ``preempt_save`` with a checkpoint),
-multi-process runs (``world``, ``rank``), ``sharding`` and the serving
+``torch.backends.cuda.matmul.allow_tf32``).
+
+Checkpointing, as the reference's (``resilience.CheckpointManager``, the
+sharded format with one rank):
+
+- ``checkpoint=`` (a directory or a ``CheckpointManager``, keeping
+  ``checkpoint_max_keep``): the step's whole state (parameters, optimizer
+  slots, the guard's and the scaler's counters) and the RNG streams
+  (``resilience.capture_rng``: the network's ``DropoutState`` offsets,
+  numpy's state, an optimizer's generators) are saved every
+  ``checkpoint_every`` calls (0: at each epoch's end) and at the end;
+  with ``async_save`` the leaves are cloned on the device, in stream
+  order, and written on a background thread, one save in flight.
+- ``resume_from=`` (default: ``checkpoint=``): the newest intact
+  checkpoint is copied into the network's parameters and the step's
+  slots (``TrainStep.adopt_state``), the RNG streams are set back, and the
+  loop position replayed: a resume in mid-epoch skips the groups already
+  trained without sending them to the device. With a deterministic
+  ``data`` the resumed run equals an uninterrupted one bit for bit.
+- ``preempt_save`` (with a checkpoint): a SIGTERM is caught at the next
+  call; the in-flight save is fenced (finished or abandoned) first, then a
+  last synchronous save commits, and the report has ``preempted: True``.
+
+Multi-process runs (``world``, ``rank``), ``sharding`` and the serving
 export (``serve_artifacts``, ``serve_generative``) raise
-``NotImplementedError``.
+``NotImplementedError``. The checkpoints' telemetry is left out (it waits
+for an ``observability`` package).
 """
+import itertools
 import time
 import warnings
 
@@ -43,15 +66,13 @@ import torch
 
 from ..device import resolve_device
 from ..io import DevicePrefetcher
+from ..resilience import (CheckpointManager, PreemptionGuard, capture_rng,
+                          restore_rng)
 from .builder import build_train_step
 
 __all__ = ['fit', 'write_back_state', 'adopt_optimizer_state']
 
 _LATER = {
-    'checkpoint': "checkpointing comes with the resilience slice "
-                  "(resilience.CheckpointManager)",
-    'resume_from': "resuming comes with the resilience slice "
-                   "(resilience.CheckpointManager)",
     'world': "multi-process runs come with the distributed slice",
     'rank': "multi-process runs come with the distributed slice",
     'sharding': "sharded state comes with the distributed slice",
@@ -158,18 +179,20 @@ def fit(network, loss, optimizer, data, *, epochs=1, microbatch=1,
         device=None):
     """Train ``network`` over ``data`` for ``epochs`` through one train
     step -> the report: ``loss`` (the losses read at the log cadence),
-    ``steps``, ``dispatches`` (calls of the step), ``microbatch``,
-    ``donated`` (False), ``checkpoints`` (0), ``resumed_from`` (None),
-    ``preempted`` (False), ``steps_per_sec`` and ``state`` (the step's
-    state, already mirrored into ``optimizer``).
+    ``steps``, ``dispatches`` (calls of the step, counted from the start
+    of the run a resume continues), ``microbatch``, ``donated`` (False),
+    ``checkpoints`` (saves this call made), ``resumed_from`` (the
+    dispatches of the checkpoint resumed, or None), ``preempted``,
+    ``steps_per_sec`` and ``state`` (the step's state, already mirrored
+    into ``optimizer``).
 
     ``nan_guard``: a ``resilience.NanGuard`` or True for a default one;
-    ``scaler``: an ``amp.GradScaler``; ``device``: where the step runs
-    (the CUDA device unless ``device='cpu'``; ``network`` must live
-    there). ``data`` is iterated once an epoch."""
-    asked = {'checkpoint': checkpoint is not None,
-             'resume_from': resume_from is not None,
-             'world': world is not None, 'rank': rank is not None,
+    ``scaler``: an ``amp.GradScaler``; ``checkpoint``, ``checkpoint_every``,
+    ``async_save``, ``resume_from``, ``preempt_save``,
+    ``checkpoint_max_keep``: see the module docstring; ``device``: where
+    the step runs (the CUDA device unless ``device='cpu'``; ``network``
+    must live there). ``data`` is iterated once an epoch."""
+    asked = {'world': world is not None, 'rank': rank is not None,
              'sharding': sharding is not None,
              'serve_artifacts': serve_artifacts is not None,
              'serve_generative': serve_generative is not None}
@@ -193,9 +216,38 @@ def fit(network, loss, optimizer, data, *, epochs=1, microbatch=1,
         opt_state=adopt_optimizer_state(network, optimizer, params),
         nan_guard=nan_guard, scaler=scaler)
     k = step.k
+    mgr = _to_manager(checkpoint, checkpoint_max_keep)
+    resume_mgr = _to_manager(resume_from, checkpoint_max_keep) or mgr
+    start_epoch = skip = 0
     report = {'loss': [], 'steps': 0, 'dispatches': 0, 'microbatch': k,
               'donated': False, 'checkpoints': 0, 'resumed_from': None,
               'preempted': False}
+    if resume_mgr is not None:
+        got = resume_mgr.restore(return_extra=True)
+        if got is not None:
+            loaded, meta, extra = got
+            state = step.adopt_state(loaded)
+            start_epoch = int(meta.get('epoch', 0))
+            skip = int(meta.get('dispatch_in_epoch', 0))
+            report['dispatches'] = int(meta.get('dispatches', 0))
+            report['steps'] = report['dispatches'] * k
+            report['resumed_from'] = report['dispatches']
+            if extra and extra.get('rng') is not None:
+                restore_rng(extra['rng'], network, state['opt'])
+    guard = None
+    if mgr is not None and preempt_save:
+        guard = PreemptionGuard().install()   # inert off the main thread
+
+    def save_now(epoch, dispatch_in_epoch, async_ok=True):
+        meta = {'epoch': int(epoch),
+                'dispatch_in_epoch': int(dispatch_in_epoch),
+                'dispatches': report['dispatches'], 'microbatch': k,
+                'world': 1}
+        mgr.save(_saveable(state), step=report['dispatches'], meta=meta,
+                 async_=bool(async_save and async_ok),
+                 extra={'rng': capture_rng(network, state['opt'])})
+        report['checkpoints'] += 1
+
     # the reconcile cadence is in calls, and a call advances a skip streak
     # by up to k steps: reconcile every ceil(limit / k) calls, so that a
     # diverging run cannot overshoot the guard's limit k-fold
@@ -206,24 +258,80 @@ def fit(network, loss, optimizer, data, *, epochs=1, microbatch=1,
     log_every = max(int(log_every), 1)
     t0 = time.perf_counter()
     try:
-        for _ in range(int(epochs)):
+        for epoch in range(start_epoch, int(epochs)):
             source = _grouped(data, k)
+            if skip:
+                # resumed in mid-epoch: these groups were trained before
+                # the checkpoint; skipped before the prefetcher, so they
+                # never reach the device
+                source = itertools.islice(source, skip, None)
             if prefetch:
                 source = DevicePrefetcher(source, device, depth=prefetch)
+            dispatch_in_epoch = skip
             for batch in source:
                 state, out = step(state, batch)
                 report['dispatches'] += 1
                 report['steps'] += k
+                dispatch_in_epoch += 1
                 n = report['dispatches']
                 if needs_sync and n % sync_every == 0:
                     step.sync(state, nan_guard=nan_guard, scaler=scaler)
                 if n % log_every == 0 or n == 1:
                     report['loss'].append(float(out.loss))
+                if guard is not None and guard.preempted:
+                    # fence the in-flight save (finished or abandoned)
+                    # BEFORE the last synchronous one; a failure of an
+                    # earlier background save must not stop this one
+                    try:
+                        mgr.fence(timeout=_PREEMPT_FENCE_S, abandon=True)
+                    except Exception:
+                        pass
+                    save_now(epoch, dispatch_in_epoch, async_ok=False)
+                    report['preempted'] = True
+                    return _finish(report, t0, step, state, network,
+                                   optimizer, nan_guard, scaler, needs_sync,
+                                   mgr, guard)
+                if mgr is not None and checkpoint_every and \
+                        n % int(checkpoint_every) == 0:
+                    save_now(epoch, dispatch_in_epoch)
+            skip = 0
+            if mgr is not None and not checkpoint_every:
+                save_now(epoch + 1, 0)
+        if mgr is not None and checkpoint_every:
+            save_now(int(epochs), 0)
     except BaseException:
         _cleanup(step, state, network, optimizer, nan_guard, scaler,
-                 needs_sync, raise_on_limit=False)
+                 needs_sync, mgr, guard, raise_on_limit=False)
         raise
-    _cleanup(step, state, network, optimizer, nan_guard, scaler, needs_sync)
+    return _finish(report, t0, step, state, network, optimizer, nan_guard,
+                   scaler, needs_sync, mgr, guard)
+
+
+# how long a preemption waits for the in-flight save before abandoning it
+_PREEMPT_FENCE_S = 5.0
+
+
+def _to_manager(source, max_keep):
+    if source is None:
+        return None
+    if isinstance(source, CheckpointManager):
+        return source
+    return CheckpointManager(source, max_keep=max_keep)
+
+
+def _saveable(state):
+    """The state without the optimizer's generators (their positions are
+    part of the RNG snapshot)."""
+    if isinstance(state, dict):
+        return {k: _saveable(v) for k, v in state.items()
+                if not isinstance(v, torch.Generator)}
+    return state
+
+
+def _finish(report, t0, step, state, network, optimizer, nan_guard, scaler,
+            needs_sync, mgr, guard):
+    _cleanup(step, state, network, optimizer, nan_guard, scaler, needs_sync,
+             mgr, guard)
     elapsed = time.perf_counter() - t0
     if elapsed > 0:
         report['steps_per_sec'] = round(report['steps'] / elapsed, 3)
@@ -232,14 +340,27 @@ def fit(network, loss, optimizer, data, *, epochs=1, microbatch=1,
 
 
 def _cleanup(step, state, network, optimizer, nan_guard, scaler, needs_sync,
-             raise_on_limit=True):
-    """Mirror the optimizer slots and reconcile the host guard and scaler
-    one last time; on the error path, never raise from here."""
+             mgr=None, guard=None, raise_on_limit=True):
+    """Mirror the optimizer slots, reconcile the host guard and scaler one
+    last time, put the SIGTERM handler back and wait for the last save; on
+    the error path, never raise from here."""
     write_back_state(network, optimizer, state)
-    if needs_sync:
-        try:
-            step.sync(state, nan_guard=nan_guard, scaler=scaler,
-                      raise_on_limit=raise_on_limit)
-        except Exception:
-            if raise_on_limit:
-                raise
+    try:
+        if needs_sync:
+            try:
+                step.sync(state, nan_guard=nan_guard, scaler=scaler,
+                          raise_on_limit=raise_on_limit)
+            except Exception:
+                if raise_on_limit:
+                    raise
+    finally:
+        if guard is not None:
+            guard.uninstall()
+        if mgr is not None:
+            # the last async save lands before fit returns; on the normal
+            # path its failure is the caller's
+            try:
+                mgr.fence()
+            except Exception:
+                if raise_on_limit:
+                    raise

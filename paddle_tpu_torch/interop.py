@@ -23,6 +23,10 @@ the powers 0-dim arrays of the parameter's dtype — the same way, and
 ``load_paddle_tpu_scheduler_state`` / ``to_paddle_tpu_scheduler_state``
 a learning-rate scheduler's ``state_dict``, so a test can lay gradients,
 updated weights, slots and schedules beside the reference's.
+``from_paddle_tpu_train_state`` turns a train state the reference's
+``engine.fit`` checkpointed (``params``, ``buffers``, ``opt``, ``guard``,
+``scaler``, as its ``CheckpointManager.restore`` returns them) into the
+port's layout, for ``TrainStep.adopt_state`` or a port checkpoint.
 """
 import numpy as np
 import torch
@@ -32,7 +36,7 @@ from .nn.layer.common import Linear
 __all__ = ['load_paddle_tpu_state', 'to_paddle_tpu_state',
            'load_paddle_tpu_opt_state', 'to_paddle_tpu_opt_state',
            'load_paddle_tpu_scheduler_state',
-           'to_paddle_tpu_scheduler_state']
+           'to_paddle_tpu_scheduler_state', 'from_paddle_tpu_train_state']
 
 
 def _linear_weights(module):
@@ -164,3 +168,40 @@ def to_paddle_tpu_scheduler_state(scheduler):
     """A port scheduler's ``state_dict()`` for the reference scheduler's
     ``set_state_dict`` (the same keys and numbers)."""
     return dict(scheduler.state_dict())
+
+
+def from_paddle_tpu_train_state(module, ref_state):
+    """The reference's train state (numpy leaves: ``{'params': {key:
+    array}, 'buffers': {}, 'opt': {key: {slot: array}}, 'guard': {...},
+    'scaler': {...}}``) as the port's step keeps it (``TrainStep.
+    adopt_state`` takes it): ``Linear`` weights and their slots transposed
+    to (out, in), 0-dim slots and the guard's and scaler's counters as
+    they are, numpy throughout. Raises ``ValueError`` on buffers (the
+    port's step keeps none) or on keys ``module`` does not have."""
+    linear_weights = _linear_weights(module)
+    own = dict(module.named_parameters())
+    if ref_state.get('buffers'):
+        raise ValueError(
+            f"from_paddle_tpu_train_state: the port's step keeps no buffers, "
+            f"the state has {sorted(ref_state['buffers'])[:8]}")
+    unknown = sorted((set(ref_state['params']) | set(ref_state['opt']))
+                     - set(own))
+    if unknown:
+        raise ValueError(
+            f"from_paddle_tpu_train_state: keys {unknown[:8]} are not "
+            f"parameters of the module")
+
+    def layout(key, value):
+        value = np.asarray(value)
+        if key in linear_weights and value.ndim == 2:
+            return value.T.copy()
+        return value
+
+    out = {'params': {k: layout(k, v) for k, v in
+                      ref_state['params'].items()},
+           'opt': {k: {s: layout(k, v) for s, v in slots.items()}
+                   for k, slots in ref_state['opt'].items()}}
+    for slot in ('guard', 'scaler'):
+        if slot in ref_state:
+            out[slot] = {k: np.asarray(v) for k, v in ref_state[slot].items()}
+    return out

@@ -2,14 +2,15 @@
 (``Linear``, ``Embedding``, ``Dropout``).
 
 ``weight_attr=`` / ``bias_attr=`` take a ``nn.initializer.ParamAttr`` (its
-learning rate, regularizer, ``trainable`` and ``need_clip`` go on the
-parameter), a name, or None; ``bias_attr=False`` builds no bias, as in the
-reference.
+initializer, learning rate, regularizer, ``trainable`` and ``need_clip``),
+an ``Initializer``, a name, or None; ``bias_attr=False`` builds no bias,
+as in the reference.
 
-Initialisers follow the reference's distributions — Xavier-uniform
-``Linear`` weights with zero biases, Normal(0, std) embeddings — and draw
-from the ``generator`` passed in (the device's default generator when it
-is None). ``Dropout`` draws from no generator at call time: it asks the
+Without an initializer the layers follow the reference's defaults —
+Xavier-uniform ``Linear`` weights, zero biases (or the global bias
+initializer, ``nn.initializer.set_global_initializer``), Normal(0, std)
+embeddings — and every draw comes from the ``generator`` passed in (the
+device's default generator when it is None). ``Dropout`` draws from no generator at call time: it asks the
 ``DropoutState`` (``kernels/philox.py``) it was given for each call's
 ``(seed, offset)``. A model creates one state and hands it to every layer
 that drops, so no two calls of a run see the same mask; a layer without
@@ -22,7 +23,7 @@ from torch import nn
 
 from ...device import resolve_device
 from .. import functional as F
-from ..initializer import ParamAttr, apply_param_attr
+from ..initializer import create_parameter
 
 __all__ = ['Linear', 'Embedding', 'Dropout']
 
@@ -40,21 +41,15 @@ class Linear(nn.Module):
         device = resolve_device(device)
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = apply_param_attr(nn.Parameter(
-            torch.empty(out_features, in_features, device=device)),
-            weight_attr)
-        bias_attr = ParamAttr._to_attr(bias_attr)
-        self.bias = None if bias_attr is False else apply_param_attr(
-            nn.Parameter(torch.empty(out_features, device=device)),
-            bias_attr)
-        self.reset_parameters(generator)
-
-    @torch.no_grad()
-    def reset_parameters(self, generator=None):
-        limit = math.sqrt(6.0 / (self.in_features + self.out_features))
-        self.weight.uniform_(-limit, limit, generator=generator)
-        if self.bias is not None:
-            self.bias.zero_()
+        limit = math.sqrt(6.0 / (in_features + out_features))
+        # the initializer sees the reference's (in, out) layout
+        self.weight = create_parameter(
+            (in_features, out_features), weight_attr, device=device,
+            generator=generator, transpose=True,
+            default=lambda w: w.uniform_(-limit, limit, generator=generator))
+        self.bias = create_parameter((out_features,), bias_attr,
+                                     device=device, generator=generator,
+                                     is_bias=True)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -72,11 +67,10 @@ class Embedding(nn.Module):
                  weight_attr=None, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
-        self.weight = apply_param_attr(nn.Parameter(
-            torch.empty(num_embeddings, embedding_dim, device=device)),
-            weight_attr)
-        with torch.no_grad():
-            self.weight.normal_(0.0, std, generator=generator)
+        self.weight = create_parameter(
+            (num_embeddings, embedding_dim), weight_attr, device=device,
+            generator=generator,
+            default=lambda w: w.normal_(0.0, std, generator=generator))
 
     def forward(self, x):
         return torch.nn.functional.embedding(x, self.weight)

@@ -1,10 +1,12 @@
 """Optimizers of the port. Counterpart of ``paddle_tpu/optimizer``: the
 optimizers, the learning-rate schedulers (``lr``, also under the
 2.0-beta path ``lr_scheduler``), the flat-buffer ``FlatFusedUpdate`` and
-the fluid-era ``*Optimizer`` and ``*LR`` aliases. Not ported yet:
-``extras`` (EMA, LookAhead, ModelAverage, the Recompute and Pipeline
-wrappers)."""
-from . import lr
+the fluid-era ``*Optimizer`` and ``*LR`` aliases, and ``extras`` (EMA,
+LookAhead, ModelAverage, the Recompute wrapper; the Pipeline wrapper
+raises until ``distributed/``)."""
+from . import extras, lr
+from .extras import (ExponentialMovingAverage, LookAhead, ModelAverage,
+                     PipelineOptimizer, RecomputeOptimizer)
 from .fused import FlatFusedUpdate
 from .lr import *  # noqa: F401,F403
 from .lr import __all__ as _lr_all
@@ -44,6 +46,8 @@ __all__ = (['Optimizer', 'SGD', 'Momentum', 'Adam', 'AdamW', 'Adamax',
             'Adadelta', 'Adagrad', 'RMSProp', 'Lamb', 'LarsMomentum', 'Ftrl',
             'DecayedAdagrad', 'DecayedAdagradOptimizer', 'Dpsgd',
             'DpsgdOptimizer', 'FlatFusedUpdate', 'lr', 'lr_scheduler',
+            'extras', 'ExponentialMovingAverage', 'LookAhead',
+            'ModelAverage', 'PipelineOptimizer', 'RecomputeOptimizer',
             'MomentumOptimizer', 'AdagradOptimizer', 'AdadeltaOptimizer',
             'AdamOptimizer', 'AdamaxOptimizer', 'RMSPropOptimizer',
             'FtrlOptimizer', 'LambOptimizer', 'LarsMomentumOptimizer',

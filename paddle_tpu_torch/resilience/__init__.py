@@ -1,5 +1,38 @@
 """Resilience of the port's training. Counterpart of
-``paddle_tpu/resilience``; this version has the NaN guard."""
-from .nanguard import NanGuard, NanStepError
+``paddle_tpu/resilience``:
 
-__all__ = ['NanGuard', 'NanStepError']
+- atomic checkpoint I/O (``atomic_io``, ``CheckpointManager``): temp +
+  fsync + os.replace commits, CRC32-stamped manifests, keep-last-N
+  rotation, and load-time fallback to the newest non-corrupt checkpoint;
+- preemption-safe training (``PreemptionGuard``, ``engine.fit(checkpoint=,
+  resume_from=, preempt_save=)``): SIGTERM checkpoints before exit, and a
+  resume restores the loop position, the optimizer slots, the dropout
+  streams and the loss scale for a bitwise-identical continuation;
+- a NaN/Inf step guard (``NanGuard``) that skips poisoned updates and
+  reports them to the dynamic ``GradScaler``;
+- bounded ``retry`` with exponential backoff + jitter;
+- async and per-rank sharded checkpoints (``async_checkpoint``);
+- bounded waits (``watchdog``: ``bounded_get``, ``join_thread``,
+  ``join_proc``, ``wait_proc``).
+
+Not ported yet: ``faultinject`` and the supervisor's ``Heartbeat`` /
+``heartbeat_age`` (ROADMAP.md, Queue 1 item 7), and the resharding
+restore (``distributed/``).
+"""
+from . import async_checkpoint, atomic_io, watchdog
+from .atomic_io import (AtomicWriteError, atomic_open, atomic_pickle_dump,
+                        atomic_write, crc32_bytes, crc32_file)
+from .checkpoint import CheckpointManager, capture_rng, restore_rng
+from .nanguard import NanGuard, NanStepError
+from .preempt import PreemptionGuard
+from .retry import RetryError, retry
+from .watchdog import (WatchdogTimeout, bounded_get, join_proc, join_thread,
+                       wait_proc)
+
+__all__ = ['atomic_open', 'atomic_write', 'atomic_pickle_dump',
+           'crc32_file', 'crc32_bytes',
+           'AtomicWriteError', 'retry', 'RetryError', 'PreemptionGuard',
+           'NanGuard', 'NanStepError', 'CheckpointManager', 'capture_rng',
+           'restore_rng', 'atomic_io', 'async_checkpoint', 'watchdog',
+           'WatchdogTimeout', 'bounded_get', 'join_thread', 'join_proc',
+           'wait_proc']

@@ -163,7 +163,16 @@ def test_param_attr_lands_on_the_parameters():
     enc = tnn.TransformerEncoder(layer, 2)
     assert enc.layers[1].linear2.weight.optimize_attr == \
         {'learning_rate': 0.1}
-    with pytest.raises(NotImplementedError, match='initializer'):
-        ParamAttr(initializer=object())
+    # as in the reference, a ParamAttr keeps whatever initializer it is
+    # given, and the layer that calls it raises (tests/
+    # test_torch_initializers.py runs the real ones)
+    from paddle_tpu import nn as jax_nn
+    from paddle_tpu.nn.initializer import ParamAttr as JaxParamAttr
+    attr = ParamAttr(initializer=object())
+    assert attr.initializer is not None
+    with pytest.raises(TypeError):
+        jax_nn.Linear(4, 3, JaxParamAttr(initializer=object()))
+    with pytest.raises(TypeError):
+        tnn.Linear(4, 3, attr, device='cpu')
     with pytest.raises(TypeError):
         ParamAttr._to_attr(3.0)

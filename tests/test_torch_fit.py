@@ -154,14 +154,33 @@ def test_fit_matches_reference(reference_run):
 
 
 @pytest.mark.parametrize("option", [
-    dict(checkpoint='ckpt'), dict(resume_from='ckpt'), dict(world=2),
-    dict(rank=0), dict(sharding=object()), dict(serve_artifacts='art'),
-    dict(serve_generative=object())], ids=lambda o: next(iter(o)))
+    dict(world=2), dict(rank=0), dict(sharding=object()),
+    dict(serve_artifacts='art'), dict(serve_generative=object())],
+    ids=lambda o: next(iter(o)))
 def test_unported_options_raise(option):
     net = _port_model()
     with pytest.raises(NotImplementedError, match=next(iter(option))):
         engine.fit(net, net.pretraining_loss, topt.SGD(), _batches(1),
                    device='cpu', **option)
+
+
+@pytest.mark.parametrize("option", ['checkpoint', 'resume_from'])
+def test_ported_options_work(option, tmp_path):
+    """``checkpoint=`` saves (one checkpoint at the epoch's end);
+    ``resume_from=`` of that directory continues from it, as the
+    reference's ``fit`` does (tests/test_torch_resume.py holds the resumed
+    run to an uninterrupted one)."""
+    net = _port_model()
+    rep = engine.fit(net, net.pretraining_loss, topt.SGD(), _batches(2),
+                     device='cpu', checkpoint=str(tmp_path))
+    assert rep['checkpoints'] == 1 and rep['resumed_from'] is None
+    if option == 'resume_from':
+        net2 = _port_model(3)
+        rep = engine.fit(net2, net2.pretraining_loss, topt.SGD(),
+                         _batches(2), device='cpu', epochs=2,
+                         resume_from=str(tmp_path))
+        assert rep['resumed_from'] == 2 and rep['dispatches'] == 4
+        assert rep['checkpoints'] == 0 and not rep['preempted']
 
 
 def test_guard_scaler_prefetch_and_dropped_batches():

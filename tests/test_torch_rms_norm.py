@@ -17,6 +17,8 @@ identical). ``nn.RMSNorm`` is held to the reference's
 layer, whose CPU path divides by ``sqrt`` where the kernel multiplies by
 ``rsqrt`` (fp32, 2e-5).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -169,8 +171,21 @@ def test_rms_norm_layer_matches_reference(weight_attr):
         assert port.weight.grad is not None and \
             port.weight.grad.shape == (96,)
     assert 'hidden_size=96' in repr(port)
-    with pytest.raises(NotImplementedError, match='weight_attr'):
-        tnn.RMSNorm(8, weight_attr=object(), device='cpu')
+    # a ParamAttr with an initializer, as in the reference; what is not a
+    # parameter attribute raises the reference's TypeError
+    from paddle_tpu.nn.initializer import Constant as JaxConstant
+    from paddle_tpu.nn.initializer import ParamAttr as JaxParamAttr
+    from paddle_tpu_torch.nn.initializer import Constant, ParamAttr
+    ref2 = jnn.RMSNorm(8, weight_attr=JaxParamAttr(
+        initializer=JaxConstant(2.0), learning_rate=0.5))
+    port2 = tnn.RMSNorm(8, weight_attr=ParamAttr(
+        initializer=Constant(2.0), learning_rate=0.5), device='cpu')
+    np.testing.assert_array_equal(port2.weight.detach().numpy(),
+                                  np.asarray(ref2.weight._value))
+    assert port2.weight.optimize_attr == {'learning_rate': 0.5}
+    for make in (jnn.RMSNorm, functools.partial(tnn.RMSNorm, device='cpu')):
+        with pytest.raises(TypeError, match='param attr'):
+            make(8, weight_attr=object())
 
 
 def test_rms_norm_bf16_rounds_like_jax():
