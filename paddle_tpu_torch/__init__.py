@@ -12,9 +12,14 @@ On CPU tensors each kernel wrapper runs its plain PyTorch version instead.
 
 Entry points run on the CUDA device unless the caller passes
 ``device='cpu'`` (``device.resolve_device``). ``save`` / ``load`` are
-``framework``'s.
+``framework``'s; ``Model``, ``summary`` and ``callbacks`` are ``hapi``'s,
+as the reference exports them.
 """
 from .device import resolve_device
 from .framework import load, save
+from .hapi import callbacks
+from .hapi.model import Model
+from .hapi.model_summary import summary
 
-__all__ = ['resolve_device', 'save', 'load']
+__all__ = ['resolve_device', 'save', 'load', 'Model', 'summary',
+           'callbacks']

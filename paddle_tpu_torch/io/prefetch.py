@@ -20,7 +20,7 @@ import collections
 import numpy as np
 import torch
 
-__all__ = ['DevicePrefetcher']
+__all__ = ['DevicePrefetcher', 'to_device']
 
 
 def _map(fn, batch):
@@ -29,6 +29,28 @@ def _map(fn, batch):
     if isinstance(batch, (list, tuple)):
         return type(batch)(_map(fn, v) for v in batch)
     return fn(batch)
+
+
+def upload(leaf, device):
+    """One leaf on ``device``: a numpy array becomes a tensor; a host
+    tensor bound for CUDA is copied from pinned memory with
+    ``non_blocking=True`` (in the current stream's order); a leaf already
+    there, or not an array, passes through."""
+    if isinstance(leaf, np.ndarray):
+        leaf = torch.from_numpy(np.ascontiguousarray(leaf))
+    if not isinstance(leaf, torch.Tensor) or leaf.device == device:
+        return leaf
+    if device.type != 'cuda':
+        return leaf.to(device)
+    if not leaf.is_pinned():
+        leaf = leaf.pin_memory()
+    return leaf.to(device, non_blocking=True)
+
+
+def to_device(batch, device):
+    """``batch`` (nested tuples, lists and dicts) with every leaf
+    ``upload``ed to ``device``."""
+    return _map(lambda leaf: upload(leaf, device), batch)
 
 
 def _leaves(batch):
@@ -52,22 +74,11 @@ class DevicePrefetcher:
         self.device = torch.device(device)
         self.depth = max(int(depth), 1)
 
-    def _upload(self, leaf):
-        if isinstance(leaf, np.ndarray):
-            leaf = torch.from_numpy(np.ascontiguousarray(leaf))
-        if not isinstance(leaf, torch.Tensor) or leaf.device == self.device:
-            return leaf
-        if self.device.type != 'cuda':
-            return leaf.to(self.device)
-        if not leaf.is_pinned():
-            leaf = leaf.pin_memory()
-        return leaf.to(self.device, non_blocking=True)
-
     def __iter__(self):
         it = iter(self.source)
         if self.device.type != 'cuda':
             for batch in it:
-                yield _map(self._upload, batch)
+                yield to_device(batch, self.device)
             return
         side = torch.cuda.Stream(device=self.device)
         ahead = collections.deque()
@@ -79,7 +90,7 @@ class DevicePrefetcher:
                 except StopIteration:
                     return
                 with torch.cuda.stream(side):
-                    ahead.append(_map(self._upload, batch))
+                    ahead.append(to_device(batch, self.device))
         fill()
         while ahead:
             batch = ahead.popleft()

@@ -193,6 +193,21 @@ class Optimizer:
                 grouped = {k: v for k, v in grouped.items()
                            if k in cur_names}
         by_name = dict(cur)
+        shared = {}
+
+        def restored(sname, v, device):
+            # copies: the restored slots are updated in place later; the
+            # 0-dim ones of one value (beta*_pow) become one tensor again,
+            # as init_state_values makes them
+            if not isinstance(v, torch.Tensor):
+                return v
+            if v.dim():
+                return v.detach().to(device, copy=True)
+            key = (sname, v.dtype, str(device), v.detach().cpu().reshape(1)
+                   .view(torch.uint8).numpy().tobytes())
+            if key not in shared:
+                shared[key] = v.detach().to(device, copy=True)
+            return shared[key]
         for pname, slots in grouped.items():
             p = by_name.get(pname)
             if p is not None:
@@ -204,10 +219,8 @@ class Optimizer:
                             "the checkpoint was saved from a different model"
                             % (pname, sname, _shape_of(v), pname,
                                tuple(p.shape)))
-            # copies: the restored slots are updated in place later
-            slots = {s: (v.detach().to(p.device if p is not None
-                                       else v.device, copy=True)
-                         if isinstance(v, torch.Tensor) else v)
+            slots = {s: restored(s, v, p.device if p is not None
+                                 else getattr(v, 'device', None))
                      for s, v in slots.items()}
             self._accumulators.setdefault(pname, {}).update(slots)
 
@@ -228,9 +241,11 @@ class Optimizer:
         names = [k for k, g in grad_values.items() if g is not None]
         if not names:
             return param_values, opt_state
-        for k in names:
-            if k not in opt_state:
-                opt_state[k] = self._init_state(param_values[k])
+        missing = {k: param_values[k] for k in names if k not in opt_state}
+        if missing:
+            # made together, so that they share one pair of beta*_pow (the
+            # Adam family), which a step advances and divides by once
+            opt_state.update(self.init_state_values(missing))
         metas = [(params_meta or {}).get(k, _NoMeta) for k in names]
         params = [param_values[k] for k in names]
         grads = [grad_values[k].to(param_values[k].dtype) for k in names]
