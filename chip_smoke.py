@@ -53,7 +53,25 @@ Phases, each printing one JSON line:
    ``ServingEngine`` in batches landing in buckets 1, 4 and 16, plus one
    request through the worker thread; the kernel launch counts of this
    run must be exactly 1 LayerNorm, 48 add+LayerNorm and 24 flash
-   attention launches per batch;
+   attention launches per batch; the waves' host syncs (sync debug mode
+   'warn') are counted;
+7b. serve tenants (run right after serve, on its model) — multi-tenant
+   serving with the telemetry spine (``phase_serve_tenants``): a
+   ``TenantArbiter`` (gold weight 3, silver 1, storm 1 with a 4/s, burst
+   8 quota), ``register(slo_ms=250, slo_objective=0.99)``, telemetry on;
+   pumped with the arbiter's clock frozen (exact quota sheds, two
+   cancels, each batch's tenants as the CPU's ``WeightedFairQueue`` pops
+   them, outputs within ``TOL`` of each request served alone on the
+   plain versions, SLO and tenant tallies as the responses give them),
+   then threaded behind ``start_endpoint(port=0)`` with three client
+   threads, ``/metrics`` against ``stats()``, ``/healthz``, ``/events``,
+   ``/timeseries``, ``/diagnosis`` (501), ``kill()`` and
+   ``EngineDeadError``; phase 7's waves with telemetry off, on, on and
+   off (each with phase 7's launches and outputs bit for bit; off with its
+   host syncs, on with at most the sampled syncs more; req/s of each);
+   the paged engine with a draft under page pressure, its telemetry
+   against the runner's counts; a profiled batch with the
+   ``serving.batch`` host range;
 8. profile — device time by kernel over one more bucket-16 batch; every
    LayerNorm and add+LayerNorm call on the register path
    (``SERVE_ROUTES``); here and in every profile, the profiled call
@@ -173,9 +191,9 @@ Every kernel row carries ``share_of_bound`` (bound ms over kernel ms) and
 the achieved TFLOP/s and TB/s beside the library call's time. Then a
 ``{"kernels": [...]}`` line (all seven kernels, bf16 numbers at the top
 level and under ``bf16``, fp32 under ``fp32``, fp16 under ``fp16``, the
-GPT cases under ``gpt``, launches by path: ``serve``, the training
-paths, ``train_resume``, ``nn.RMSNorm``, ``generate``,
-``serve_generative`` and ``hapi_fit``) and,
+GPT cases under ``gpt``, launches by path: ``serve``,
+``serve_tenants``, the training paths, ``train_resume``, ``nn.RMSNorm``,
+``generate``, ``serve_generative`` and ``hapi_fit``) and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero; without a CUDA device (or without the package beside this file)
 it exits non-zero and prints no result. fp32 matrix products run in full
@@ -191,6 +209,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -1092,10 +1111,35 @@ def phase_parity(seed):
           'max_abs_err': max(errs), 'per_request_err': errs})
 
 
+# phase_serve's traffic: waves of 1, 3 (bucket 4, one padding row), 13 and
+# 16 (bucket 16) requests, 87 in all
+SERVE_WAVES = [1] * 10 + [3] * 6 + [13] * 2 + [16] * 2
+
+
+def _serve_waves(eng, ep, reqs):
+    """``SERVE_WAVES`` through ``ep``, each wave submitted and pumped until
+    idle -> (responses, {bucket: [batch ms]}, seconds)."""
+    from paddle_tpu_torch.serving import DEFAULT_BATCH_BUCKETS, select_bucket
+    batch_ms, served = {}, []
+    t0 = time.perf_counter()
+    at = 0
+    for n in SERVE_WAVES:
+        futs = [ep.submit(r) for r in reqs[at:at + n]]
+        at += n
+        eng.run_until_idle()
+        resps = [f.result(timeout=600) for f in futs]
+        batch_ms.setdefault(select_bucket(n, DEFAULT_BATCH_BUCKETS),
+                            []).append(resps[0].breakdown['run'])
+        served += resps
+    return served, batch_ms, time.perf_counter() - t0
+
+
 def phase_serve(seed, card):
+    """-> (the launch counts, what ``phase_serve_tenants`` compares with:
+    the model, the requests, the waves' outputs, launches and host
+    syncs)."""
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch.serving import (DEFAULT_BATCH_BUCKETS,
-                                          ServingEngine, select_bucket)
+    from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.text.bert import BertModel, bert_large
     dev = torch.device('cuda', 0)
     gen = torch.Generator(device=dev)
@@ -1109,23 +1153,13 @@ def phase_serve(seed, card):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    # waves of 1, 3 (bucket 4, one padding row), 13 and 16 (bucket 16)
-    waves = [1] * 10 + [3] * 6 + [13] * 2 + [16] * 2
+    waves = SERVE_WAVES
     reqs = _requests(np.random.RandomState(seed), sum(waves), cfg.vocab_size)
     kernels.reset_launch_counts()              # the main path starts here
-    batch_ms = {}
-    served = []
-    t_serve = time.perf_counter()
-    at = 0
-    for n in waves:
-        futs = [ep.submit(r) for r in reqs[at:at + n]]
-        at += n
-        eng.run_until_idle()
-        resps = [f.result(timeout=600) for f in futs]
-        batch_ms.setdefault(select_bucket(n, DEFAULT_BATCH_BUCKETS),
-                            []).append(resps[0].breakdown['run'])
-        served += resps
-    serve_s = time.perf_counter() - t_serve
+    (served, batch_ms, serve_s), syncs, sync_sites = _count_syncs(
+        lambda: _serve_waves(eng, ep, reqs))
+    syncs -= _SYNC_NOTICE in ' '.join(sync_sites)
+    wave_counts = kernels.launch_counts()
     eng.start()
     try:
         threaded = ep.predict(reqs[-1], timeout=600)
@@ -1137,13 +1171,7 @@ def phase_serve(seed, card):
     for i, resp in enumerate(served + [threaded]):
         if not resp.ok:
             raise AssertionError(f"request {i}: status {resp.status}")
-        seq, pooled = resp.outputs
-        if seq.shape != (SEQ, cfg.hidden_size) or \
-                pooled.shape != (cfg.hidden_size,):
-            raise AssertionError(f"request {i}: shapes {seq.shape} "
-                                 f"{pooled.shape}")
-        if not (np.isfinite(seq).all() and np.isfinite(pooled).all()):
-            raise AssertionError(f"request {i}: non-finite output")
+        _bert_outputs_ok(f"request {i}", resp, cfg.hidden_size)
     # serving is forward only, without dropout: the backward kernels and
     # the mask gradient must not run
     want = {**dict.fromkeys(counts, 0), 'layer_norm_fwd': batches,
@@ -1165,6 +1193,7 @@ def phase_serve(seed, card):
           'warmup_buckets': warm['bert'], 'requests': len(served) + 1,
           'batches': batches, 'requests_per_s': sum(waves) / serve_s,
           'batch_latency_ms': lat, 'launches': counts,
+          'host_syncs_waves': syncs, 'host_sync_sites': sync_sites,
           'repeat_drift': drift})
     def one_batch():
         futs = [ep.submit(r) for r in reqs[:16]]
@@ -1172,7 +1201,10 @@ def phase_serve(seed, card):
         for f in futs:
             f.result(timeout=600)
     phase_profile('serve', one_batch, SERVE_ROUTES, bucket=16)
-    return counts
+    return counts, {'model': model, 'requests': reqs,
+                    'outputs': [r.outputs for r in served],
+                    'launches': wave_counts, 'syncs': syncs,
+                    'requests_per_s': sum(waves) / serve_s}
 
 
 # Calls a profiled batch or step must show, by a word of the kernels' CUDA
@@ -1207,11 +1239,12 @@ PREROLL_SPINS = 1024
 PREROLL_GROWTH = 4
 
 
-def _profile_session(run, spins, cycles=1000):
+def _profile_session(run, spins, cycles=1000, ranges=()):
     """One call of ``run`` under torch.profiler, after ``spins`` sleep
     kernels of ``cycles`` each -> ({kernel name: (ms, calls)}, device
     intervals, wall ms, the port's launches in it, the sleep kernels
-    caught)."""
+    caught, {host range in ``ranges``: times seen}). The device lists
+    leave out the ranges' projections onto the device timeline."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import kernels
@@ -1227,8 +1260,16 @@ def _profile_session(run, spins, cycles=1000):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     launched = sum(n - before[k] for k, n in kernels.launch_counts().items())
     spans, by_name, slept = [], {}, 0
+    seen = dict.fromkeys(ranges, 0)
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            if e.name in seen:
+                seen[e.name] += 1
+            continue
+        if e.is_user_annotation:
+            # a record_function range (the port's telemetry spans bridge
+            # into it) projected onto the device's timeline: no device
+            # work, and its interval would fill the gaps between kernels
             continue
         if 'spin_kernel' in e.name:
             slept += 1
@@ -1237,10 +1278,10 @@ def _profile_session(run, spins, cycles=1000):
         spans.append((t0_us, t1_us))
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + (t1_us - t0_us) / 1e3, n + 1)
-    return by_name, spans, wall_ms, launched, slept
+    return by_name, spans, wall_ms, launched, slept, seen
 
 
-def phase_profile(what, run, routes, top_n=12, **extra):
+def phase_profile(what, run, routes, top_n=12, ranges=(), **extra):
     """Device time by kernel over one call of ``run`` — one bucket-16
     batch, one train step — (torch.profiler's device-side events: kernels
     and copies), and the device's idle share of that call's wall time.
@@ -1250,11 +1291,13 @@ def phase_profile(what, run, routes, top_n=12, **extra):
     and is taken again (up to ``PROFILE_TAKES``; ``run`` runs again,
     after ``PREROLL_GROWTH`` times the sleep kernels): lost events only
     lower a count, and a kernel on a wrong route shows in a complete
-    session too. -> the printed row."""
+    session too. Each host range named in ``ranges`` (a
+    ``torch.profiler.record_function`` range, such as the port's
+    telemetry spans) must show at least once. -> the printed row."""
     for take in range(1, PROFILE_TAKES + 1):
         spins = PREROLL_SPINS * PREROLL_GROWTH ** (take - 1)
-        by_name, spans, wall_ms, launched, slept = _profile_session(
-            run, spins)
+        by_name, spans, wall_ms, launched, slept, seen = _profile_session(
+            run, spins, ranges=ranges)
         calls = {word: sum(n for name, (_, n) in by_name.items()
                            if word in name) for word in routes}
         caught = sum(n for name, (_, n) in by_name.items()
@@ -1287,11 +1330,15 @@ def phase_profile(what, run, routes, top_n=12, **extra):
                       sorted(groups.items(), key=lambda kv: -kv[1][0])},
            'top': [{'ms': ms, 'calls': n, 'name': name[:90]}
                    for name, (ms, n) in top]}
+    if ranges:
+        row['host_ranges'] = seen
     emit(row)
     if calls != routes:
         raise AssertionError(f"profile of {what}: kernel calls {calls}, "
                              f"expected {routes} ({caught} of the port's "
                              f"{launched} launches caught, {take} takes)")
+    if not all(seen.values()):
+        raise AssertionError(f"profile of {what}: host ranges {seen}")
     return row
 
 
@@ -3824,6 +3871,56 @@ def _serve_generative_run(lm, reqs, **register):
     return resps, row
 
 
+# the paged cache's default size for TinyCausalLM at max_batch 8, max_seq
+# 1024, page_size 16 (every row at max_seq, plus the null page); the
+# pressure case takes a quarter of it plus 1
+SG_DEFAULT_PAGES = 8 * (1024 // 16) + 1
+SG_PRESSURE_PAGES = SG_DEFAULT_PAGES // 4 + 1
+
+
+def _sg_models(seed):
+    """``TinyCausalLM`` at gpt_small's widths and its draft, on the card."""
+    from paddle_tpu_torch.serving import TinyCausalLM
+    dev = torch.device('cuda', 0)
+    lm = TinyCausalLM.random(vocab=50304, embed=768, num_heads=12,
+                             max_seq=1024, max_batch=8,
+                             prompt_buckets=SG_BUCKETS, seed=seed,
+                             device=dev)
+    draft = TinyCausalLM.random(vocab=50304, embed=256, num_heads=4,
+                                max_seq=1024, seed=seed + 1, device=dev)
+    return lm, draft
+
+
+def _teacher_forced_serving(what, lm, prompts, resps, ref_tokens, name):
+    """Raise unless every response is OK with ``SG_NEW`` tokens, each
+    within ``TEACHER_TOL`` of the maximum of ``lm.reference_logits`` (the
+    no-cache forward) at its position; the tokens go into
+    ``ref_tokens[prompt][name]`` -> the row's counts."""
+    dev = torch.device('cuda', 0)
+    bad = not_argmax = checked = 0
+    for prompt, resp in zip(prompts, resps):
+        toks = np.asarray(resp.outputs['tokens'], np.int64)
+        if not resp.ok or len(toks) != SG_NEW:
+            raise AssertionError(f"{what}: status {resp.status}, "
+                                 f"{len(toks)} tokens")
+        n = len(prompt)
+        with torch.no_grad():
+            lg = lm.reference_logits(np.concatenate(
+                [prompt, toks[:-1]]))[n - 1:]
+        tt = torch.from_numpy(toks).to(dev)
+        picked = lg.gather(-1, tt[:, None])[:, 0]
+        tol = TEACHER_TOL * lg.abs().amax(-1)
+        bad += int((picked < lg.amax(-1) - tol).sum())
+        not_argmax += int((lg.argmax(-1) != tt).sum())
+        checked += len(toks)
+        ref_tokens.setdefault(tuple(prompt.tolist()), {})[name] = toks
+    if bad:
+        raise AssertionError(f"{what}: {bad} of {checked} tokens off the "
+                             "teacher-forced tolerance")
+    return {'tolerance': TEACHER_TOL, 'checked': checked, 'outside': bad,
+            'not_plain_argmax': not_argmax}
+
+
 def phase_serve_generative(seed, card):
     """The engine's generative path on ``TinyCausalLM`` at gpt_small's
     widths (vocab 50304, embed 768, 12 heads, max_seq 1024, max_batch 8,
@@ -3840,25 +3937,17 @@ def phase_serve_generative(seed, card):
     preemption in (d), and no launch of the port's kernels (TinyCausalLM
     is composed, as the reference's is). -> the launch counts."""
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch.serving import TinyCausalLM
-    dev = torch.device('cuda', 0)
     t0 = time.perf_counter()
-    lm = TinyCausalLM.random(vocab=50304, embed=768, num_heads=12,
-                             max_seq=1024, max_batch=8,
-                             prompt_buckets=SG_BUCKETS, seed=seed,
-                             device=dev)
-    draft = TinyCausalLM.random(vocab=50304, embed=256, num_heads=4,
-                                max_seq=1024, seed=seed + 1, device=dev)
+    lm, draft = _sg_models(seed)
     setup_s = time.perf_counter() - t0
     reqs = _gen_requests(np.random.RandomState(seed + 50), lm.vocab)
     short = [r for r in reqs if len(r) <= SG_BUCKETS[-1]]
-    default_pages = 8 * (lm.max_seq // 16) + 1
     runs = {'a_paged': (reqs, dict(page_size=16)),
             'b_slot': (short, dict(kv_cache='slot')),
             'c_paged_draft': (reqs, dict(page_size=16, draft=draft,
                                          draft_k=4)),
-            'd_paged_pressure': (reqs, dict(page_size=16, num_pages=(
-                default_pages // 4 + 1)))}
+            'd_paged_pressure': (reqs, dict(page_size=16,
+                                            num_pages=SG_PRESSURE_PAGES))}
     kernels.reset_launch_counts()           # the main path starts here
     results, rows = {}, {}
     for name, (rq, reg) in runs.items():
@@ -3869,30 +3958,9 @@ def phase_serve_generative(seed, card):
                              "TinyCausalLM runs no kernel of the port")
     ref_tokens = {}
     for name, (rq, _) in runs.items():
-        bad = not_argmax = checked = 0
-        for prompt, resp in zip(rq, results[name]):
-            toks = np.asarray(resp.outputs['tokens'], np.int64)
-            if not resp.ok or len(toks) != SG_NEW:
-                raise AssertionError(f"serve_generative {name}: status "
-                                     f"{resp.status}, {len(toks)} tokens")
-            n = len(prompt)
-            with torch.no_grad():
-                lg = lm.reference_logits(np.concatenate(
-                    [prompt, toks[:-1]]))[n - 1:]
-            tt = torch.from_numpy(toks).to(dev)
-            picked = lg.gather(-1, tt[:, None])[:, 0]
-            tol = TEACHER_TOL * lg.abs().amax(-1)
-            bad += int((picked < lg.amax(-1) - tol).sum())
-            not_argmax += int((lg.argmax(-1) != tt).sum())
-            checked += len(toks)
-            ref_tokens.setdefault(tuple(prompt.tolist()), {})[name] = toks
-        rows[name]['teacher_forced'] = {'tolerance': TEACHER_TOL,
-                                        'checked': checked, 'outside': bad,
-                                        'not_plain_argmax': not_argmax}
-        if bad:
-            raise AssertionError(f"serve_generative {name}: {bad} of "
-                                 f"{checked} tokens off the teacher-forced "
-                                 "tolerance")
+        rows[name]['teacher_forced'] = _teacher_forced_serving(
+            f"serve_generative {name}", lm, rq, results[name], ref_tokens,
+            name)
     hits = rows['a_paged']['kv']['prefix_hits']
     preempt = rows['d_paged_pressure']['stats']['preemptions']
     if hits < 1 or preempt < 1:
@@ -3909,6 +3977,470 @@ def phase_serve_generative(seed, card):
           'prompt_buckets': list(SG_BUCKETS), 'new_tokens': SG_NEW,
           'setup_s': setup_s, 'runs': rows,
           'tokens_differing_from_a': differ, 'launches': counts})
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant serving with the telemetry spine: tenants, SLOs, cancel and
+# kill, and the live endpoint, on BERT-large
+# ---------------------------------------------------------------------------
+
+# (name, weight, rate, burst): storm's token bucket admits 8 at once and 4
+# a second after that; the arbiter's clock is frozen, so no refill happens
+# unless the phase moves it
+TENANT_POLICIES = (('gold', 3.0, None, None), ('silver', 1.0, None, None),
+                   ('storm', 1.0, 4.0, 8))
+TENANT_MIX = {'storm': 24, 'gold': 24, 'silver': 8}
+TENANT_SLO_MS, TENANT_SLO_OBJECTIVE = 250.0, 0.99
+TENANT_CANCELS = 2            # queued silver requests withdrawn
+HTTP_TIMEOUT_S = 10.0
+SERVE_BATCH_LAUNCHES = {'flash_attention_fwd': 24, 'add_layer_norm_fwd': 48,
+                        'layer_norm_fwd': 1}
+# phase_serve's waves with telemetry off and on, in turns, in one process
+TELEMETRY_TURNS = (False, True, True, False)
+
+
+def _arbiter(now):
+    from paddle_tpu_torch.serving import TenantArbiter, TenantPolicy
+    return TenantArbiter([TenantPolicy(n, weight=w, rate=r, burst=b)
+                          for n, w, r, b in TENANT_POLICIES],
+                         clock=lambda: now[0])
+
+
+def _tenant_order(rs):
+    """The submit order: storm's flood first, then gold and silver
+    interleaved at random."""
+    rest = ['gold'] * TENANT_MIX['gold'] + ['silver'] * TENANT_MIX['silver']
+    return ['storm'] * TENANT_MIX['storm'] + [str(t)
+                                              for t in rs.permutation(rest)]
+
+
+def _expected_pops(arbiter, tenants, cancelled, max_batch):
+    """The batches' tenants, in order, that the port's WeightedFairQueue
+    pops on the CPU for the same admitted submits and cancels."""
+    from paddle_tpu_torch.serving import Request, WeightedFairQueue
+    q = WeightedFairQueue('cpu', capacity=len(tenants), arbiter=arbiter)
+    reqs = [Request('cpu', {}, tenant=t) for t in tenants]
+    for r in reqs:
+        q.push(r)
+    for i in cancelled:
+        q.remove(reqs[i])
+    pops = []
+    while len(q):
+        ready, _ = q.pop_ready_while(None, max_batch)
+        pops.append([r.tenant for r in ready])
+    return pops
+
+
+def _spy_pops(eng, model):
+    """Record (tenant, request id) of every batch ``model``'s queue
+    pops."""
+    queue, pops = eng._queues[model], []
+    pop = queue.pop_ready_while
+
+    def spy(admit, n):
+        ready, expired = pop(admit, n)
+        if ready:
+            pops.append([(r.tenant, r.id) for r in ready])
+        return ready, expired
+    queue.pop_ready_while = spy
+    return pops
+
+
+def _http_get(url):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=HTTP_TIMEOUT_S) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _prometheus(text):
+    """Prometheus text -> {sample (name and labels): value}."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith('#'):
+            key, value = line.rsplit(' ', 1)
+            out[key] = float(value)
+    return out
+
+
+def _bert_outputs_ok(what, resp, hidden):
+    seq, pooled = resp.outputs
+    if seq.shape != (SEQ, hidden) or pooled.shape != (hidden,) or \
+            not (np.isfinite(seq).all() and np.isfinite(pooled).all()):
+        raise AssertionError(f"{what}: outputs {seq.shape} {pooled.shape}, "
+                             "or not finite")
+
+
+def _waves_with_telemetry(model, reqs, on):
+    """phase_serve's waves on a fresh engine (warmed up first), telemetry
+    on or off -> (outputs, launches, host syncs, their sites, requests/s,
+    {the waves' ms: ``wall``, ``batches`` (each wave is one batch: the sum
+    of its ``run`` ms, feeds to host outputs) and ``rest`` (submits,
+    pumps, completions)}, the engine)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import ServingEngine
+    (obs.enable if on else obs.disable)()
+    eng = ServingEngine(queue_capacity=64, device=torch.device('cuda', 0))
+    ep = eng.register('bert', layer=model, example=_example())
+    eng.warmup()
+    torch.cuda.synchronize()
+    obs.reset()
+    kernels.reset_launch_counts()
+    (served, batch_ms, secs), syncs, sites = _count_syncs(
+        lambda: _serve_waves(eng, ep, reqs))
+    syncs -= _SYNC_NOTICE in ' '.join(sites)
+    batches = sum(sum(v) for v in batch_ms.values())
+    ms = {'wall': 1e3 * secs, 'batches': batches,
+          'rest': 1e3 * secs - batches}
+    return ([r.outputs for r in served], kernels.launch_counts(), syncs,
+            sites, len(served) / secs, ms, (eng, ep))
+
+
+def phase_serve_tenants(seed, card, serve):
+    """``ServingEngine(tenants=TenantArbiter(...))`` serving BERT-large
+    (phase_serve's model) with ``register(slo_ms=250, slo_objective=0.99)``,
+    telemetry on, the crash hooks, the sampler and the live endpoint up.
+    The main path, counted: (a) pumped with the arbiter's clock frozen:
+    storm submits 24 (8 admitted, 16 shed as ``QuotaExceededError``),
+    gold 24 and silver 8, two queued silver requests cancelled; (b) the
+    clock moved 2 s (storm's bucket back to 8), ``start()`` and
+    ``start_endpoint(port=0)``, three client threads sending the same mix
+    through ``Endpoint.predict(tenant=)``; ``/metrics``, ``/healthz``,
+    ``/events``, ``/timeseries`` and ``/diagnosis`` read over localhost;
+    ``kill()``, ``submit`` then raising ``EngineDeadError``, ``stop()``.
+    Gates: the exact sheds; each batch's tenants as the CPU's
+    ``WeightedFairQueue`` pops them; the cancelled requests completed
+    ``'cancelled'`` and in no batch; every other request OK, those of (a)
+    within ``TOL`` of the request served alone on the plain versions; the
+    SLO and tenant tallies as the responses' statuses and latencies give
+    them; ``/metrics`` equal to ``stats()``; no thread left; the launches
+    exact for the batches run. Then, off the main path: phase_serve's
+    waves served with telemetry off, on, on and off (``TELEMETRY_TURNS``):
+    each run launches what phase_serve launched and gives its outputs bit
+    for bit; off makes phase_serve's host syncs, on at most the sampled
+    ones more (ceil(timed spans / sync_every) a span name); req/s of
+    each. The
+    paged engine on ``TinyCausalLM`` at gpt_small's widths with a draft
+    and 129 pages, telemetry on: its ``serving.kv.pages_free``,
+    ``serving.preemptions`` and ``serving.spec.*`` against the runner's
+    own counts. One bucket-16 batch profiled with telemetry on: the
+    ``serving.batch`` host range and the kernel calls of ``SERVE_ROUTES``.
+    Telemetry is disabled and every buffer, hook, sampler and server reset
+    before it returns. -> the main path's launch counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import (BucketSpec, EngineDeadError,
+                                          QuotaExceededError, ServingEngine,
+                                          admission)
+    dev = torch.device('cuda', 0)
+    model = serve['model']
+    hidden = model.config.hidden_size
+    obs.reset()
+    admission.reset_tenant_stats()
+    obs.enable()
+    now = [0.0]
+    arb = _arbiter(now)
+    eng = ServingEngine(queue_capacity=64, tenants=arb, device=dev)
+    ep = eng.register('bert', layer=model, example=_example(),
+                      slo_ms=TENANT_SLO_MS,
+                      slo_objective=TENANT_SLO_OBJECTIVE)
+    eng.warmup()
+    torch.cuda.synchronize()
+    pops = _spy_pops(eng, 'bert')
+    rs = np.random.RandomState(seed + 14)
+    order = _tenant_order(rs)
+    reqs = _requests(rs, len(order), model.config.vocab_size)
+    threads_before = set(threading.enumerate())
+    kernels.reset_launch_counts()              # the main path starts here
+    # (a) pumped, the clock frozen
+    futs, sheds = [], []
+    for tenant, r in zip(order, reqs):
+        try:
+            futs.append((tenant, r, ep.submit(r, tenant=tenant)))
+        except QuotaExceededError as e:
+            sheds.append((tenant, e.reason))
+    silver = [i for i, (t, _, _) in enumerate(futs)
+              if t == 'silver'][:TENANT_CANCELS]
+    cancelled = [eng.cancel(futs[i][2]) for i in silver]
+    t0 = time.perf_counter()
+    eng.run_until_idle()
+    pumped_s = time.perf_counter() - t0
+    resps = [f.result(timeout=600) for _, _, f in futs]
+    pops_a = list(pops)
+    # (b) threaded, the endpoint up
+    now[0] += 2.0                 # storm's bucket refills to its burst
+    eng.start()
+    srv = eng.start_endpoint(port=0)
+    by_tenant = {t: [r for r, o in zip(reqs, order) if o == t]
+                 for t in TENANT_MIX}
+    threaded = {t: [] for t in TENANT_MIX}
+
+    def client(tenant):
+        for r in by_tenant[tenant]:
+            try:
+                threaded[tenant].append(ep.predict(r, tenant=tenant,
+                                                   timeout=600))
+            except QuotaExceededError as e:
+                threaded[tenant].append(e.reason)
+    clients = [threading.Thread(target=client, args=(t,),
+                                name=f'serve_tenants-{t}')
+               for t in TENANT_MIX]
+    t0 = time.perf_counter()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(600)
+    threaded_s = time.perf_counter() - t0
+    st = eng.stats()
+    scraped = {route: _http_get(srv.url + route) for route in (
+        '/metrics', '/healthz', '/events?n=5', '/timeseries',
+        '/diagnosis')}
+    eng.kill()
+    try:
+        ep.submit(reqs[0], tenant='gold')
+        dead = None
+    except EngineDeadError as e:
+        dead = str(e)
+    eng.stop()
+    counts = kernels.launch_counts()           # ... and ends here
+    for c in clients:
+        c.join(5)
+    leftover = [t for t in threading.enumerate()
+                if t not in threads_before]
+    for t in leftover:
+        t.join(5)
+    leftover = [t.name for t in leftover if t.is_alive()]
+    tallies = obs.slo.tallies()
+    ledger = admission.tenant_stats()
+    snap = obs.snapshot()
+
+    # the gates of (a) and (b)
+    admitted = [t for t, _, _ in futs]
+    want_pops = _expected_pops(arb, admitted, silver, 16)
+    if sheds != [('storm', 'quota')] * 16:
+        raise AssertionError(f"serve_tenants: sheds {sheds}")
+    if [[t for t, _ in b] for b in pops_a] != want_pops:
+        raise AssertionError(f"serve_tenants: batches {pops_a}, the CPU's "
+                             f"WeightedFairQueue pops {want_pops}")
+    gone = {futs[i][2].request_id for i in silver}
+    batched = {rid for b in pops for _, rid in b}
+    statuses = [r.status for r in resps]
+    if cancelled != [True] * TENANT_CANCELS or gone & batched or \
+            [statuses[i] for i in silver] != ['cancelled'] * TENANT_CANCELS:
+        raise AssertionError(f"serve_tenants: cancels {cancelled}, "
+                             f"statuses {[statuses[i] for i in silver]}, "
+                             f"batched {sorted(gone & batched)}")
+    for i, r in enumerate(resps):
+        if i not in silver:
+            if not r.ok:
+                raise AssertionError(f"serve_tenants: request {i}: "
+                                     f"{r.status}")
+            _bert_outputs_ok(f"serve_tenants request {i}", r, hidden)
+    want_b = {t: ['ok'] * n for t, n in TENANT_MIX.items()}
+    want_b['storm'] = ['ok'] * 8 + ['quota'] * 16
+    got_b = {t: [x if isinstance(x, str) else x.status for x in v]
+             for t, v in threaded.items()}
+    if got_b != want_b:
+        raise AssertionError(f"serve_tenants threaded: {got_b}")
+    for t, v in threaded.items():
+        for x in v:
+            if not isinstance(x, str):
+                _bert_outputs_ok(f"serve_tenants {t}", x, hidden)
+    done = [r for r in resps if r.status != 'cancelled'] + \
+        [x for v in threaded.values() for x in v if not isinstance(x, str)]
+    tenant_of = {f.request_id: t for t, _, f in futs}
+    for t, v in threaded.items():
+        for x in v:
+            if not isinstance(x, str):
+                tenant_of[x.request_id] = t
+    viol = [r.status != 'ok' or r.latency_ms > TENANT_SLO_MS for r in done]
+    want_tallies = {'bert': {'requests': len(done),
+                             'violations': sum(viol)}}
+    want_ledger = {}
+    for r, v in zip(done, viol):
+        row = want_ledger.setdefault(tenant_of[r.request_id],
+                                     {'requests': 0, 'violations': 0})
+        row['requests'] += 1
+        row['violations'] += v
+    got_ledger = {t: {'requests': v['requests'],
+                      'violations': v['violations']}
+                  for t, v in ledger.items()}
+    if tallies != want_tallies or got_ledger != want_ledger or \
+            ledger['storm']['shed'] != {'quota': 32}:
+        raise AssertionError(f"serve_tenants: SLO tallies {tallies}, ledger "
+                             f"{ledger}; the responses give "
+                             f"{want_tallies}, {want_ledger}")
+    code, text = scraped['/metrics']
+    metrics = _prometheus(text)
+    scrape = {
+        'serving_batches': st['models']['bert']['batches'],
+        'serving_completed': st['models']['bert']['completed'],
+        'serving_requests': st['submitted'],
+        'serving_shed': st['shed'], 'serving_shed_quota': st['shed_quota'],
+        'serving_cancelled': TENANT_CANCELS}
+    got_scrape = {k: metrics.get(f'paddle_tpu_{k}') for k in scrape}
+    health_code, health = scraped['/healthz']
+    health = json.loads(health)
+    if code != 200 or got_scrape != scrape or st['shed_quota'] != 32:
+        raise AssertionError(f"serve_tenants: /metrics {code} "
+                             f"{got_scrape}, stats() {scrape}")
+    if health_code != 200 or health['serving']['queue_depth'] != \
+            {'bert': 0} or not health['serving']['worker_alive']:
+        raise AssertionError(f"serve_tenants: /healthz {health_code} "
+                             f"{health}")
+    routes = {r: c for r, (c, _) in scraped.items()}
+    if routes != {'/metrics': 200, '/healthz': 200, '/events?n=5': 200,
+                  '/timeseries': 200, '/diagnosis': 501}:
+        raise AssertionError(f"serve_tenants: routes {routes}")
+    if dead is None or leftover or srv._httpd is not None:
+        raise AssertionError(f"serve_tenants: submit after kill "
+                             f"{dead!r}, threads left {leftover}")
+    batches = st['models']['bert']['batches']
+    want = {**dict.fromkeys(counts, 0),
+            **{k: n * batches for k, n in SERVE_BATCH_LAUNCHES.items()}}
+    if counts != want:
+        raise AssertionError(f"serve_tenants launches {counts} over "
+                             f"{batches} batches, expected {want}")
+
+    # (a)'s outputs against each request served alone on the plain versions
+    obs.disable()
+    plain = ServingEngine(device=dev)
+    pep = plain.register('alone', layer=model, example=_example(),
+                         bucket_spec=BucketSpec((1,)))
+    errs = []
+    with kernels.plain_versions():
+        for i, ((_, r, _), resp) in enumerate(zip(futs, resps)):
+            if i in silver:
+                continue
+            f = pep.submit(r)
+            plain.run_until_idle()
+            alone = f.result(timeout=600).outputs
+            errs.append(max(max_err(torch.from_numpy(a),
+                                    torch.from_numpy(b))
+                            for a, b in zip(resp.outputs, alone)))
+    check('serve_tenants batched kernels vs alone plain', max(errs), TOL)
+
+    # off against on, in turns: phase_serve's waves off, on, on, off
+    turns, every = [], obs.sync_every()
+    for on in TELEMETRY_TURNS:
+        outs, launches, syncs, sites, rps, ms, served_by = \
+            _waves_with_telemetry(model, serve['requests'], on)
+        trace = obs.trace_events()
+        timed = {}
+        for e in trace:
+            if e['ph'] == 'X':
+                timed[e['name']] = timed.get(e['name'], 0) + 1
+        allowance = sum(-(-n // every) for n in timed.values())
+        sampled = sum(1 for e in trace if e['ph'] == 'X' and
+                      e.get('args', {}).get('synced'))
+        same = sum(all(np.array_equal(x, y) for x, y in zip(a, b))
+                   for a, b in zip(outs, serve['outputs']))
+        if launches != serve['launches'] or same != len(outs) or \
+                not serve['syncs'] <= syncs <= serve['syncs'] + allowance:
+            raise AssertionError(
+                f"serve_tenants telemetry {'on' if on else 'off'}: "
+                f"launches {launches}, outputs bitwise {same} of "
+                f"{len(outs)}, host syncs {syncs} ({sites}); phase_serve: "
+                f"{serve['launches']}, {serve['syncs']} syncs, allowance "
+                f"{allowance} sampled")
+        turns.append({'telemetry': on, 'requests_per_s': rps, 'ms': ms,
+                      'host_syncs': syncs, 'sampled_syncs': sampled,
+                      'sync_allowance': allowance, 'timed_spans': timed})
+        if on:
+            peng, pep16 = served_by
+    off_rps = [t['requests_per_s'] for t in turns if not t['telemetry']]
+    on_rps = [t['requests_per_s'] for t in turns if t['telemetry']]
+
+    # the one bucket-16 batch, profiled with telemetry on
+    obs.enable()
+
+    def one_batch():
+        futs16 = [pep16.submit(r) for r in serve['requests'][:16]]
+        peng.run_until_idle()
+        for f in futs16:
+            f.result(timeout=600)
+    prof = phase_profile('serve_tenants', one_batch, SERVE_ROUTES,
+                         ranges=('serving.batch',), bucket=16,
+                         telemetry=True)
+    launched_16 = sum(SERVE_BATCH_LAUNCHES.values())
+    if prof['port_kernels']['launched'] != launched_16:
+        raise AssertionError(f"serve_tenants profile: "
+                             f"{prof['port_kernels']} launches, expected "
+                             f"{launched_16}")
+    obs.disable()
+    del peng, pep16
+
+    # the paged engine, telemetry on
+    obs.reset()
+    obs.enable()
+    lm, draft = _sg_models(seed)
+    greqs = _gen_requests(np.random.RandomState(seed + 50), lm.vocab)
+    gresps, grow = _serve_generative_run(
+        lm, greqs, page_size=16, draft=draft, draft_k=4,
+        num_pages=SG_PRESSURE_PAGES)
+    gsnap = obs.snapshot()
+    obs.disable()
+    teacher = _teacher_forced_serving('serve_tenants paged', lm, greqs,
+                                      gresps, {}, 'paged')
+    gstats = grow['stats']
+    kv_tel = {
+        'pages_free': gsnap['gauges'].get('serving.kv.pages_free'),
+        'preemptions': gsnap['counters'].get('serving.preemptions', 0),
+        'spec_proposed': gsnap['counters'].get('serving.spec.proposed', 0),
+        'spec_accepted': gsnap['counters'].get('serving.spec.accepted', 0)}
+    kv_own = {'pages_free': grow['kv']['pages_free'],
+              'preemptions': gstats['preemptions'],
+              'spec_proposed': gstats['spec_proposed'],
+              'spec_accepted': gstats['spec_accepted']}
+    if kv_tel != kv_own or not gstats['preemptions'] or \
+            not gstats['spec_proposed']:
+        raise AssertionError(f"serve_tenants paged: telemetry {kv_tel}, "
+                             f"the runner's {kv_own}")
+
+    emit({'phase': 'serve_tenants', 'model': 'bert_large', 'card': card,
+          'layers': model.config.num_hidden_layers, 'hidden': hidden,
+          'seq': SEQ, 'dtype': 'float32',
+          'tenants': {n: {'weight': w, 'rate': r, 'burst': b}
+                      for n, w, r, b in TENANT_POLICIES},
+          'mix': TENANT_MIX, 'slo_ms': TENANT_SLO_MS,
+          'slo_objective': TENANT_SLO_OBJECTIVE,
+          'pumped': {'requests': len(order), 'shed': len(sheds),
+                     'cancelled': TENANT_CANCELS, 'batches': len(pops_a),
+                     'batch_tenants': [[t for t, _ in b] for b in pops_a],
+                     'seconds': pumped_s,
+                     'max_abs_err_vs_alone_plain': max(errs),
+                     'tolerance': TOL},
+          'threaded': {'clients': len(clients), 'seconds': threaded_s,
+                       'statuses': {t: {s: v.count(s) for s in set(v)}
+                                    for t, v in got_b.items()}},
+          'batches': batches, 'launches': counts,
+          'slo_tallies': tallies, 'slo_burn': st['slo_burn'],
+          'tenant_ledger': ledger, 'scrape': got_scrape,
+          'healthz': health['serving'],
+          'counters': {k: v for k, v in snap['counters'].items()
+                       if k.startswith(('serving.', 'slo.',
+                                        'host_transfer.', 'kernels.'))},
+          'telemetry_off_on': {
+              'requests': len(serve['requests']), 'sync_every': every,
+              'turns': turns,
+              'overhead': 1.0 - sum(on_rps) / sum(off_rps),
+              'launches_equal': True, 'outputs_bitwise_equal': True},
+          'profile_host_ranges': prof['host_ranges'],
+          'paged': {'model': 'TinyCausalLM', 'num_pages': SG_PRESSURE_PAGES,
+                    'draft_k': 4, 'telemetry': kv_tel,
+                    'teacher_forced': teacher,
+                    'requests_per_s': grow['requests_per_s']}})
+    obs.disable()
+    obs.reset()
+    obs.endpoint.stop_active_server()
+    obs.timeseries.clear()
+    obs.flight.uninstall_crash_hooks()
+    admission.reset_tenant_stats()
     return counts
 
 
@@ -4383,7 +4915,9 @@ def main():
     gpt_rows = phase_kernels_gpt(args.seed, flush)
     del flush
     phase_parity(args.seed)
-    served = phase_serve(args.seed, card)
+    served, serve = phase_serve(args.seed, card)
+    served_tenants = phase_serve_tenants(args.seed, card, serve)
+    del serve
     torch.cuda.empty_cache()
     phase_train_parity(args.seed)
     # the step's callable, and with it its model and state, goes
@@ -4416,7 +4950,8 @@ def main():
     resumed = phase_train_resume(args.seed, card)
     torch.cuda.empty_cache()
     # launches: each main path's counts, zeroed just before the path and
-    # read just after (serving: 21 batches; each training run: 20 steps;
+    # read just after (serving: 21 batches; serve_tenants: the tenants
+    # engine's pumped and threaded batches; each training run: 20 steps;
     # train_fit: 2 fit calls, 40 steps; train_resume: the resumed
     # full-width fit, 6 steps; nn.RMSNorm: 18 forwards and their
     # backward; generate: 5 calls of GPT's generate; serve_generative: the
@@ -4424,7 +4959,8 @@ def main():
     # Model.fit calls, 24 steps, and 12 eval-mode forwards); the top-level
     # numbers are bf16's, the dtype of the reference's training recipe,
     # and ``gpt`` holds the fp32 cases at generate's shapes
-    paths = {'serve': served, 'train_fp32': trained,
+    paths = {'serve': served, 'serve_tenants': served_tenants,
+             'train_fp32': trained,
              'train_bf16': trained16, 'train_bf16_flat': trained_flat,
              'train_fp16_amp': trained_amp, 'train_fit': trained_fit,
              'train_resume': resumed, 'nn.RMSNorm': rms_path,

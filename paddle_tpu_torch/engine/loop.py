@@ -52,18 +52,21 @@ sharded format with one rank):
   call; the in-flight save is fenced (finished or abandoned) first, then a
   last synchronous save commits, and the report has ``preempted: True``.
 
-Multi-process runs (``world``, ``rank``), ``sharding`` and the serving
-export (``serve_artifacts``, ``serve_generative``) raise
-``NotImplementedError``. The checkpoints' telemetry is left out (it waits
-for an ``observability`` package).
+Multi-process runs (``world``, ``rank``), ``sharding``, the serving export
+(``serve_artifacts``, ``serve_generative``) and telemetry
+(``PADDLE_TPU_TELEMETRY=1`` or ``observability.enable()``: the loop's and
+the checkpoints' telemetry, ROADMAP.md Queue 1 item 4b) raise
+``NotImplementedError``.
 """
 import itertools
+import os
 import time
 import warnings
 
 import numpy as np
 import torch
 
+from .. import observability
 from ..device import resolve_device
 from ..io import DevicePrefetcher
 from ..resilience import (CheckpointManager, PreemptionGuard, capture_rng,
@@ -76,10 +79,13 @@ _LATER = {
     'world': "multi-process runs come with the distributed slice",
     'rank': "multi-process runs come with the distributed slice",
     'sharding': "sharded state comes with the distributed slice",
-    'serve_artifacts': "the train-to-serve export comes with the "
-                       "compilecache and serving slices",
-    'serve_generative': "the generative serving export comes with the "
-                        "generative serving slice (text/gpt.py, paged KV)",
+    'serve_artifacts': "the train-to-serve export comes with compilecache/ "
+                       "(ROADMAP.md, Queue 1 item 7)",
+    'serve_generative': "the generative serving export comes with "
+                        "compilecache/ (ROADMAP.md, Queue 1 item 7)",
+    'telemetry': "the loop's and the checkpoints' telemetry comes with the "
+                 "training half of observability/ (ROADMAP.md, Queue 1 "
+                 "item 4b)",
 }
 
 
@@ -195,11 +201,13 @@ def fit(network, loss, optimizer, data, *, epochs=1, microbatch=1,
     asked = {'world': world is not None, 'rank': rank is not None,
              'sharding': sharding is not None,
              'serve_artifacts': serve_artifacts is not None,
-             'serve_generative': serve_generative is not None}
+             'serve_generative': serve_generative is not None,
+             'telemetry': (os.environ.get('PADDLE_TPU_TELEMETRY', '') == '1'
+                           or observability.enabled())}
     for option, on in asked.items():
         if on:
             raise NotImplementedError(
-                f"engine.fit: {option}= is not ported yet: {_LATER[option]}")
+                f"engine.fit: {option} is not ported yet: {_LATER[option]}")
     if nan_guard is True:
         from ..resilience import NanGuard
         nan_guard = NanGuard()

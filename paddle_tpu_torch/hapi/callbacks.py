@@ -11,7 +11,7 @@ snapshots the state on the training thread in stream order
 (``CheckpointManager.save(async_=True)`` through ``secure_for_async``),
 because the eager ``optimizer.step()`` updates the saved tensors in place.
 ``VisualDL`` stamps its records with ``time.time()``. ``TelemetryCallback``
-waits for an ``observability`` package (ROADMAP.md, Queue 1 item 4).
+comes with ROADMAP.md, Queue 1 item 4b.
 """
 import json
 import os

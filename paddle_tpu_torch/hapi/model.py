@@ -41,8 +41,8 @@ what ``loss(*outputs, *labels)`` takes after the network's outputs.
 Raise ``NotImplementedError``: ``strategy=`` (sharded training, with
 ``distributed/``, ROADMAP.md Queue 1 item 5), ``save(training=False)``
 (the inference export, with ``jit/`` and ``inference/``, item 7) and
-``PADDLE_TPU_TELEMETRY=1`` (fit's telemetry, with ``observability/``,
-item 4).
+telemetry on (``PADDLE_TPU_TELEMETRY=1`` or ``observability.enable()``:
+fit's telemetry, with the training half of ``observability/``, item 4b).
 """
 import os
 import warnings
@@ -50,6 +50,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import observability
 from ..device import resolve_device
 from ..io import DataLoader
 from ..io.prefetch import upload
@@ -63,9 +64,9 @@ _LATER = {
                 "Queue 1 item 5)",
     'training=False': "the inference export comes with jit/ and "
                       "inference/ (ROADMAP.md, Queue 1 item 7)",
-    'PADDLE_TPU_TELEMETRY=1': "fit's telemetry (TelemetryCallback, step "
-                              "events, spans) comes with observability/ "
-                              "(ROADMAP.md, Queue 1 item 4)",
+    'telemetry': "fit's telemetry (TelemetryCallback, step events, spans) "
+                 "comes with the training half of observability/ "
+                 "(ROADMAP.md, Queue 1 item 4b)",
 }
 
 
@@ -75,8 +76,9 @@ def _later(option, where):
 
 
 def _no_telemetry(where):
-    if os.environ.get('PADDLE_TPU_TELEMETRY', '') == '1':
-        raise _later('PADDLE_TPU_TELEMETRY=1', where)
+    if os.environ.get('PADDLE_TPU_TELEMETRY', '') == '1' or \
+            observability.enabled():
+        raise _later('telemetry', where)
 
 
 class Model:

@@ -1,6 +1,6 @@
 """Progress bar. The port's own copy of ``paddle_tpu/hapi/progressbar.py``,
-timed with ``time.perf_counter`` (the reference's ``Stopwatch`` belongs to
-its ``observability`` package, which the port does not have yet)."""
+timed with ``time.perf_counter`` where the reference reads its
+``observability`` ``Stopwatch``."""
 import sys
 import time
 

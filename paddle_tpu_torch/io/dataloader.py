@@ -31,7 +31,8 @@ on its native shared-memory ring (``paddle_tpu/_native/process_pool.py``,
 ``csrc/prefetch.cpp``) are not ported, so ``use_shared_memory`` and
 ``worker_max_restarts`` are accepted and change nothing, as on the
 reference's own threaded path. The reference's telemetry (queue depth,
-batch wait, stall events) waits for an ``observability`` package.
+batch wait, stall events) comes with the training side's telemetry
+(ROADMAP.md, Queue 1 item 4b).
 """
 import itertools
 import os

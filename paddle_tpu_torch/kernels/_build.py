@@ -32,6 +32,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -63,6 +64,9 @@ KERNELS = ('flash_attention_fwd', 'flash_attention_dq', 'flash_attention_dkv',
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # kernel launches since the last reset, by kernel (kernels.launch_counts)
 launches = dict.fromkeys(KERNELS, 0)
+# called with the milliseconds of each build that ran nvcc
+# (observability.interpose.install_build_hooks registers one)
+build_listeners = []
 _force_plain = False
 
 _lock = threading.Lock()
@@ -95,10 +99,12 @@ def build():
     """Compile ``csrc/*.cu`` into the shared library (reused when the
     sources are unchanged) -> its path. The compiler's output, with
     ``ptxas`` register and spill counts, is kept beside it as
-    ``<library>.log``."""
+    ``<library>.log``. Each build that runs nvcc calls every
+    ``build_listeners`` entry with its milliseconds."""
     lib_path = BUILD_DIR / f'libpaddle_tpu_torch_kernels_{_digest()}.so'
     if lib_path.exists():
         return lib_path
+    t0 = time.perf_counter()
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     sources = sorted(CSRC.glob('*.cu'))
@@ -132,6 +138,9 @@ def build():
                 f"paddle_tpu_torch: building the CUDA kernels failed "
                 f"({', '.join(failed)}):\n{text}")
         os.replace(tmp_lib, lib_path)
+    ms = 1e3 * (time.perf_counter() - t0)
+    for listener in build_listeners:
+        listener(ms)
     return lib_path
 
 

@@ -1,8 +1,8 @@
 """CRC-stamped, rotating, fallback-capable checkpoint store. Counterpart of
 ``paddle_tpu/resilience/checkpoint.py`` (``CheckpointManager``,
 ``capture_rng``, ``restore_rng``), without its telemetry (the
-``checkpoint.*`` histograms, counters and events wait for an
-``observability`` package).
+``checkpoint.*`` histograms, counters and events come with the
+training side's telemetry, ROADMAP.md Queue 1 item 4b).
 
 Two on-disk formats under one directory (both may coexist; ``steps()`` /
 ``load()`` / ``restore()`` see the union):

@@ -12,8 +12,8 @@ device and never waits for it; ``TrainStep.sync`` hands them to
 ``absorb_device_counts``.
 
 Left out: the reference's telemetry counters and events and its flight
-dump on abort (``paddle_tpu/observability``), a package the port does not
-have and may not import.
+dump on abort; they come with the training side's telemetry (ROADMAP.md,
+Queue 1 item 4b).
 """
 import warnings
 

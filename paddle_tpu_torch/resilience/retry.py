@@ -1,6 +1,7 @@
 """Bounded retry with exponential backoff + jitter. The port's own copy
 of ``paddle_tpu/resilience/retry.py`` (stdlib only), without its telemetry
-counter and event (the port has no ``observability`` package yet).
+counter and event (the training side's telemetry, ROADMAP.md Queue 1
+item 4b).
 
 One decorator for every transient-failure site (downloads, coordinator
 bring-up, shell-outs) so backoff policy lives in one place instead of

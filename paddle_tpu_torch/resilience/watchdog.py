@@ -3,7 +3,7 @@ hanging the whole job. The port's own copy of
 ``paddle_tpu/resilience/watchdog.py`` (stdlib only), without the
 supervisor's ``Heartbeat`` and ``heartbeat_age`` (they come with the
 fleet supervisor) and without the flight-recorder dump a timeout makes
-there (the port has no ``observability`` package yet).
+there (the training side's telemetry, ROADMAP.md Queue 1 item 4b).
 
 Every blocking wait in library code (queue gets, thread and process joins,
 child-process waits) goes through these helpers instead of the unbounded

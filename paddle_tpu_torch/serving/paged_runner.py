@@ -32,21 +32,23 @@ stalls alone can never fit and fails instead of livelocking.
 The port calls plain callables where the reference has
 ``compilecache.CachedJit``; ``warmup()`` still runs each program once.
 Block tables live on the host (numpy) and go to the device per call; each
-step reads its chosen tokens back (one sync per step). The reference's
-telemetry (``_obs`` gauges, events and counters) and its ``compilecache``
-binding are left out: they come with ``observability/`` and
-``artifact_dir`` (ROADMAP.md, Queue 1 item 4). The tallies stay in
-``stats`` and ``kv_info()``.
+step reads its chosen tokens back (one sync per step). The telemetry is
+the reference's, behind one flag check a site: the ``serving.kv.*``
+gauges and stall counters, ``serving.spec.*``, ``serving.preemptions``,
+the ``serving.page_exhausted`` / ``serving.preempt`` / ``serving.kv_stats``
+events and the prefill, decode, propose and verify timers. The
+``compilecache`` binding (``artifact_dir``) waits for ROADMAP.md, Queue 1
+item 7.
 """
 import collections
-import time
 
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from .bucketing import pad_to_bucket, select_bucket
 from .paged_kv import PageAllocator, PrefixCache, chain_hashes
-from .runners import _device_ints, _ms_since, _Stats
+from .runners import _count, _device_ints, _Stats, _to_host, finish_request
 from .scheduler import STATUS_DEADLINE, STATUS_ERROR, STATUS_OK
 
 __all__ = ['PagedGenerativeRunner']
@@ -352,6 +354,7 @@ class PagedGenerativeRunner:
                 continue
             self._release_row(row)
             self.stats.leaves += 1
+            _count('serving.leaves')
             self.journal.append(('leave', s['req'].id, self.step_no))
             out.append((s['req'],
                         {'tokens': np.asarray(self._generated(s),
@@ -410,7 +413,22 @@ class PagedGenerativeRunner:
         did = self._decode_pump() or did
         if not did and self._stalled_this_pump:
             did = self._relieve_pressure() or did
+        if _obs.enabled():
+            self._export_gauges()
         return did
+
+    def _export_gauges(self):
+        t = self.target
+        _obs.gauge('serving.kv.page_utilization').set(
+            round(t.alloc.utilization(), 4))
+        _obs.gauge('serving.kv.pages_free').set(t.alloc.free_count())
+        if t.prefix is not None:
+            _obs.gauge('serving.kv.prefix_hit_rate').set(
+                round(t.prefix.hit_rate(), 4))
+            _obs.gauge('serving.kv.prefix_pages_cached').set(len(t.prefix))
+        if self.draft is not None and self.stats.spec_proposed:
+            _obs.gauge('serving.spec.acceptance_rate').set(round(
+                self.stats.spec_accepted / self.stats.spec_proposed, 4))
 
     # -- admission (gated on free pages, not free slots) ------------------
     def _shared_probe(self, digests, n):
@@ -471,8 +489,8 @@ class PagedGenerativeRunner:
                     # STILL does not fit: fail it, don't spin forever
                     self._preempted.popleft()
                     self.stats.errors += 1
-                    item['req'].complete(
-                        STATUS_ERROR,
+                    finish_request(
+                        item['req'], STATUS_ERROR,
                         {'tokens': np.asarray(item['tokens'], np.int32)},
                         error=RuntimeError(
                             f"serving[{self.name}]: preempted sequence "
@@ -521,6 +539,7 @@ class PagedGenerativeRunner:
                     self.queue.push_front(later)
                 self._page_starved = True
                 self.stats.prefill_stalls += 1
+                _count('serving.kv.prefill_stalls')
                 break
             if st != 'started':
                 free_rows.insert(0, row)
@@ -555,6 +574,7 @@ class PagedGenerativeRunner:
         c = common * self.page_size
         if common:
             self.stats.prefix_hit_pages += common
+            _count('serving.kv.prefix_hit_pages', common)
         self.stats.prefix_lookup_pages += usable
         # 'done' holds tokens generated BEFORE a preemption; they are part
         # of the re-admitted prompt, so they must NOT also count into the
@@ -574,7 +594,13 @@ class PagedGenerativeRunner:
         if st == 'failed':
             return 'failed'
         self.stats.joins += 1
+        _count('serving.joins')
         self.journal.append(('join', req.id, self.step_no))
+        if _obs.enabled():
+            _obs.event('serving.join', model=self.name, request=req.id,
+                       slot=row, prompt_len=n,
+                       prefix_hit_pages=common,
+                       chunked=bool(s['fill_next'] < n))
         if st == 'done':
             self._maybe_finish(row)
         return 'started'
@@ -597,21 +623,29 @@ class PagedGenerativeRunner:
         padded = self._tensor(pad_to_bucket(
             s['prompt'][start:start + nvalid], cb))
         try:
-            t0 = time.perf_counter()
-            self.target.cache, toks = self._prefill(
-                self.target.cache, self._tensor(self.target.blocks[row]),
-                padded, start, nvalid)
-            if self.draft is not None:
-                self.draft.cache, _ = self._draft_prefill(
-                    self.draft.cache, self._tensor(self.draft.blocks[row]),
+            with _obs.timer('serving.prefill', model=self.name,
+                            bucket=cb) as t:
+                self.target.cache, toks = self._prefill(
+                    self.target.cache, self._tensor(self.target.blocks[row]),
                     padded, start, nvalid)
-            first = int(toks[nvalid - 1]) if start + nvalid >= n else None
-            s['req'].add_phase_ms('prefill', _ms_since(t0))
+                if self.draft is not None:
+                    self.draft.cache, _ = self._draft_prefill(
+                        self.draft.cache,
+                        self._tensor(self.draft.blocks[row]),
+                        padded, start, nvalid)
+                first = int(_to_host(toks[nvalid - 1])) \
+                    if start + nvalid >= n else None
+            s['req'].add_phase_ms('prefill', t.elapsed_ms)
+            if _obs.enabled():
+                _obs.async_instant('prefill_chunk', s['req'].id,
+                                   cat='serving.request', start=start,
+                                   bucket=cb, n=nvalid)
         except Exception as e:               # model bug: fail the request,
             self._fail_row(row, e)           # not the engine worker
             return 'failed'
         s['fill_next'] = start + nvalid
         self.stats.prefill_tokens += nvalid
+        _count('serving.prefill_tokens', nvalid)
         # hash-cons every page this chunk completed, immediately: admits
         # later in the SAME iteration already share them
         for side in self._sides():
@@ -692,26 +726,33 @@ class PagedGenerativeRunner:
             toks[i] = self.seqs[i]['last']
             pos[i] = self.seqs[i]['pos']
         self.stats.batches += 1
+        _count('serving.decode_steps')
         self.stats.occupancy(len(run) / b)
         try:
-            t0 = time.perf_counter()
-            self.target.cache, nxt = self._decode(
-                self.target.cache, self._masked_blocks(self.target, run),
-                self._tensor(toks), self._tensor(pos))
-            nxt = nxt.cpu().numpy()
-            ms = _ms_since(t0)
+            with _obs.timer('serving.decode', model=self.name,
+                            active=len(run)) as t:
+                self.target.cache, nxt = self._decode(
+                    self.target.cache, self._masked_blocks(self.target, run),
+                    self._tensor(toks), self._tensor(pos))
+                nxt = _to_host(nxt)
         except Exception as e:
             for i in run:
                 self._fail_row(i, e)
             return True
+        telemetry = _obs.enabled()
         for i in run:
             s = self.seqs[i]
             s['pos'] += 1
             tok = int(nxt[i])
             s['tokens'].append(tok)
             s['last'] = tok
-            s['req'].add_phase_ms('decode', ms)
+            s['req'].add_phase_ms('decode', t.elapsed_ms)
             self.stats.decode_tokens += 1
+            _count('serving.decode_tokens')
+            if telemetry:
+                _obs.async_instant('decode', s['req'].id,
+                                   cat='serving.request',
+                                   tokens=len(self._generated(s)))
             self._maybe_finish(i)
         return True
 
@@ -737,6 +778,7 @@ class PagedGenerativeRunner:
         behind = [i for i in run
                   if self.seqs[i]['pos'] - self.seqs[i]['draft_pos'] == 1]
         self.stats.batches += 1
+        _count('serving.decode_steps')
         self.stats.occupancy(len(run) / b)
         try:
             if behind:
@@ -759,21 +801,24 @@ class PagedGenerativeRunner:
             for i in run:
                 last[i] = self.seqs[i]['last']
                 pos[i] = self.seqs[i]['pos']
-            t0 = time.perf_counter()
-            self.draft.cache, props_t = self._propose(
-                self.draft.cache, self._masked_blocks(self.draft, run),
-                self._tensor(last), self._tensor(pos))
+            sw = _obs.Stopwatch()
+            with _obs.timer('serving.propose', model=self.name, k=k):
+                self.draft.cache, props_t = self._propose(
+                    self.draft.cache, self._masked_blocks(self.draft, run),
+                    self._tensor(last), self._tensor(pos))
             # 3) verify: [last, t1..tk] at positions pos..pos+k — one
             #    step, fed the proposals on the device
-            vtoks = torch.cat([self._tensor(last)[:, None], props_t], dim=1)
-            vpos = self._tensor(pos[:, None] + np.arange(k + 1,
-                                                         dtype=np.int32))
-            self.target.cache, greedy = self._verify(
-                self.target.cache, self._masked_blocks(self.target, run),
-                vtoks, vpos)
-            props = props_t.cpu().numpy()                  # [B, k]
-            greedy = greedy.cpu().numpy()                  # [B, k+1]
-            ms = _ms_since(t0)
+            with _obs.timer('serving.verify', model=self.name, k=k):
+                vtoks = torch.cat([self._tensor(last)[:, None], props_t],
+                                  dim=1)
+                vpos = self._tensor(pos[:, None] + np.arange(
+                    k + 1, dtype=np.int32))
+                self.target.cache, greedy = self._verify(
+                    self.target.cache, self._masked_blocks(self.target, run),
+                    vtoks, vpos)
+                props = _to_host(props_t)                  # [B, k]
+                greedy = _to_host(greedy)                  # [B, k+1]
+            ms = sw.elapsed_ms()
         except Exception as e:
             for i in run:
                 self._fail_row(i, e)
@@ -781,20 +826,28 @@ class PagedGenerativeRunner:
         for i in run:
             self.seqs[i]['draft_pos'] = self.seqs[i]['pos'] + k
         # 4) accept/commit + exact page rollback
+        telemetry = _obs.enabled()
         for i in run:
             s = self.seqs[i]
             m = 0
             while m < k and props[i, m] == greedy[i, m]:
                 m += 1
             s['req'].add_phase_ms('verify', ms)
+            if telemetry:
+                _obs.async_instant('verify', s['req'].id,
+                                   cat='serving.request', proposed=k,
+                                   accepted=m)
             self.stats.spec_proposed += k
             self.stats.spec_accepted += m
+            _count('serving.spec.proposed', k)
+            _count('serving.spec.accepted', m)
             eos = self.spec.eos_id
             commit = [int(t) for t in props[i, :m]] + [int(greedy[i, m])]
             for tok in commit:
                 s['tokens'].append(tok)
                 s['last'] = tok
                 self.stats.decode_tokens += 1
+                _count('serving.decode_tokens')
                 if (len(self._generated(s)) >= s['max_new'] or
                         (eos is not None and tok == eos)):
                     break
@@ -810,8 +863,14 @@ class PagedGenerativeRunner:
         self._stalled_this_pump = True
         if where == 'decode':
             self.stats.decode_stalls += 1
+            _count('serving.kv.decode_stalls')
         else:
             self.stats.prefill_stalls += 1
+            _count('serving.kv.prefill_stalls')
+        if _obs.enabled():
+            _obs.event('serving.page_exhausted', model=self.name,
+                       where=where,
+                       pages_free=self.target.alloc.free_count())
 
     def _relieve_pressure(self):
         """Nothing progressed and something stalled on pages: preempt the
@@ -841,7 +900,15 @@ class PagedGenerativeRunner:
             'tokens': self._generated(s),
         })
         self.stats.preemptions += 1
+        _count('serving.preemptions')
         self.journal.append(('preempt', s['req'].id, self.step_no))
+        if _obs.enabled():
+            _obs.event('serving.preempt', model=self.name,
+                       request=s['req'].id,
+                       tokens_so_far=len(self._generated(s)))
+            _obs.async_instant('preempt', s['req'].id,
+                               cat='serving.request',
+                               tokens=len(self._generated(s)))
         return True
 
     # -- row lifecycle -----------------------------------------------------
@@ -855,10 +922,11 @@ class PagedGenerativeRunner:
         self._release_row(row)
         self.stats.errors += 1
         self.stats.leaves += 1
+        _count('serving.leaves')
         self.journal.append(('leave', s['req'].id, self.step_no))
-        s['req'].complete(
-            STATUS_ERROR,
-            {'tokens': np.asarray(self._generated(s), np.int32)}, error=exc)
+        finish_request(s['req'], STATUS_ERROR,
+                       {'tokens': np.asarray(self._generated(s), np.int32)},
+                       error=exc)
 
     def _maybe_finish(self, row):
         s = self.seqs[row]
@@ -871,15 +939,30 @@ class PagedGenerativeRunner:
         if r.expired():
             done, status = True, STATUS_DEADLINE
             self.stats.expired += 1
+            _count('serving.deadline_expired')
         if not done:
             return
         self._release_row(row)
         self.stats.leaves += 1
         self.stats.completed += 1
+        _count('serving.leaves')
         self.journal.append(('leave', r.id, self.step_no))
-        r.complete(status,
-                   {'tokens': np.asarray(self._generated(s), np.int32)})
+        if _obs.enabled():
+            _obs.event('serving.leave', model=self.name, request=r.id,
+                       slot=row, tokens=len(self._generated(s)),
+                       status=status)
+            info = self.kv_info()
+            _obs.event('serving.kv_stats', model=self.name,
+                       page_utilization=info['page_utilization'],
+                       prefix_hit_rate=info.get('prefix_hit_rate'),
+                       draft_acceptance=info.get('draft_acceptance'),
+                       preemptions=self.stats.preemptions,
+                       decode_stalls=self.stats.decode_stalls)
+        finish_request(r, status,
+                       {'tokens': np.asarray(self._generated(s),
+                                             np.int32)})
 
     def _expire(self, req):
         self.stats.expired += 1
-        req.complete(STATUS_DEADLINE)
+        _count('serving.deadline_expired')
+        finish_request(req, STATUS_DEADLINE)

@@ -17,21 +17,72 @@ Counterpart of ``paddle_tpu/serving/runners.py`` (``BatchRunner``,
 The reference wraps every program in ``compilecache.CachedJit``; the port
 calls plain callables (PyTorch runs them eagerly), and ``warmup()`` still
 runs each program once so that first-call set-up (the kernel build) is
-not paid under traffic. The reference's telemetry calls (``_obs``) come
-with ``observability/``. Runners never block: ``step()`` does at most one
+not paid under traffic. Runners never block: ``step()`` does at most one
 batch or one decode iteration and returns whether it did work.
+
+Telemetry rides the reference's sites, each behind one flag check:
+``serving.*`` counters (``_count``), the occupancy, latency and queue-wait
+histograms, the ``serving.request`` async lane and event
+(``finish_request``, which also judges each request against its model's
+SLO and its tenant's ledger, always on), the ``serving.batch`` /
+``serving.prefill`` / ``serving.decode`` timers, and
+``record_host_transfer`` where outputs are copied back to the host.
 """
 import collections
-import time
 
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from .bucketing import BucketSpec, pad_to_bucket, select_bucket, \
     stack_examples
 from .scheduler import STATUS_DEADLINE, STATUS_ERROR, STATUS_OK
 
-__all__ = ['BatchRunner', 'GenerativeRunner']
+__all__ = ['BatchRunner', 'GenerativeRunner', 'finish_request']
+
+
+def _count(name, n=1):
+    if _obs.enabled():
+        _obs.counter(name).inc(n)
+
+
+def _observe(name, v):
+    if _obs.enabled():
+        _obs.histogram(name).observe(v)
+
+
+def finish_request(req, status, outputs=None, error=None):
+    """Complete a request and mirror the outcome onto the telemetry spine
+    (latency/queue-wait histograms, a per-request event carrying the
+    phase breakdown, the SLO tracker's judgment, the tenant ledger, and
+    the closing edge of the request's async trace lane)."""
+    req.complete(status, outputs, error=error)
+    resp = req.response
+    _count('serving.completed')
+    _count(f'serving.status.{status}')
+    _obs.slo.record(req.model, status, resp.latency_ms)
+    from .admission import record_completion
+    record_completion(req, status, resp.latency_ms)
+    if _obs.enabled():
+        _obs.histogram('serving.latency_ms').observe(resp.latency_ms)
+        _obs.histogram('serving.queue_wait_ms').observe(resp.queue_ms)
+        _obs.event('serving.request', model=req.model, status=status,
+                   tenant=getattr(req, 'tenant', None) or 'default',
+                   latency_ms=round(resp.latency_ms, 3),
+                   queue_ms=round(resp.queue_ms, 3),
+                   **{f'{k}_ms': round(v, 3)
+                      for k, v in resp.breakdown.items()})
+        _obs.async_end('request', req.id, cat='serving.request',
+                       status=status,
+                       latency_ms=round(resp.latency_ms, 3))
+
+
+def _to_host(t):
+    """One device tensor -> numpy, counted as a host transfer."""
+    a = t.detach().cpu().numpy()
+    if _obs.enabled() and t.device.type != 'cpu':
+        _obs.record_host_transfer(a.nbytes)
+    return a
 
 
 def _to_numpy(outs):
@@ -41,7 +92,7 @@ def _to_numpy(outs):
     if isinstance(outs, (list, tuple)):
         return type(outs)(_to_numpy(v) for v in outs)
     if isinstance(outs, torch.Tensor):
-        return outs.detach().cpu().numpy()
+        return _to_host(outs)
     return np.asarray(outs)
 
 
@@ -72,6 +123,7 @@ class _Stats:
 
     def occupancy(self, frac):
         self._occ_sum += frac
+        _observe('serving.batch_occupancy', frac)
 
     def as_dict(self):
         return {
@@ -84,10 +136,6 @@ class _Stats:
                 round(self._occ_sum / self.batches, 4)
                 if self.batches else 0.0),
         }
-
-
-def _ms_since(t0):
-    return 1000.0 * (time.perf_counter() - t0)
 
 
 def _device_ints(a, device):
@@ -104,6 +152,8 @@ class BatchRunner:
     submits that disagree are rejected at admission and warmup knows what
     zeros to feed.
     """
+
+    kind = 'batch'
 
     def __init__(self, name, queue, batch_fn, example, device,
                  bucket_spec=None):
@@ -133,36 +183,54 @@ class BatchRunner:
     def has_work(self):
         return len(self.queue) > 0
 
-    def _run(self, batch):
-        feeds = {k: torch.from_numpy(v).to(self.device)
-                 for k, v in batch.items()}
-        return _to_numpy(self._fn(feeds))
+    def evict_in_flight(self):
+        """One-shot batches run inside ``step()``: nothing is resident."""
+        return []
+
+    def _feeds(self, batch):
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in batch.items()}
 
     def warmup(self):
         """Run every bucket once with zero feeds (first-call set-up, such as
         the kernel build, happens here and not under traffic) -> the number
         of buckets run."""
         for b in self.spec.batch_buckets:
-            self._run({k: np.zeros((b,) + ex.shape, ex.dtype)
-                       for k, ex in self.example.items()})
+            _to_numpy(self._fn(self._feeds(
+                {k: np.zeros((b,) + ex.shape, ex.dtype)
+                 for k, ex in self.example.items()})))
         return len(self.spec.batch_buckets)
 
     def step(self):
         ready, expired = self.queue.pop_ready(self.spec.max_batch)
         for r in expired:
             self.stats.expired += 1
-            r.complete(STATUS_DEADLINE)
+            _count('serving.deadline_expired')
+            finish_request(r, STATUS_DEADLINE)
         if not ready:
             return bool(expired)
         bucket = self.spec.batch_bucket(len(ready))
         batch = {k: stack_examples([r.inputs[k] for r in ready], bucket)
                  for k in self.example}
         self.stats.batches += 1
+        _count('serving.batches')
         self.stats.occupancy(len(ready) / bucket)
+        if _obs.enabled():
+            for r in ready:
+                _obs.async_instant('batch', r.id, cat='serving.request',
+                                   bucket=bucket, n=len(ready))
         try:
-            t0 = time.perf_counter()
-            outs = self._run(batch)
-            ms = 1000.0 * (time.perf_counter() - t0)
+            # 'run' is the batch's wall time, feeds to host outputs; the
+            # serving.batch timer (the reference's) times the call, and on
+            # its sampled occurrences waits for the device work behind it
+            sw = _obs.Stopwatch()
+            dev = None
+            with _obs.timer('serving.batch', sync=lambda: dev,
+                            model=self.name, batch=len(ready),
+                            bucket=bucket):
+                dev = self._fn(self._feeds(batch))
+            outs = _to_numpy(dev)
+            ms = sw.elapsed_ms()
             for r in ready:
                 r.add_phase_ms('run', ms)
             # slice before completing anything: a malformed output (e.g. no
@@ -171,14 +239,15 @@ class BatchRunner:
         except Exception as e:                       # model bug: fail the
             for r in ready:                          # batch, not the engine
                 self.stats.errors += 1
-                r.complete(STATUS_ERROR, error=e)
+                finish_request(r, STATUS_ERROR, error=e)
             return True
         for r, out in zip(ready, per_req):
             self.stats.completed += 1
             status = STATUS_DEADLINE if r.expired() else STATUS_OK
             if status == STATUS_DEADLINE:
                 self.stats.expired += 1
-            r.complete(status, out)
+                _count('serving.deadline_expired')
+            finish_request(r, status, out)
         return True
 
 
@@ -247,6 +316,7 @@ class GenerativeRunner:
                 continue
             self.slots[slot] = None
             self.stats.leaves += 1
+            _count('serving.leaves')
             self.journal.append(('leave', s['req'].id, self.step_no))
             out.append((s['req'],
                         {'tokens': np.asarray(s['tokens'], np.int32)}))
@@ -264,7 +334,7 @@ class GenerativeRunner:
             n += 1
         z = self._tensor(np.zeros((self.spec.max_batch,)))
         self.cache, nxt = self._decode(self.cache, z, z)
-        nxt.cpu()
+        _to_host(nxt)
         return n + 1
 
     # -- one scheduler iteration ---------------------------------------
@@ -293,19 +363,28 @@ class GenerativeRunner:
             lb = select_bucket(len(prompt), self.spec.prompt_buckets)
             padded = pad_to_bucket(prompt, lb)
             try:
-                t0 = time.perf_counter()
-                self.cache, nxt = self._prefill(
-                    self.cache, self._tensor(padded), len(prompt), slot)
-                first = int(nxt)
-                r.add_phase_ms('prefill', _ms_since(t0))
+                with _obs.timer('serving.prefill', model=self.name,
+                                bucket=lb) as t:
+                    self.cache, nxt = self._prefill(
+                        self.cache, self._tensor(padded), len(prompt), slot)
+                    first = int(_to_host(nxt))
+                r.add_phase_ms('prefill', t.elapsed_ms)
             except Exception as e:                   # model bug: fail the
                 self.stats.errors += 1               # request, not the
                 free.insert(0, slot)                 # engine worker
-                r.complete(STATUS_ERROR, error=e)
+                finish_request(r, STATUS_ERROR, error=e)
                 continue
             self.stats.joins += 1
             self.stats.prefill_tokens += len(prompt)
+            _count('serving.joins')
+            _count('serving.prefill_tokens', len(prompt))
             self.journal.append(('join', r.id, self.step_no))
+            if _obs.enabled():
+                _obs.event('serving.join', model=self.name, request=r.id,
+                           slot=slot, prompt_len=len(prompt))
+                _obs.async_instant('prefill', r.id, cat='serving.request',
+                                   slot=slot, bucket=lb,
+                                   prompt_len=len(prompt))
             max_new = int(self.default_max_new_tokens
                           if r.max_new_tokens is None else r.max_new_tokens)
             self.slots[slot] = {'req': r, 'tokens': [first], 'last': first,
@@ -324,32 +403,41 @@ class GenerativeRunner:
             toks[i] = self.slots[i]['last']
             pos[i] = self.slots[i]['pos']
         self.stats.batches += 1
+        _count('serving.decode_steps')
         self.stats.occupancy(len(active) / b)
         try:
-            t0 = time.perf_counter()
-            self.cache, nxt = self._decode(self.cache, self._tensor(toks),
-                                           self._tensor(pos))
-            nxt = nxt.cpu().numpy()
-            ms = _ms_since(t0)
+            with _obs.timer('serving.decode', model=self.name,
+                            active=len(active)) as t:
+                self.cache, nxt = self._decode(self.cache,
+                                               self._tensor(toks),
+                                               self._tensor(pos))
+                nxt = _to_host(nxt)
         except Exception as e:                       # model bug: fail the
             for i in active:                         # co-batched requests,
                 s = self.slots[i]                    # not the engine worker
                 self.slots[i] = None
                 self.stats.errors += 1
                 self.stats.leaves += 1
+                _count('serving.leaves')
                 self.journal.append(('leave', s['req'].id, self.step_no))
-                s['req'].complete(
-                    STATUS_ERROR,
+                finish_request(
+                    s['req'], STATUS_ERROR,
                     {'tokens': np.asarray(s['tokens'], np.int32)}, error=e)
             return True
+        telemetry = _obs.enabled()
         for i in active:
             s = self.slots[i]
             s['pos'] += 1
             tok = int(nxt[i])
             s['tokens'].append(tok)
             s['last'] = tok
-            s['req'].add_phase_ms('decode', ms)
+            s['req'].add_phase_ms('decode', t.elapsed_ms)
             self.stats.decode_tokens += 1
+            _count('serving.decode_tokens')
+            if telemetry:
+                _obs.async_instant('decode', s['req'].id,
+                                   cat='serving.request',
+                                   tokens=len(s['tokens']))
             self._maybe_finish(i)
         return True
 
@@ -365,14 +453,21 @@ class GenerativeRunner:
         if r.expired():
             done, status = True, STATUS_DEADLINE
             self.stats.expired += 1
+            _count('serving.deadline_expired')
         if not done:
             return
         self.slots[slot] = None
         self.stats.leaves += 1
         self.stats.completed += 1
+        _count('serving.leaves')
         self.journal.append(('leave', r.id, self.step_no))
-        r.complete(status, {'tokens': np.asarray(s['tokens'], np.int32)})
+        if _obs.enabled():
+            _obs.event('serving.leave', model=self.name, request=r.id,
+                       slot=slot, tokens=len(s['tokens']), status=status)
+        finish_request(r, status,
+                       {'tokens': np.asarray(s['tokens'], np.int32)})
 
     def _expire(self, req):
         self.stats.expired += 1
-        req.complete(STATUS_DEADLINE)
+        _count('serving.deadline_expired')
+        finish_request(req, STATUS_DEADLINE)

@@ -14,25 +14,29 @@ Counterpart of ``paddle_tpu/serving/scheduler.py``.
 
 The paged runner's admission hooks are here too: ``pop_ready_while``
 (admission gated on free KV pages, strict FIFO), ``push_front``
-(re-admission past the capacity check) and ``reap_expired``.
+(re-admission past the capacity check) and ``reap_expired``; and
+``remove``, which ``ServingEngine.cancel`` withdraws a queued request
+with (status ``'cancelled'``). Each request carries its ``tenant``
+(``'default'`` unless the caller names one), which
+``admission.WeightedFairQueue`` orders by.
 
-The reference's ``observability.timing.Stopwatch`` and
-``resilience.watchdog.WatchdogTimeout`` are replaced by the small
-``Stopwatch`` and ``WatchdogTimeout`` below. Cancellation comes with the
-rest of serving.
+The reference's ``resilience.watchdog.WatchdogTimeout`` is replaced by
+the small ``WatchdogTimeout`` below.
 """
 import collections
 import itertools
 import threading
-import time
+
+from ..observability.timing import Stopwatch
 
 __all__ = ['QueueFullError', 'WatchdogTimeout', 'Stopwatch', 'Request',
            'Response', 'PendingRequest', 'AdmissionQueue', 'STATUS_OK',
-           'STATUS_DEADLINE', 'STATUS_ERROR']
+           'STATUS_DEADLINE', 'STATUS_ERROR', 'STATUS_CANCELLED']
 
 STATUS_OK = 'ok'
 STATUS_DEADLINE = 'deadline'
 STATUS_ERROR = 'error'
+STATUS_CANCELLED = 'cancelled'   # the caller withdrew it while queued
 
 _WAIT_TICK = 0.05
 _ids = itertools.count(1)
@@ -41,21 +45,6 @@ _ids = itertools.count(1)
 class WatchdogTimeout(TimeoutError):
     """A bounded wait ran out (no response in time, or the engine stopped
     with the request in flight)."""
-
-
-class Stopwatch:
-    """Monotonic elapsed time since construction."""
-
-    __slots__ = ('_t0',)
-
-    def __init__(self):
-        self._t0 = time.perf_counter()
-
-    def elapsed(self):
-        return time.perf_counter() - self._t0
-
-    def elapsed_ms(self):
-        return 1000.0 * self.elapsed()
 
 
 class QueueFullError(RuntimeError):
@@ -117,17 +106,19 @@ class Request:
     """One inference request moving through the engine. ``inputs`` is a
     dict name -> per-example numpy array (no batch axis), or
     ``{'tokens': int array [L]}`` (+ ``max_new_tokens``) for generative
-    models."""
+    models; ``tenant`` names who sent it."""
 
     __slots__ = ('id', 'model', 'inputs', 'deadline_ms', 'max_new_tokens',
-                 'sw', 'queue_ms', 'phase_ms', '_event', 'response')
+                 'tenant', 'sw', 'queue_ms', 'phase_ms', '_event', 'response')
 
-    def __init__(self, model, inputs, deadline_ms=None, max_new_tokens=None):
+    def __init__(self, model, inputs, deadline_ms=None, max_new_tokens=None,
+                 tenant=None):
         self.id = next(_ids)
         self.model = model
         self.inputs = inputs
         self.deadline_ms = None if deadline_ms is None else float(deadline_ms)
         self.max_new_tokens = max_new_tokens
+        self.tenant = tenant or 'default'   # admission.DEFAULT_TENANT
         self.sw = Stopwatch()          # lifetime clock, started at submit
         self.queue_ms = 0.0
         self.phase_ms = {}             # runner-attributed wall ms per phase
@@ -245,6 +236,17 @@ class AdmissionQueue:
         for r in ready + expired:
             r.queue_ms = r.sw.elapsed_ms()
         return ready, expired
+
+    def remove(self, req):
+        """Withdraw ``req`` if it is still queued. True when it was removed
+        (no runner popped it), False when a runner already owns it: it
+        then runs to completion."""
+        with self._lock:
+            try:
+                self._dq.remove(req)
+            except ValueError:
+                return False
+        return True
 
     def reap_expired(self):
         """Remove and return every expired request anywhere in the queue

@@ -61,7 +61,7 @@ def main():
     for _ in range(args.sessions):
         for what, cycles in (('one sleep', 1000),
                              ('one 20 ms sleep', LONG_SLEEP_CYCLES)):
-            by_name, _, _, launched, slept = cs._profile_session(
+            by_name, _, _, launched, slept, _ = cs._profile_session(
                 run, 1, cycles)
             caught = sum(n for name, (_, n) in by_name.items()
                          if ROUTE in name)

@@ -407,12 +407,14 @@ def test_paged_knobs_apply_only_to_generative_models(side):
                                num_pages=8)
 
 
-@pytest.mark.parametrize("kw", [dict(jit_compile=False),
+@pytest.mark.parametrize("kw", [dict(jit_compile=True),
                                 dict(artifact_dir='/nonexistent'),
-                                dict(slo_ms=10), dict(quantize='int8')],
+                                dict(program=object()),
+                                dict(quantize='int8')],
                          ids=lambda kw: next(iter(kw)))
 def test_later_slices_still_raise(kw):
-    with pytest.raises(NotImplementedError, match='not ported'):
+    with pytest.raises(NotImplementedError,
+                       match='not ported.*Queue 1 item 7'):
         _engine(tserving).register('m', generative=_lm(tserving), **kw)
 
 
