@@ -65,7 +65,7 @@ Phases, each printing one JSON line:
    plain versions, SLO and tenant tallies as the responses give them),
    then threaded behind ``start_endpoint(port=0)`` with three client
    threads, ``/metrics`` against ``stats()``, ``/healthz``, ``/events``,
-   ``/timeseries``, ``/diagnosis`` (501), ``kill()`` and
+   ``/timeseries``, ``/diagnosis`` (the doctor's findings), ``kill()`` and
    ``EngineDeadError``; phase 7's waves with telemetry off, on, on and
    off (each with phase 7's launches and outputs bit for bit; off with its
    host syncs, on with at most the sampled syncs more; req/s of each);
@@ -184,8 +184,23 @@ Phases, each printing one JSON line:
    within twice the spread of two uninterrupted runs; the checkpoint's
    bytes, a sync save's ms, an async save's stall (at most a tenth of the
    sync save's), commit ms, the device memory its snapshot adds, step ms
-   with and without a commit in flight, restore ms. It runs last: after
-   it a profiler session loses its first device events (PERF.md, 7).
+   with and without a commit in flight, restore ms. After it a profiler
+   session loses its first device events (PERF.md, 7): no profile runs
+   after it;
+25. train telemetry — the training side's telemetry at train fit's
+   configuration (24 layers, 10 dispatches of 2 steps a fit, under
+   ``deterministic()``): fits with telemetry off, on, on and off with the
+   same launches, bitwise the same losses and at most the ``engine.step``
+   span's sampled host syncs more; the first telemetry-on fit's cost
+   ledger entry (FLOPs within ``LEDGER_FLOPS_TOL`` of ``fit_flops``, its
+   bytes, peak against the fit's own, roofline at the card's peaks; the
+   doctor's ``memory_pressure`` quiet at the card's budget, warning and
+   critical at 1.1x and 0.9x the peak); a fit with one sync save and one
+   with one async save through a ``RankFlusher`` into a run dir, merged by
+   ``aggregate`` and diagnosed: ``checkpoint_stall`` after the sync save
+   only; ``Model.fit`` (jit, one epoch) with the ``TelemetryCallback``
+   attached by itself, ``/diagnosis`` and ``/costs`` from a live endpoint
+   equal to the in-process values, a flight dump carrying the ledger.
 
 Every kernel row carries ``share_of_bound`` (bound ms over kernel ms) and
 the achieved TFLOP/s and TB/s beside the library call's time. Then a
@@ -193,7 +208,8 @@ the achieved TFLOP/s and TB/s beside the library call's time. Then a
 level and under ``bf16``, fp32 under ``fp32``, fp16 under ``fp16``, the
 GPT cases under ``gpt``, launches by path: ``serve``,
 ``serve_tenants``, the training paths, ``train_resume``, ``nn.RMSNorm``,
-``generate``, ``serve_generative`` and ``hapi_fit``) and,
+``generate``, ``serve_generative``, ``hapi_fit`` and ``train_telemetry``)
+and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero; without a CUDA device (or without the package beside this file)
 it exits non-zero and prints no result. fp32 matrix products run in full
@@ -4294,9 +4310,14 @@ def phase_serve_tenants(seed, card, serve):
         raise AssertionError(f"serve_tenants: /healthz {health_code} "
                              f"{health}")
     routes = {r: c for r, (c, _) in scraped.items()}
+    diagnosed = json.loads(scraped['/diagnosis'][1])
     if routes != {'/metrics': 200, '/healthz': 200, '/events?n=5': 200,
-                  '/timeseries': 200, '/diagnosis': 501}:
-        raise AssertionError(f"serve_tenants: routes {routes}")
+                  '/timeseries': 200, '/diagnosis': 200} or not all(
+                      set(d) == {'cause', 'severity', 'detail', 'fix',
+                                 'evidence'}
+                      and d['cause'] != 'doctor_error' for d in diagnosed):
+        raise AssertionError(f"serve_tenants: routes {routes}, "
+                             f"/diagnosis {diagnosed}")
     if dead is None or leftover or srv._httpd is not None:
         raise AssertionError(f"serve_tenants: submit after kill "
                              f"{dead!r}, threads left {leftover}")
@@ -4416,6 +4437,8 @@ def phase_serve_tenants(seed, card, serve):
                      'max_abs_err_vs_alone_plain': max(errs),
                      'tolerance': TOL},
           'threaded': {'clients': len(clients), 'seconds': threaded_s,
+                       'diagnosis': [(d['cause'], d['severity'])
+                                     for d in diagnosed],
                        'statuses': {t: {s: v.count(s) for s in set(v)}
                                     for t, v in got_b.items()}},
           'batches': batches, 'launches': counts,
@@ -4867,6 +4890,361 @@ def phase_hapi_fit(seed, card, train_step_ms):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the training side's telemetry: engine.fit and Model.fit with it on, the
+# cost ledger, the rank flusher and aggregator, the doctor
+# ---------------------------------------------------------------------------
+
+# the ledger's count of train_fit's first dispatch against fit_flops()
+LEDGER_FLOPS_TOL = 0.05
+# the doctor's memory_pressure, fed the ledger's peak: quiet at the card's
+# budget, warning at a budget of 1.1x the peak, critical at 0.9x
+PRESSURE_BUDGETS = {'warning': 1.1, 'critical': 0.9}
+
+
+def fit_flops(cfg, batch, seq, masked, k):
+    """The operations one dispatch of ``train_fit``'s step does (``k``
+    steps), counted as the cost ledger counts them: every matrix product
+    at 2 m n k, forward and both backward products (the tied MLM decoder,
+    the pooler and NSP head included); each kernel's own work by its
+    formula (attention 4 + 6 + 8 operations a query-key pair and head
+    dim, the forward, dQ and dK/dV; add+LayerNorm 9 and LayerNorm 8 an
+    element; the mask gradient 1); elementwise torch ops 0 (the flop
+    counter counts none) -> {part: operations}."""
+    T, H, F = batch * seq, cfg.hidden_size, cfg.intermediate_size
+    L, heads, V = cfg.num_hidden_layers, cfg.num_attention_heads, \
+        cfg.vocab_size
+    M, d = batch * masked, H // heads
+    forward = (L * 2 * T * (4 * H * H + 2 * H * F)     # q, k, v, out, FFN
+               + 2 * M * H * H + 2 * M * H * V          # MLM head, decoder
+               + 2 * batch * H * H + 2 * batch * H * 2)  # pooler, NSP
+    parts = {'products': 3 * forward,                  # forward, dX, dW
+             'attention': L * 18 * batch * heads * seq * seq * d,
+             'add_layer_norm': 2 * L * 9 * T * H,
+             'layer_norm': 8 * (T + M) * H,
+             'dropout_grad': 2 * L * T * H}
+    return {n: float(k * v) for n, v in parts.items()}
+
+
+def _telemetry_fit(seed, cfg, data, on, **kw):
+    """``train_fit``'s recipe (O1 fp16, ``GradScaler``, ``NanGuard``,
+    microbatch 2, Lamb with the clip under ``fit_schedule``) through
+    ``engine.fit`` on a fresh model from ``seed``, telemetry on or off,
+    under the sync debug mode's count -> (report, host syncs, where, the
+    launches, wall s, the peak bytes the fit added over what was
+    allocated before its model)."""
+    from paddle_tpu_torch import amp, engine, kernels
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.resilience import NanGuard
+    from paddle_tpu_torch.text.bert import BertForPretraining
+    dev = torch.device('cuda', 0)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = BertForPretraining(cfg, device=dev, generator=gen).train()
+    opt, _ = fit_optimizer()
+    if on:
+        obs.enable()
+    else:
+        obs.disable()
+
+    def run():
+        with amp.auto_cast(level='O1', dtype='float16'):
+            return engine.fit(model, model.pretraining_loss, opt, data,
+                              microbatch=2, log_every=FIT_LOG_EVERY,
+                              nan_guard=NanGuard(), scaler=GradScaler(),
+                              prefetch=2, **kw)
+    try:
+        kernels.reset_launch_counts()       # the path: one fit call
+        t0 = time.perf_counter()
+        report, syncs, where = _count_syncs(run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()    # ... read right after it
+    finally:
+        obs.disable()
+    peak = torch.cuda.max_memory_allocated() - held
+    report.pop('state')
+    del model, opt
+    torch.cuda.empty_cache()
+    return report, syncs, where, counts, wall, peak
+
+
+def _add_counts(total, counts):
+    for n, c in counts.items():
+        total[n] = total.get(n, 0) + c
+
+
+def _checkpoint_run(seed, cfg, data, root, async_save):
+    """One ``_telemetry_fit`` with a ``RankFlusher`` into a run dir and one
+    save at the epoch's end, sync or async; then ``aggregate.write_merged``
+    and the doctor over the merged events, the rank's snapshot and the
+    cluster snapshot -> (the fit's launches, the causes and severities,
+    the checkpoint.* histograms, the merged files)."""
+    from paddle_tpu_torch import observability as obs
+    obs.reset()
+    run_dir = os.path.join(root, 'run_async' if async_save else 'run_sync')
+    obs.enable()
+    flusher = obs.start_rank_flusher(run_dir)
+    if flusher is None:
+        raise AssertionError("train_telemetry: no rank flusher started")
+    try:
+        report, _, _, counts, wall, _ = _telemetry_fit(
+            seed, cfg, data, True,
+            checkpoint=os.path.join(root, 'ckpt_async' if async_save
+                                    else 'ckpt_sync'),
+            checkpoint_every=0, async_save=async_save)
+    finally:
+        obs.enable()
+        obs.stop_rank_flusher()
+        obs.disable()
+    merged = obs.aggregate.write_merged(run_dir)
+    cluster = obs.aggregate.cluster_snapshot(run_dir)
+    head = obs.aggregate.load_rank_snapshots(run_dir)[0]
+    found = obs.doctor.diagnose(events=obs.aggregate.merged_events(run_dir),
+                                snapshot=head['metrics'], cluster=cluster)
+    hists = {k: v for k, v in head['metrics']['histograms'].items()
+             if k.startswith(('checkpoint.', 'engine.step'))}
+    if report['checkpoints'] != 1 or not merged or \
+            head['metrics']['counters'].get('checkpoint.saves') != 1:
+        raise AssertionError(f"train_telemetry: checkpoint run "
+                             f"{report}, merged {merged}, "
+                             f"{head['metrics']['counters']}")
+    shutil.rmtree(os.path.join(root, 'ckpt_async' if async_save
+                               else 'ckpt_sync'), ignore_errors=True)
+    return counts, [(d['cause'], d['severity']) for d in found], hists, {
+        'merged': {k: os.path.basename(v) if isinstance(v, str) else v
+                   for k, v in merged.items()},
+        'flushes': flusher.flushes, 'fit_s': wall,
+        'ranks': cluster['n_ranks']}
+
+
+def phase_train_telemetry(seed, card):
+    """The training side's telemetry at BERT-large width (24 layers, batch
+    8 x 512, ``train_fit``'s recipe through ``engine.fit``, 10 dispatches
+    of 2 steps a fit, under ``deterministic()``):
+
+    1. four fits from one seed with telemetry off, on, on, off: the same
+       launches, bitwise the same losses, host syncs with it on at most
+       ceil(10 / ``sync_every``) = 1 more (the ``engine.step`` span's
+       sampled wait); step ms (each fit's wall over its steps) printed,
+       not held;
+    2. a fit with one sync save and a ``RankFlusher`` into a run dir,
+       ``aggregate.write_merged``, the doctor over the merged events, the
+       rank's snapshot and the cluster snapshot: ``checkpoint_stall``
+       named; then with one async save: quiet; the ``checkpoint.*``
+       histograms printed;
+    3. the first telemetry-on fit's cost-ledger entry: FLOPs within
+       ``LEDGER_FLOPS_TOL`` of ``fit_flops``, bytes, peak against the fit's
+       own ``max_memory_allocated``, the roofline at the card's peaks;
+       the doctor's ``memory_pressure`` quiet at the card's budget,
+       warning and critical at ``PRESSURE_BUDGETS`` x the peak;
+    4. ``Model.fit`` on ``phase_hapi_fit``'s model, jit, one epoch, with
+       telemetry on: a ``TelemetryCallback`` attached by itself, one
+       ``step`` event a step, ``input_bound`` quiet; ``/diagnosis`` and
+       ``/costs`` from a live endpoint equal to the in-process values; a
+       flight dump carrying the ledger's summary.
+    -> the launches of every telemetry-on run, each zeroed before it and
+    read after it."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.text.bert import bert_large
+    cfg = bert_large()
+    k = 2
+    x, y = _pretraining_batch(np.random.RandomState(seed), TRAIN_BATCH,
+                              cfg.vocab_size)
+    data = [(x, y)] * (k * FIT_DISPATCHES)
+    root = tempfile.mkdtemp(prefix='train_telemetry_')
+    t_phase = time.perf_counter()
+    path = {}
+    row = {'phase': 'train_telemetry', 'model': 'bert_large pretraining',
+           'entry': 'engine.fit, hapi.Model.fit', 'card': card,
+           'batch': [TRAIN_BATCH, SEQ], 'microbatch': k,
+           'dispatches_per_fit': FIT_DISPATCHES,
+           'dtype': 'amp.auto_cast O1 float16 on fp32 parameters',
+           'sync_every': obs.sync_every()}
+    try:
+        obs.disable()
+        obs.reset()
+        # 1. off, on, on, off
+        turns, ledger = [], None
+        with deterministic() as nondeterministic:
+            for on in TELEMETRY_TURNS:
+                obs.reset()
+                report, syncs, where, counts, wall, peak = _telemetry_fit(
+                    seed, cfg, data, on)
+                turns.append({'telemetry': on, 'losses': report['loss'],
+                              'host_syncs': syncs, 'sync_sites': where,
+                              'launches': counts, 'fit_s': wall,
+                              'step_ms': 1e3 * wall / report['steps'],
+                              'peak_bytes': peak,
+                              'spans': obs.snapshot()['counters'].get(
+                                  'engine.step.calls', 0),
+                              # the first dispatch's is the capture's
+                              'engine_step_ms': obs.snapshot()[
+                                  'histograms'].get('engine.step_ms')})
+                if on:
+                    _add_counts(path, counts)
+                    if ledger is None:
+                        (ledger,) = obs.costs.ledger()
+                        first_on = turns[-1]
+        off = [t for t in turns if not t['telemetry']]
+        budget = -(-FIT_DISPATCHES // max(obs.sync_every(), 1))
+        for t in turns:
+            if t['launches'] != turns[0]['launches'] or \
+                    t['losses'] != turns[0]['losses']:
+                raise AssertionError(
+                    f"train_telemetry: telemetry {t['telemetry']} changed "
+                    f"the fit: launches {t['launches']} against "
+                    f"{turns[0]['launches']}, losses {t['losses']} against "
+                    f"{turns[0]['losses']}")
+            if t['telemetry'] and (t['host_syncs'] > min(
+                    o['host_syncs'] for o in off) + budget or
+                    t['spans'] != FIT_DISPATCHES):
+                raise AssertionError(
+                    f"train_telemetry: {t['host_syncs']} host syncs with "
+                    f"telemetry on ({t['spans']} engine.step spans), off "
+                    f"{[o['host_syncs'] for o in off]}, at most {budget} "
+                    f"more: {t['sync_sites']}")
+        row['turns'] = turns
+        row['ops_without_a_deterministic_version'] = nondeterministic
+        row['host_sync_budget_on'] = budget
+        on_ms = [t['step_ms'] for t in turns if t['telemetry']]
+        off_ms = [t['step_ms'] for t in off]
+        row['step_ms_on_over_off'] = sum(on_ms) / sum(off_ms)
+
+        # 3. the ledger entry of the first telemetry-on fit's step
+        want = fit_flops(cfg, TRAIN_BATCH, SEQ, max(SEQ * 15 // 100, 1), k)
+        analytic = sum(want.values())
+        peaks = obs.costs.device_peaks('gpu')
+        own_peak = first_on['peak_bytes']
+        entry = {key: ledger[key] for key in (
+            'program', 'kind', 'flops', 'bytes_accessed', 'peak_bytes',
+            'argument_bytes', 'output_bytes', 'temp_bytes', 'alias_bytes')}
+        entry.update(
+            meta=ledger['meta'], roofline=obs.costs.roofline(
+                ledger['flops'], ledger['bytes_accessed'], 'gpu'),
+            analytic_flops=analytic, analytic_parts=want,
+            flops_over_analytic=ledger['flops'] / analytic,
+            fit_own_peak_bytes=own_peak,
+            peak_over_fit_own_peak=ledger['peak_bytes'] / own_peak,
+            card_peaks=peaks,
+            measured_dispatch_ms=2 * first_on['step_ms'],
+            off_dispatch_ms=2 * min(off_ms))
+        entry['roofline_share_of_off_dispatch'] = \
+            entry['roofline']['est_ms'] / entry['off_dispatch_ms']
+        gauge = {'gauges': {f"cost.peak_bytes{{program={ledger['program']}}}":
+                            ledger['peak_bytes']}}
+        pressure = {'card': [(d['severity'], d['evidence']['budget_bytes'])
+                             for d in obs.doctor.detect_memory_pressure(
+                                 snapshot=gauge)],
+                    'card_budget': obs.costs.hbm_budget()}
+        for severity, times in PRESSURE_BUDGETS.items():
+            found = list(obs.doctor.detect_memory_pressure(
+                snapshot=gauge, hbm_budget=int(times * ledger['peak_bytes'])))
+            pressure[f'{times}x'] = [(d['severity'], d['evidence']['ratio'])
+                                     for d in found]
+            if [d['severity'] for d in found] != [severity]:
+                raise AssertionError(f"train_telemetry: memory_pressure at "
+                                     f"{times}x the peak: {found}")
+        entry['memory_pressure'] = pressure
+        row['ledger'] = entry
+        if abs(entry['flops_over_analytic'] - 1.0) > LEDGER_FLOPS_TOL or \
+                pressure['card'] or not ledger['meta']['peak_measured']:
+            raise AssertionError(f"train_telemetry: the ledger's entry "
+                                 f"{entry}")
+
+        # 2. checkpoints through the rank flusher and the aggregator
+        ckpt = {}
+        for async_save in (False, True):
+            counts, causes, hists, files = _checkpoint_run(
+                seed, cfg, data, root, async_save)
+            _add_counts(path, counts)
+            ckpt['async' if async_save else 'sync'] = {
+                'diagnosis': causes, 'histograms': hists, **files}
+        named = [c for c, _ in ckpt['sync']['diagnosis']]
+        quiet = [c for c, _ in ckpt['async']['diagnosis']]
+        # train_resume's measurements of the same state (PERF.md, 5)
+        ckpt['train_resume_measured'] = {'sync_save_ms': 11180.0,
+                                         'async_stall_ms': 32.3,
+                                         'async_commit_ms': 12100.0}
+        row['checkpoints'] = ckpt
+        # a detector that raised is a 'doctor_error' finding: a failure
+        if 'checkpoint_stall' not in named or 'checkpoint_stall' in quiet \
+                or 'doctor_error' in named + quiet:
+            raise AssertionError(f"train_telemetry: checkpoint_stall after "
+                                 f"a sync save {named}, async only {quiet}")
+
+        # 4. Model.fit with telemetry on
+        row['hapi'], counts = _telemetry_hapi(seed, root)
+        _add_counts(path, counts)
+    finally:
+        obs.disable()
+        obs.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    row['phase_s'] = time.perf_counter() - t_phase
+    row['launches'] = path
+    emit(row)
+    return {n: path.get(n, 0) for n in SOURCES}
+
+
+def _telemetry_hapi(seed, root):
+    """Part 4 of ``phase_train_telemetry`` -> (a row, the fit's
+    launches)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import observability as obs
+    obs.reset()
+    obs.enable(log_dir=os.path.join(root, 'hapi_log'))
+    srv = None
+    try:
+        model = _hapi_model(seed, 24, 0.1, True)
+        train, _ = _hapi_sets(seed + 6, HAPI_TRAIN, HAPI_EVAL, 30522)
+        kernels.reset_launch_counts()       # the path: Model.fit
+        np.random.seed(seed)
+        model.fit(train, batch_size=TRAIN_BATCH, epochs=1, shuffle=True,
+                  num_workers=2, verbose=0, log_freq=1)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()    # ... read right after it
+        log = obs.event_log()
+        kinds = [e['ev'] for e in log]
+        steps = HAPI_TRAIN // TRAIN_BATCH
+        diagnosis = [(e['cause'], e['severity']) for e in log
+                     if e['ev'] == 'diagnosis']
+        wait = obs.snapshot()['histograms'].get('dataloader.next_wait_ms')
+        srv = obs.MetricsServer(port=0).start()
+        scraped = {r: _http_get(srv.url + r) for r in ('/diagnosis',
+                                                       '/costs')}
+        inproc = {'/diagnosis': srv.diagnosis(), '/costs': srv.costs()}
+        same = {r: scraped[r][0] == 200 and json.loads(scraped[r][1]) ==
+                json.loads(json.dumps(inproc[r], sort_keys=True,
+                                      default=repr)) for r in scraped}
+        dumped = obs.flight.dump('train_telemetry_probe',
+                                 run_dir=os.path.join(root, 'flight'))
+        dump = obs.flight.load_dump(dumped) if dumped else None
+        out = {'steps': steps, 'step_events': kinds.count('step'),
+               'events': sorted(set(kinds)), 'diagnosis': diagnosis,
+               'loader_wait_ms': wait, 'endpoint_equal': same,
+               'ledger_programs': len(obs.costs.ledger()),
+               'flight_dump_costs': dump.get('costs') if dump else None,
+               'exports': sorted(os.listdir(os.path.join(root,
+                                                         'hapi_log')))}
+    finally:
+        if srv is not None:
+            srv.stop()
+        obs.disable()
+    if kinds[:1] != ['train_begin'] or out['step_events'] != steps or \
+            {'input_bound', 'doctor_error'} & {c for c, _ in diagnosis} or \
+            not all(same.values()) or not out['flight_dump_costs'] or \
+            not out['flight_dump_costs']['programs'] or \
+            not {'events.jsonl', 'trace.json'} <= set(out['exports']):
+        raise AssertionError(f"train_telemetry: Model.fit {out}")
+    del model
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 SOURCES = {
     'flash_attention_fwd': ('paddle_tpu_torch/kernels/csrc/flash_attention.cu',
                             'paddle_tpu/kernels/flash_attention.py:95'),
@@ -4949,6 +5327,9 @@ def main():
     # events (PERF.md, section 7), and every profile phase counts them
     resumed = phase_train_resume(args.seed, card)
     torch.cuda.empty_cache()
+    # no profile follows: the training side's telemetry runs after it
+    telemetry = phase_train_telemetry(args.seed, card)
+    torch.cuda.empty_cache()
     # launches: each main path's counts, zeroed just before the path and
     # read just after (serving: 21 batches; serve_tenants: the tenants
     # engine's pumped and threaded batches; each training run: 20 steps;
@@ -4956,7 +5337,9 @@ def main():
     # full-width fit, 6 steps; nn.RMSNorm: 18 forwards and their
     # backward; generate: 5 calls of GPT's generate; serve_generative: the
     # engine's four generative runs, which launch none; hapi_fit: two
-    # Model.fit calls, 24 steps, and 12 eval-mode forwards); the top-level
+    # Model.fit calls, 24 steps, and 12 eval-mode forwards; train_telemetry:
+    # its telemetry-on runs, two engine.fit calls and two with a checkpoint,
+    # 20 steps each, and a Model.fit of 6 steps); the top-level
     # numbers are bf16's, the dtype of the reference's training recipe,
     # and ``gpt`` holds the fp32 cases at generate's shapes
     paths = {'serve': served, 'serve_tenants': served_tenants,
@@ -4965,7 +5348,7 @@ def main():
              'train_fp16_amp': trained_amp, 'train_fit': trained_fit,
              'train_resume': resumed, 'nn.RMSNorm': rms_path,
              'generate': generated, 'serve_generative': served_gen,
-             'hapi_fit': hapi}
+             'hapi_fit': hapi, 'train_telemetry': telemetry}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'share_of_bound', 'achieved_tflops',
             'achieved_tb_per_s')

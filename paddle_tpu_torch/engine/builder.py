@@ -61,10 +61,24 @@ a ``loss_fn`` that casts the fp32 parameters with ``.to(torch.bfloat16)``
 ``torch.func.functional_call``, or a ``FlatFusedUpdate`` with
 ``compute_dtype``. ``sharding=`` and ``in_shardings=`` raise
 ``NotImplementedError``: sharding comes with ``distributed/``.
+
+Telemetry (``PADDLE_TPU_TELEMETRY=1`` or ``observability.enable()``), as
+the reference's: each call is timed into ``engine.step`` (with the spans'
+sampled device wait on the step's losses: the 1st and every
+``sync_every``-th call waits, no other), and counted in ``engine.steps``
+(k a call) and ``engine.dispatches``; the first call runs under
+``observability.costs.capture`` (label ``cost_label``, kind
+``train_step``), which counts its FLOPs, bytes and peak memory;
+``DeviceLoss.value`` and ``sync`` count their copies to the host
+(``host_transfer.engine.loss_fetch`` / ``engine.state_sync``). With
+telemetry off none of it runs.
 """
+import itertools
+
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from ..device import resolve_device
 from ..nn import remat as _remat
 from ..nn.layer.transformer import TransformerEncoder
@@ -72,6 +86,10 @@ from ..optimizer.fused import FlatFusedUpdate
 from ..optimizer.optimizer import _each
 
 __all__ = ['build_train_step', 'TrainStep', 'StepResult', 'DeviceLoss']
+
+# cost-ledger labels: one per step built in the process (frontends that
+# care set .cost_label themselves)
+_STEP_SEQ = itertools.count()
 
 
 class DeviceLoss:
@@ -95,6 +113,8 @@ class DeviceLoss:
     def value(self):
         if self._host is None:
             self._host = float(self._value)
+            _obs.record_host_transfer(self._value.element_size(),
+                                      kind='engine.loss_fetch')
         return self._host
 
     def __float__(self):
@@ -248,6 +268,8 @@ class TrainStep:
         self._loss_fn = loss_fn
         self._trainable = trainable
         self._params_meta = params_meta
+        self.cost_label = f'engine.train_step{next(_STEP_SEQ)}'
+        self._cost_captured = False
         for name, p in params.items():
             if p.device != device:
                 raise ValueError(
@@ -395,7 +417,28 @@ class TrainStep:
         """Run one call (k steps) on ``batch``. Parameters, optimizer slots
         and the guard and scaler counters in ``state`` are updated in
         place. Returns ``(state, StepResult)``; nothing here waits for the
-        device."""
+        device (with telemetry on, the sampled calls of the ``engine.step``
+        span wait for their losses)."""
+        if not _obs.enabled():
+            return self._dispatch(state, batch)
+        out = []
+        with _obs.timer('engine.step', k=self.k,
+                        sync=lambda: out[0][1].losses if out else None):
+            if not self._cost_captured:
+                # the cost explorer counts the program's first dispatch
+                self._cost_captured = True
+                out.append(_obs.costs.capture(
+                    self.cost_label, self._dispatch, state, batch,
+                    kind='train_step',
+                    meta={'microbatch': self.k, 'donates': False,
+                          'sharded': False}))
+            else:
+                out.append(self._dispatch(state, batch))
+        _obs.counter('engine.steps').inc(self.k)
+        _obs.counter('engine.dispatches').inc()
+        return out[0]
+
+    def _dispatch(self, state, batch):
         batch = self._to_device(batch)
         if self.k == 1:
             loss, outs = self._one_step(state, batch)
@@ -516,6 +559,11 @@ class TrainStep:
                 for k in state[slot]]
         if not keys:
             return {}
+        # the counters' own bytes, as the reference counts them (the copy
+        # itself carries them as float64)
+        _obs.record_host_transfer(
+            sum(state[slot][k].element_size() for slot, k in keys),
+            kind='engine.state_sync')
         # float64 holds every int32 counter and the fp32 scale exactly
         values = torch.stack([state[slot][k].to(torch.float64)
                               for slot, k in keys]).tolist()

@@ -52,21 +52,28 @@ sharded format with one rank):
   call; the in-flight save is fenced (finished or abandoned) first, then a
   last synchronous save commits, and the report has ``preempted: True``.
 
-Multi-process runs (``world``, ``rank``), ``sharding``, the serving export
-(``serve_artifacts``, ``serve_generative``) and telemetry
-(``PADDLE_TPU_TELEMETRY=1`` or ``observability.enable()``: the loop's and
-the checkpoints' telemetry, ROADMAP.md Queue 1 item 4b) raise
+Telemetry (``PADDLE_TPU_TELEMETRY=1`` or ``observability.enable()``), as
+the reference's: the step's ``engine.step`` / ``engine.steps`` /
+``engine.dispatches`` and its cost-ledger entry (``build_train_step``),
+the prefetcher's ``dataloader.prefetch_depth``, a ``DataLoader``'s own,
+the checkpoints' ``checkpoint.*``, the guard's ``nan_guard.*``, and the
+loop's ``engine.dropped_batches`` (microbatch groups it could not fill)
+and ``checkpoint.preempt_fence_error`` event (a preemption's fence that
+failed). It changes no launch and no loss; host syncs grow by the
+``engine.step`` span's sampled waits only.
+
+Multi-process runs (``world``, ``rank``), ``sharding`` and the serving
+export (``serve_artifacts``, ``serve_generative``) raise
 ``NotImplementedError``.
 """
 import itertools
-import os
 import time
 import warnings
 
 import numpy as np
 import torch
 
-from .. import observability
+from .. import observability as _obs
 from ..device import resolve_device
 from ..io import DevicePrefetcher
 from ..resilience import (CheckpointManager, PreemptionGuard, capture_rng,
@@ -83,9 +90,6 @@ _LATER = {
                        "(ROADMAP.md, Queue 1 item 7)",
     'serve_generative': "the generative serving export comes with "
                         "compilecache/ (ROADMAP.md, Queue 1 item 7)",
-    'telemetry': "the loop's and the checkpoints' telemetry comes with the "
-                 "training half of observability/ (ROADMAP.md, Queue 1 "
-                 "item 4b)",
 }
 
 
@@ -169,6 +173,8 @@ def _grouped(data, k):
             group = []
     dropped += len(group)
     if dropped:
+        if _obs.enabled():
+            _obs.counter('engine.dropped_batches').inc(dropped)
         warnings.warn(
             "engine.fit(microbatch=%d): dropped %d batch(es) whose shape "
             "differed from the first batch, or that did not fill the last "
@@ -201,9 +207,7 @@ def fit(network, loss, optimizer, data, *, epochs=1, microbatch=1,
     asked = {'world': world is not None, 'rank': rank is not None,
              'sharding': sharding is not None,
              'serve_artifacts': serve_artifacts is not None,
-             'serve_generative': serve_generative is not None,
-             'telemetry': (os.environ.get('PADDLE_TPU_TELEMETRY', '') == '1'
-                           or observability.enabled())}
+             'serve_generative': serve_generative is not None}
     for option, on in asked.items():
         if on:
             raise NotImplementedError(
@@ -292,8 +296,9 @@ def fit(network, loss, optimizer, data, *, epochs=1, microbatch=1,
                     # earlier background save must not stop this one
                     try:
                         mgr.fence(timeout=_PREEMPT_FENCE_S, abandon=True)
-                    except Exception:
-                        pass
+                    except Exception as e:
+                        _obs.event('checkpoint.preempt_fence_error',
+                                   error=repr(e))
                     save_now(epoch, dispatch_in_epoch, async_ok=False)
                     report['preempted'] = True
                     return _finish(report, t0, step, state, network,

@@ -10,19 +10,20 @@ generators — at the save point and at the epoch's start. An async save
 snapshots the state on the training thread in stream order
 (``CheckpointManager.save(async_=True)`` through ``secure_for_async``),
 because the eager ``optimizer.step()`` updates the saved tensors in place.
-``VisualDL`` stamps its records with ``time.time()``. ``TelemetryCallback``
-comes with ROADMAP.md, Queue 1 item 4b.
+``VisualDL`` stamps its records with ``observability.wall_ts()``.
+``TelemetryCallback`` lives in ``observability.callback`` and is exported
+here lazily (it subclasses ``Callback``).
 """
 import json
 import os
-import time
 
 import numpy as np
 
 from .progressbar import ProgressBar
 
 __all__ = ['Callback', 'ProgBarLogger', 'ModelCheckpoint', 'LRScheduler',
-           'EarlyStopping', 'VisualDL', 'CallbackList', 'CheckpointSaver']
+           'EarlyStopping', 'VisualDL', 'CallbackList', 'CheckpointSaver',
+           'TelemetryCallback']
 
 
 class Callback:
@@ -341,7 +342,8 @@ class VisualDL(Callback):
         self._f = open(os.path.join(self.log_dir, 'scalars.jsonl'), 'a')
 
     def on_train_batch_end(self, step, logs=None):
-        rec = {'step': self._step, 'ts': time.time()}
+        from ..observability import wall_ts
+        rec = {'step': self._step, 'ts': wall_ts()}
         for k, v in _numbers(logs):
             rec[k] = float(v)
         self._f.write(json.dumps(rec) + '\n')
@@ -351,3 +353,12 @@ class VisualDL(Callback):
         if self._f:
             self._f.close()
             self._f = None
+
+
+def __getattr__(name):
+    # TelemetryCallback lives in observability (which imports Callback from
+    # this module); resolved lazily to keep the import graph acyclic
+    if name == 'TelemetryCallback':
+        from ..observability.callback import TelemetryCallback
+        return TelemetryCallback
+    raise AttributeError(name)

@@ -38,11 +38,15 @@ what ``loss(*outputs, *labels)`` takes after the network's outputs.
   reference's loop; ``Accuracy`` computes on the device and moves only
   its (..., maxk) correctness tensor.
 
+- Telemetry on (``PADDLE_TPU_TELEMETRY=1`` or ``observability.enable()``):
+  ``fit`` puts an ``observability.TelemetryCallback`` first among the
+  callbacks unless the caller passed one (step events and spans, the
+  ``hapi.*`` metrics, ``events.jsonl`` and ``trace.json`` at the end, the
+  doctor's findings), and ``evaluate`` emits an ``eval_result`` event.
+
 Raise ``NotImplementedError``: ``strategy=`` (sharded training, with
-``distributed/``, ROADMAP.md Queue 1 item 5), ``save(training=False)``
-(the inference export, with ``jit/`` and ``inference/``, item 7) and
-telemetry on (``PADDLE_TPU_TELEMETRY=1`` or ``observability.enable()``:
-fit's telemetry, with the training half of ``observability/``, item 4b).
+``distributed/``, ROADMAP.md Queue 1 item 5) and ``save(training=False)``
+(the inference export, with ``jit/`` and ``inference/``, item 7).
 """
 import os
 import warnings
@@ -64,21 +68,12 @@ _LATER = {
                 "Queue 1 item 5)",
     'training=False': "the inference export comes with jit/ and "
                       "inference/ (ROADMAP.md, Queue 1 item 7)",
-    'telemetry': "fit's telemetry (TelemetryCallback, step events, spans) "
-                 "comes with the training half of observability/ "
-                 "(ROADMAP.md, Queue 1 item 4b)",
 }
 
 
 def _later(option, where):
     return NotImplementedError(f"{where}: {option} is not ported yet: "
                                f"{_LATER[option]}")
-
-
-def _no_telemetry(where):
-    if os.environ.get('PADDLE_TPU_TELEMETRY', '') == '1' or \
-            observability.enabled():
-        raise _later('telemetry', where)
 
 
 class Model:
@@ -315,14 +310,19 @@ class Model:
         boundary and stops."""
         if strategy is not None:
             raise _later('strategy', 'Model.fit')
-        _no_telemetry('Model.fit')
         train_loader = self._to_loader(train_data, batch_size, shuffle,
                                        drop_last, num_workers)
         eval_loader = self._to_loader(eval_data, batch_size, False, False,
                                       num_workers) \
             if eval_data is not None else None
-        cbks = CallbackList([ProgBarLogger(log_freq, verbose)] +
-                            list(callbacks or []))
+        user_cbks = list(callbacks or [])
+        if observability.enabled() and not any(
+                isinstance(c, observability.TelemetryCallback)
+                for c in user_cbks):
+            # telemetry on: every fit() emits step events and spans without
+            # code changes
+            user_cbks.insert(0, observability.TelemetryCallback())
+        cbks = CallbackList([ProgBarLogger(log_freq, verbose)] + user_cbks)
         cbks.set_model(self)
         # jit path: the loss stays on the device between log points; this
         # is the materialisation (and guard/scaler reconcile) cadence
@@ -499,8 +499,8 @@ class Model:
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
                  num_workers=0, callbacks=None):
-        """-> ``{'loss': mean batch loss, <metric name>: value, ...}``."""
-        _no_telemetry('Model.evaluate')
+        """-> ``{'loss': mean batch loss, <metric name>: value, ...}``;
+        with telemetry on, also an ``eval_result`` event of them."""
         loader = self._to_loader(eval_data, batch_size, False, False,
                                  num_workers)
         for m in self._metrics:
@@ -521,6 +521,12 @@ class Model:
             vals = vals if isinstance(vals, (list, tuple)) else [vals]
             for nm, v in zip(names, vals):
                 logs[nm] = v
+        if observability.enabled():
+            # the numbers reach the event log whether or not the console
+            # line below is printed
+            observability.event('eval_result', **{
+                k: float(v) for k, v in logs.items()
+                if isinstance(v, (int, float))})
         if verbose:
             print(' - '.join(f"{k}: {v:.4f}" for k, v in logs.items()))
         return logs

@@ -30,9 +30,16 @@ reference's workers stay blocked on a full queue.
 on its native shared-memory ring (``paddle_tpu/_native/process_pool.py``,
 ``csrc/prefetch.cpp``) are not ported, so ``use_shared_memory`` and
 ``worker_max_restarts`` are accepted and change nothing, as on the
-reference's own threaded path. The reference's telemetry (queue depth,
-batch wait, stall events) comes with the training side's telemetry
-(ROADMAP.md, Queue 1 item 4b).
+reference's own threaded path.
+
+Telemetry (while enabled), as the reference's: ``dataloader.queue_depth``
+(the worker queue before each wait), ``dataloader.quarantined`` and a
+``quarantine`` event per skipped sample, ``dataloader.watchdog_timeouts``
+and a ``dataloader_watchdog`` event when a wait times out, and around
+each batch the consumer waits for: ``dataloader.next_wait_ms``,
+``dataloader.batches``, and past ``_STALL_EVENT_MS`` ``dataloader.stalls``
+and an ``input_stall`` event. ``io.DevicePrefetcher`` sets
+``dataloader.prefetch_depth``.
 """
 import itertools
 import os
@@ -43,6 +50,7 @@ import traceback
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from ..device import resolve_device
 from ..resilience import watchdog as _watchdog
 from .dataset import IterableDataset
@@ -210,6 +218,9 @@ class DataLoader:
             if len(self._quarantined) >= self.skip_bad_samples:
                 return False
             self._quarantined.append((index, repr(exc)))
+        if _obs.enabled():
+            _obs.counter('dataloader.quarantined').inc()
+            _obs.event('quarantine', index=index, error=repr(exc))
         return True
 
     def _fetch_samples(self, indices):
@@ -324,11 +335,16 @@ class DataLoader:
         finished, next_seq, pending = 0, 0, {}
         try:
             while finished < self.num_workers:
+                if _obs.enabled():
+                    _obs.gauge('dataloader.queue_depth').set(out_q.qsize())
                 try:
                     s, batch = _watchdog.bounded_get(
                         out_q, timeout=self.timeout, alive=workers_alive,
                         what='DataLoader batch')
                 except _watchdog.WatchdogTimeout as e:
+                    if _obs.enabled():
+                        _obs.counter('dataloader.watchdog_timeouts').inc()
+                        _obs.event('dataloader_watchdog', error=str(e))
                     raise DataLoaderWorkerError(
                         f"DataLoader wedged: {e}",
                         self.quarantine_report()) from e
@@ -353,13 +369,43 @@ class DataLoader:
             for t in threads:
                 _watchdog.join_thread(t, timeout=2 * _watchdog.DEFAULT_TICK)
 
+    # a single batch wait above this lands an `input_stall` event (the
+    # doctor's input-bound corroboration; the histogram alone only shows
+    # at snapshot time)
+    _STALL_EVENT_MS = 1000.0
+
+    def _timed(self, source):
+        """How long the consumer waits for each batch (assembly, collate
+        and, with a prefetcher, the upload: the stall the device sees)."""
+        it = iter(source)
+        while True:
+            sw = _obs.Stopwatch()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            if _obs.enabled():
+                wait_ms = sw.elapsed_ms()
+                _obs.histogram('dataloader.next_wait_ms').observe(wait_ms)
+                _obs.counter('dataloader.batches').inc()
+                if wait_ms >= self._STALL_EVENT_MS:
+                    _obs.counter('dataloader.stalls').inc()
+                    _obs.event('input_stall', wait_ms=round(wait_ms, 1))
+            yield b
+
     def __iter__(self):
         source = self._threaded_batches() if self.num_workers > 0 else \
             self._raw_batches()
         if self.prefetch_to_device:
-            yield from DevicePrefetcher(source, self.device,
-                                        depth=self.prefetch_to_device)
+            # _timed wraps the prefetcher: the wait the device would see
+            prefetched = DevicePrefetcher(source, self.device,
+                                          depth=self.prefetch_to_device)
+            if _obs.enabled():
+                prefetched = self._timed(prefetched)
+            yield from prefetched
             return
+        if _obs.enabled():
+            source = self._timed(source)
         if not self.use_buffer_reader:
             for b in source:
                 yield to_device(b, self.device)

@@ -13,12 +13,17 @@ read the batch only after its copies land), and every tensor handed out
 is marked as used by the current stream (``record_stream``), so the
 caching allocator does not give its memory to another tensor while the
 step still reads it. Leaves already on the device pass through. On the
-CPU (``device='cpu'``) the leaves just become tensors.
+CPU (``device='cpu'``) the leaves just become tensors. While telemetry is
+on, ``dataloader.prefetch_depth`` holds the batches still ahead when one
+is handed out (0 on the CPU, where nothing runs ahead), as the
+reference's.
 """
 import collections
 
 import numpy as np
 import torch
+
+from .. import observability as _obs
 
 __all__ = ['DevicePrefetcher', 'to_device']
 
@@ -78,6 +83,8 @@ class DevicePrefetcher:
         it = iter(self.source)
         if self.device.type != 'cuda':
             for batch in it:
+                if _obs.enabled():
+                    _obs.gauge('dataloader.prefetch_depth').set(0)
                 yield to_device(batch, self.device)
             return
         side = torch.cuda.Stream(device=self.device)
@@ -100,4 +107,6 @@ class DevicePrefetcher:
                 if t.device == self.device:
                     t.record_stream(current)
             fill()
+            if _obs.enabled():
+                _obs.gauge('dataloader.prefetch_depth').set(len(ahead))
             yield batch

@@ -17,6 +17,14 @@ instantiated for fp32, bf16 and fp16 and reads and writes its tensors in
 HBM in that dtype (statistics, ``lse``, ``delta`` and the key bias are always
 fp32); the entry point takes the code ``dtype_code`` gives.
 
+``work(kernel, formula)`` decorates each wrapper: while a listener is
+registered in ``work_listeners`` (the cost ledger's capture,
+``observability.costs``), a call tells it the operations and bytes its
+kernel does on the call's shapes, with the formulas ``chip_smoke.py``
+uses for the kernel's bound, and runs hidden from the dispatch modes that
+count torch ops, so that a plain version on the CPU counts as its kernel
+does on the card. Without a listener the wrapper runs as it is.
+
 ``use_kernels(tensor)`` is the one place that decides between a kernel and
 its plain PyTorch version: CPU tensors take the plain version, CUDA
 tensors the kernel. ``plain_versions()`` is a context manager for tests
@@ -26,6 +34,7 @@ point of the package uses it.
 """
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,7 +48,7 @@ import torch
 
 __all__ = ['BUILD_DIR', 'NVCC_FLAGS', 'KERNELS', 'DTYPES', 'launches', 'load',
            'call', 'require', 'dtype_code', 'stream', 'dropout_args',
-           'use_kernels', 'plain_versions']
+           'use_kernels', 'plain_versions', 'work', 'work_listeners']
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / 'build'
@@ -67,6 +76,9 @@ launches = dict.fromkeys(KERNELS, 0)
 # called with the milliseconds of each build that ran nvcc
 # (observability.interpose.install_build_hooks registers one)
 build_listeners = []
+# called with (kernel, operations, bytes) of each wrapper call while
+# registered (observability.costs.capture registers one for a dispatch)
+work_listeners = []
 _force_plain = False
 
 _lock = threading.Lock()
@@ -182,6 +194,28 @@ def dropout_args(p, seed, offset):
         return 0, 0, 0, 1.0
     return (int(seed) & 0xFFFFFFFFFFFFFFFF, int(offset) & 0xFFFFFFFFFFFFFFFF,
             threshold(p), 1.0 / (1.0 - p))
+
+
+def work(kernel, formula):
+    """Decorator of a kernel's wrapper: while ``work_listeners`` holds a
+    listener, each call tells it ``(kernel, *formula(*args, **kwargs))``,
+    the operations and bytes of the call, and runs with the dispatch modes
+    set aside (the kernel path's allocations and a plain version's ops are
+    counted by the formula instead)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def counted(*args, **kwargs):
+            if not work_listeners:
+                return fn(*args, **kwargs)
+            flops, nbytes = formula(*args, **kwargs)
+            if flops or nbytes:
+                for listener in list(work_listeners):
+                    listener(kernel, float(flops), float(nbytes))
+            from torch.utils._python_dispatch import _disable_current_modes
+            with _disable_current_modes():
+                return fn(*args, **kwargs)
+        return counted
+    return wrap
 
 
 def use_kernels(t):

@@ -245,6 +245,32 @@ def _backward_call(kernel, argtypes, tensors, outs, causal, scale, dropout):
                     _build.dtype_code(q), _build.stream(q.device))
 
 
+def _attention_work(kernel):
+    """The work formula of one attention kernel (``_build.work``): per
+    query-key pair and head dim 4 operations (forward: Q K^T and P V), 6
+    (dQ: the scores again, dP and dS K) or 8 (dK/dV: the scores again,
+    dP, dS^T Q and P^T dO); each (B, H, L, D) tensor read or written once
+    (forward: q, k, v, o; dQ: q, k, v, dO, dq; dK/dV: q, k, v, dO, dk,
+    dv), ``lse`` (and ``delta``) fp32 (B, H, L), and the fp32 (B, L) key
+    bias. A causal call counts the L (L + 1) / 2 pairs it computes."""
+    per, tensors, sides = {'flash_attention_fwd': (4, 4, 1),
+                           'flash_attention_dq': (6, 5, 2),
+                           'flash_attention_dkv': (8, 6, 2)}[kernel]
+
+    def formula(q, k, v, *rest, **kwargs):
+        b, h, L, d = q.shape
+        causal = rest[0] if kernel == 'flash_attention_fwd' else rest[3]
+        bias = rest[2] if kernel == 'flash_attention_fwd' else \
+            (rest[5] if len(rest) > 5 else kwargs.get('kpad_bias'))
+        pairs = L * (L + 1) // 2 if causal else L * L
+        nbytes = (tensors * q.numel() * q.element_size()
+                  + sides * 4 * b * h * L
+                  + (4 * b * L if bias is not None else 0))
+        return per * b * h * pairs * d, nbytes
+    return formula
+
+
+@_build.work('flash_attention_dq', _attention_work('flash_attention_dq'))
 def flash_attention_dq(q, k, v, do, lse, delta, causal, scale,
                        kpad_bias=None, dropout_p=0.0, seed=None, offset=None):
     """``dq`` of attention on (B, H, L, D) from the saved ``lse`` and
@@ -262,6 +288,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal, scale,
     return dq
 
 
+@_build.work('flash_attention_dkv', _attention_work('flash_attention_dkv'))
 def flash_attention_dkv(q, k, v, do, lse, delta, causal, scale,
                         kpad_bias=None, dropout_p=0.0, seed=None,
                         offset=None):
@@ -279,6 +306,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal, scale,
     return dk, dv
 
 
+@_build.work('flash_attention_fwd', _attention_work('flash_attention_fwd'))
 def _forward(q, k, v, causal, scale, kpad_bias, dropout, want_lse):
     if not _build.use_kernels(q):
         return _attn_reference(q, k, v, causal, scale, kpad_bias, *dropout)

@@ -89,6 +89,15 @@ def dropout_grad_plain(g, dropout_p, seed, offset):
                                   ct)).to(g.dtype)
 
 
+def _grad_work(g, dropout_p, seed, offset):
+    """The mask gradient's work (``_build.work``): one operation an
+    element, g read and dx written once; nothing at p = 0."""
+    if dropout_p == 0.0:
+        return 0, 0
+    return g.numel(), 2 * g.numel() * g.element_size()
+
+
+@_build.work('dropout_grad', _grad_work)
 def dropout_grad(g, dropout_p, seed, offset):
     """The dropout-mask gradient ``dx = g * keep / (1 - p)``, the mask
     regenerated from ``(seed, offset)``. CUDA tensors run the kernel (fp32,
@@ -110,6 +119,22 @@ def dropout_grad(g, dropout_p, seed, offset):
     return out
 
 
+def _add_ln_work(x, residual, weight, bias, dropout_p, epsilon, seed, offset,
+                 want_saved):
+    """dropout + add + LayerNorm's work (``_build.work``): 9 operations an
+    element; x and the residual read and y written once, yin written too
+    in training (or with dropout), the weight and bias, and the fp32 mean
+    and rstd in training."""
+    d = x.shape[-1]
+    n = x.numel() // d if d else 0
+    tensors = 4 if want_saved or dropout_p > 0.0 else 3
+    params = sum(t.numel() * t.element_size() for t in (weight, bias)
+                 if t is not None)
+    return 9 * n * d, tensors * x.numel() * x.element_size() + params + \
+        (8 * n if want_saved else 0)
+
+
+@_build.work('add_layer_norm_fwd', _add_ln_work)
 def _forward(x, residual, weight, bias, dropout_p, epsilon, seed, offset,
              want_saved):
     """-> ``(y, yin, mean, rstd)``; the last three are None unless

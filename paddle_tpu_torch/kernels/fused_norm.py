@@ -89,6 +89,19 @@ def _require_rows(x, params, name):
     return (x.numel() // d if d else 0), d
 
 
+def _ln_work(x, weight, bias, eps, want_stats):
+    """LayerNorm's work (``_build.work``): 8 operations an element; x read
+    and y written once, the weight and bias, and the fp32 mean and rstd
+    when they are kept."""
+    d = x.shape[-1]
+    n = x.numel() // d if d else 0
+    params = sum(t.numel() * t.element_size() for t in (weight, bias)
+                 if t is not None)
+    return 8 * n * d, 2 * x.numel() * x.element_size() + params + \
+        (8 * n if want_stats else 0)
+
+
+@_build.work('layer_norm_fwd', _ln_work)
 def _forward(x, weight, bias, eps, want_stats):
     """-> ``(y, mean, rstd)``; the statistics are None unless wanted."""
     if not _build.use_kernels(x):
@@ -180,6 +193,18 @@ def rms_norm_backward(g, x, weight, rstd):
     return dx, dw
 
 
+def _rms_work(x, weight, eps, want_rstd):
+    """RMSNorm's work (``_build.work``): 4 operations an element; x read
+    and y written once, the weight, and the fp32 rstd when it is kept."""
+    d = x.shape[-1]
+    n = x.numel() // d if d else 0
+    params = weight.numel() * weight.element_size() if weight is not None \
+        else 0
+    return 4 * n * d, 2 * x.numel() * x.element_size() + params + \
+        (4 * n if want_rstd else 0)
+
+
+@_build.work('rms_norm_fwd', _rms_work)
 def _rms_forward(x, weight, eps, want_rstd):
     """-> ``(y, rstd)``; ``rstd`` is None unless wanted."""
     if not _build.use_kernels(x):

@@ -1,5 +1,5 @@
 """paddle_tpu_torch.observability: the port's telemetry spine.
-Counterpart of ``paddle_tpu/observability`` (its serving half).
+Counterpart of ``paddle_tpu/observability``.
 
 - a process-wide **metrics registry** (``counter``/``gauge``/``histogram``)
   with JSONL event export and Prometheus text exposition, byte-identical
@@ -12,24 +12,30 @@ Counterpart of ``paddle_tpu/observability`` (its serving half).
 - the **SLO tracker** (``slo``), the always-on **flight recorder**
   (``flight``), the in-run **time series** (``timeseries``) and the live
   **endpoint** (``endpoint.MetricsServer``: ``/metrics``, ``/healthz``,
-  ``/events``, ``/timeseries``).
+  ``/events``, ``/diagnosis``, ``/costs``, ``/timeseries``);
+- **mission control**: per-rank telemetry flushed into a run dir
+  (``flush``), merged into one cluster snapshot and a trace with a lane a
+  rank (``aggregate``), diagnosed by the anomaly **doctor**'s detectors
+  with fix-it hints (``doctor``), the cross-run registry (``baseline``);
+- the **cost explorer** (``costs``): each program's FLOPs, bytes, peak
+  memory and roofline, counted on its first dispatch.
 
 Everything is off (one flag check a site) until ``PADDLE_TPU_TELEMETRY=1``
 or ``observability.enable()``; the flight recorder's ring is on unless
-``PADDLE_TPU_FLIGHT=0``. The serving engine, its runners and
-``serving.admission`` report here.
-
-Not ported yet (ROADMAP.md, Queue 1 item 4b): ``doctor``, ``aggregate``,
-``flush``, ``baseline``, ``costs`` and ``callback``
-(``TelemetryCallback``), and the training side's telemetry: ``hapi.Model``
-and ``engine.fit`` raise while telemetry is on.
+``PADDLE_TPU_FLIGHT=0``. The serving engine and its runners,
+``serving.admission``, ``engine.build_train_step`` and ``engine.fit``,
+the optimizers' eager ``step()``, ``resilience`` (checkpoints, retries,
+the NaN guard, the watchdog), ``io.DataLoader`` and ``hapi.Model.fit``
+(``TelemetryCallback``, attached automatically) report here.
 
 Modules here import nothing but the standard library and each other at
 import time; torch is imported inside the functions that need it.
 """
 from . import events as _events
-from . import (endpoint, flight, interpose, registry, slo,  # noqa: F401
-               spans, state, timeseries, timing)
+from . import interpose, registry, spans, state, timing  # noqa: F401
+from . import aggregate, doctor, endpoint, flush  # noqa: F401  mission ctl
+from . import costs, flight, slo  # noqa: F401  cost explorer + black box
+from . import baseline, timeseries  # noqa: F401  time series + sentinel
 from .state import disable, enable, enabled, log_dir, sync_every
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
                        counter, gauge, get_registry, histogram, snapshot,
@@ -41,7 +47,9 @@ from .timing import Stopwatch, timer
 from .interpose import (install_build_hooks, record_collective,
                         record_host_transfer)
 from .interpose import summary as counters_summary
+from .flush import start_rank_flusher, stop_rank_flusher
 from .endpoint import MetricsServer
+from .doctor import diagnose, run_doctor
 
 # event-log surface (module name 'events' is kept for the submodule; the
 # buffered-event accessor is exported as event_log to avoid shadowing it)
@@ -62,20 +70,37 @@ __all__ = [
     'event', 'event_log', 'dump_jsonl', 'set_sink', 'close_sink', 'wall_ts',
     'Stopwatch', 'timer',
     'install_build_hooks', 'record_host_transfer', 'record_collective',
-    'counters_summary', 'endpoint', 'MetricsServer', 'slo', 'flight',
-    'timeseries',
+    'counters_summary', 'TelemetryCallback',
+    # mission control
+    'aggregate', 'doctor', 'endpoint', 'flush',
+    'start_rank_flusher', 'stop_rank_flusher', 'MetricsServer',
+    'diagnose', 'run_doctor',
+    # cost explorer + SLO tracker + flight recorder
+    'costs', 'slo', 'flight',
+    # time series + cross-run regression sentinel
+    'baseline', 'timeseries',
 ]
 
 
 def reset():
-    """Clear every buffer (metrics, events, spans, SLO tallies, flight
-    ring, time-series ring): the test isolation hook."""
+    """Clear every buffer (metrics, events, spans, cost ledger, SLO
+    tallies, flight ring, time-series ring): the test isolation hook."""
     reset_metrics()
     _events.clear()
     spans.clear()
+    costs.reset()
     slo.reset()
     flight.clear()
     timeseries.clear()
+
+
+def __getattr__(name):
+    # TelemetryCallback subclasses hapi.Callback; resolving it lazily keeps
+    # this package importable before hapi is
+    if name == 'TelemetryCallback':
+        from .callback import TelemetryCallback
+        return TelemetryCallback
+    raise AttributeError(name)
 
 
 # honor PADDLE_TPU_TELEMETRY=1 from the environment: state already read the

@@ -1,20 +1,28 @@
 """Live telemetry endpoint: a stdlib HTTP server for this process.
 The port's counterpart of ``paddle_tpu/observability/endpoint.py``.
 
-A small ``ThreadingHTTPServer`` a ``ServingEngine`` (or any runtime)
-attaches, serving the process's telemetry live:
+A small ``ThreadingHTTPServer`` a ``ServingEngine``, a telemetry-on
+``Model.fit`` or any runtime attaches, serving the process's (and, given
+a run dir, the cluster's) telemetry live:
 
 - ``GET /metrics``    Prometheus text exposition of the process registry;
+                      with a run dir attached, also per-rank
+                      ``cluster.step_ms`` / ``cluster.kernel_builds`` /
+                      ``cluster.heartbeat_age_s`` series labeled
+                      ``rank=/host=``;
 - ``GET /healthz``    JSON: process liveness and uptime, plus what the
                       ``extra_health`` callable adds (a ServingEngine's
-                      queue depths, worker state and SLO burn);
+                      queue depths, worker state and SLO burn), and with a
+                      run dir the per-rank heartbeat ages; HTTP 503 when
+                      any rank's heartbeat is stale;
 - ``GET /events``     JSON tail of the event log (``?n=100&ev=kind``);
-- ``GET /timeseries`` the ring sampler's export and its timelines
+- ``GET /diagnosis``  the anomaly doctor's ranked findings as JSON;
+- ``GET /costs``      the cost explorer's ledger: per-program FLOPs,
+                      bytes, peak memory and roofline, the summary and the
+                      SLO burn rates;
+- ``GET /timeseries`` the ring sampler's export and its timelines, plus
+                      the cluster merge with a run dir
                       (``?series=page_util`` substring-filters them).
-
-``/diagnosis`` (the anomaly doctor) and ``/costs`` (the cost explorer)
-answer **501**: those modules, and the cluster view a ``run_dir=`` would
-attach (the per-rank aggregator), come with ROADMAP.md Queue 1 item 4b.
 
 Security posture: binds 127.0.0.1 unless ``PADDLE_TPU_TELEMETRY_HTTP_HOST``
 or ``host=`` says otherwise: a diagnostics port, not a public service; no
@@ -32,11 +40,9 @@ from urllib.parse import parse_qs, urlparse
 from . import events, registry, state, timing
 
 __all__ = ['MetricsServer', 'maybe_start_from_env', 'active_server',
-           'detach_health', 'stop_active_server', 'LATER']
+           'detach_health', 'stop_active_server', 'STALE_HEARTBEAT_S']
 
-# what the routes and options that wait answer with
-LATER = ("not ported yet: the anomaly doctor, the cost explorer and the "
-         "cluster aggregator come with ROADMAP.md, Queue 1 item 4b")
+STALE_HEARTBEAT_S = 10.0
 
 _lock = threading.Lock()
 _active = [None]
@@ -78,8 +84,12 @@ class _Handler(BaseHTTPRequestHandler):
                     evs = [e for e in evs if e.get('ev') == kind]
                 self._send(200, json.dumps(evs[-n:] if n > 0 else [],
                                            default=repr))
-            elif route in ('/diagnosis', '/costs'):
-                self._send(501, json.dumps({'error': f'{route}: {LATER}'}))
+            elif route == '/diagnosis':
+                self._send(200, json.dumps(owner.diagnosis(),
+                                           sort_keys=True, default=repr))
+            elif route == '/costs':
+                self._send(200, json.dumps(owner.costs(), sort_keys=True,
+                                           default=repr))
             elif route == '/timeseries':
                 q = parse_qs(url.query)
                 needle = q.get('series', [None])[0]
@@ -102,29 +112,68 @@ class _Handler(BaseHTTPRequestHandler):
 class MetricsServer:
     """One live telemetry endpoint for this process.
 
-    ``extra_health``: callable returning a dict merged into the
-    ``/healthz`` body (e.g. ServingEngine queue depths). ``run_dir=``
-    (the reference's cluster view) raises ``NotImplementedError``.
+    ``run_dir``: a run dir whose per-rank files (``flush``) give the
+    cluster view: per-rank series and heartbeat health. ``extra_health``:
+    callable returning a dict merged into the ``/healthz`` body (e.g.
+    ServingEngine queue depths).
     """
 
     def __init__(self, host=None, port=None, run_dir=None,
-                 extra_health=None):
-        if run_dir is not None:
-            raise NotImplementedError(f"MetricsServer(run_dir=): {LATER}")
+                 extra_health=None, stale_after_s=STALE_HEARTBEAT_S):
         self.host = state.http_host() if host is None else host
         self.port = (state.http_port() or 0) if port is None else int(port)
+        self.run_dir = run_dir
         self.extra_health = extra_health
+        self.stale_after_s = float(stale_after_s)
         self._httpd = None
         self._thread = None
         self._sw = None
 
     # -- payload builders (also used by tests, no HTTP needed) -----------
+    def _cluster(self):
+        if not self.run_dir:
+            return None
+        from . import aggregate
+        return aggregate.cluster_snapshot(self.run_dir)
+
     def render_metrics(self):
-        """The process registry's Prometheus exposition."""
-        return registry.to_prometheus()
+        """Process exposition + per-rank cluster series when attached."""
+        text = registry.to_prometheus()
+        cluster = self._cluster()
+        if not cluster or not cluster['n_ranks']:
+            return text
+        esc = registry.escape_label_value
+        # one family at a time: exposition format requires every sample of
+        # a family to be contiguous under its single # TYPE line
+        lines = []
+        ranks = sorted(cluster['per_rank'].items())
+        lines.append('# TYPE paddle_tpu_cluster_step_ms summary')
+        for rank, row in ranks:
+            lbl = f'rank="{esc(rank)}",host="{esc(row.get("host") or "?")}"'
+            st = row.get('step_ms') or {}
+            lines.append(f'paddle_tpu_cluster_step_ms_count{{{lbl}}} '
+                         f'{int(st.get("count") or 0)}')
+            for q, key in (('0.5', 'p50'), ('0.99', 'p99')):
+                lines.append(
+                    f'paddle_tpu_cluster_step_ms{{{lbl},quantile="{q}"}} '
+                    f'{st.get(key, 0.0)}')
+        lines.append('# TYPE paddle_tpu_cluster_kernel_builds counter')
+        for rank, row in ranks:
+            lbl = f'rank="{esc(rank)}",host="{esc(row.get("host") or "?")}"'
+            lines.append(f'paddle_tpu_cluster_kernel_builds{{{lbl}}} '
+                         f'{int(row.get("kernel_builds") or 0)}')
+        lines.append('# TYPE paddle_tpu_cluster_heartbeat_age_s gauge')
+        for rank, age in sorted(cluster['heartbeat_age_s'].items()):
+            if age is None:
+                continue
+            lines.append(
+                f'paddle_tpu_cluster_heartbeat_age_s{{rank="{esc(rank)}"}} '
+                f'{age}')
+        return text + '\n'.join(lines) + ('\n' if lines else '')
 
     def health(self):
-        """(http_code, payload): 200 while the process is up."""
+        """(http_code, payload): 200 while every known heartbeat is fresh,
+        503 once any goes stale."""
         payload = {
             'status': 'ok',
             'telemetry_enabled': state.enabled(),
@@ -137,24 +186,54 @@ class MetricsServer:
                 payload.update(self.extra_health() or {})
             except Exception as e:
                 payload['extra_health_error'] = repr(e)
+        cluster = self._cluster()
+        if cluster is not None:
+            ages = cluster.get('heartbeat_age_s') or {}
+            payload['heartbeat_age_s'] = ages
+            payload['n_ranks'] = cluster['n_ranks']
+            stale = sorted(r for r, a in ages.items()
+                           if a is not None and a >= self.stale_after_s)
+            if stale:
+                payload['status'] = 'stale'
+                payload['stale_ranks'] = stale
         return (200 if payload['status'] == 'ok' else 503), payload
 
     def diagnosis(self):
-        raise NotImplementedError(f"MetricsServer.diagnosis: {LATER}")
+        """The doctor's ranked findings over this process's events and
+        snapshot (and the cluster view when a run dir is attached)."""
+        from . import doctor
+        return doctor.diagnose(events=events.events(),
+                               snapshot=registry.snapshot(),
+                               cluster=self._cluster())
 
     def costs(self):
-        raise NotImplementedError(f"MetricsServer.costs: {LATER}")
+        """The cost-explorer slice: ledger + aggregates + SLO burn."""
+        from . import costs, slo
+        return {'summary': costs.summary(), 'programs': costs.ledger(),
+                'slo_burn': slo.burn_rates()}
 
     def timeseries(self, series=None):
-        """The ring sampler's export and its timelines; ``series``
-        substring-filters the series map."""
+        """The ring sampler's timelines: this process's live export plus
+        the cluster merge when a run dir is attached. ``series``
+        substring-filters the series maps."""
         from . import timeseries as ts
         live = ts.export_active()
         payload = {'live': live,
                    'series': ts.to_series(live) if live else {}}
+        if self.run_dir:
+            from . import aggregate
+            merged = aggregate.merged_timeseries(self.run_dir)
+            if merged.get('series'):
+                payload['cluster'] = merged
         if series:
             payload['series'] = {k: v for k, v in payload['series'].items()
                                  if series in k}
+            if 'cluster' in payload:
+                payload['cluster'] = dict(
+                    payload['cluster'],
+                    series={k: v
+                            for k, v in payload['cluster']['series'].items()
+                            if series in k})
         return payload
 
     # -- lifecycle -------------------------------------------------------
@@ -189,26 +268,29 @@ class MetricsServer:
             t.join(5.0)
 
 
-def maybe_start_from_env(extra_health=None, run_dir=None):
+def maybe_start_from_env(run_dir=None, extra_health=None):
     """Start the process-wide endpoint when telemetry is enabled and
     ``PADDLE_TPU_TELEMETRY_HTTP`` names a port; idempotent (the first
-    caller wins; a later caller may attach a health source to the running
-    server). Returns the server or None."""
-    if run_dir is not None:
-        raise NotImplementedError(f"maybe_start_from_env(run_dir=): {LATER}")
+    caller wins; later callers may attach a run dir or a health source to
+    the running server). ``run_dir`` defaults to
+    ``PADDLE_TPU_TELEMETRY_RUN_DIR``. Returns the server or None."""
     if not state.enabled() or state.http_port() is None:
         return None
     with _lock:
         srv = _active[0]
         if srv is None:
-            srv = MetricsServer(extra_health=extra_health)
+            srv = MetricsServer(run_dir=run_dir or state.run_dir(),
+                                extra_health=extra_health)
             try:
                 srv.start()
             except OSError:
                 return None   # port taken: another process exports already
             _active[0] = srv
-        elif extra_health is not None and srv.extra_health is None:
-            srv.extra_health = extra_health
+        else:
+            if run_dir and not srv.run_dir:
+                srv.run_dir = run_dir
+            if extra_health is not None and srv.extra_health is None:
+                srv.extra_health = extra_health
         return srv
 
 

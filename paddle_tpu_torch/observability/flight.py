@@ -15,9 +15,10 @@ While telemetry is enabled, every event (``observability.event``) is
 mirrored into the ring; always-on sites call ``flight.record`` directly.
 The dump is one JSON document committed by a staged write and
 ``os.replace`` (a reader never parses a torn file) and carries the ring,
-a metrics snapshot and the interposed-counter summary. The reference's
-dump also carries its cost ledger, which the port does not have yet
-(ROADMAP.md, Queue 1 item 4b).
+a metrics snapshot, the interposed-counter summary and the cost ledger's
+summary. ``resilience.NanGuard`` dumps on its abort and a
+``resilience.watchdog.WatchdogTimeout`` records itself and dumps
+(rate-limited) to a file of its own.
 
 Env knobs (see also ``state.py``):
 
@@ -140,9 +141,10 @@ def dump(reason, exc=None, run_dir=None, extra=None, filename=None):
     if extra:
         doc['extra'] = dict(extra)
     try:
-        from . import interpose, registry
+        from . import costs, interpose, registry
         doc['metrics'] = registry.snapshot()
         doc['counters'] = interpose.summary()
+        doc['costs'] = costs.summary()
     except Exception:
         pass   # a half-initialized process still gets its ring dumped
     doc['records'] = records()

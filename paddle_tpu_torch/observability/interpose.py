@@ -9,9 +9,10 @@ The port's counterpart of ``paddle_tpu/observability/interpose.py``.
   each build adds one to ``kernels.builds`` and its milliseconds to
   ``kernels.build_ms`` (and to the ``kernels.build_duration_ms``
   histogram). A library reused from an earlier build counts nothing.
-- **host transfers**: the serving runners call
-  ``record_host_transfer(nbytes)`` where they copy outputs back to the
-  host; ``host_transfer.bytes`` is the "how much crosses PCIe" number.
+- **host transfers**: the serving runners and the train step's loss
+  fetch and state sync call ``record_host_transfer(nbytes)`` where they
+  copy to the host; ``host_transfer.bytes`` is the "how much crosses
+  PCIe" number.
 - ``record_collective(op, nbytes)`` is kept for the collectives, which
   come with ``distributed/`` (ROADMAP.md, Queue 1 item 5); nothing calls
   it yet.
@@ -64,16 +65,28 @@ def record_collective(op, nbytes):
 
 def summary():
     """The headline interposed counters: kernel builds, build ms,
-    host-transfer traffic and the serving tallies. The reference's
-    ``jax_*`` keys are ``kernel_builds`` / ``kernel_build_ms`` here; its
-    training-side, distributed and cost keys come with the modules that
-    count them (ROADMAP.md, Queue 1 items 4b and 5)."""
+    host-transfer traffic, the training and fault-tolerance tallies, the
+    serving tallies and the cost ledger's. The reference's
+    ``jax_traces`` / ``jax_compiles`` / ``jax_compile_ms`` are
+    ``kernel_builds`` / ``kernel_build_ms`` here (the port has no trace
+    to count); its distributed keys read counters that come with
+    ``distributed/`` (ROADMAP.md, Queue 1 item 5) and stay 0 until
+    then."""
     snap = registry.snapshot()['counters']
     return {
         'kernel_builds': snap.get('kernels.builds', 0),
         'kernel_build_ms': round(float(snap.get('kernels.build_ms', 0)), 3),
         'host_transfer_bytes': snap.get('host_transfer.bytes', 0),
         'host_transfer_calls': snap.get('host_transfer.calls', 0),
+        'engine_steps': snap.get('engine.steps', 0),
+        'engine_loss_fetch_bytes': snap.get(
+            'host_transfer.engine.loss_fetch.bytes', 0),
+        'worker_restarts': snap.get('dataloader.worker_restarts', 0),
+        'quarantined_samples': snap.get('dataloader.quarantined', 0),
+        'watchdog_timeouts': snap.get('dataloader.watchdog_timeouts', 0),
+        'dist_timeouts': snap.get('distributed.timeouts', 0),
+        'rank_failures': snap.get('distributed.rank_failures', 0),
+        'rank_restarts': snap.get('distributed.rank_restarts', 0),
         'serving_requests': snap.get('serving.requests', 0),
         'serving_shed': snap.get('serving.shed', 0),
         'serving_shed_queue_full': snap.get('serving.shed.queue_full', 0),
@@ -91,4 +104,6 @@ def summary():
         'serving_spec_accepted': snap.get('serving.spec.accepted', 0),
         'slo_requests': snap.get('slo.requests_total', 0),
         'slo_violations': snap.get('slo.violations_total', 0),
+        'cost_programs': snap.get('cost.programs', 0),
+        'cost_captures': snap.get('cost.captures', 0),
     }

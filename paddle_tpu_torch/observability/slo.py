@@ -11,8 +11,8 @@ mirrors it when enabled) and computes the **error-budget burn rate**::
     burn = (violations / requests) / (1 - objective)
 
 ``burn == 1`` means the model is spending its budget exactly as fast as
-the objective allows; ``burn > 1`` is an SLO on fire (the reference's
-doctor names it; the port's doctor comes with ROADMAP.md Queue 1 item 4b).
+the objective allows; ``burn > 1`` is an SLO on fire (the doctor's
+``slo_burn`` detector names it).
 
 Telemetry surface (while enabled): ``slo.requests{model=}`` /
 ``slo.violations{model=}`` counters, ``slo.burn_rate{model=}`` gauge,

@@ -31,19 +31,28 @@ Endpoint and sampler knobs (read live):
                                    (default 1.0; 0 disables the sampler)
 - ``PADDLE_TPU_TELEMETRY_TIMESERIES_CAP``
                                    ring capacity in samples (default 512)
+- ``PADDLE_TPU_TELEMETRY_FLUSH_EVERY``
+                                   per-rank flush cadence in seconds for
+                                   the run dir's files (default 1.0)
+- ``PADDLE_TPU_TELEMETRY_RUN_DIR`` run dir for the per-rank telemetry
+                                   files (``flush``); with it set, a
+                                   telemetry-on ``hapi.Model.fit`` starts
+                                   the flusher
+- ``PADDLE_TPU_RUNS_REGISTRY``     cross-run baseline registry path
+                                   (``runs.jsonl``, ``baseline.py``)
 
-Owned by ``slo.py`` / ``flight.py`` and catalogued here:
+Owned by ``costs.py`` / ``slo.py`` / ``flight.py`` and catalogued here:
+
+- ``PADDLE_TPU_DEVICE_PEAK_FLOPS`` / ``PADDLE_TPU_DEVICE_PEAK_BPS``
+                                   roofline device peaks (``costs.py``)
+- ``PADDLE_TPU_HBM_BUDGET``        device memory budget in bytes for the
+                                   doctor's memory_pressure detector
 
 - ``PADDLE_TPU_SLO_MS`` / ``PADDLE_TPU_SLO_OBJECTIVE``
                                    default per-model latency SLO
 - ``PADDLE_TPU_FLIGHT=0``          disable the always-on flight recorder
 - ``PADDLE_TPU_FLIGHT_EVENTS``     flight ring capacity (default 512)
 - ``PADDLE_TPU_FLIGHT_DIR``        where crash dumps land
-
-The reference's cluster knobs (``PADDLE_TPU_TELEMETRY_FLUSH_EVERY``,
-``PADDLE_TPU_TELEMETRY_RUN_DIR``) belong to its per-rank flusher and
-aggregator, which the port does not have yet (ROADMAP.md, Queue 1 item
-4b).
 """
 import os
 import tempfile
@@ -129,21 +138,28 @@ def sample_every():
     return _env_float('PADDLE_TPU_TELEMETRY_SAMPLE_EVERY', 1.0)
 
 
+def flush_every():
+    return _env_float('PADDLE_TPU_TELEMETRY_FLUSH_EVERY', 1.0)
+
+
 def timeseries_cap():
     """Ring capacity (samples) for the in-run time series."""
     return max(2, _env_int('PADDLE_TPU_TELEMETRY_TIMESERIES_CAP', 512))
 
 
 def run_dir():
-    """Cluster run dir for per-rank files: the explicit override, else the
-    supervisor's heartbeat dir, else None."""
+    """Cluster run dir for per-rank telemetry files: the explicit override,
+    else the supervisor's heartbeat dir, else None (not part of a cluster
+    run)."""
     return (os.environ.get('PADDLE_TPU_TELEMETRY_RUN_DIR')
             or os.environ.get('PADDLE_TPU_HEARTBEAT_DIR') or None)
 
 
 def rank_id():
     """This process's rank in the cluster (0 in a single-process run): the
-    identity in the flight recorder's ``flight_rank<R>.json``."""
+    one per-rank file-naming identity, shared by the flusher
+    (``telemetry_rank<R>.json``) and the flight recorder
+    (``flight_rank<R>.json``)."""
     try:
         return int(os.environ.get('PADDLE_TRAINER_ID', '0') or 0)
     except ValueError:

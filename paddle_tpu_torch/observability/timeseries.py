@@ -14,8 +14,9 @@ previous sample (zero deltas are dropped), and deltas evicted off the ring
 fold into a per-series base, so ``base + cumsum(deltas)`` always
 reconstructs the true cumulative totals. ``export()`` is one process's
 document and ``to_series`` turns it into per-series timelines; the
-endpoint's ``/timeseries`` serves both. The reference's cross-rank merge
-and trend detectors come with ROADMAP.md Queue 1 item 4b.
+endpoint's ``/timeseries`` serves both; ``aggregate.merged_timeseries``
+merges the ranks' files and the doctor's trend detectors read the
+result.
 
 Stdlib-only.
 """

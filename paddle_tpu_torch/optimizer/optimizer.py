@@ -55,6 +55,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from ..nn.clip import ClipGradBase
 from ..nn.regularizer import L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
@@ -305,9 +306,12 @@ class Optimizer:
     @torch.no_grad()
     def step(self):
         """One update of every parameter that requires grad and has a
-        ``.grad``, with the state kept on the optimizer."""
-        self._apply([(n, p, p.grad) for n, p in self._named_parameters()
-                     if p.grad is not None and p.requires_grad])
+        ``.grad``, with the state kept on the optimizer; timed into
+        ``optimizer.step`` (labelled with the optimizer's class) while
+        telemetry is on."""
+        with _obs.timer('optimizer.step', optimizer=type(self).__name__):
+            self._apply([(n, p, p.grad) for n, p in self._named_parameters()
+                         if p.grad is not None and p.requires_grad])
 
     def clear_grad(self):
         for _, p in self._parameters or ():

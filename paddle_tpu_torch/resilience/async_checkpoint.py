@@ -30,6 +30,12 @@ descriptor ``'<V2'`` with ``'bfloat16'`` as the plan's dtype, and is read
 back, bit for bit, as a bf16 CPU tensor (the reference reads its own back
 as ``|V2`` bytes, or fails to assemble it from pieces; ROADMAP.md, Queue 3).
 
+Telemetry (while enabled), as the reference's: a ``checkpoint.abandoned``
+event when a save is abandoned, ``checkpoint.async_errors`` and a
+``checkpoint.async_error`` event when a background save fails, and a
+``checkpoint.fence`` event (the milliseconds waited, whether it abandoned)
+when a fence waited for one.
+
 Not ported: ``config=`` (a ``ShardingConfig``: pieces from a device mesh)
 and the resharding restore (``place_with_config``) raise
 ``NotImplementedError``; they come with ``distributed/``.
@@ -46,6 +52,7 @@ import zlib
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from ..framework import BF16, numpy_to_tensor, tensor_to_numpy
 from .atomic_io import atomic_open, atomic_write, crc32_file
 from .watchdog import WatchdogTimeout, join_thread
@@ -431,6 +438,8 @@ def save_sharded(root, state, step, meta=None, config=None, world=None,
         return manifest
     except AbandonedSave:
         _cleanup_uncommitted(d, my_ranks, tag, whole_dir=rank is None)
+        if _obs.enabled():
+            _obs.event('checkpoint.abandoned', step=int(step))
         return None
     except BaseException:
         # a failed save must leave nothing that LOOKS like a checkpoint;
@@ -626,6 +635,9 @@ class AsyncSaver:
                 pass
             except BaseException as e:   # surfaced on the next save/fence
                 self._error = e
+                if _obs.enabled():
+                    _obs.counter('checkpoint.async_errors').inc()
+                    _obs.event('checkpoint.async_error', error=repr(e))
 
         self._thread = threading.Thread(target=run, name=self._name,
                                         daemon=True)
@@ -651,6 +663,10 @@ class AsyncSaver:
                        (timeout or 0) + (_ABANDON_GRACE_S if abandon
                                          else 0)),
                     what='async checkpoint fence', waited=waited_ms / 1e3)
+            if _obs.enabled():
+                _obs.event('checkpoint.fence',
+                           waited_ms=round(waited_ms, 3),
+                           abandoned=bool(abandon and self._abandon))
         self._thread = None
         self._raise_pending()
         return waited_ms

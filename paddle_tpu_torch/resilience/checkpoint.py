@@ -1,8 +1,6 @@
 """CRC-stamped, rotating, fallback-capable checkpoint store. Counterpart of
 ``paddle_tpu/resilience/checkpoint.py`` (``CheckpointManager``,
-``capture_rng``, ``restore_rng``), without its telemetry (the
-``checkpoint.*`` histograms, counters and events come with the
-training side's telemetry, ROADMAP.md Queue 1 item 4b).
+``capture_rng``, ``restore_rng``).
 
 Two on-disk formats under one directory (both may coexist; ``steps()`` /
 ``load()`` / ``restore()`` see the union):
@@ -34,6 +32,14 @@ the next save — or an explicit :meth:`fence` — waits for it).
 and ``restore(sharding=)`` raise ``NotImplementedError``: they come with
 ``distributed/``.
 
+Telemetry (while enabled), as the reference's: ``checkpoint.save_stall_ms``
+(the training thread's time in ``save``: the whole commit for a sync save,
+the snapshot for an async one), ``checkpoint.commit_ms`` and its older
+name ``checkpoint.save_ms`` (at the manifest's commit, on the writer
+thread for an async save), ``checkpoint.restore_ms``, the
+``checkpoint.saves`` / ``restores`` / ``corrupt_skips`` counters and the
+``checkpoint.save`` / ``restore`` / ``corrupt`` / ``abandoned`` events.
+
 The RNG of a port run (``capture_rng`` / ``restore_rng``) has no global
 generator to snapshot: it is every ``DropoutState`` of the network,
 keyed by module path, numpy's global state, and the ``torch.Generator``s
@@ -45,6 +51,7 @@ import pickle
 import warnings
 import zlib
 
+from .. import observability as _obs
 from .atomic_io import atomic_open, atomic_write, crc32_file
 
 __all__ = ['CheckpointManager', 'capture_rng', 'restore_rng']
@@ -151,6 +158,7 @@ class CheckpointManager:
         from ..framework import _to_saveable
         if sharding is not None:
             raise _no_sharding('save')
+        sw = _obs.Stopwatch()
         # ordering fence FIRST: a save must never land after a LATER one —
         # and the default step number must see the in-flight commit, or
         # back-to-back async saves with step=None would both read the same
@@ -172,13 +180,19 @@ class CheckpointManager:
 
         if sharded:
             def job(should_abort):
-                ac.save_sharded(self.path, src, step, meta=meta, world=world,
-                                rank=rank, tag=tag, extra=extra,
-                                should_abort=should_abort)
+                jsw = _obs.Stopwatch()
+                man = ac.save_sharded(self.path, src, step, meta=meta,
+                                      world=world, rank=rank, tag=tag,
+                                      extra=extra, should_abort=should_abort)
+                if man is not None:
+                    nbytes = sum(s['size'] for s in man['shards'].values())
+                    self._finish_commit(step, jsw, meta, nbytes,
+                                        async_=async_, sharded=True)
                 if committer:
                     self._rotate()
         else:
             def job(should_abort):
+                jsw = _obs.Stopwatch()
                 tree = src.wait() if isinstance(src, ac.Snapshot) else src
                 pay_path = self._payload(step)
                 try:
@@ -190,18 +204,39 @@ class CheckpointManager:
                         # while writing
                         pickle.dump(_to_saveable(tree), w, protocol=4)
                 except ac.AbandonedSave:
+                    if _obs.enabled():
+                        _obs.event('checkpoint.abandoned', step=step)
                     return
                 manifest = {'format': _FMT, 'step': step, 'size': w.size,
                             'crc32': w.crc, 'meta': meta}
                 atomic_write(self._manifest(step),
                              json.dumps(manifest, sort_keys=True).encode())
+                self._finish_commit(step, jsw, meta, w.size,
+                                    async_=async_, sharded=False)
                 self._rotate()
 
         if async_:
             self._saver().submit(job)
         else:
             job(lambda: False)
+        if _obs.enabled():
+            _obs.histogram('checkpoint.save_stall_ms').observe(
+                sw.elapsed_ms())
         return step
+
+    def _finish_commit(self, step, sw, meta, nbytes, async_, sharded):
+        """Telemetry at the manifest's commit (on the writer thread for an
+        async save)."""
+        if not _obs.enabled():
+            return
+        ms = sw.elapsed_ms()
+        _obs.histogram('checkpoint.commit_ms').observe(ms)
+        # the older name: the save duration histogram before async saves
+        _obs.histogram('checkpoint.save_ms').observe(ms)
+        _obs.counter('checkpoint.saves').inc()
+        _obs.event('checkpoint.save', step=step, bytes=nbytes,
+                   duration_ms=round(ms, 3), async_=bool(async_),
+                   sharded=bool(sharded), meta=meta)
 
     def _rotate(self):
         if not self.max_keep:
@@ -269,11 +304,21 @@ class CheckpointManager:
         fallback. Returns (state, meta, extra, step) or None."""
         candidates = [step] if step is not None else \
             list(reversed(self.steps()))
+        sw = _obs.Stopwatch()
         for s in candidates:
             got = self._read_step(s, v1_numpy)
             if not isinstance(got, str):
                 state, meta, extra = got
+                if _obs.enabled():
+                    ms = sw.elapsed_ms()
+                    _obs.histogram('checkpoint.restore_ms').observe(ms)
+                    _obs.counter('checkpoint.restores').inc()
+                    _obs.event('checkpoint.restore', step=s,
+                               duration_ms=round(ms, 3))
                 return state, meta, extra, s
+            if _obs.enabled():
+                _obs.counter('checkpoint.corrupt_skips').inc()
+                _obs.event('checkpoint.corrupt', step=s, defect=str(got))
             warnings.warn(
                 "CheckpointManager: checkpoint step %d at %r is corrupt "
                 "(%s) — falling back to the previous good checkpoint"

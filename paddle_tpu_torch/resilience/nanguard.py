@@ -11,14 +11,17 @@ path. ``engine.build_train_step(nan_guard=True)`` keeps the counters on the
 device and never waits for it; ``TrainStep.sync`` hands them to
 ``absorb_device_counts``.
 
-Left out: the reference's telemetry counters and events and its flight
-dump on abort; they come with the training side's telemetry (ROADMAP.md,
-Queue 1 item 4b).
+Telemetry (while enabled): ``nan_guard.skips`` and a ``nan_guard.skip``
+event for each newly seen skip, a ``nan_guard.abort`` event at the limit;
+the flight recorder dumps its ring (``flight_rank<R>.json``, always, as the
+reference's) before ``NanStepError`` is raised.
 """
 import warnings
 
 import numpy as np
 import torch
+
+from .. import observability as _obs
 
 __all__ = ['NanGuard', 'NanStepError']
 
@@ -52,10 +55,25 @@ class NanGuard:
         return bool(np.isfinite(np.asarray(value)).all())
 
     def _abort(self, consecutive):
-        raise NanStepError(
+        _obs.event('nan_guard.abort', step=self.total_steps,
+                   consecutive=consecutive)
+        err = NanStepError(
             "NanGuard: %d consecutive non-finite steps (limit %d) — "
             "the run is diverging; lower the learning rate or inspect "
             "the data pipeline" % (consecutive, self.max_consecutive_skips))
+        # black box: the run is about to die; the flight ring (always on,
+        # telemetry or not) keeps the last seconds of skips and counters
+        _obs.flight.dump('nan_abort', exc=err,
+                         extra={'step': self.total_steps,
+                                'consecutive': consecutive})
+        raise err
+
+    def _skip_event(self, n):
+        if _obs.enabled():
+            _obs.counter('nan_guard.skips').inc(n)
+            _obs.event('nan_guard.skip', step=self.total_steps,
+                       skipped=self.skipped_steps,
+                       consecutive=self.consecutive_skips)
 
     def check(self, loss):
         """Record one step; returns True when the step must be SKIPPED."""
@@ -65,6 +83,7 @@ class NanGuard:
             return False
         self.skipped_steps += 1
         self.consecutive_skips += 1
+        self._skip_event(1)
         if self._scaler is not None and self._scaler.is_enable():
             self._scaler.mark_found_inf()
         if self._verbose:
@@ -95,6 +114,7 @@ class NanGuard:
         self.skipped_steps = int(skipped_steps)
         self.consecutive_skips = int(consecutive)
         if new_skips:
+            self._skip_event(new_skips)
             if mark_scaler and self._scaler is not None and \
                     self._scaler.is_enable():
                 for _ in range(new_skips):

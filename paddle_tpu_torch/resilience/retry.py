@@ -1,7 +1,7 @@
 """Bounded retry with exponential backoff + jitter. The port's own copy
-of ``paddle_tpu/resilience/retry.py`` (stdlib only), without its telemetry
-counter and event (the training side's telemetry, ROADMAP.md Queue 1
-item 4b).
+of ``paddle_tpu/resilience/retry.py`` (stdlib only); while telemetry is
+on, each retry adds one to ``retry.attempts`` and emits a
+``retry.attempt`` event.
 
 One decorator for every transient-failure site (downloads, coordinator
 bring-up, shell-outs) so backoff policy lives in one place instead of
@@ -10,6 +10,8 @@ ad-hoc while-loops.
 import functools
 import random
 import time
+
+from .. import observability as _obs
 
 __all__ = ['retry', 'RetryError', 'backoff_delay']
 
@@ -92,6 +94,12 @@ def retry(max_attempts=3, backoff=0.1, factor=2.0, max_backoff=30.0,
                             last_exception=e, attempts=attempt) from e
                     if on_retry is not None:
                         on_retry(attempt, e, delay)
+                    if _obs.enabled():
+                        _obs.counter('retry.attempts').inc()
+                        _obs.event('retry.attempt',
+                                   fn=getattr(fn, '__name__', str(fn)),
+                                   attempt=attempt, delay=round(delay, 3),
+                                   error=repr(e))
                     _retry_sleep(delay)
             if reraise:
                 raise last

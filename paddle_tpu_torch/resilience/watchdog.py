@@ -2,8 +2,7 @@
 hanging the whole job. The port's own copy of
 ``paddle_tpu/resilience/watchdog.py`` (stdlib only), without the
 supervisor's ``Heartbeat`` and ``heartbeat_age`` (they come with the
-fleet supervisor) and without the flight-recorder dump a timeout makes
-there (the training side's telemetry, ROADMAP.md Queue 1 item 4b).
+fleet supervisor, ROADMAP.md Queue 1 item 7).
 
 Every blocking wait in library code (queue gets, thread and process joins,
 child-process waits) goes through these helpers instead of the unbounded
@@ -27,15 +26,44 @@ __all__ = ['WatchdogTimeout', 'bounded_get', 'join_thread', 'join_proc',
 # batch-assembly work.
 DEFAULT_TICK = 0.1
 
+# rate limit of the watchdog's flight-recorder dumps: every timeout is
+# RECORDED in the ring, but the disk dump is throttled (a client polling
+# result(timeout=0.1) must not fsync a document per miss)
+_FLIGHT_DUMP_EVERY_S = 5.0
+_last_flight_dump = [None]
+
 
 class WatchdogTimeout(RuntimeError):
     """A bounded wait expired (or every producer died) before the item
-    arrived. ``.what`` names the wait; ``.waited`` is the elapsed seconds."""
+    arrived. ``.what`` names the wait; ``.waited`` is the elapsed seconds.
+
+    Construction records into the observability flight recorder and dumps
+    its black box (best-effort, always-on, at most one dump every
+    ``_FLIGHT_DUMP_EVERY_S``): a watchdog firing usually means something
+    is wedged or dead, and the ring's last seconds are the evidence. The
+    dump goes to a file of its own (``flight_rank<R>_watchdog.json``) so a
+    caught, routine client timeout never replaces the black box a real
+    crash wrote. The import is lazy so this module stays safe to import
+    from bare worker processes."""
 
     def __init__(self, message, what='wait', waited=0.0):
         super().__init__(message)
         self.what = what
         self.waited = waited
+        try:
+            from ..observability import flight
+            flight.record('watchdog_timeout', what=what,
+                          waited=round(waited, 3))
+            now = time.monotonic()
+            last = _last_flight_dump[0]
+            if last is None or now - last >= _FLIGHT_DUMP_EVERY_S:
+                _last_flight_dump[0] = now
+                flight.dump(
+                    'watchdog_timeout', exc=self,
+                    extra={'what': what, 'waited': round(waited, 3)},
+                    filename=f'flight_rank{flight.rank_id()}_watchdog.json')
+        except Exception:
+            pass   # the black box must never mask the timeout itself
 
 
 def bounded_get(q, timeout=None, alive=None, what='queue item',

@@ -92,9 +92,9 @@ class TenantPolicy:
     floor (a premium tenant sets 0 and nothing of its traffic sheds at
     level 1; a batch tenant sets a high floor and sheds first).
     ``cost_budget_flops``/``hbm_budget_bytes`` — optional cumulative cost
-    budgets; ``TenantArbiter.charge`` spends against them (in the
-    reference from its cost ledger, which the port does not have yet:
-    ROADMAP.md, Queue 1 item 4b).
+    budgets; ``TenantArbiter.charge`` spends against them (its caller
+    supplies the cost: as in the reference, nothing in the runtime feeds
+    it from the cost ledger).
     """
 
     __slots__ = ('name', 'weight', 'rate', 'burst', 'priority_floor',

@@ -381,17 +381,20 @@ def test_endpoint_serves_the_registry_over_http(monkeypatch):
         code, body = get(srv.url + '/timeseries')
         assert code == 200 and json.loads(body) == {'live': None,
                                                     'series': {}}
-        for route in ('/diagnosis', '/costs'):
-            code, body = get(srv.url + route)
-            assert code == 501 and 'Queue 1 item 4b' in body
+        # the doctor's findings and the cost ledger, as in-process
+        code, body = get(srv.url + '/diagnosis')
+        assert code == 200 and json.loads(body) == json.loads(
+            json.dumps(srv.diagnosis(), sort_keys=True, default=repr))
+        code, body = get(srv.url + '/costs')
+        assert code == 200 and json.loads(body) == json.loads(
+            json.dumps(srv.costs(), sort_keys=True, default=repr))
+        assert sorted(json.loads(body)) == sorted(
+            r_obs.MetricsServer(port=0).costs())
         assert get(srv.url + '/nope')[0] == 404
     finally:
         srv.stop()
-    for call in (lambda: t_obs.MetricsServer(run_dir='/x'),
-                 lambda: t_obs.endpoint.maybe_start_from_env(run_dir='/x'),
-                 srv.diagnosis, srv.costs):
-        with pytest.raises(NotImplementedError, match='item 4b'):
-            call()
+    # a run dir attaches the cluster view: an empty one adds no rank
+    assert t_obs.MetricsServer(run_dir='/x').health()[1]['n_ranks'] == 0
     # from the environment: one process-wide server, health detachable
     assert t_obs.endpoint.maybe_start_from_env() is None
     monkeypatch.setenv('PADDLE_TPU_TELEMETRY_HTTP', '0')

@@ -12,16 +12,17 @@ on the CPU, and the live endpoint over HTTP.
 - A threaded engine with tenants: ``start()``, ``start_endpoint(port=0)``,
   three client threads, then ``/metrics`` parsed against ``stats()``,
   ``/healthz`` with the queue depths, ``/events``, ``/timeseries`` (the
-  sampler ``start()`` started), ``/diagnosis`` 501, ``kill()`` and
-  ``EngineDeadError``, ``stop()`` leaving no thread and no endpoint; the
-  process-wide endpoint from ``PADDLE_TPU_TELEMETRY_HTTP``.
-- ``hapi.Model.fit`` / ``evaluate`` and ``engine.fit`` refuse telemetry
-  switched on by ``enable()`` (their telemetry is ROADMAP.md Queue 1
-  item 4b).
+  sampler ``start()`` started), ``/diagnosis`` (the doctor's findings),
+  ``kill()`` and ``EngineDeadError``, ``stop()`` leaving no thread and no
+  endpoint; the process-wide endpoint from ``PADDLE_TPU_TELEMETRY_HTTP``.
+- ``hapi.Model.fit`` / ``evaluate`` and ``engine.fit`` run with telemetry
+  switched on by ``enable()`` and report (the test keeps its older name,
+  from when they refused it).
 Every HTTP read has a timeout; every engine, server and sampler a test
 starts is stopped, and no thread it started outlives it.
 """
 import json
+import os
 import re
 import threading
 import urllib.error
@@ -294,7 +295,10 @@ def test_threaded_engine_with_tenants_and_live_endpoint(monkeypatch):
         code, body = _get(srv.url + '/timeseries?series=serving.completed')
         assert code == 200 and 'counter:serving.completed' in \
             json.loads(body)['series']
-        assert _get(srv.url + '/diagnosis')[0] == 501
+        code, body = _get(srv.url + '/diagnosis')
+        assert code == 200 and all(
+            set(d) == {'cause', 'severity', 'detail', 'fix', 'evidence'}
+            for d in json.loads(body))
         eng.kill()
         with pytest.raises(tserving.EngineDeadError):
             ep.submit(reqs[0], tenant='gold')
@@ -326,14 +330,23 @@ def test_process_endpoint_from_the_environment(monkeypatch):
     assert 'serving' not in json.loads(_get(srv.url + '/healthz')[1])
 
 
-def test_training_refuses_telemetry_switched_on_by_enable():
-    t_obs.enable()
+def test_training_refuses_telemetry_switched_on_by_enable(tmp_path):
+    """Telemetry switched on by ``enable()`` no longer refuses training:
+    ``Model.fit`` attaches a ``TelemetryCallback`` (its step events and
+    exports in the log dir), ``evaluate`` emits ``eval_result`` and
+    ``engine.fit`` counts its steps."""
+    t_obs.enable(log_dir=str(tmp_path))
     net = torch.nn.Linear(4, 2)
     model = pt.Model(net, device='cpu')
-    for call in (lambda: model.fit([(np.zeros(4, np.float32),
-                                     np.zeros(2, np.float32))], verbose=0),
-                 lambda: model.evaluate([], verbose=0),
-                 lambda: tengine.fit(net, lambda *a: None, topt.SGD(), [],
-                                     device='cpu')):
-        with pytest.raises(NotImplementedError, match='item 4b'):
-            call()
+    model.prepare(topt.SGD(learning_rate=0.1, parameters=net.parameters()),
+                  torch.nn.functional.mse_loss)
+    sample = (np.zeros(4, np.float32), np.zeros(2, np.float32))
+    model.fit([sample] * 2, verbose=0)
+    model.evaluate([sample], verbose=0)
+    tengine.fit(net, lambda out, y: torch.nn.functional.mse_loss(out, y),
+                topt.SGD(learning_rate=0.1, parameters=net.parameters()),
+                [sample], device='cpu')
+    kinds = [e['ev'] for e in t_obs.event_log()]
+    assert kinds.count('step') == 2 and 'eval_result' in kinds
+    assert {'events.jsonl', 'trace.json'} <= set(os.listdir(tmp_path))
+    assert t_obs.snapshot()['counters']['engine.dispatches'] == 1
