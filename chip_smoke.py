@@ -72,6 +72,22 @@ Phases, each printing one JSON line:
    the paged engine with a draft under page pressure, its telemetry
    against the runner's counts; a profiled batch with the
    ``serving.batch`` host range;
+7c. serve fleet (run right after serve tenants, on serve's model) — the
+   fleet layer (``phase_serve_fleet``): a ``FleetRouter`` over three
+   started BERT-large engines on one card, telemetry on; phase 7's
+   requests in its waves with r1 killed at its 5th request and r2
+   slowed (``faultinject``): none lost, r1 one death and an open
+   circuit, a failover retry, each output within ``TOL`` of the request
+   served alone on the plain versions; ``FleetSupervisor`` relaunching r1
+   half-open and closing it (``fleet.recovery_ms``); hedged against
+   unhedged requests one at a time with r2 the straggler (p50, p99,
+   hedges fired and won, the losers' extra batches); ``drain`` and
+   ``readmit`` with nothing aborted; ``FleetAutoscaler`` growing a warmed
+   replica on real SLO burn and shrinking through ``drain``
+   (``fleet.autoscale.scale_up_ms``); exact launches over every
+   replica's batches and the in-phase warmups; prefix affinity on two
+   paged ``TinyCausalLM`` replicas; the doctor's fleet detectors; no
+   thread left;
 8. profile — device time by kernel over one more bucket-16 batch; every
    LayerNorm and add+LayerNorm call on the register path
    (``SERVE_ROUTES``); here and in every profile, the profiled call
@@ -207,12 +223,12 @@ the achieved TFLOP/s and TB/s beside the library call's time. Then a
 ``{"kernels": [...]}`` line (all seven kernels, bf16 numbers at the top
 level and under ``bf16``, fp32 under ``fp32``, fp16 under ``fp16``, the
 GPT cases under ``gpt``, launches by path: ``serve``,
-``serve_tenants``, the training paths, ``train_resume``, ``nn.RMSNorm``,
-``generate``, ``serve_generative``, ``hapi_fit`` and ``train_telemetry``)
-and,
-last, ``{"ok": true, "device": ...}``. Any failure raises and exits
-non-zero; without a CUDA device (or without the package beside this file)
-it exits non-zero and prints no result. fp32 matrix products run in full
+``serve_tenants``, ``serve_fleet``, the training paths,
+``train_resume``, ``nn.RMSNorm``, ``generate``, ``serve_generative``,
+``hapi_fit`` and ``train_telemetry``) and, last, ``{"ok": true,
+"device": ...}``. Any failure raises and exits non-zero; without a CUDA
+device (or without the package beside this file) it exits non-zero and
+prints no result. fp32 matrix products run in full
 fp32 (TF32 off).
 """
 import argparse
@@ -1220,7 +1236,9 @@ def phase_serve(seed, card):
     return counts, {'model': model, 'requests': reqs,
                     'outputs': [r.outputs for r in served],
                     'launches': wave_counts, 'syncs': syncs,
-                    'requests_per_s': sum(waves) / serve_s}
+                    'requests_per_s': sum(waves) / serve_s,
+                    'batch_p50_ms': {bk: row['p50_ms']
+                                     for bk, row in lat.items()}}
 
 
 # Calls a profiled batch or step must show, by a word of the kernels' CUDA
@@ -4468,6 +4486,409 @@ def phase_serve_tenants(seed, card, serve):
 
 
 # ---------------------------------------------------------------------------
+# the fleet layer: FleetRouter, FleetSupervisor and FleetAutoscaler over
+# BERT-large replicas, with the faultinject chaos harness
+# ---------------------------------------------------------------------------
+
+FLEET_REPLICAS = ('r0', 'r1', 'r2')
+FLEET_KILL_AT = 5            # r1 dies right after admitting its 5th request
+FLEET_SLOW_S = 0.05          # r2 sleeps this long before every pump
+FLEET_HEDGE_REQUESTS = 30    # served one at a time, unhedged then hedged
+FLEET_DRAIN_WAVE = 16
+FLEET_SLO_OBJECTIVE = 0.5    # burn = 2 x the violating share: at most 2.0,
+# below the shed ladder's reject rung (4.0), so a burning fleet still
+# admits; the autoscaler grows at burn 1.0 (half the requests late)
+FLEET_MAX_TICKS = 8
+FLEET_AFFINITY_PROMPTS = 16
+FLEET_AFFINITY_NEW = 8
+FLEET_TIMEOUT_S = 120.0
+
+
+def _fleet_engine(model, dev):
+    """One started BERT-large replica on ``model`` (shared weights, no new
+    initialisation): a rejoin or a scale-up times an engine and its
+    warmup, not 1.34 GB of random init."""
+    from paddle_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(queue_capacity=64, device=dev)
+    eng.register('bert', layer=model, example=_example())
+    return eng.start()
+
+
+def _percentiles(ms):
+    return {'p50_ms': float(np.percentile(ms, 50)),
+            'p99_ms': float(np.percentile(ms, 99)), 'n': len(ms)}
+
+
+def _fleet_predict(router, reqs, outs=None):
+    """Each request through ``router.predict``, one at a time ->
+    [host ms]; the responses go to ``outs``."""
+    ms = []
+    for r in reqs:
+        t0 = time.perf_counter()
+        resp = router.predict('bert', r, timeout=FLEET_TIMEOUT_S)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if not resp.ok:
+            raise AssertionError(f"serve_fleet: {resp.status}")
+        if outs is not None:
+            outs.append(resp)
+    return ms
+
+
+def _close_half_open(router, name, reqs):
+    """Serve ``reqs`` one at a time until ``name``'s circuit is closed ->
+    the requests it took."""
+    for i, r in enumerate(reqs, 1):
+        _fleet_predict(router, [r])
+        if router.replica(name).breaker.state == 'closed':
+            return i
+    raise AssertionError(f"serve_fleet: {name}'s circuit still "
+                         f"{router.replica(name).breaker.state} after "
+                         f"{len(reqs)} requests")
+
+
+def _bert_batches(engines):
+    return sum(e.stats()['models']['bert']['batches'] for e in engines)
+
+
+def _fleet_affinity(seed, dev):
+    """(f): two paged generative replicas on ``TinyCausalLM`` at
+    gpt_small's widths behind a router; 16 prompts of one 256-token
+    prefix (16 full pages) and a tail of 1-15 tokens (a partial page, no
+    digest), so their rendezvous key is the prefix's. The first prompt
+    alone, then the other 15."""
+    from paddle_tpu_torch.serving import (FleetRouter, ServingEngine,
+                                          TinyCausalLM)
+    lm = TinyCausalLM.random(vocab=50304, embed=768, num_heads=12,
+                             max_seq=1024, max_batch=8,
+                             prompt_buckets=SG_BUCKETS, seed=seed,
+                             device=dev)
+    rs = np.random.RandomState(seed + 16)
+    prefix = rs.randint(1, lm.vocab, size=256)
+    prompts = [np.concatenate([prefix, rs.randint(
+        1, lm.vocab, size=int(rs.randint(1, 16)))]).astype(np.int32)
+        for _ in range(FLEET_AFFINITY_PROMPTS)]
+    router = FleetRouter()
+    engines = {}
+    for name in ('g0', 'g1'):
+        eng = ServingEngine(queue_capacity=64, device=dev)
+        eng.register('lm', generative=lm, page_size=16)
+        engines[name] = eng.start()
+        router.add_replica(name, eng)
+    try:
+        first = router.submit('lm', {'tokens': prompts[0]},
+                              max_new_tokens=FLEET_AFFINITY_NEW)
+        resps = [first.result(timeout=FLEET_TIMEOUT_S)]
+        rest = [router.submit('lm', {'tokens': p},
+                              max_new_tokens=FLEET_AFFINITY_NEW)
+                for p in prompts[1:]]
+        resps += [p.result(timeout=FLEET_TIMEOUT_S) for p in rest]
+    finally:
+        for eng in engines.values():
+            eng.stop()
+    placed = [p.replicas_tried for p in [first] + rest]
+    kv = {n: e.stats()['kv']['lm'] for n, e in engines.items()}
+    home = placed[0][0]
+    other = 'g1' if home == 'g0' else 'g0'
+    if any(p != (home,) for p in placed) or \
+            not all(r.ok and len(r.outputs['tokens']) == FLEET_AFFINITY_NEW
+                    for r in resps) or not kv[home]['prefix_hits'] or \
+            kv[other].get('prefix_hits', 0) or \
+            router.replica(other).dispatched:
+        raise AssertionError(f"serve_fleet affinity: placed {placed}, kv "
+                             f"{kv}, statuses {[r.status for r in resps]}")
+    return {'model': 'TinyCausalLM', 'prompts': len(prompts),
+            'shared_prefix_tokens': 256, 'replica': home,
+            'prefix_hits': {n: kv[n]['prefix_hits'] for n in kv},
+            'prefix_hit_rate': kv[home]['prefix_hit_rate'],
+            'dispatched': {n: router.replica(n).dispatched for n in kv}}
+
+
+def phase_serve_fleet(seed, card, serve):
+    """The fleet layer on BERT-large: a ``FleetRouter`` over three
+    ``ServingEngine``s (r0-r2) on phase_serve's model (fp32, seq 512),
+    worker threads started, telemetry on. One card holds the whole fleet:
+    the phase measures failover and rejoin, not a fleet across cards.
+    The main path, counted: (a) chaos: ``kill_replica_at_request(r1, 5)``
+    and ``slow_replica(r2, 0.05)``, phase_serve's 87 requests through
+    ``router.submit`` in its waves: every request OK, none lost, r1 one
+    death and an open circuit, a failover retry, the completions summing
+    to the requests; (b) rejoin: ``FleetSupervisor(max_restarts=3,
+    warmup=True).check_once() == ['r1']``, r1 half-open and dispatchable,
+    closed again by the requests through its gate, ``fleet.recovery_ms``;
+    (c) hedging: r2 the straggler, ``FLEET_HEDGE_REQUESTS`` requests one
+    at a time unhedged, then hedged after twice phase_serve's bucket-1
+    p50: p50 and p99 of each, hedges fired and won, the losers' extra
+    batches; one settled answer a request, equal to the unhedged one
+    within ``TOL``; (d) drain: a wave of 16, ``drain('r0')`` with work
+    queued: every request OK, nothing aborted, no admit to r0 while it
+    drains; ``readmit``; (e) autoscaling on real burn: SLO between
+    phase_serve's bucket-4 and bucket-16 p50s (objective 0.5),
+    ``FleetAutoscaler(min_replicas=2, max_replicas=4)`` ticked between
+    full waves (16 requests a replica) until it grows a warmed BERT-large
+    replica, then between single requests after ``slo.reset()`` until it
+    shrinks through ``drain`` with zero aborted;
+    ``fleet.autoscale.scale_up_ms``. Launches zeroed before (a) and read
+    after (e): per batch 24 flash forward, 48 add+LayerNorm, 1 LayerNorm,
+    over every engine's batches and the warmups of the engines built in
+    between. Then (f) prefix affinity on two paged ``TinyCausalLM``
+    replicas (no kernel); the doctor over the phase's events
+    (``replica_flapping`` and ``autoscale_flap`` quiet, ``retry_storm``
+    reported); no thread left; (a)'s outputs against each request served
+    alone on the plain versions. -> the main path's launch counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.resilience import faultinject as fi
+    from paddle_tpu_torch.serving import (DEFAULT_BATCH_BUCKETS, BucketSpec,
+                                          FleetAutoscaler, FleetRouter,
+                                          FleetSupervisor, RouterPolicy,
+                                          ServingEngine, admission)
+    model = serve['model']
+    dev = next(model.parameters()).device
+    hidden = model.config.hidden_size
+    reqs = serve['requests']
+    p50 = serve['batch_p50_ms']
+    obs.reset()
+    admission.reset_tenant_stats()
+    obs.enable()
+    threads_before = set(threading.enumerate())
+    policy = RouterPolicy(max_retries=2, attempt_timeout_ms=60_000,
+                          trip_after=3, circuit_cooldown_s=600.0)
+    router = FleetRouter(policy=policy)
+    engines = []                 # every BERT engine of the phase
+    for name in FLEET_REPLICAS:
+        eng = _fleet_engine(model, dev)
+        eng.warmup()
+        router.add_replica(name, eng)
+        engines.append(eng)
+    built = []
+
+    def factory(name):
+        eng = _fleet_engine(model, dev)
+        engines.append(eng)
+        built.append(name)
+        return eng
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()              # the main path starts here
+    # (a) chaos
+    r1, r2 = engines[1], engines[2]
+    fi.kill_replica_at_request(r1, at_request=FLEET_KILL_AT)
+    fi.slow_replica(r2, delay_s=FLEET_SLOW_S)
+    served, t0, at = [], time.perf_counter(), 0
+    for n in SERVE_WAVES:
+        pend = [router.submit('bert', r, deadline_ms=60_000)
+                for r in reqs[at:at + n]]
+        at += n
+        served += [p.result(timeout=FLEET_TIMEOUT_S) for p in pend]
+    chaos_s = time.perf_counter() - t0
+    rows = router.stats()['replicas']
+    lost = sum(SERVE_WAVES) - sum(r.ok for r in served)
+    if lost or rows['r1']['deaths'] != 1 or rows['r1']['circuit'] != \
+            'open' or sum(r['retried'] for r in rows.values()) < 1 or \
+            sum(r['completed'] for r in rows.values()) != len(served):
+        raise AssertionError(f"serve_fleet chaos: {lost} lost, rows "
+                             f"{rows}")
+    for i, r in enumerate(served):
+        _bert_outputs_ok(f"serve_fleet request {i}", r, hidden)
+    chaos_rows = rows
+
+    # (b) rejoin through the supervisor
+    sup = FleetSupervisor(router, factory, max_restarts=3, warmup=True)
+    relaunched = sup.check_once()
+    h1 = router.replica('r1')
+    rejoined = (h1.breaker.state, h1.engine.dispatchable(), h1.restarts)
+    if relaunched != ['r1'] or rejoined != ('half_open', True, 1):
+        raise AssertionError(f"serve_fleet rejoin: {relaunched}, "
+                             f"{rejoined}")
+    probes = _close_half_open(router, 'r1', reqs[:12])
+    rejoin = [e for e in obs.event_log()
+              if e['ev'] == 'fleet.replica_rejoin'][0]
+
+    # (c) hedging: unhedged, then hedged, r2 the straggler
+    hedge_reqs = reqs[:FLEET_HEDGE_REQUESTS]
+    hedge_after = 2.0 * p50['1']
+    before = _bert_batches(engines)
+    plain_out, hedged_out = [], []
+    unhedged_ms = _fleet_predict(router, hedge_reqs, plain_out)
+    unhedged_batches = _bert_batches(engines) - before
+    policy.hedge_after_ms = hedge_after
+    hedged_rows0 = router.stats()['replicas']
+    before = _bert_batches(engines)
+    hedged_ms = _fleet_predict(router, hedge_reqs, hedged_out)
+    hedged_batches = _bert_batches(engines) - before
+    policy.hedge_after_ms = None
+    hedged_rows = router.stats()['replicas']
+    fired = sum(hedged_rows[n]['hedged'] - hedged_rows0[n]['hedged']
+                for n in hedged_rows)
+    won = sum(hedged_rows[n]['hedge_wins'] - hedged_rows0[n]['hedge_wins']
+              for n in hedged_rows)
+    hedge_err = max(max_err(torch.from_numpy(a), torch.from_numpy(b))
+                    for x, y in zip(plain_out, hedged_out)
+                    for a, b in zip(x.outputs, y.outputs))
+    check('serve_fleet hedged vs unhedged answers', hedge_err, TOL)
+    if len(hedged_out) != len(hedge_reqs) or not fired:
+        raise AssertionError(f"serve_fleet hedging: {len(hedged_out)} "
+                             f"answers, {fired} hedges fired")
+    del r2.pump                  # r2 is a healthy replica again
+
+    # (d) drain r0 with work queued, then readmit
+    pend = [router.submit('bert', r, deadline_ms=60_000)
+            for r in reqs[:FLEET_DRAIN_WAVE]]
+    on_r0 = sum(p.replicas_tried[0] == 'r0' for p in pend)
+    t0 = time.perf_counter()
+    router.drain('r0', timeout=FLEET_TIMEOUT_S)
+    drain_ms = 1e3 * (time.perf_counter() - t0)
+    drained = [p.result(timeout=FLEET_TIMEOUT_S) for p in pend]
+    during = [router.submit('bert', r) for r in reqs[:6]]
+    admitted_r0 = [p.replicas_tried for p in during
+                   if 'r0' in p.replicas_tried]
+    during = [p.result(timeout=FLEET_TIMEOUT_S) for p in during]
+    drain_ev = [e for e in obs.event_log()
+                if e['ev'] == 'serving.router.drain' and
+                e['state'] == 'drained'][-1]
+    if not all(r.ok for r in drained + during) or admitted_r0 or \
+            drain_ev['aborted'] or not router.replica('r0').drained:
+        raise AssertionError(f"serve_fleet drain: {drain_ev}, admitted "
+                             f"to r0 {admitted_r0}")
+    router.readmit('r0')
+    readmit_probes = _close_half_open(router, 'r0', reqs[:12])
+
+    # (e) autoscaling on real SLO burn
+    slo_ms = 0.5 * (p50['4'] + p50['16'])
+    obs.slo.reset()
+    obs.slo.set_objective('bert', slo_ms, FLEET_SLO_OBJECTIVE)
+    auto = FleetAutoscaler(router, replica_factory=factory, min_replicas=2,
+                           max_replicas=4, sustain_ticks=2,
+                           cooldown_ticks=1, warmup=True)
+    ticks, full_waves = [], 0
+    while 'grow' not in ticks:
+        if len(ticks) >= FLEET_MAX_TICKS:
+            raise AssertionError(f"serve_fleet: no grow in {ticks}, burn "
+                                 f"{obs.slo.burn_rates()}")
+        wave = [reqs[(full_waves * 16 * 4 + i) % len(reqs)]
+                for i in range(16 * len(router.replicas()))]
+        pend = [router.submit('bert', r, deadline_ms=60_000) for r in wave]
+        if not all(p.result(timeout=FLEET_TIMEOUT_S).ok for p in pend):
+            raise AssertionError("serve_fleet: a full wave failed")
+        full_waves += 1
+        ticks.append(auto.tick())
+    burn_at_grow = obs.slo.burn_rates()
+    obs.slo.reset()                            # dilute the burn
+    obs.slo.set_objective('bert', slo_ms, FLEET_SLO_OBJECTIVE)
+    grown = len(router.replicas())
+    while 'shrink' not in ticks:
+        if len(ticks) >= 2 * FLEET_MAX_TICKS:
+            raise AssertionError(f"serve_fleet: no shrink in {ticks}")
+        _fleet_predict(router, reqs[len(ticks):len(ticks) + 2])
+        ticks.append(auto.tick())
+    shrink = [d for d in auto.decisions() if d['action'] == 'shrink'][0]
+    grow = [d for d in auto.decisions() if d['action'] == 'grow'][0]
+    if grown != 4 or len(router.replicas()) != 3 or shrink['aborted']:
+        raise AssertionError(f"serve_fleet autoscale: {ticks}, "
+                             f"{auto.decisions()}")
+    batches = _bert_batches(engines)
+    warm_forwards = len(DEFAULT_BATCH_BUCKETS) * len(built)
+    counts = kernels.launch_counts()           # ... and ends here
+    want = {**dict.fromkeys(counts, 0),
+            **{k: n * (batches + warm_forwards)
+               for k, n in SERVE_BATCH_LAUNCHES.items()}}
+    if counts != want:
+        raise AssertionError(f"serve_fleet launches {counts} over "
+                             f"{batches} batches and {warm_forwards} "
+                             f"warmup forwards, expected {want}")
+
+    # stop the fleet: every engine the phase built, removed ones included
+    for eng in engines:
+        eng.stop()
+    affinity = _fleet_affinity(seed, dev)
+    snap = obs.snapshot()
+    events = obs.event_log()
+    diagnosed = obs.doctor.diagnose(events=events, snapshot=snap)
+    causes = {d['cause']: d['severity'] for d in diagnosed}
+    leftover = [t for t in threading.enumerate() if t not in threads_before]
+    for t in leftover:
+        t.join(5)
+    leftover = [t.name for t in leftover if t.is_alive()]
+    if 'replica_flapping' in causes or 'autoscale_flap' in causes or \
+            leftover:
+        raise AssertionError(f"serve_fleet: doctor {causes}, threads "
+                             f"left {leftover}")
+    recovery = snap['histograms'].get('fleet.recovery_ms', {})
+    scale_up = snap['histograms'].get('fleet.autoscale.scale_up_ms', {})
+    if recovery.get('count') != 1 or scale_up.get('count') != 1:
+        raise AssertionError(f"serve_fleet histograms: {recovery}, "
+                             f"{scale_up}")
+
+    # (a)'s outputs against each request served alone on the plain versions
+    obs.disable()
+    plain = ServingEngine(device=dev)
+    pep = plain.register('alone', layer=model, example=_example(),
+                         bucket_spec=BucketSpec((1,)))
+    errs = []
+    with kernels.plain_versions():
+        for r, resp in zip(reqs, served):
+            f = pep.submit(r)
+            plain.run_until_idle()
+            alone = f.result(timeout=FLEET_TIMEOUT_S).outputs
+            errs.append(max(max_err(torch.from_numpy(a),
+                                    torch.from_numpy(b))
+                            for a, b in zip(resp.outputs, alone)))
+    check('serve_fleet chaos outputs vs alone plain', max(errs), TOL)
+
+    emit({'phase': 'serve_fleet', 'model': 'bert_large', 'card': card,
+          'layers': model.config.num_hidden_layers, 'hidden': hidden,
+          'seq': SEQ, 'dtype': 'float32', 'replicas': list(FLEET_REPLICAS),
+          'one_card': True,
+          'chaos': {'requests': len(served), 'waves': SERVE_WAVES,
+                    'kill_r1_at_request': FLEET_KILL_AT,
+                    'slow_r2_s': FLEET_SLOW_S, 'lost': lost,
+                    'seconds': chaos_s, 'rows': chaos_rows,
+                    'max_abs_err_vs_alone_plain': max(errs),
+                    'tolerance': TOL},
+          'rejoin': {'relaunched': relaunched,
+                     'recovery_ms': rejoin['recovery_ms'],
+                     'requests_to_close': probes},
+          'hedging': {'hedge_after_ms': hedge_after,
+                      'bucket1_p50_ms': p50['1'],
+                      'requests': len(hedge_reqs),
+                      'unhedged': _percentiles(unhedged_ms),
+                      'hedged': _percentiles(hedged_ms),
+                      'hedges_fired': fired, 'hedge_wins': won,
+                      'batches_unhedged': unhedged_batches,
+                      'batches_hedged': hedged_batches,
+                      'extra_batches': hedged_batches - len(hedge_reqs),
+                      'max_abs_err_hedged_vs_unhedged': hedge_err},
+          'drain': {'wave': FLEET_DRAIN_WAVE, 'placed_on_r0': on_r0,
+                    'drained': drain_ev['drained'],
+                    'aborted': drain_ev['aborted'], 'ms': drain_ms,
+                    'requests_to_close_after_readmit': readmit_probes},
+          'autoscale': {'slo_ms': slo_ms,
+                        'slo_objective': FLEET_SLO_OBJECTIVE,
+                        'full_waves': full_waves, 'ticks': ticks,
+                        'burn_at_grow': burn_at_grow,
+                        'scale_up_ms': grow['ms'],
+                        'scale_down_ms': shrink['ms'],
+                        'grown': grow['replica'],
+                        'shrunk': shrink['replica'],
+                        'aborted': shrink['aborted'],
+                        'replicas': [h.name for h in router.replicas()]},
+          'affinity': affinity,
+          'doctor': causes,
+          'retry_storm': [d for d in diagnosed
+                          if d['cause'] == 'retry_storm'],
+          'batches': batches, 'warm_forwards': warm_forwards,
+          'launches': counts,
+          'counters': {k: v for k, v in snap['counters'].items()
+                       if k.startswith(('serving.router', 'fleet.'))}})
+    obs.reset()
+    obs.endpoint.stop_active_server()
+    obs.timeseries.clear()
+    obs.flight.uninstall_crash_hooks()
+    admission.reset_tenant_stats()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # the high-level API: hapi.Model fit / evaluate / predict on BERT-large,
 # with its DataLoader, callbacks and Accuracy
 # ---------------------------------------------------------------------------
@@ -5295,6 +5716,7 @@ def main():
     phase_parity(args.seed)
     served, serve = phase_serve(args.seed, card)
     served_tenants = phase_serve_tenants(args.seed, card, serve)
+    served_fleet = phase_serve_fleet(args.seed, card, serve)
     del serve
     torch.cuda.empty_cache()
     phase_train_parity(args.seed)
@@ -5332,7 +5754,10 @@ def main():
     torch.cuda.empty_cache()
     # launches: each main path's counts, zeroed just before the path and
     # read just after (serving: 21 batches; serve_tenants: the tenants
-    # engine's pumped and threaded batches; each training run: 20 steps;
+    # engine's pumped and threaded batches; serve_fleet: every replica's
+    # batches from the chaos waves to the autoscaler's shrink, and the
+    # warmups of the relaunched and the grown replica; each training run:
+    # 20 steps;
     # train_fit: 2 fit calls, 40 steps; train_resume: the resumed
     # full-width fit, 6 steps; nn.RMSNorm: 18 forwards and their
     # backward; generate: 5 calls of GPT's generate; serve_generative: the
@@ -5343,6 +5768,7 @@ def main():
     # numbers are bf16's, the dtype of the reference's training recipe,
     # and ``gpt`` holds the fp32 cases at generate's shapes
     paths = {'serve': served, 'serve_tenants': served_tenants,
+             'serve_fleet': served_fleet,
              'train_fp32': trained,
              'train_bf16': trained16, 'train_bf16_flat': trained_flat,
              'train_fp16_amp': trained_amp, 'train_fit': trained_fit,

@@ -20,9 +20,11 @@ __all__ = ['KERNELS', 'launch_counts', 'reset_launch_counts',
 
 def launch_counts():
     """-> {kernel name: launches since the last reset}."""
-    return dict(_build.launches)
+    with _build.launches_lock:
+        return dict(_build.launches)
 
 
 def reset_launch_counts():
-    for name in _build.launches:
-        _build.launches[name] = 0
+    with _build.launches_lock:
+        for name in _build.launches:
+            _build.launches[name] = 0

@@ -71,8 +71,11 @@ KERNELS = ('flash_attention_fwd', 'flash_attention_dq', 'flash_attention_dkv',
 # the element types the kernels are built for -> the code the C entry
 # points take (csrc/dtype.cuh, ElemType)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# kernel launches since the last reset, by kernel (kernels.launch_counts)
+# kernel launches since the last reset, by kernel (kernels.launch_counts);
+# several serving workers launch at once, so every update and read takes
+# launches_lock
 launches = dict.fromkeys(KERNELS, 0)
+launches_lock = threading.Lock()
 # called with the milliseconds of each build that ran nvcc
 # (observability.interpose.install_build_hooks registers one)
 build_listeners = []
@@ -183,7 +186,8 @@ def call(kernel, name, argtypes, *args):
         msg = load().ptt_error_string(code).decode()
         raise RuntimeError(f"paddle_tpu_torch: {name} failed: CUDA error "
                            f"{code} ({msg})")
-    launches[kernel] += 1
+    with launches_lock:
+        launches[kernel] += 1
 
 
 def dropout_args(p, seed, offset):

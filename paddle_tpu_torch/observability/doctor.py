@@ -457,10 +457,12 @@ def detect_memory_pressure(events=None, snapshot=None, cluster=None,
     """Worst per-program peak memory vs. the device budget, from the cost
     ledger's ``cost.peak_bytes{program=}`` gauges (snapshot) or
     ``cost.program`` events. Budget: the ``hbm_budget`` override, the
-    ``PADDLE_TPU_HBM_BUDGET`` env (bytes), or — when torch is importable
-    and CUDA available — the card's total memory
-    (``torch.cuda.mem_get_info``)."""
+    ``PADDLE_TPU_HBM_BUDGET`` env (bytes), or — when the process has
+    torch loaded already and CUDA available — the card's total memory
+    (``torch.cuda.mem_get_info``). The detector never imports torch
+    itself: the operator's tools run this module by path without it."""
     import os
+    import sys
     budget = hbm_budget
     if budget is None:
         raw = os.environ.get('PADDLE_TPU_HBM_BUDGET', '')
@@ -469,9 +471,9 @@ def detect_memory_pressure(events=None, snapshot=None, cluster=None,
                 budget = int(float(raw))
             except ValueError:
                 budget = None
-    if budget is None:
+    torch = sys.modules.get('torch')
+    if budget is None and torch is not None:
         try:
-            import torch
             budget = (int(torch.cuda.mem_get_info()[1]) or None
                       if torch.cuda.is_available() else None)
         except Exception:

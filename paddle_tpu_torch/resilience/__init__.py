@@ -12,27 +12,28 @@
   reports them to the dynamic ``GradScaler``;
 - bounded ``retry`` with exponential backoff + jitter;
 - async and per-rank sharded checkpoints (``async_checkpoint``);
-- bounded waits (``watchdog``: ``bounded_get``, ``join_thread``,
-  ``join_proc``, ``wait_proc``).
+- bounded waits and liveness (``watchdog``: ``bounded_get``,
+  ``join_thread``, ``join_proc``, ``wait_proc``, the supervisor's
+  ``Heartbeat`` and ``heartbeat_age``).
 
-Not ported yet: ``faultinject`` and the supervisor's ``Heartbeat`` /
-``heartbeat_age`` (ROADMAP.md, Queue 1 item 7), and the resharding
-restore (``distributed/``).
+``faultinject`` produces each of the failures above deterministically, so
+the whole layer is testable on the CPU. Not ported yet: the resharding
+restore (``distributed/``, ROADMAP.md, Queue 1 item 5).
 """
-from . import async_checkpoint, atomic_io, watchdog
+from . import async_checkpoint, atomic_io, faultinject, watchdog
 from .atomic_io import (AtomicWriteError, atomic_open, atomic_pickle_dump,
                         atomic_write, crc32_bytes, crc32_file)
 from .checkpoint import CheckpointManager, capture_rng, restore_rng
 from .nanguard import NanGuard, NanStepError
 from .preempt import PreemptionGuard
 from .retry import RetryError, retry
-from .watchdog import (WatchdogTimeout, bounded_get, join_proc, join_thread,
-                       wait_proc)
+from .watchdog import (Heartbeat, WatchdogTimeout, bounded_get,
+                       heartbeat_age, join_proc, join_thread, wait_proc)
 
 __all__ = ['atomic_open', 'atomic_write', 'atomic_pickle_dump',
            'crc32_file', 'crc32_bytes',
            'AtomicWriteError', 'retry', 'RetryError', 'PreemptionGuard',
            'NanGuard', 'NanStepError', 'CheckpointManager', 'capture_rng',
-           'restore_rng', 'atomic_io', 'async_checkpoint', 'watchdog',
-           'WatchdogTimeout', 'bounded_get', 'join_thread', 'join_proc',
-           'wait_proc']
+           'restore_rng', 'atomic_io', 'async_checkpoint', 'faultinject',
+           'watchdog', 'WatchdogTimeout', 'bounded_get', 'join_thread',
+           'join_proc', 'wait_proc', 'Heartbeat', 'heartbeat_age']

@@ -1,8 +1,6 @@
-"""Bounded waits: the primitives that keep one dead participant from
-hanging the whole job. The port's own copy of
-``paddle_tpu/resilience/watchdog.py`` (stdlib only), without the
-supervisor's ``Heartbeat`` and ``heartbeat_age`` (they come with the
-fleet supervisor, ROADMAP.md Queue 1 item 7).
+"""Bounded waits and liveness: the primitives that keep one dead
+participant from hanging the whole job. The port's own copy of
+``paddle_tpu/resilience/watchdog.py`` (stdlib only).
 
 Every blocking wait in library code (queue gets, thread and process joins,
 child-process waits) goes through these helpers instead of the unbounded
@@ -13,13 +11,18 @@ a silent stall:
 - ``bounded_get(q, ...)``: ``queue.Queue.get`` in short ticks with an
   optional overall deadline and an optional ``alive()`` probe;
 - ``join_thread`` / ``join_proc`` / ``wait_proc``: tick-based joins that
-  stay interruptible and report (rather than swallow) expiry.
+  stay interruptible and report (rather than swallow) expiry;
+- ``Heartbeat``: a daemon thread touching a file every ``interval``
+  seconds; supervisors read the mtime (``heartbeat_age``) to tell a busy
+  participant from a wedged one.
 """
+import os
 import queue
+import threading
 import time
 
 __all__ = ['WatchdogTimeout', 'bounded_get', 'join_thread', 'join_proc',
-           'wait_proc', 'DEFAULT_TICK']
+           'wait_proc', 'Heartbeat', 'heartbeat_age', 'DEFAULT_TICK']
 
 # Tick between liveness probes: short enough that a dead producer is
 # reported promptly, long enough that the poll is free next to any real
@@ -145,3 +148,55 @@ def wait_proc(popen, timeout=None, tick=0.25):
         except subprocess.TimeoutExpired:
             if deadline is not None and time.monotonic() >= deadline:
                 return None
+
+
+class Heartbeat:
+    """Touch ``path`` every ``interval`` seconds from a daemon thread.
+
+    A supervisor that can see the file tells "busy in a long kernel build"
+    (fresh heartbeat) from "wedged in a wait that will never end" (stale
+    heartbeat): liveness, not just existence.
+    """
+
+    def __init__(self, path, interval=0.5):
+        self.path = os.fspath(path)
+        self.interval = float(interval)
+        self._stop = threading.Event()
+        self._thread = None
+
+    def _beat_once(self):
+        try:
+            with open(self.path, 'a'):
+                os.utime(self.path, None)
+        except OSError:
+            pass   # result dir vanished (parent cleanup): nothing to report
+
+    def _run(self):
+        while not self._stop.wait(self.interval):
+            self._beat_once()
+
+    def start(self):
+        if self._thread is None:
+            self._beat_once()
+            self._thread = threading.Thread(
+                target=self._run, name='paddle-tpu-torch-heartbeat',
+                daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            join_thread(self._thread, timeout=self.interval * 4)
+            self._thread = None
+
+
+def heartbeat_age(path):
+    """Seconds since the heartbeat file was last touched, or None when it
+    was never written (the participant died before its first beat, or no
+    heartbeat was configured)."""
+    try:
+        # comparing against a file mtime needs the wall clock
+        return max(time.time() - os.path.getmtime(path), 0.0)
+    except OSError:
+        return None

@@ -294,6 +294,14 @@ class ServingEngine:
         return fn
 
     # -- client surface -------------------------------------------------
+    def has_model(self, name):
+        return name in self._models
+
+    def model_kind(self, name):
+        """'generative' or 'batch' for a registered model (KeyError
+        else)."""
+        return self._models[name].kind
+
     def page_starved(self, model):
         """Is ``model``'s paged runner unable to allocate KV pages right
         now? Always False for the other runners."""
@@ -388,6 +396,14 @@ class ServingEngine:
             _obs.async_end('request', req.id, cat='serving.request',
                            status='cancelled')
         return True
+
+    def queued_count(self, model=None):
+        """Requests admitted but not yet popped by a runner."""
+        with self._lock:
+            if model is not None:
+                q = self._queues.get(model)
+                return 0 if q is None else len(q)
+            return sum(len(q) for q in self._queues.values())
 
     def resident_count(self, model=None):
         """Generative requests resident in KV rows (mid-decode). One-shot

@@ -368,6 +368,11 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         "'paddle_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'paddle_tpu_torch.engine.loop' in sys.modules\n"
+        # the fleet layer, the chaos harness and the operator's tools
+        "for m in ('serving.router', 'serving.fleet_supervisor', "
+        "'serving.autoscaler', 'resilience.faultinject', 'tools.doctor', "
+        "'tools.telemetry_dump', 'tools.postmortem', 'tools.perfwatch'):\n"
+        "    assert 'paddle_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
         "or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
