@@ -216,7 +216,28 @@ Phases, each printing one JSON line:
    ``aggregate`` and diagnosed: ``checkpoint_stall`` after the sync save
    only; ``Model.fit`` (jit, one epoch) with the ``TelemetryCallback``
    attached by itself, ``/diagnosis`` and ``/costs`` from a live endpoint
-   equal to the in-process values, a flight dump carrying the ledger.
+   equal to the in-process values, a flight dump carrying the ledger;
+26. collectives — ``distributed.init_parallel_env()`` on NCCL at world 1
+   (a ``file://`` store): every collective of the port's API on CUDA
+   tensors at fp32 and bf16 against its closed form, the
+   ``collective.<op>.calls`` / ``.bytes`` counters exact, a deadline met
+   and one expired by ``faultinject.slow_collective``, naming the op;
+27. train sharded — ``train_fit``'s recipe with
+   ``sharding=ShardingConfig(fsdp=True)`` in the NCCL group at world 1,
+   bit for bit the same fit without a process group (both under
+   ``deterministic()``): losses, parameters, Lamb's slots, the scale and
+   the guard; exact launches, the collectives a dispatch as planned
+   (``_fsdp_plan``), the fit's host-sync budget; a 2-layer full-width
+   sharded checkpoint restored into an unsharded fit and back, bit for
+   bit; the step ms beside the unsharded one (timed in both orders) and
+   ``train_fit``'s, the peak, the ``sharding.*`` gauges; the group
+   destroyed at the end;
+28. dp two ranks — ``distributed.spawn(nprocs=2, backend='gloo')`` on the
+   one card: a 2-layer BERT at BERT-large widths, a ``DataParallel`` net,
+   3 steps each with AdamW and with SGD against one process on the whole
+   batch (losses 1e-3; SGD's parameters 1e-3; AdamW's printed, not held),
+   the ranks bit for bit, exact launches from each child, and
+   rank-distinct dropout masks with rank 0's the one process's.
 
 Every kernel row carries ``share_of_bound`` (bound ms over kernel ms) and
 the achieved TFLOP/s and TB/s beside the library call's time. Then a
@@ -225,7 +246,8 @@ level and under ``bf16``, fp32 under ``fp32``, fp16 under ``fp16``, the
 GPT cases under ``gpt``, launches by path: ``serve``,
 ``serve_tenants``, ``serve_fleet``, the training paths,
 ``train_resume``, ``nn.RMSNorm``, ``generate``, ``serve_generative``,
-``hapi_fit`` and ``train_telemetry``) and, last, ``{"ok": true,
+``hapi_fit``, ``train_telemetry``, ``train_sharded`` and
+``dp_two_ranks``) and, last, ``{"ok": true,
 "device": ...}``. Any failure raises and exits non-zero; without a CUDA
 device (or without the package beside this file) it exits non-zero and
 prints no result. fp32 matrix products run in full
@@ -5666,6 +5688,609 @@ def _telemetry_hapi(seed, root):
     return out, counts
 
 
+# -- data parallelism (distributed/) -----------------------------------------
+
+# the collective phase's deadline, and the slow collective that outlasts it
+COLLECTIVE_DEADLINE_S = 0.5
+COLLECTIVE_DELAY_S = 1.0
+# dp_two_ranks: two ranks of 4 rows each on the one card (gloo), 3 steps
+DP_RANKS = 2
+DP_STEPS = 3
+DP_JOIN_S = 300
+# a step of dp_two_ranks' 2-layer model at p = 0: PARITY_LAUNCHES without
+# the mask gradient, which runs only where a dropout drew a mask
+DP_LAUNCHES = {**PARITY_LAUNCHES, 'dropout_grad': 0}
+DP_LR = {'adamw': 1e-4, 'sgd': 1e-3}
+
+
+def phase_collectives(card):
+    """``distributed.init_parallel_env()`` on the one card: NCCL for CUDA
+    tensors (gloo for CPU ones) at world 1, through a ``file://`` store;
+    each collective of the port's API on CUDA tensors in fp32 and bf16
+    (``all_reduce`` SUM, MAX, MIN and PROD, ``all_gather``, ``broadcast``,
+    ``reduce``, ``scatter``, ``reduce_scatter``, ``alltoall``,
+    ``barrier``) against its closed form at world 1 (each rank's value is
+    the answer), with telemetry on, the ``collective.<op>.calls`` /
+    ``.bytes`` counters exact; an all-gather under a deadline that it
+    meets; ``faultinject.slow_collective`` past ``set_timeout`` raising
+    ``DistributedTimeoutError`` naming the op. The group is left for
+    ``phase_train_sharded``, which destroys it."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.resilience import faultinject as fi
+    dev = torch.device('cuda', 0)
+    t0 = time.perf_counter()
+    dist.init_parallel_env()
+    dist.barrier()                        # the NCCL communicator is up
+    init_ms = 1e3 * (time.perf_counter() - t0)
+    backend = str(torch.distributed.get_backend())
+    if 'cuda:nccl' not in backend or dist.get_world_size() != 1 or \
+            dist.get_rank() != 0:
+        raise AssertionError(f"collectives: backend {backend!r}, world "
+                             f"{dist.get_world_size()}")
+    c = dist.collective
+    rows = {}
+    obs.enable()
+    try:
+        for dtype in (torch.float32, BF16):
+            obs.reset()
+            c.reset_collective_counts()
+            # halves up to 4: exact in bf16, their products too
+            x = torch.arange(1, 9, device=dev).to(dtype) * 0.5
+            n = x.numel() * x.element_size()
+            got = {}
+            for op in ('sum', 'max', 'min', 'prod'):
+                got[f'all_reduce_{op}'] = c.all_reduce(x.clone(), op=op)
+            parts = []
+            got['all_gather'] = c.all_gather(parts, x)[0]
+            got['broadcast'] = c.broadcast(x.clone(), src=0)
+            got['reduce'] = c.reduce(x.clone(), dst=0)
+            got['scatter'] = c.scatter(torch.zeros_like(x), [x], src=0)
+            got['reduce_scatter'] = c.reduce_scatter(None, x)
+            got['alltoall'] = c.alltoall([x])[0]
+            c.barrier()
+            wrong = [k for k, v in got.items()
+                     if v.dtype != dtype or not torch.equal(v, x)]
+            if wrong or len(parts) != 1:
+                raise AssertionError(f"collectives {dtype}: {wrong} differ "
+                                     f"from the closed form")
+            want = {'all_reduce': (3, 3 * n), 'all_gather': (2, 2 * n),
+                    'broadcast': (1, n), 'reduce': (1, n),
+                    'scatter': (1, n), 'reduce_scatter': (1, n),
+                    'alltoall': (1, n), 'barrier': (1, 4)}
+            counters = {k: v for k, v in obs.snapshot()['counters'].items()
+                        if k.startswith('collective.')}
+            expect = {}
+            for op, (calls, nbytes) in want.items():
+                expect[f'collective.{op}.calls'] = calls
+                expect[f'collective.{op}.bytes'] = nbytes
+            own = {f'collective.{op}.{k}': v
+                   for op, cnt in c.collective_counts().items()
+                   for k, v in cnt.items()}
+            if counters != expect or own != expect:
+                raise AssertionError(f"collectives {dtype}: counters "
+                                     f"{counters} / {own}, expected "
+                                     f"{expect}")
+            rows[str(dtype)[6:]] = {'ops': sorted(got), 'counters': counters}
+    finally:
+        obs.disable()
+        obs.reset()
+    x = torch.ones(1024, device=dev)
+    prev = dist.set_timeout(COLLECTIVE_DEADLINE_S)
+    try:
+        met = c.all_gather(None, x)               # issued, waited, in time
+        torch.cuda.synchronize()
+        raised = None
+        try:
+            with fi.slow_collective(COLLECTIVE_DELAY_S, ops=['all_reduce']):
+                c.all_reduce(x)
+        except dist.DistributedTimeoutError as e:
+            raised = {'op': e.op, 'timeout_s': e.timeout,
+                      'missing_ranks': e.missing_ranks}
+    finally:
+        dist.set_timeout(prev)
+    if not torch.equal(met[0], x) or raised is None or \
+            raised['op'] != 'all_reduce':
+        raise AssertionError(f"collectives: the deadline's cases: {raised}")
+    row = {'phase': 'collectives', 'card': card, 'backend': backend,
+           'world': 1, 'nccl': list(torch.cuda.nccl.version()),
+           'init_and_first_barrier_ms': init_ms, 'dtypes': rows,
+           'deadline': {'met': 'all_gather', 'expired': raised,
+                        'deadline_s': COLLECTIVE_DEADLINE_S,
+                        'delay_s': COLLECTIVE_DELAY_S}}
+    emit(row)
+    return row
+
+
+def _fsdp_plan(model, k):
+    """The collectives a dispatch of ``phase_train_sharded``'s FSDP step
+    issues at world 1 (``k`` microbatches, Lamb + the global-norm clip,
+    scaler and guard): per step one all-gather of the parameters' pieces,
+    one reduce-scatter of their gradients, one all-reduce of the whole
+    leaves' gradients (when there are any) and one of the loss and ``ok``;
+    the clip's norms (one all-gather) and Lamb's (two: the weights' and
+    the updates')."""
+    from paddle_tpu_torch.distributed.sharding import shard_dim
+    whole = [n for n, p in model.named_parameters()
+             if shard_dim(tuple(p.shape), 1, 1024) is None]
+    per_step = {'all_gather': 1 + 1 + 2, 'reduce_scatter': 1,
+                'all_reduce': 1 + (1 if whole else 0)}
+    return {op: k * n for op, n in per_step.items()}, whole
+
+
+def _fit_state_on_device(model, opt):
+    """Device copies of ``model``'s parameters and ``opt``'s slots."""
+    return ({n: p.detach().clone() for n, p in model.named_parameters()},
+            {n: {s: v.detach().clone() for s, v in slots.items()
+                 if isinstance(v, torch.Tensor)}
+             for n, slots in opt._accumulators.items()})
+
+
+def _bitwise(a, b):
+    """The names where two ``_fit_state_on_device`` copies differ."""
+    bad = [n for n in a[0] if not torch.equal(a[0][n], b[0][n])]
+    for n, slots in a[1].items():
+        for s, v in slots.items():
+            w = b[1].get(n, {}).get(s)
+            if w is None or v.dtype != w.dtype or not torch.equal(v, w):
+                bad.append(f'{n}.{s}')
+    return bad
+
+
+def _sharded_fit(seed, cfg, data, sharding, layers=None, **kw):
+    """``phase_train_fit``'s recipe on a model from ``seed``: BERT-large
+    (or ``layers`` of it), O1 fp16, ``GradScaler``, ``nan_guard``, Lamb
+    with the global-norm clip under ``fit_schedule``, microbatch 2, one
+    ``engine.fit`` over ``data``, with ``sharding`` -> (model, optimizer,
+    scaler, guard, report, host syncs, their places, wall s)."""
+    from paddle_tpu_torch import amp, engine
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.resilience import NanGuard
+    from paddle_tpu_torch.text.bert import BertForPretraining, bert_large
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 3)
+    bcfg = bert_large()
+    if layers is not None:
+        bcfg.num_hidden_layers = layers
+    model = BertForPretraining(bcfg, device=dev, generator=gen).train()
+    opt, _ = fit_optimizer()
+    scaler, guard = GradScaler(), NanGuard()
+
+    def run():
+        with amp.auto_cast(level='O1', dtype='float16'):
+            return engine.fit(model, model.pretraining_loss, opt, data,
+                              microbatch=2, log_every=FIT_LOG_EVERY,
+                              nan_guard=guard, scaler=scaler, prefetch=2,
+                              sharding=sharding, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report, n_sync, where = _count_syncs(run)
+    torch.cuda.synchronize()
+    return model, opt, scaler, guard, report, n_sync, where, \
+        time.perf_counter() - t0
+
+
+def phase_train_sharded(seed, card, fit_row):
+    """BERT-large pretraining through ``engine.fit`` in ``train_fit``'s
+    recipe (O1 fp16, ``GradScaler``, ``nan_guard``, Lamb with the
+    global-norm clip under ``fit_schedule``, microbatch 2,
+    ``FIT_DISPATCHES`` dispatches) with ``sharding=ShardingConfig(
+    fsdp=True)`` in the NCCL group at world 1, against the same fit
+    without a process group, both under ``deterministic()`` (the step
+    repeats to the bit only there; PERF.md §7):
+
+    - the logged losses, the final parameters, Lamb's slots, the loss
+      scale and the guard's counters bit for bit (at world 1 every
+      collective is a copy and every cross-rank sum adds one term);
+    - the sharded fit's launches exactly ``TRAIN_LAUNCHES`` a step, its
+      collectives exactly ``_fsdp_plan`` a dispatch plus the write-back's
+      gathers at the end (the parameters and Lamb's two moments), its
+      host syncs within ``train_fit``'s budget;
+    - printed, not held: both fits' step ms (under the deterministic
+      mode) beside ``train_fit``'s, then both again in the other order
+      (sharded first) and the ratio of the sums, the sharded fit's peak
+      memory, the ``sharding.*`` gauges (a rank's resident pieces: the
+      step releases the gathered parameters after its update);
+    - a sharded checkpoint of a 2-layer BERT at full width restored into
+      an unsharded fit, saved from it and restored into a sharded fit
+      again, each state bit for bit the saved one;
+
+    then the process group is destroyed. -> (the sharded fit's launch
+    counts, a row)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import engine, kernels
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.text.bert import bert_large
+    cfg = bert_large()
+    x, y = _pretraining_batch(np.random.RandomState(seed), TRAIN_BATCH,
+                              cfg.vocab_size)
+    k = 2
+    data = [(x, y)] * (k * FIT_DISPATCHES)
+    row = {'phase': 'train_sharded', 'model': 'bert_large pretraining',
+           'entry': 'engine.fit(sharding=ShardingConfig(fsdp=True))',
+           'card': card, 'world': 1, 'batch': [TRAIN_BATCH, SEQ],
+           'dtype': 'amp.auto_cast O1 float16 on fp32 parameters',
+           'microbatch': k, 'dispatches': FIT_DISPATCHES}
+    root = tempfile.mkdtemp(prefix='train_sharded_')
+    try:
+        # the baseline: no process group (phase_collectives destroyed it)
+        dist.env.shutdown()
+        with deterministic() as nondet:
+            m, opt, scaler, guard, rep, _, _, wall = _sharded_fit(
+                seed, cfg, data, None)
+            plain = _fit_state_on_device(m, opt)
+            plain_losses, plain_scale = rep['loss'], scaler.get_loss_scaling()
+            plain_guard = (guard.total_steps, guard.skipped_steps)
+            row['unsharded_step_ms'] = 1e3 * wall / rep['steps']
+            del m, opt, rep
+            torch.cuda.empty_cache()
+            dist.init_parallel_env()
+            dist.barrier()                # the communicator is up
+            kernels.reset_launch_counts()     # the main path: the fit
+            dist.collective.reset_collective_counts()
+            torch.cuda.reset_peak_memory_stats()
+            m, opt, scaler, guard, rep, n_sync, where, wall = _sharded_fit(
+                seed, cfg, data, dist.ShardingConfig(fsdp=True))
+            counts = kernels.launch_counts()  # ... read right after it
+            collectives = dist.collective.collective_counts()
+            peak = torch.cuda.max_memory_allocated()
+            sharded = _fit_state_on_device(m, opt)
+        row['ops_without_a_deterministic_version'] = nondet
+        bad = _bitwise(plain, sharded)
+        if rep['loss'] != plain_losses or bad or \
+                scaler.get_loss_scaling() != plain_scale or \
+                (guard.total_steps, guard.skipped_steps) != plain_guard:
+            raise AssertionError(
+                f"train_sharded: not bitwise the unsharded fit: losses "
+                f"{rep['loss']} against {plain_losses}, {len(bad)} tensors "
+                f"differ ({bad[:6]}), scale {scaler.get_loss_scaling()} "
+                f"against {plain_scale}")
+        del plain
+        want = {n: k * FIT_DISPATCHES * c for n, c in TRAIN_LAUNCHES.items()}
+        if counts != want:
+            raise AssertionError(f"train_sharded: launches {counts}, "
+                                 f"expected {want}")
+        per_dispatch, whole = _fsdp_plan(m, k)
+        plan = {op: FIT_DISPATCHES * n for op, n in per_dispatch.items()}
+        plan['all_gather'] += 3            # write-back: params, 2 moments
+        calls = {op: c['calls'] for op, c in collectives.items()}
+        if calls != plan:
+            raise AssertionError(f"train_sharded: collectives {calls}, the "
+                                 f"plan {plan}")
+        sync_every = min(FIT_LOG_EVERY, -(-guard.max_consecutive_skips // k))
+        budget = len(rep['loss']) + rep['dispatches'] // sync_every + 1
+        if n_sync > budget:
+            raise AssertionError(f"train_sharded: {n_sync} host syncs, the "
+                                 f"fit cadence allows {budget}: {where}")
+        # the gauges, on the trained model (telemetry on for the init)
+        obs.enable()
+        try:
+            step = engine.build_train_step(
+                net=m, loss=m.pretraining_loss, optimizer=opt,
+                sharding=dist.ShardingConfig(fsdp=True))
+            state = step.init_state()
+            gauges = {g: v for g, v in obs.snapshot()['gauges'].items()
+                      if g.startswith('sharding.')}
+        finally:
+            obs.disable()
+            obs.reset()
+        # at rest (after a dispatch) the module holds no gathered
+        # parameter: its bytes are the whole leaves' alone
+        step(state, (x, y))
+        torch.cuda.synchronize()
+        at_rest = {'module_param_bytes': sum(
+            q.numel() * q.element_size() for q in m.parameters()),
+            'whole_leaf_bytes': sum(
+                q.numel() * q.element_size() for n, q in
+                m.named_parameters() if n in whole),
+            'memory_allocated_bytes': torch.cuda.memory_allocated()}
+        if at_rest['module_param_bytes'] != at_rest['whole_leaf_bytes']:
+            raise AssertionError(f"train_sharded: the module holds "
+                                 f"gathered parameters at rest: {at_rest}")
+        del state
+        del step, m, opt, sharded
+        torch.cuda.empty_cache()
+        row.update({
+            'losses_logged': rep['loss'], 'bitwise_unsharded': True,
+            'sharded_step_ms': 1e3 * wall / rep['steps'],
+            'train_fit_step_ms': fit_row['step_ms']['median'],
+            'launches_per_step': TRAIN_LAUNCHES, 'launches': counts,
+            'collectives': collectives,
+            'collective_plan_per_dispatch': per_dispatch,
+            'whole_leaves': whole, 'host_syncs': n_sync,
+            'host_sync_budget': budget,
+            'max_memory_allocated_bytes': peak, 'gauges': gauges,
+            'at_rest': at_rest,
+            'checkpoint_round_trip': _sharded_checkpoint_round_trip(
+                seed, cfg, x, y, root)})
+        # the same two fits again in the other order (sharded first), so
+        # that what the first of two fits pays falls on each side once
+        with deterministic():
+            again = {}
+            for shard in (dist.ShardingConfig(fsdp=True), None):
+                if shard is None:
+                    dist.env.shutdown()
+                m, opt, _, _, rep, _, _, wall = _sharded_fit(
+                    seed, cfg, data, shard)
+                again['sharded' if shard else 'unsharded'] = \
+                    1e3 * wall / rep['steps']
+                del m, opt, rep
+                torch.cuda.empty_cache()
+        first = row['sharded_step_ms'] / row['unsharded_step_ms']
+        second = again['sharded'] / again['unsharded']
+        row.update({
+            'unsharded_first': {'unsharded_step_ms':
+                                row['unsharded_step_ms'],
+                                'sharded_step_ms': row['sharded_step_ms'],
+                                'ratio': first},
+            'sharded_first': {'sharded_step_ms': again['sharded'],
+                              'unsharded_step_ms': again['unsharded'],
+                              'ratio': second},
+            'sharded_over_unsharded': (
+                (row['sharded_step_ms'] + again['sharded'])
+                / (row['unsharded_step_ms'] + again['unsharded']))})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        dist.env.shutdown()
+    emit(row)
+    return counts, row
+
+
+def _sharded_checkpoint_round_trip(seed, cfg, x, y, root):
+    """A 2-layer BERT at full width: a sharded fit (2 dispatches, its
+    checkpoint at the end); an unsharded fit resumed from it (the process
+    group left, nothing left to train): its state bit for bit the
+    checkpoint's; that state saved and a sharded fit resumed from it: its
+    state bit for bit again. -> a row."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.resilience import CheckpointManager
+    data = [(x, y)] * 4
+    first, second = os.path.join(root, 'sharded'), os.path.join(root,
+                                                               'plain')
+    t0 = time.perf_counter()
+    rep = _sharded_fit(seed, cfg, data, dist.ShardingConfig(fsdp=True),
+                       layers=2, checkpoint=first, async_save=False)[4]
+    saved, meta = CheckpointManager(first).restore()
+    dist.env.shutdown()
+    back = _sharded_fit(seed + 1, cfg, data, None, layers=2,
+                        resume_from=first)[4]
+    bad = _state_mismatches(saved, back['state'])
+    if back['resumed_from'] != 2 or bad:
+        raise AssertionError(f"train_sharded checkpoint: the unsharded fit "
+                             f"resumed from {back['resumed_from']}, its state "
+                             f"differs at {bad[:6]}")
+    CheckpointManager(second).save(back['state'], step=2, meta=meta)
+    dist.init_parallel_env()
+    again = _sharded_fit(seed + 2, cfg, data,
+                         dist.ShardingConfig(fsdp=True), layers=2,
+                         resume_from=second)[4]
+    bad = _state_mismatches(saved, again['state'])
+    if again['resumed_from'] != 2 or bad:
+        raise AssertionError(f"train_sharded checkpoint: the sharded fit's "
+                             f"state differs at {bad[:6]}")
+    return {'layers': 2, 'manifest_world': CheckpointManager(
+                first).load_manifest(2)['world'],
+            'bytes': sum(s['size'] for s in CheckpointManager(
+                first).load_manifest(2)['shards'].values()),
+            'bitwise': True, 'seconds': time.perf_counter() - t0,
+            'first_fit_losses': rep['loss']}
+
+
+VOCAB = 30522      # bert_large()'s
+
+
+def _dp_model(seed, dev, p):
+    from paddle_tpu_torch.text.bert import BertForPretraining, bert_large
+    cfg = bert_large(hidden_dropout_prob=p, attention_probs_dropout_prob=p)
+    cfg.num_hidden_layers = 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    return BertForPretraining(cfg, device=dev, generator=gen).train()
+
+
+def _dp_steps(seed, rank, world, data_parallel, opt='adamw'):
+    """``DP_STEPS`` steps of ``build_train_step`` (``opt``: AdamW or SGD)
+    on a 2-layer BERT at BERT-large widths (fp32, p = 0): rank ``rank`` of
+    ``world`` on its ``TRAIN_BATCH // world`` rows (a ``DataParallel`` net
+    when ``data_parallel``) -> (losses, the model, launch counts)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import engine, kernels
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+    dev = torch.device('cuda', 0)
+    model = _dp_model(seed, dev, 0.0)
+    x, y = _pretraining_batch(np.random.RandomState(seed + 11), TRAIN_BATCH,
+                              VOCAB)
+    n = TRAIN_BATCH // world
+    rows = slice(rank * n, (rank + 1) * n)
+    batch = ({k: torch.from_numpy(v[rows]).to(dev) for k, v in x.items()},
+             tuple(torch.from_numpy(v[rows]).to(dev) for v in y))
+    net = dist.DataParallel(model) if data_parallel else model
+    step = engine.build_train_step(
+        net=net, loss=model.pretraining_loss,
+        optimizer=(AdamW if opt == 'adamw' else SGD)(
+            learning_rate=DP_LR[opt]))
+    state = step.init_state()
+    kernels.reset_launch_counts()
+    losses = [float(step(state, batch)[1].loss) for _ in range(DP_STEPS)]
+    return losses, model, kernels.launch_counts()
+
+
+def _digest(model):
+    import hashlib
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        h.update(name.encode())
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _param_err(model, ref):
+    """The parameters' largest error, each tensor's over its largest
+    entry, with a floor of 1e-3 of the model's largest entry (a bias that
+    barely moved holds rounding noise on both sides, as in
+    ``_compare_grads``)."""
+    top = max(float(r.abs().max()) for r in ref.values())
+    return max(max_err(p.detach(), ref[n]) /
+               max(float(ref[n].abs().max()), 1e-3 * top)
+               for n, p in model.named_parameters())
+
+
+@torch.no_grad()
+def _update_rel_err(model, ref, init):
+    """The norm of the difference of the whole model's update from the
+    reference's update (``ref`` - ``init``), over that update's norm."""
+    diff = sum(float((p.detach() - ref[n]).double().square().sum())
+               for n, p in model.named_parameters())
+    step = sum(float((ref[n] - init[n]).double().square().sum())
+               for n in ref)
+    return (diff / step) ** 0.5
+
+
+def _dp_rank(seed, ref_paths, probe_seed):
+    """One rank of ``phase_dp_two_ranks`` (a spawned process on the card):
+    the ``DataParallel`` steps with AdamW and with SGD, the parameters
+    against the one-process runs' (``ref_paths``), their digests, the
+    AdamW run's launches, and the attention mask probe at p = 0.1 from the
+    AdamW run's model's ``DropoutState`` reseeded with ``probe_seed`` (the
+    step averaged its gradients, so it keyed the state on this rank: the
+    rank in its offsets' high word)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.kernels import philox
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    import torch.distributed as tdist
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {}
+    init = dict(_dp_model(int(seed), torch.device('cuda', 0),
+                          0.0).named_parameters())
+    for opt in ('adamw', 'sgd'):
+        losses, model, counts = _dp_steps(int(seed), rank, world, True, opt)
+        ref = torch.load(ref_paths[opt], map_location='cuda:0')
+        out[opt] = {'losses': losses, 'launches': counts,
+                    'param_err': _param_err(model, ref),
+                    'param_abs_err': max(max_err(p.detach(), ref[n]) for n, p
+                                         in model.named_parameters()),
+                    'update_rel_err': _update_rel_err(model, ref, init),
+                    'digest': _digest(model)}
+        if opt == 'adamw':
+            state = model.dropout_state
+        del model, ref
+    del init
+    state.seed = philox.DropoutState(probe_seed).seed
+    state.offset = 0
+    seed_, offset = state.next()
+    probe = attention_mask_probe(torch.float32, torch.device('cuda', 0), 128,
+                                 0.1, seed_, offset)
+    torch.cuda.synchronize()
+    return {'rank': rank, 'world': world, 'backend':
+            str(tdist.get_backend()), 'runs': out, 'offset': offset,
+            'probe': {k: r.cpu().numpy().tobytes() for k, (r, _) in
+                      probe.items()}}
+
+
+def phase_dp_two_ranks(seed, card):
+    """Two ranks on the one card through ``distributed.spawn(nprocs=2,
+    backend='gloo')`` (NCCL refuses two ranks of one device; gloo
+    all-reduces CUDA tensors), joined within ``DP_JOIN_S``: a 2-layer
+    BERT at BERT-large widths, fp32, p = 0, ``DP_STEPS`` steps of
+    ``build_train_step`` on a ``DataParallel`` net, each rank on 4 of the
+    8 x 512 batch, against one process on the whole batch on the card:
+
+    - AdamW: the global losses within ``MODEL_TOL`` (relative), the two
+      ranks' parameters bit for bit equal, each rank's kernel launches
+      exactly ``DP_LAUNCHES`` a step (its spawn result); its parameters'
+      difference from the one process's is printed, not held (Adam moves
+      an element by the sign of its gradient, and an element whose
+      gradient is rounding noise moves either way in two summation
+      orders): the largest over each tensor's largest entry, the largest
+      absolute, and the whole update's relative norm (``_update_rel_err``);
+    - SGD: the losses within ``MODEL_TOL`` and the parameters within the
+      2-layer parity gate (``MODEL_TOL`` of each tensor's largest entry,
+      ``_param_err``), the ranks bit for bit;
+    - the attention mask probe at p = 0.1 from the ``DataParallel``
+      model's ``DropoutState`` on one seed: the two ranks' masks differ,
+      rank 0's is the one process's.
+
+    -> (the ranks' summed AdamW launch counts, a row)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.kernels import philox
+    root = tempfile.mkdtemp(prefix='dp_two_ranks_')
+    t0 = time.perf_counter()
+    alone, paths = {}, {}
+    try:
+        for opt in ('adamw', 'sgd'):
+            losses, model, _ = _dp_steps(seed, 0, 1, False, opt)
+            paths[opt] = os.path.join(root, f'{opt}.pt')
+            torch.save({n: p.detach() for n, p in model.named_parameters()},
+                       paths[opt])
+            alone[opt] = losses
+            del model
+            torch.cuda.empty_cache()
+        probe_seed = 0x5EED + seed
+        s, off = philox.DropoutState(probe_seed).next()
+        probe = {k: r.cpu().numpy().tobytes() for k, (r, _) in
+                 attention_mask_probe(torch.float32, torch.device('cuda', 0),
+                                      128, 0.1, s, off).items()}
+        t1 = time.perf_counter()
+        ctx = dist.spawn(_dp_rank, args=(seed, paths, probe_seed),
+                         nprocs=DP_RANKS, backend='gloo', join=False)
+        ranks = ctx.join(timeout=DP_JOIN_S)
+        spawn_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if [r['rank'] for r in ranks] != [0, 1] or \
+            any(r['backend'] != 'gloo' for r in ranks):
+        raise AssertionError(f"dp_two_ranks: ranks {ranks}")
+    want = {n: DP_STEPS * c for n, c in DP_LAUNCHES.items()}
+    if any(r['runs']['adamw']['launches'] != want for r in ranks):
+        raise AssertionError(
+            f"dp_two_ranks: launches "
+            f"{[r['runs']['adamw']['launches'] for r in ranks]}, expected "
+            f"{want} a rank")
+    row = {'phase': 'dp_two_ranks', 'card': card, 'entry':
+           'distributed.spawn(nprocs=2, backend="gloo") + '
+           'build_train_step(net=DataParallel(...))',
+           'model': '2-layer BertForPretraining at bert_large widths, fp32, '
+                    'p = 0', 'steps': DP_STEPS, 'lr': DP_LR,
+           'rows_a_rank': TRAIN_BATCH // DP_RANKS, 'runs': {}}
+    for opt in ('adamw', 'sgd'):
+        runs = [r['runs'][opt] for r in ranks]
+        loss_err = max(abs(a - b) / abs(b) for r in runs
+                       for a, b in zip(r['losses'], alone[opt]))
+        check(f'dp_two_ranks {opt}: global loss', loss_err, MODEL_TOL)
+        if opt == 'sgd':
+            for r, run in zip(ranks, runs):
+                check(f"dp_two_ranks sgd: rank {r['rank']} parameters",
+                      run['param_err'], MODEL_TOL)
+        if runs[0]['digest'] != runs[1]['digest']:
+            raise AssertionError(f"dp_two_ranks {opt}: the two ranks' "
+                                 f"parameters differ")
+        row['runs'][opt] = {
+            'one_process_losses': alone[opt],
+            'rank_losses': [r['losses'] for r in runs],
+            'loss_rel_err': loss_err,
+            'param_err': [r['param_err'] for r in runs],
+            'param_abs_err': [r['param_abs_err'] for r in runs],
+            'update_rel_err': [r['update_rel_err'] for r in runs],
+            'parameters_held': opt == 'sgd',
+            'ranks_bitwise_equal': True}
+    if ranks[0]['probe'] != probe or ranks[1]['probe'] == probe or \
+            ranks[1]['offset'] != 1 << 32:
+        raise AssertionError("dp_two_ranks: rank 0's masks are not the one "
+                             "process's, or rank 1's are the same")
+    total = {n: sum(r['runs']['adamw']['launches'][n] for r in ranks)
+             for n in want}
+    row.update({'launches_a_rank': want,
+                'mask_probe': {'rank0_is_one_process': True,
+                               'rank1_differs': True,
+                               'offsets': [r['offset'] for r in ranks]},
+                'spawn_s': spawn_s, 'phase_s': time.perf_counter() - t0})
+    emit(row)
+    return total, row
+
+
 SOURCES = {
     'flash_attention_fwd': ('paddle_tpu_torch/kernels/csrc/flash_attention.cu',
                             'paddle_tpu/kernels/flash_attention.py:95'),
@@ -5733,7 +6358,7 @@ def main():
     trained_amp, amp_again, _ = phase_train(args.seed, card, 'fp16_amp')
     torch.cuda.empty_cache()
     phase_train_parity_fit(args.seed)
-    trained_fit = phase_train_fit(args.seed, card)[0]
+    trained_fit, fit_row = phase_train_fit(args.seed, card)
     phase_remat_memory(args.seed, card)
     torch.cuda.empty_cache()
     generated = phase_generate(args.seed, card)
@@ -5752,6 +6377,12 @@ def main():
     # no profile follows: the training side's telemetry runs after it
     telemetry = phase_train_telemetry(args.seed, card)
     torch.cuda.empty_cache()
+    # data parallelism: no profiler session here either (see above)
+    phase_collectives(card)
+    sharded, _ = phase_train_sharded(args.seed, card, fit_row)
+    torch.cuda.empty_cache()
+    dp_ranks, _ = phase_dp_two_ranks(args.seed, card)
+    torch.cuda.empty_cache()
     # launches: each main path's counts, zeroed just before the path and
     # read just after (serving: 21 batches; serve_tenants: the tenants
     # engine's pumped and threaded batches; serve_fleet: every replica's
@@ -5764,9 +6395,10 @@ def main():
     # engine's four generative runs, which launch none; hapi_fit: two
     # Model.fit calls, 24 steps, and 12 eval-mode forwards; train_telemetry:
     # its telemetry-on runs, two engine.fit calls and two with a checkpoint,
-    # 20 steps each, and a Model.fit of 6 steps); the top-level
-    # numbers are bf16's, the dtype of the reference's training recipe,
-    # and ``gpt`` holds the fp32 cases at generate's shapes
+    # 20 steps each, and a Model.fit of 6 steps; train_sharded: the FSDP
+    # fit, 20 steps; dp_two_ranks: both ranks' AdamW steps, 3 each); the
+    # top-level numbers are bf16's, the dtype of the reference's training
+    # recipe, and ``gpt`` holds the fp32 cases at generate's shapes
     paths = {'serve': served, 'serve_tenants': served_tenants,
              'serve_fleet': served_fleet,
              'train_fp32': trained,
@@ -5774,7 +6406,8 @@ def main():
              'train_fp16_amp': trained_amp, 'train_fit': trained_fit,
              'train_resume': resumed, 'nn.RMSNorm': rms_path,
              'generate': generated, 'serve_generative': served_gen,
-             'hapi_fit': hapi, 'train_telemetry': telemetry}
+             'hapi_fit': hapi, 'train_telemetry': telemetry,
+             'train_sharded': sharded, 'dp_two_ranks': dp_ranks}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'share_of_bound', 'achieved_tflops',
             'achieved_tb_per_s')

@@ -59,8 +59,47 @@ Mixed precision: ``amp.auto_cast`` around the step (the model's
 a ``loss_fn`` that casts the fp32 parameters with ``.to(torch.bfloat16)``
 (differentiable) and runs the model on the copies through
 ``torch.func.functional_call``, or a ``FlatFusedUpdate`` with
-``compute_dtype``. ``sharding=`` and ``in_shardings=`` raise
-``NotImplementedError``: sharding comes with ``distributed/``.
+``compute_dtype``.
+
+Data parallelism (``distributed/``), in a ``torch.distributed`` process
+group (``distributed.init_parallel_env``); without one every option below
+runs the one-process step, bit for bit as before:
+
+- **a rank feeds its slice** of the global batch
+  (``io.DistributedBatchSampler``), and the loss a step returns is the
+  global batch's (the ranks' mean: one all-reduce of a few scalars, which
+  also makes ``ok`` the AND of every rank's, so that an inf on one rank
+  skips the step on all);
+- ``sharding=`` (a ``distributed.ShardingConfig``, a fleet
+  ``DistributedStrategy`` or a kwargs dict): the FSDP step
+  (``distributed.sharding.FlatShards``). ``state['params']`` and the
+  optimizer's moments are this rank's pieces; each step all-gathers the
+  full parameters (one collective a dtype) into the module's own
+  parameters, runs the loss and its gradients as the unsharded step does
+  (remat's recompute included), reduce-scatters the gradients (their
+  mean) and updates the pieces. The global-norm clip, ``ClipGradByNorm``
+  and the per-parameter norms of ``Lamb`` / ``LarsMomentum`` / ``Dpsgd``
+  add their sums across the ranks (``nn.clip.rank_norms``). After the
+  update the gathered parameters are released, so between steps a rank
+  holds only its pieces and the module's sharded parameters are empty
+  (until the first step it holds the values it was built with);
+  ``write_back`` gathers the state into it (``engine.fit`` does at its
+  end);
+- a ``distributed.DataParallel`` net (or a ``fleet.distributed_optimizer``
+  optimizer): the gradients' mean over the ranks, one all-reduce of their
+  packed buffer a dtype, before the unscale, the clip and the update;
+- with ``sharding=`` or a ``DataParallel`` net, each rank draws its own
+  dropout masks (the rank is set into the ``net``'s ``DropoutState``s;
+  ``kernels/philox.py``); any other step of a ``net`` sets rank 0's
+  masks, so ranks that synchronise nothing stay equal;
+- ``in_shardings=``: ``(state specs, batch specs)`` as the reference's
+  ``jax.jit`` takes them; a batch leaf whose spec puts the data axis on a
+  dim is the GLOBAL leaf, and the step keeps this rank's slice of it
+  (``sharding=`` derives the feeds' placement itself: pass one or the
+  other).
+
+A ``FlatFusedUpdate`` and ``sharding=`` do not combine (its one buffer is
+not sharded).
 
 Telemetry (``PADDLE_TPU_TELEMETRY=1`` or ``observability.enable()``), as
 the reference's: each call is timed into ``engine.step`` (with the spans'
@@ -162,12 +201,6 @@ def _net_loss_fn(net, loss, functional):
     return loss_fn
 
 
-_LATER = {
-    'sharding': "sharded state comes with the distributed slice",
-    'in_shardings': "sharded feeds come with the distributed slice",
-}
-
-
 def build_train_step(loss_fn=None, optimizer=None, *, net=None, loss=None,
                      params=None, params_meta=None, trainable=None,
                      scaler=None, nan_guard=False, microbatch=1, remat=None,
@@ -192,20 +225,27 @@ def build_train_step(loss_fn=None, optimizer=None, *, net=None, loss=None,
       ``device='cpu'``; the parameters must already live there, feeds are
       moved there.
     """
-    asked = {'sharding': sharding is not None,
-             'in_shardings': in_shardings is not None}
+    from ..distributed.parallel import DataParallel, mask_ranks
+    from ..distributed.strategy import resolve_sharding
     k = int(microbatch)
     if k < 1:
         raise ValueError(f"build_train_step: microbatch must be >= 1, got "
                          f"{microbatch}")
-    for option, on in asked.items():
-        if on:
-            raise NotImplementedError(
-                f"build_train_step: {option}= is not ported yet: "
-                f"{_LATER[option]}")
+    sharding = resolve_sharding(sharding)
+    if sharding is not None and in_shardings is not None:
+        raise ValueError("build_train_step: sharding= derives the step's "
+                         "in_shardings itself — pass one or the other")
     if scaler is not None and not scaler.is_enable():
         scaler = None
     flat = isinstance(optimizer, FlatFusedUpdate)
+    if flat and sharding is not None:
+        raise ValueError("build_train_step: a FlatFusedUpdate's one buffer "
+                         "is not sharded; pass a per-parameter optimizer "
+                         "with sharding=")
+    data_parallel = getattr(optimizer, 'syncs_gradients', False)
+    if isinstance(net, DataParallel):
+        # the wrapped module runs (functional_call keys are its own names)
+        net, data_parallel = net._layers, True
     if net is not None:
         if loss_fn is not None:
             raise ValueError("build_train_step: pass loss_fn OR net+loss, "
@@ -228,13 +268,46 @@ def build_train_step(loss_fn=None, optimizer=None, *, net=None, loss=None,
     remat = _remat.resolve(remat)
     by_layer = remat is not None and net is not None and any(
         isinstance(m, TransformerEncoder) for m in net.modules())
-    return TrainStep(loss_fn, optimizer, dict(params),
+    step = TrainStep(loss_fn, optimizer, dict(params),
                      frozenset(trainable) if trainable is not None else None,
                      resolve_device(device), scaler=scaler,
                      nan_guard=bool(nan_guard), microbatch=k,
                      params_meta=(dict(params) if params_meta is None
                                   else dict(params_meta)),
-                     remat=remat, remat_by_layer=by_layer)
+                     remat=remat, remat_by_layer=by_layer,
+                     sharding=sharding, data_parallel=data_parallel,
+                     in_shardings=in_shardings)
+    if net is not None:
+        # each rank its own masks where the step averages the gradients
+        mask_ranks(net, step._synced)
+    return step
+
+
+def _is_spec(spec):
+    """A spec is a tuple of axis names and None (``()``: replicated)."""
+    return spec is None or (isinstance(spec, tuple) and all(
+        s is None or isinstance(s, str) for s in spec))
+
+
+def _split_feeds(batch, spec, world):
+    """This rank's slice of each batch leaf whose spec (``in_shardings``)
+    puts the data axis on a dim; ``spec`` mirrors ``batch`` or is one spec
+    for every leaf."""
+    from ..distributed import env
+    from ..distributed.sharding import _data_dim
+    if isinstance(batch, dict):
+        return {k: _split_feeds(v, spec if _is_spec(spec) else spec[k],
+                                world) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return tuple(_split_feeds(v, spec if _is_spec(spec) else spec[i],
+                                  world) for i, v in enumerate(batch))
+    dim = _data_dim(spec or ())
+    if dim is None or not hasattr(batch, 'shape'):
+        return batch
+    n = batch.shape[dim] // world
+    sl = [slice(None)] * len(batch.shape)
+    sl[dim] = slice(env.get_rank() * n, (env.get_rank() + 1) * n)
+    return batch[tuple(sl)]
 
 
 def _unscale_and_check(grads, scale):
@@ -257,8 +330,19 @@ class TrainStep:
 
     def __init__(self, loss_fn, optimizer, params, trainable, device,
                  scaler=None, nan_guard=False, microbatch=1,
-                 params_meta=None, remat=None, remat_by_layer=False):
+                 params_meta=None, remat=None, remat_by_layer=False,
+                 sharding=None, data_parallel=False, in_shardings=None):
+        from ..distributed import env as _env
         self.optimizer = optimizer
+        self.sharding = sharding
+        # the process group this step synchronises over (None: one process)
+        grouped = _env.is_initialized()
+        self._world = _env.get_world_size() if grouped else 1
+        self._shards = None
+        self._dp = grouped and bool(data_parallel) and sharding is None
+        self._synced = grouped and (sharding is not None or self._dp)
+        self._feed_specs = None if in_shardings is None or not grouped \
+            else in_shardings[1]
         self.device = device
         self.scaler = scaler
         self.guard_enabled = nan_guard
@@ -278,11 +362,22 @@ class TrainStep:
                     f"pass device=")
         self._flat = optimizer if isinstance(optimizer, FlatFusedUpdate) \
             else None
+        self._full = params            # the module's own parameters
+        self._collective_bytes_est = 0
         if self._flat is not None:
             # the master owns the weights: the parameters become its views
             master = self._flat.flatten(params)
             self._flat.bind(params, master)
             self._params = master
+        elif sharding is not None and grouped:
+            from ..distributed.sharding import FlatShards
+            self._shards = FlatShards(params, min_size=sharding.min_size,
+                                      config=sharding)
+            self._params = self._shards.shard(params)
+            # what a released parameter holds: nothing, one tensor a dtype
+            self._empty = {p.dtype: p.new_empty(0) for p in params.values()}
+            self._collective_bytes_est = \
+                sharding.collective_bytes_estimate(params)
         else:
             self._params = params
 
@@ -295,6 +390,8 @@ class TrainStep:
         if opt_state is None:
             opt_state = (self._flat.init_state(self._params) if self._flat
                          else self.optimizer.init_state_values(self._params))
+        elif self._shards is not None:
+            opt_state = self._place_slots(opt_state)
         state = {'params': self._params, 'opt': opt_state}
 
         def i32(v):
@@ -317,7 +414,91 @@ class TrainStep:
                 'scale': torch.full((), float(s.get_loss_scaling()),
                                     dtype=torch.float32, device=self.device),
                 'good': i32(s._good_steps), 'bad': i32(s._bad_steps)}
+        if self.sharding is not None and _obs.enabled():
+            info = self.sharding_info(state)
+            for key in ('param_bytes_per_device', 'opt_bytes_per_device',
+                        'state_bytes_per_device', 'mesh_devices',
+                        'collective_bytes_per_step_est'):
+                _obs.gauge(f'sharding.{key}').set(info[key])
         return state
+
+    @torch.no_grad()
+    def _place_slots(self, opt_state):
+        """Optimizer slots of full parameters (a resumed optimizer's) ->
+        this rank's pieces of those shaped like their sharded parameter."""
+        out = {}
+        for n, slots in opt_state.items():
+            lf = self._shards.layout.get(n)
+            out[n] = {s: (self._shards.piece(v, n).clone()
+                          if lf is not None and isinstance(v, torch.Tensor)
+                          and tuple(v.shape) == lf.full_shape else v)
+                      for s, v in slots.items()}
+        return out
+
+    def sharding_info(self, state):
+        """This rank's resident bytes and the collective traffic of a step,
+        as the reference's ``sharding_info``."""
+        def nbytes(tree):
+            if isinstance(tree, dict):
+                return sum(nbytes(v) for v in tree.values())
+            if isinstance(tree, torch.Tensor):
+                return tree.numel() * tree.element_size()
+            return 0
+        sharded = 0 if self._shards is None else len(self._shards.layout)
+        return {'param_bytes_per_device': nbytes(state['params']),
+                'opt_bytes_per_device': nbytes(state.get('opt', {})),
+                'state_bytes_per_device': nbytes(state),
+                'mesh_devices': self._world if self.sharding is not None
+                else 1,
+                'collective_bytes_per_step_est': self._collective_bytes_est,
+                'sharded_params': sharded}
+
+    @torch.no_grad()
+    def full_params(self, state):
+        """``{name: full parameter}`` of ``state``: gathered from the ranks'
+        pieces on a sharded step (one all-gather a dtype; every rank calls
+        it), else the state's own."""
+        if self._shards is None:
+            return state['params']
+        return self._shards.gather(state['params'])
+
+    @torch.no_grad()
+    def full_slots(self, state):
+        """The optimizer slots of ``state`` at their parameters' full
+        shapes (gathered, one all-gather a slot name and dtype, on a
+        sharded step)."""
+        opt = state.get('opt', {})
+        if self._shards is None:
+            return opt
+        by_slot = {}
+        for n, slots in opt.items():
+            lf = self._shards.layout.get(n)
+            for s, v in slots.items():
+                if lf is not None and isinstance(v, torch.Tensor) and \
+                        tuple(v.shape) == lf.shard_shape:
+                    by_slot.setdefault(s, {})[n] = v
+        full = {s: self._shards.gather(pieces, packed=False)
+                for s, pieces in by_slot.items()}
+        return {n: {s: full[s][n] if n in full.get(s, {}) else v
+                    for s, v in slots.items()}
+                for n, slots in opt.items()}
+
+    @torch.no_grad()
+    def write_back(self, state, optimizer=None):
+        """Bring ``state`` into the module and ``optimizer``: on a sharded
+        step the gathered parameters into the module's own (between steps
+        they are released) and the full slots into
+        the optimizer's accumulators (every rank calls it: it gathers); on
+        an unsharded step, whose state holds the module's parameters, the
+        slots only (``engine.write_back_state``)."""
+        from .loop import write_back_state
+        if self._shards is not None:
+            for n, v in self.full_params(state).items():
+                if v is not self._full[n]:
+                    self._full[n].data = v
+        if optimizer is not None:
+            write_back_state(None, optimizer,
+                             {'opt': self.full_slots(state)})
 
     @torch.no_grad()
     def adopt_state(self, state):
@@ -338,6 +519,8 @@ class TrainStep:
         are never converted."""
         import warnings
         state = dict(state)
+        if self._shards is not None:
+            state = self._localize(state)
         if state.pop('buffers', None):
             raise ValueError("TrainStep.adopt_state: the checkpoint carries "
                              "buffers; the port's step keeps none")
@@ -395,6 +578,22 @@ class TrainStep:
                     f"it", RuntimeWarning, stacklevel=2)
         return out
 
+    def _localize(self, state):
+        """A restored state's leaves at their full shapes -> this rank's
+        pieces (leaves already at their piece's shape stay)."""
+        def piece(v, n):
+            lf = self._shards.layout.get(n)
+            if lf is None or tuple(np.shape(v)) != lf.full_shape:
+                return v
+            t = v if isinstance(v, torch.Tensor) \
+                else torch.from_numpy(np.asarray(v))
+            return self._shards.piece(t, n)
+        out = dict(state)
+        out['params'] = {n: piece(v, n) for n, v in state['params'].items()}
+        out['opt'] = {n: {s: piece(v, n) for s, v in slots.items()}
+                      for n, slots in state.get('opt', {}).items()}
+        return out
+
     def _to_device(self, batch):
         if isinstance(batch, dict):
             return {k: self._to_device(v) for k, v in batch.items()}
@@ -431,14 +630,19 @@ class TrainStep:
                     self.cost_label, self._dispatch, state, batch,
                     kind='train_step',
                     meta={'microbatch': self.k, 'donates': False,
-                          'sharded': False}))
+                          'sharded': self.sharding is not None}))
             else:
                 out.append(self._dispatch(state, batch))
         _obs.counter('engine.steps').inc(self.k)
         _obs.counter('engine.dispatches').inc()
+        if self._collective_bytes_est:
+            _obs.counter('sharding.collective_bytes_est').inc(
+                self._collective_bytes_est * self.k)
         return out[0]
 
     def _dispatch(self, state, batch):
+        if self._feed_specs is not None:
+            batch = _split_feeds(batch, self._feed_specs, self._world)
         batch = self._to_device(batch)
         if self.k == 1:
             loss, outs = self._one_step(state, batch)
@@ -449,8 +653,16 @@ class TrainStep:
 
     def _leaves(self, state):
         """-> ``(the params the loss_fn gets, names to differentiate)``."""
+        if self._shards is not None:
+            # the ZeRO use-time gather, into the module's own parameters
+            # (their storage becomes the gathered tensors): from here the
+            # step is the unsharded one, remat's recompute included
+            for n, v in self._shards.gather(state['params']).items():
+                if v is not self._full[n]:
+                    self._full[n].data = v
         if self._flat is None:
-            params = state['params']
+            params = self._full if self._shards is not None \
+                else state['params']
             return params, [n for n, p in params.items() if p.requires_grad
                             and (self._trainable is None
                                  or n in self._trainable)]
@@ -502,11 +714,28 @@ class TrainStep:
                 # the update, whose temporaries make the step's peak
                 leaves = None
                 grads = [self._flat_grad(grads, state['params'])]
+            elif self._shards is not None:
+                leaves = None     # the gathered parameters go
+                pieces = self._shards.reduce_grads(dict(zip(names, grads)))
+                grads = [pieces[n] for n in names]
+            elif self._dp:
+                from ..distributed.sharding import reduce_over_ranks
+                grads = reduce_over_ranks(grads, mean=True)
             if use_scaler:
                 ok = ok & _unscale_and_check(grads, scale)
+        if self._synced:
+            loss, ok, loss_ok = self._global(loss, ok, loss_ok)
+        if self._shards is not None:
+            self._release()
+        if names:
             if self._flat is not None:
                 self._flat.update(state['params'], grads[0], state['opt'],
                                   ok=ok)
+            elif self._shards is not None:
+                with self._shards.norms(self._params_meta):
+                    self.optimizer.functional_update(
+                        state['params'], dict(zip(names, grads)),
+                        state['opt'], ok=ok, params_meta=self._params_meta)
             else:
                 self.optimizer.functional_update(
                     state['params'], dict(zip(names, grads)), state['opt'],
@@ -527,6 +756,28 @@ class TrainStep:
         if outs is not None:
             outs = tuple(o.detach() for o in outs)
         return loss, outs
+
+    def _release(self):
+        """Drop the gathered parameters from the module (at rest a rank
+        holds its pieces only; the next step gathers them again)."""
+        for n in self._shards.layout:
+            p = self._full[n]
+            p.data = self._empty[p.dtype]
+
+    def _global(self, loss, ok, loss_ok):
+        """The global batch's loss (the ranks' mean) and ``ok`` / the
+        loss's finiteness on EVERY rank: one all-reduce (sum) of a few
+        scalars on the stream."""
+        from ..distributed import collective
+        parts = [loss.detach().float()]
+        if ok is not None:
+            parts += [ok.float(), loss_ok.float()]
+        vec = torch.stack(parts)
+        collective.all_reduce(vec)
+        out = (vec[0] / self._world).to(loss.dtype)
+        if ok is None:
+            return out, None, None
+        return out, vec[1] == self._world, vec[2] == self._world
 
     def _advance_scaler(self, sc, ok):
         """``GradScaler.update`` on the device (the same policy)."""

@@ -62,8 +62,24 @@ and ``checkpoint.preempt_fence_error`` event (a preemption's fence that
 failed). It changes no launch and no loss; host syncs grow by the
 ``engine.step`` span's sampled waits only.
 
-Multi-process runs (``world``, ``rank``), ``sharding`` and the serving
-export (``serve_artifacts``, ``serve_generative``) raise
+Data parallelism (``distributed/``; each rank runs ``fit`` on its slice
+of the global batch, e.g. through ``io.DistributedBatchSampler``):
+
+- ``sharding=`` (a ``distributed.ShardingConfig`` or a fleet
+  ``DistributedStrategy``), in a process group: the FSDP step
+  (``build_train_step(sharding=)``), the checkpoints in the sharded
+  format with each rank writing its own pieces (``save(sharding=)``),
+  a resume from a checkpoint written at any world size cut into this
+  rank's pieces (``restore(sharding=)``), and at the end the gathered
+  parameters and optimizer slots written back into ``network`` and
+  ``optimizer`` on every rank;
+- ``world=`` / ``rank=`` without ``sharding``: as the reference's, each
+  rank writes only its piece of every checkpoint and rank 0 commits the
+  manifest after the pieces' barrier (the step synchronises nothing and
+  draws rank 0's dropout masks on every rank: the ranks of an elastic job
+  that train on the same batches stay equal).
+
+The serving export (``serve_artifacts``, ``serve_generative``) raises
 ``NotImplementedError``.
 """
 import itertools
@@ -83,9 +99,6 @@ from .builder import build_train_step
 __all__ = ['fit', 'write_back_state', 'adopt_optimizer_state']
 
 _LATER = {
-    'world': "multi-process runs come with the distributed slice",
-    'rank': "multi-process runs come with the distributed slice",
-    'sharding': "sharded state comes with the distributed slice",
     'serve_artifacts': "the train-to-serve export comes with compilecache/ "
                        "(ROADMAP.md, Queue 1 item 7)",
     'serve_generative': "the generative serving export comes with "
@@ -203,10 +216,9 @@ def fit(network, loss, optimizer, data, *, epochs=1, microbatch=1,
     ``async_save``, ``resume_from``, ``preempt_save``,
     ``checkpoint_max_keep``: see the module docstring; ``device``: where
     the step runs (the CUDA device unless ``device='cpu'``; ``network``
-    must live there). ``data`` is iterated once an epoch."""
-    asked = {'world': world is not None, 'rank': rank is not None,
-             'sharding': sharding is not None,
-             'serve_artifacts': serve_artifacts is not None,
+    must live there); ``sharding``, ``world``, ``rank``: see the module
+    docstring. ``data`` is iterated once an epoch."""
+    asked = {'serve_artifacts': serve_artifacts is not None,
              'serve_generative': serve_generative is not None}
     for option, on in asked.items():
         if on:
@@ -221,7 +233,9 @@ def fit(network, loss, optimizer, data, *, epochs=1, microbatch=1,
     step = build_train_step(net=network, loss=loss, optimizer=optimizer,
                             scaler=scaler, nan_guard=nan_guard is not None,
                             microbatch=microbatch, remat=remat,
-                            device=device)
+                            sharding=sharding, device=device)
+    # the layout a sharded step's checkpoints place their pieces by
+    pieces = step._shards
     network.train()
     params = dict(network.named_parameters())
     state = step.init_state(
@@ -235,7 +249,8 @@ def fit(network, loss, optimizer, data, *, epochs=1, microbatch=1,
               'donated': False, 'checkpoints': 0, 'resumed_from': None,
               'preempted': False}
     if resume_mgr is not None:
-        got = resume_mgr.restore(return_extra=True)
+        got = resume_mgr.restore(return_extra=True, sharding=(
+            None if pieces is None else pieces.config))
         if got is not None:
             loaded, meta, extra = got
             state = step.adopt_state(loaded)
@@ -254,9 +269,12 @@ def fit(network, loss, optimizer, data, *, epochs=1, microbatch=1,
         meta = {'epoch': int(epoch),
                 'dispatch_in_epoch': int(dispatch_in_epoch),
                 'dispatches': report['dispatches'], 'microbatch': k,
-                'world': 1}
+                'world': step._world if pieces is not None
+                else int(world or 1)}
         mgr.save(_saveable(state), step=report['dispatches'], meta=meta,
-                 async_=bool(async_save and async_ok),
+                 async_=bool(async_save and async_ok), sharding=pieces,
+                 world=world if pieces is None else None,
+                 rank=rank if pieces is None else None,
                  extra={'rng': capture_rng(network, state['opt'])})
         report['checkpoints'] += 1
 
@@ -354,10 +372,14 @@ def _finish(report, t0, step, state, network, optimizer, nan_guard, scaler,
 
 def _cleanup(step, state, network, optimizer, nan_guard, scaler, needs_sync,
              mgr=None, guard=None, raise_on_limit=True):
-    """Mirror the optimizer slots, reconcile the host guard and scaler one
-    last time, put the SIGTERM handler back and wait for the last save; on
-    the error path, never raise from here."""
-    write_back_state(network, optimizer, state)
+    """Mirror the optimizer slots (a sharded step's gathered, with its
+    parameters written back into ``network``: every rank, on the normal
+    path only, a collective after a failure could wait for a dead rank),
+    reconcile the host guard and scaler one last time, put the SIGTERM
+    handler back and wait for the last save; on the error path, never
+    raise from here."""
+    if step._shards is None or raise_on_limit:
+        step.write_back(state, optimizer)
     try:
         if needs_sync:
             try:

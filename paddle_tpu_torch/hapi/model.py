@@ -44,9 +44,17 @@ what ``loss(*outputs, *labels)`` takes after the network's outputs.
   ``hapi.*`` metrics, ``events.jsonl`` and ``trace.json`` at the end, the
   doctor's findings), and ``evaluate`` emits an ``eval_result`` event.
 
-Raise ``NotImplementedError``: ``strategy=`` (sharded training, with
-``distributed/``, ROADMAP.md Queue 1 item 5) and ``save(training=False)``
-(the inference export, with ``jit/`` and ``inference/``, item 7).
+- ``strategy=`` (``prepare`` or ``fit``: a ``distributed.ShardingConfig``,
+  a fleet ``DistributedStrategy`` or None; by default the config a
+  ``fleet.distributed_optimizer`` carries) runs the jit path's step
+  sharded (``engine.build_train_step(sharding=)``: the FSDP step in a
+  process group) and so implies ``jit=True``; the state is gathered into
+  the network and the optimizer before evaluation, checkpoints and saves.
+  A knobs-off strategy turns a sharded model back to unsharded, and
+  changes nothing on a model that never was.
+
+Raises ``NotImplementedError``: ``save(training=False)`` (the inference
+export, with ``jit/`` and ``inference/``, ROADMAP.md Queue 1 item 7).
 """
 import os
 import warnings
@@ -64,8 +72,6 @@ from .callbacks import CallbackList, ProgBarLogger
 __all__ = ['Model']
 
 _LATER = {
-    'strategy': "sharded training comes with distributed/ (ROADMAP.md, "
-                "Queue 1 item 5)",
     'training=False': "the inference export comes with jit/ and "
                       "inference/ (ROADMAP.md, Queue 1 item 7)",
 }
@@ -95,6 +101,7 @@ class Model:
         self._metrics = []
         self.stop_training = False
         self._use_jit = False
+        self._sharding_cfg = None
         self._jit_step_fn = None
         self._jit_state = None
         self._scaler = None
@@ -106,8 +113,6 @@ class Model:
     # -- setup --------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None, jit=False,
                 amp_configs=None, nan_guard=None, strategy=None):
-        if strategy is not None:
-            raise _later('strategy', 'Model.prepare')
         self._optimizer = optimizer
         if optimizer is not None:
             self._bind_optimizer(optimizer)
@@ -132,11 +137,22 @@ class Model:
                 else NanGuard()
             if self._scaler is not None:
                 self._nan_guard.attach_scaler(self._scaler)
-        self._use_jit = bool(jit)
+        self._set_strategy(strategy)
+        self._use_jit = bool(jit) or self._sharding_cfg is not None
         self._jit_state = None
         self._jit_step_fn = self._new_step() if self._use_jit else None
         self._steps_since_engine_sync = 0
         return self
+
+    def _set_strategy(self, strategy):
+        """Resolve a sharding strategy; with none given, adopt the config a
+        ``fleet.distributed_optimizer`` wrapper carries (the fleet knobs
+        and ``strategy=`` mean the same thing)."""
+        from ..distributed.strategy import resolve_sharding
+        cfg = resolve_sharding(strategy)
+        if cfg is None and strategy is None:
+            cfg = getattr(self._optimizer, 'sharding_config', None)
+        self._sharding_cfg = cfg
 
     def _bind_optimizer(self, opt):
         """Name ``opt``'s parameters by their module paths in the network
@@ -162,6 +178,7 @@ class Model:
         return build_train_step(net=self.network, loss=self._loss,
                                 optimizer=self._optimizer, scaler=scaler,
                                 nan_guard=self._nan_guard is not None,
+                                sharding=self._sharding_cfg,
                                 device=self.device)
 
     # -- steps --------------------------------------------------------------
@@ -252,9 +269,9 @@ class Model:
         counters into the host guard and scaler, never raising: this also
         runs in ``fit``'s ``finally``."""
         if self._jit_state is not None:
-            from ..engine import write_back_state
-            write_back_state(self.network, self._optimizer, self._jit_state)
-            self._jit_step_fn.sync(self._jit_state,
+            step = self._jit_step_fn
+            step.write_back(self._jit_state, self._optimizer)
+            step.sync(self._jit_state,
                                    nan_guard=self._nan_guard,
                                    scaler=self._scaler, raise_on_limit=False)
 
@@ -309,7 +326,20 @@ class Model:
         ``CheckpointSaver`` is active checkpoints at the next batch
         boundary and stops."""
         if strategy is not None:
-            raise _later('strategy', 'Model.fit')
+            prev = self._sharding_cfg
+            self._set_strategy(strategy)
+            changed = self._sharding_cfg is not prev
+            if self._sharding_cfg is not None and \
+                    (changed or not self._use_jit):
+                # sharding lives in the jit step: write earlier progress
+                # back into the network first, the new state starts from it
+                self._sync_jit_state()
+                self._use_jit = True
+                self._jit_step_fn, self._jit_state = self._new_step(), None
+            elif changed and prev is not None and self._use_jit:
+                # a knobs-off strategy turns sharding OFF
+                self._sync_jit_state()
+                self._jit_step_fn, self._jit_state = self._new_step(), None
         train_loader = self._to_loader(train_data, batch_size, shuffle,
                                        drop_last, num_workers)
         eval_loader = self._to_loader(eval_data, batch_size, False, False,
@@ -468,10 +498,9 @@ class Model:
         dispatches consumed (dispatches x microbatch) and holds one RNG
         snapshot, its save point: exact for an epoch-boundary resume or an
         unshuffled loader (``engine.fit`` never shuffles)."""
-        from ..engine import write_back_state
         step = self._jit_step_fn if self._use_jit else self._new_step()
         live = step.adopt_state(state)
-        write_back_state(self.network, self._optimizer, live)
+        step.write_back(live, self._optimizer)
         self._jit_state = live if self._use_jit else None
         if self._scaler is not None and 'scaler' in state:
             sc = state['scaler']

@@ -14,9 +14,18 @@ the same mask from ``(seed, offset)`` and none is ever stored:
 
 ``DropoutState`` carries the seed (drawn once from an explicit
 ``torch.Generator``) and counts the calls on the host, so that drawing a
-mask never waits for the device. All arithmetic is int64 holding 32-bit
-words; the 32 x 32 -> 64-bit products are formed from 16-bit halves so that
-no intermediate overflows.
+mask never waits for the device. ``next()`` folds the state's ``rank``
+into the high 32 bits of the offset it hands out (the stored count stays
+the call count, so a replay that sets it back draws the same masks). The
+rank is 0 unless the model's gradients are averaged over a process group:
+a train step that synchronises them (``sharding=`` or a ``DataParallel``
+net) and ``distributed.DataParallel`` set it to the process's rank, so
+that ranks that share a seed and average their gradients draw different
+masks. Ranks that synchronise nothing (``engine.fit(world=, rank=)``
+alone) keep rank 0's masks, and with them stay equal when fed the same
+batches. Rank 0's offsets, and with them a world of one, are unchanged.
+All arithmetic is int64 holding 32-bit words; the 32 x 32 -> 64-bit
+products are formed from 16-bit halves so that no intermediate overflows.
 """
 import weakref
 
@@ -33,11 +42,14 @@ _MASK32 = 0xFFFFFFFF
 class DropoutState:
     """The seed of a model's dropout masks and the count of dropout calls
     made with it. ``next()`` hands out ``(seed, offset)`` for one call and
-    advances the count; setting ``offset`` back replays the same masks."""
+    advances the count; setting ``offset`` back replays the same masks.
+    ``rank``: the process rank folded into the offsets' high word (see the
+    module docstring)."""
 
     def __init__(self, seed):
         self.seed = int(seed) & 0xFFFFFFFFFFFFFFFF
         self.offset = 0
+        self.rank = 0
         _live.add(self)
 
     @classmethod
@@ -54,7 +66,7 @@ class DropoutState:
     def next(self):
         offset = self.offset
         self.offset += 1
-        return self.seed, offset
+        return self.seed, offset + (self.rank << 32)
 
     def __repr__(self):
         return f"DropoutState(seed={self.seed}, offset={self.offset})"

@@ -12,6 +12,13 @@ makes the host wait for the device. A non-finite gradient gives a
 non-finite norm and NaN gradients, which a loss scaler's ``ok`` select then
 discards.
 
+Under a sharded train step (``distributed.sharding.FlatShards.norms``)
+each rank holds pieces of the gradients: the norms of the clips, and the
+per-parameter norms of ``Lamb``, ``LarsMomentum`` and ``Dpsgd``, are then
+formed on each rank's pieces and combined across the ranks
+(``_rank_norms``); at world 1 that is the unsharded arithmetic, bit for
+bit.
+
 Not ported yet: the process-wide default of
 ``fluid.clip.set_gradient_clip``, which waits for ``fluid/``.
 """
@@ -25,6 +32,25 @@ __all__ = ['ClipGradBase', 'ClipGradByValue', 'ClipGradByNorm',
 
 def _need_clip(p):
     return getattr(p, 'need_clip', True)
+
+
+# A sharded train step's cross-rank norms (set for the span of its update):
+# fn(norms, keys) -> the (world, n) matrix of every rank's norms of its
+# pieces of the n tensors named by ``keys`` (parameter names, or their
+# ParamAttr holders), in rank order. None: one process holds every tensor.
+_rank_norms = [None]
+
+
+def rank_norms(norms, keys):
+    """Each tensor's norm over every rank's piece of it: ``norms`` (an fp32
+    vector of this rank's per-tensor norms) itself without a sharded step,
+    else the L2 norm of each column of the gathered matrix (one row: the
+    row itself)."""
+    fn = _rank_norms[0]
+    if fn is None:
+        return norms
+    m = fn(norms, keys)
+    return m[0] if m.shape[0] == 1 else torch.linalg.vector_norm(m, dim=0)
 
 
 class ClipGradBase:
@@ -61,6 +87,10 @@ class ClipGradByNorm(ClipGradBase):
             return out
         grads = [params_grads[i][1] for i in chosen]
         norms = torch._foreach_norm(grads)
+        if _rank_norms[0] is not None:
+            norms = list(rank_norms(
+                torch.stack([n.float() for n in norms]),
+                [params_grads[i][0] for i in chosen]).unbind(0))
         # min(clip / max(norm, 1e-12), 1), the reference's order
         scales = torch._foreach_clamp_min(norms, 1e-12)
         torch._foreach_reciprocal_(scales)
@@ -74,10 +104,17 @@ class ClipGradByNorm(ClipGradBase):
         return f"ClipGradByNorm(clip_norm={self.clip_norm})"
 
 
-def global_norm(grads):
+def global_norm(grads, keys=None):
     """The L2 norm of every tensor of ``grads`` together, a 0-dim tensor
-    (fp32 at least)."""
+    (fp32 at least); under a sharded step over every rank's pieces
+    (``keys`` name the tensors)."""
     norms = torch._foreach_norm(grads)
+    fn = _rank_norms[0]
+    if fn is not None:
+        m = fn(torch.stack([n.float() for n in norms]), keys)
+        if m.numel() == 1:
+            return m.reshape(())
+        return torch.linalg.vector_norm(m.reshape(-1))
     if len(norms) == 1:
         return norms[0].float()
     return torch.linalg.vector_norm(torch.stack([n.float() for n in norms]))
@@ -91,9 +128,9 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
 
-    def scale(self, grads):
+    def scale(self, grads, keys=None):
         """The 0-dim scale ``clip / max(norm, clip)`` of ``grads``."""
-        norm = global_norm(grads)
+        norm = global_norm(grads, keys)
         return self.clip_norm / torch.clamp_min(norm, self.clip_norm)
 
     def __call__(self, params_grads):
@@ -103,7 +140,7 @@ class ClipGradByGlobalNorm(ClipGradBase):
         if not chosen:
             return out
         grads = [params_grads[i][1] for i in chosen]
-        scale = self.scale(grads)
+        scale = self.scale(grads, [params_grads[i][0] for i in chosen])
         for i, g in zip(chosen, torch._foreach_mul(grads, scale)):
             out[i] = (params_grads[i][0], g)
         return out

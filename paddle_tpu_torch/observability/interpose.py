@@ -13,9 +13,10 @@ The port's counterpart of ``paddle_tpu/observability/interpose.py``.
   fetch and state sync call ``record_host_transfer(nbytes)`` where they
   copy to the host; ``host_transfer.bytes`` is the "how much crosses
   PCIe" number.
-- ``record_collective(op, nbytes)`` is kept for the collectives, which
-  come with ``distributed/`` (ROADMAP.md, Queue 1 item 5); nothing calls
-  it yet.
+- ``record_collective(op, nbytes)``: every collective of
+  ``distributed.collective`` (and the train step's, which go through it)
+  counts ``collective.<op>.calls`` and ``collective.<op>.bytes``; the
+  model-parallel ones come with ROADMAP.md Queue 1 item 5b.
 """
 from . import registry, state
 
@@ -69,9 +70,8 @@ def summary():
     serving tallies and the cost ledger's. The reference's
     ``jax_traces`` / ``jax_compiles`` / ``jax_compile_ms`` are
     ``kernel_builds`` / ``kernel_build_ms`` here (the port has no trace
-    to count); its distributed keys read counters that come with
-    ``distributed/`` (ROADMAP.md, Queue 1 item 5) and stay 0 until
-    then."""
+    to count); its distributed keys read ``distributed/``'s counters
+    (the model-parallel ones wait for ROADMAP.md, Queue 1 item 5b)."""
     snap = registry.snapshot()['counters']
     return {
         'kernel_builds': snap.get('kernels.builds', 0),

@@ -17,7 +17,8 @@ activations are recomputed in the backward pass, with the same dropout
 masks and precision (the reference records the checkpoints and leaves
 the recompute to ``jax.checkpoint``).
 ``PipelineOptimizer`` raises ``NotImplementedError``: pipeline
-parallelism comes with ``distributed/``.
+parallelism comes with ``distributed/``'s model parallelism (ROADMAP.md,
+Queue 1 item 5b).
 """
 import functools
 
@@ -155,12 +156,14 @@ class ModelAverage(_Swap):
 
 
 class PipelineOptimizer:
-    """The 1.8 pipeline-training wrapper: raises until ``distributed/``."""
+    """The 1.8 pipeline-training wrapper: raises until ``distributed/``'s
+    pipeline (ROADMAP.md, Queue 1 item 5b)."""
 
     def __init__(self, optimizer, num_microbatches=1, start_cpu_core_id=0):
         raise NotImplementedError(
             "PipelineOptimizer is not ported yet: pipeline parallelism "
-            "comes with the distributed slice (distributed/)")
+            "comes with distributed/'s model parallelism (ROADMAP.md, Queue "
+            "1 item 5b)")
 
 
 class RecomputeOptimizer:

@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from .. import observability as _obs
-from ..nn.clip import ClipGradBase
+from ..nn.clip import ClipGradBase, rank_norms
 from ..nn.regularizer import L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
 
@@ -430,9 +430,12 @@ def _per_group(xs, groups, op):
     return out
 
 
-def _norms(tensors):
-    """Each tensor's L2 norm, stacked into one fp32 vector."""
-    return torch.stack([n.float() for n in torch._foreach_norm(tensors)])
+def _norms(tensors, names=None):
+    """Each tensor's L2 norm, stacked into one fp32 vector; under a sharded
+    step each over every rank's pieces (``nn.clip.rank_norms``)."""
+    return rank_norms(
+        torch.stack([n.float() for n in torch._foreach_norm(tensors)]),
+        names)
 
 
 def _pows(value):
@@ -766,7 +769,7 @@ class Lamb(Optimizer):
                     'add', [r[i] for i in decayed],
                     [params[i] for i in decayed], alpha=self._wd)):
                 r[i] = t
-        w_norm, r_norm = _norms(params), _norms(r)
+        w_norm, r_norm = _norms(params, names), _norms(r, names)
         trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                             torch.ones_like(w_norm))
         step = torch._foreach_mul(_times_lr(r, lr), list(trust.unbind(0)))
@@ -791,7 +794,7 @@ class LarsMomentum(Optimizer):
         return {'velocity': torch.zeros_like(value)}
 
     def _update(self, names, params, grads, states, lr, ok):
-        w_norm, g_norm = _norms(params), _norms(grads)
+        w_norm, g_norm = _norms(params, names), _norms(grads, names)
         local = torch.where(
             (w_norm > 0) & (g_norm > 0),
             self._coeff * w_norm / (g_norm + self._wd * w_norm + self._eps),
@@ -888,7 +891,7 @@ class Dpsgd(Optimizer):
         return {'key': gen}
 
     def _update(self, names, params, grads, states, lr, ok):
-        norm = _norms(grads)
+        norm = _norms(grads, names)
         scale = torch.clamp_min(norm / self._dp_clip, 1.0)
         clipped = torch._foreach_div(
             grads, [s.to(g.dtype) for s, g in zip(scale.unbind(0), grads)])

@@ -17,8 +17,11 @@
   ``Heartbeat`` and ``heartbeat_age``).
 
 ``faultinject`` produces each of the failures above deterministically, so
-the whole layer is testable on the CPU. Not ported yet: the resharding
-restore (``distributed/``, ROADMAP.md, Queue 1 item 5).
+the whole layer is testable on the CPU. The resharding restore
+(``CheckpointManager.restore(sharding=)``,
+``async_checkpoint.place_with_config``) places a checkpoint written at any
+world size onto this rank's pieces; model-parallel layouts wait for ROADMAP.md, Queue 1
+item 5b.
 """
 from . import async_checkpoint, atomic_io, faultinject, watchdog
 from .atomic_io import (AtomicWriteError, atomic_open, atomic_pickle_dump,

@@ -36,9 +36,16 @@ event when a save is abandoned, ``checkpoint.async_errors`` and a
 ``checkpoint.fence`` event (the milliseconds waited, whether it abandoned)
 when a fence waited for one.
 
-Not ported: ``config=`` (a ``ShardingConfig``: pieces from a device mesh)
-and the resharding restore (``place_with_config``) raise
-``NotImplementedError``; they come with ``distributed/``.
+``config=`` (a ``distributed.ShardingConfig``, or the step's
+``distributed.sharding.FlatShards``) writes a sharded train step's state:
+in a process group of ``k`` ranks each rank writes the pieces it holds (a
+leaf at its piece's shape in the ``FlatShards``' ``layout``) or, for a
+leaf at its full shape, its piece of it by the same FSDP rule, and rank 0
+commits; the manifest records the full
+shapes, so the files are those a ``world=k`` save of the full state
+writes. ``place_with_config`` is the resharding restore: a reassembled
+host state (saved at any world, by either package) cut into this rank's
+pieces, byte for byte.
 """
 import contextlib
 import json
@@ -58,8 +65,9 @@ from .atomic_io import atomic_open, atomic_write, crc32_file
 from .watchdog import WatchdogTimeout, join_thread
 
 __all__ = ['save_sharded', 'check_sharded', 'load_sharded', 'read_manifest',
-           'step_dir', 'secure_for_async', 'Snapshot', 'AsyncSaver',
-           'AbandonedSave', 'FORMAT', 'DIR_PREFIX', 'MANIFEST_NAME']
+           'place_with_config', 'step_dir', 'secure_for_async', 'Snapshot',
+           'AsyncSaver', 'AbandonedSave', 'FORMAT', 'DIR_PREFIX',
+           'MANIFEST_NAME']
 
 FORMAT = 2
 DIR_PREFIX = 'ckpt_'
@@ -72,11 +80,6 @@ _ABANDON_GRACE_S = 5.0
 _BF16_DESCR = '<V2'
 # bytes a member is written in (numpy's own write_array buffer)
 _CHUNK = 1 << 24
-
-_DISTRIBUTED = ("sharding over a device mesh (config=, a ShardingConfig) and "
-                "the resharding restore come with the distributed slice "
-                "(distributed/)")
-
 
 def step_dir(root, step):
     return os.path.join(os.fspath(root), '%s%08d' % (DIR_PREFIX, int(step)))
@@ -177,40 +180,33 @@ def _dtype_name(leaf):
 # shard planning
 # ---------------------------------------------------------------------------
 
-def _split_dim(shape, world, min_size):
-    """The FSDP first-divisible-dim policy (the reference's
-    ``distributed.sharding.first_divisible_spec``) as a dim index: leaves
-    of ``min_size`` elements or more split along their first dim that
-    ``world`` divides; others stay whole."""
-    size = int(np.prod(shape or (1,)))
-    if world > 1 and size >= min_size:
-        for d, s in enumerate(shape):
-            if s % world == 0:
-                return d
-    return None
+def _plan(n, path, leaf, full, dim, world):
+    """One leaf's piece plan: ``world`` pieces of the ``full`` shape along
+    ``dim``, or (None) one piece, rank 0's."""
+    if dim is None:
+        pieces = [{'rank': 0, 'index': [[0, d] for d in full]}]
+    else:
+        chunk = full[dim] // world
+        pieces = []
+        for r in range(world):
+            index = [[0, d] for d in full]
+            index[dim] = [r * chunk, (r + 1) * chunk]
+            pieces.append({'rank': r, 'index': index})
+    return {'path': list(path), 'key': 'L%05d' % n, 'shape': list(full),
+            'dtype': _dtype_name(leaf), 'dim': dim, 'pieces': pieces}
 
 
 def _plan_world(state, world, min_size=1024):
-    """Per-leaf piece plans for ``world`` process ranks: the FSDP
-    first-divisible-dim split (indivisible or small leaves go whole to
-    rank 0)."""
+    """Per-leaf piece plans for ``world`` process ranks: the FSDP split
+    (``distributed.sharding.shard_dim``; indivisible or small leaves go
+    whole to rank 0)."""
+    from ..distributed.sharding import shard_dim
     world = max(int(world), 1)
     plans = []
     for n, (path, leaf) in enumerate(_leaf_paths(state)):
         shape = tuple(int(s) for s in leaf.shape)
-        dim = _split_dim(shape, world, min_size) if world > 1 else None
-        if dim is None:
-            pieces = [{'rank': 0, 'index': [[0, d] for d in shape]}]
-        else:
-            chunk = shape[dim] // world
-            pieces = []
-            for r in range(world):
-                index = [[0, d] for d in shape]
-                index[dim] = [r * chunk, (r + 1) * chunk]
-                pieces.append({'rank': r, 'index': index})
-        plans.append({'path': list(path), 'key': 'L%05d' % n,
-                      'shape': list(shape), 'dtype': _dtype_name(leaf),
-                      'dim': dim, 'pieces': pieces})
+        dim = shard_dim(shape, world, min_size) if world > 1 else None
+        plans.append(_plan(n, path, leaf, shape, dim, world))
     return plans
 
 
@@ -229,14 +225,51 @@ def _host_array(leaf, streams):
     return np.asarray(leaf)
 
 
-def _piece_arrays(leaf, plan, want_ranks, streams):
+def _plan_config(state, config):
+    """Per-leaf piece plans of a sharded train step's state over the
+    process group -> ``(plans, world, local)``. ``config``: a
+    ``ShardingConfig``, or the step's ``distributed.sharding.FlatShards``,
+    whose ``layout`` (``{name: ...}`` of the step's sharded parameters)
+    makes a ``params.<name>`` leaf, or an optimizer slot, at its piece's
+    shape this rank's piece of the full shape recorded; any other leaf is
+    split by the FSDP rule at its own shape. ``local`` marks the
+    former."""
+    from ..distributed import env
+    from ..distributed.sharding import FlatShards, shard_dim
+    world = max(env.get_world_size(), 1)
+    layout = config.layout if isinstance(config, FlatShards) else None
+    plans, local = [], []
+    for n, (path, leaf) in enumerate(_leaf_paths(state)):
+        shape = tuple(int(s) for s in leaf.shape)
+        lf = None
+        if layout is not None and len(path) >= 2 and \
+                path[0] in ('params', 'opt'):
+            lf = layout.get(path[1])
+            if lf is not None and shape != lf.shard_shape:
+                lf = None
+        if lf is not None:
+            full, dim = lf.full_shape, lf.dim
+        else:
+            full = shape
+            dim = shard_dim(shape, world, config.min_size)
+        if world == 1:
+            dim = None
+        plans.append(_plan(n, path, leaf, full, dim, world))
+        local.append(lf is not None and dim is not None)
+    return plans, world, local
+
+
+def _piece_arrays(leaf, plan, want_ranks, streams, local=False):
     """Host (numpy) arrays for this leaf's pieces owned by ``want_ranks``:
-    ``{piece_i: ndarray}`` (one host copy, then slices)."""
+    ``{piece_i: ndarray}`` (one host copy, then slices; a ``local`` leaf
+    IS its one wanted piece)."""
     wanted = {i: p for i, p in enumerate(plan['pieces'])
               if p['rank'] in want_ranks}
     if not wanted:
         return {}
     arr = _host_array(leaf, streams)
+    if local:
+        return {i: arr for i in wanted}
     out = {}
     for i, p in wanted.items():
         sl = tuple(slice(s, e) for s, e in p['index'])
@@ -366,13 +399,13 @@ def save_sharded(root, state, step, meta=None, config=None, world=None,
     ``world``/``rank``: the multi-process split — with ``rank=None`` every
     shard is written by this process; with ``rank=R`` only R's shard
     (plus, on rank 0, the barrier wait of at most ``barrier_timeout``
-    seconds and the manifest commit). ``state`` may be a ``Snapshot``
-    (``secure_for_async``). Returns the manifest dict, or None for
-    non-committing ranks / an abandoned save. ``config=`` raises
-    ``NotImplementedError``.
+    seconds and the manifest commit). ``config``: a ``ShardingConfig``,
+    or the ``FlatShards`` of the sharded step whose state this is — the
+    pieces of the state over the process group (see the module
+    docstring); each rank writes its own and rank 0 commits.
+    ``state`` may be a ``Snapshot`` (``secure_for_async``). Returns the
+    manifest dict, or None for non-committing ranks / an abandoned save.
     """
-    if config is not None:
-        raise NotImplementedError(f"save_sharded: {_DISTRIBUTED}")
     streams = {}
     if isinstance(state, Snapshot):
         streams = state.streams
@@ -381,17 +414,29 @@ def save_sharded(root, state, step, meta=None, config=None, world=None,
     os.makedirs(d, exist_ok=True)
     tag = str(tag) if tag is not None else _default_tag()
     should_abort = should_abort or (lambda: False)
-    nranks = max(int(world or 1), 1)
-    plans = _plan_world(state, nranks, min_size=min_size)
+    mesh_desc = None
+    if config is not None:
+        from ..distributed import env
+        plans, nranks, local = _plan_config(state, config)
+        rank = env.get_rank() if env.is_initialized() else None
+        cfg = getattr(config, 'config', None) or config
+        mesh_desc = {'axes': {cfg.data_axis: nranks},
+                     'fsdp': bool(cfg.fsdp),
+                     'tensor_parallel_degree': 1}
+    else:
+        nranks = max(int(world or 1), 1)
+        plans = _plan_world(state, nranks, min_size=min_size)
+        local = [False] * len(plans)
     treedef, leaves = _flatten(state)
     my_ranks = list(range(nranks)) if rank is None else [int(rank)]
     try:
         per_rank = {r: {} for r in my_ranks}
         want = set(my_ranks)
-        for plan, leaf in zip(plans, leaves):
+        for plan, leaf, own in zip(plans, leaves, local):
             if should_abort():
                 raise AbandonedSave('save abandoned before shard build')
-            for i, arr in _piece_arrays(leaf, plan, want, streams).items():
+            for i, arr in _piece_arrays(leaf, plan, want, streams,
+                                        own).items():
                 piece = plan['pieces'][i]
                 per_rank[piece['rank']]['%s.p%d' % (plan['key'], i)] = \
                     (arr, plan['dtype'])
@@ -430,7 +475,7 @@ def save_sharded(root, state, step, meta=None, config=None, world=None,
             extra_entry = {'file': _EXTRA_NAME,
                            'size': w.size, 'crc32': w.crc}
         manifest = {'format': FORMAT, 'step': int(step), 'world': nranks,
-                    'mesh': None, 'tag': tag, 'meta': dict(meta or {}),
+                    'mesh': mesh_desc, 'tag': tag, 'meta': dict(meta or {}),
                     'shards': shards, 'extra': extra_entry,
                     'leaves': plans, 'treedef': treedef}
         atomic_write(os.path.join(d, MANIFEST_NAME),
@@ -541,6 +586,47 @@ def load_sharded(dirpath, return_extra=False):
         with open(os.path.join(dirpath, man['extra']['file']), 'rb') as f:
             extra = pickle.load(f)
     return state, meta, extra
+
+
+def place_with_config(state, config):
+    """The resharding restore's placement: a reassembled host state of the
+    engine's layout (``{'params', 'opt', ...}``, full shapes, saved at any
+    world) -> this rank's pieces over ``config``'s process group, each
+    parameter and each optimizer slot of its shape cut along the FSDP
+    split dim (``distributed.sharding.shard_dim``), byte for byte; other
+    leaves whole. ``None`` config, or a world of one, returns ``state``."""
+    if config is None:
+        return state
+    if not (isinstance(state, dict) and 'params' in state):
+        got = sorted(state) if isinstance(state, dict) else type(state)
+        raise ValueError(
+            "resharding restore needs an engine-layout state "
+            "({'params', 'opt', ...}) — got %r" % (got,))
+    from ..distributed import env
+    from ..distributed.sharding import shard_dim
+    world, rank = env.get_world_size(), env.get_rank()
+    if world == 1:
+        return state
+
+    def cut(v, full):
+        dim = shard_dim(full, world, config.min_size)
+        if dim is None or tuple(v.shape) != full:
+            return v
+        k = full[dim] // world
+        sl = [slice(None)] * len(full)
+        sl[dim] = slice(rank * k, (rank + 1) * k)
+        piece = v[tuple(sl)]
+        return piece.clone() if isinstance(piece, torch.Tensor) \
+            else np.ascontiguousarray(piece)
+    out = dict(state)
+    shapes = {n: tuple(v.shape) for n, v in state['params'].items()}
+    out['params'] = {n: cut(v, shapes[n])
+                     for n, v in state['params'].items()}
+    out['opt'] = {n: {s: (cut(v, shapes[n]) if n in shapes and
+                          hasattr(v, 'shape') else v)
+                      for s, v in slots.items()}
+                  for n, slots in state.get('opt', {}).items()}
+    return out
 
 
 # ---------------------------------------------------------------------------

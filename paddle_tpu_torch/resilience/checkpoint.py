@@ -28,9 +28,13 @@ bit-flipped latest file costs one checkpoint interval, not the run.
 (``async_checkpoint.secure_for_async``: device-side clones, in stream
 order) and serializes and commits on a background thread (ONE in flight;
 the next save — or an explicit :meth:`fence` — waits for it).
-``save(state, world=W, rank=R)`` writes the sharded format. ``sharding=``
-and ``restore(sharding=)`` raise ``NotImplementedError``: they come with
-``distributed/``.
+``save(state, world=W, rank=R)`` writes the sharded format, and so does
+``save(state, sharding=cfg)`` (a ``distributed.ShardingConfig``: in a
+process group each rank writes the pieces of a sharded step's state it
+holds, rank 0 commits); ``restore(sharding=cfg)`` reassembles any
+committed checkpoint, whatever world wrote it, and cuts this rank's
+pieces out of it (the resharding restore,
+``async_checkpoint.place_with_config``).
 
 Telemetry (while enabled), as the reference's: ``checkpoint.save_stall_ms``
 (the training thread's time in ``save``: the whole commit for a sync save,
@@ -61,13 +65,6 @@ _PREFIX = 'ckpt-'
 _PAYLOAD_EXT = '.ckpt'
 _MANIFEST_EXT = '.manifest.json'
 _V2_PREFIX = 'ckpt_'
-
-
-def _no_sharding(what):
-    return NotImplementedError(
-        f"CheckpointManager.{what}: sharding= is not ported yet: placing "
-        f"state over a device mesh and the resharding restore come with the "
-        f"distributed slice (distributed/)")
 
 
 class CheckpointManager:
@@ -152,12 +149,23 @@ class CheckpointManager:
         - ``world=``/``rank=``: the multi-process sharded split — each rank
           writes only its shard; rank 0 commits the manifest after the
           shard barrier.
+        - ``sharding=`` (a ``distributed.ShardingConfig``, or what
+          ``resolve_sharding`` takes, or the sharded step's
+          ``distributed.sharding.FlatShards``, which places the pieces it
+          made): a sharded step's state, each rank writing its own pieces
+          (the world and rank are the process group's).
         - ``extra=``: small pickled side payload (RNG streams, loop
           position) stored next to the shards and CRC'd in the manifest.
         """
         from ..framework import _to_saveable
         if sharding is not None:
-            raise _no_sharding('save')
+            from ..distributed import env
+            from ..distributed.sharding import FlatShards
+            from ..distributed.strategy import resolve_sharding
+            if not isinstance(sharding, FlatShards):
+                sharding = resolve_sharding(sharding)
+            if env.is_initialized():
+                rank = env.get_rank()
         sw = _obs.Stopwatch()
         # ordering fence FIRST: a save must never land after a LATER one —
         # and the default step number must see the in-flight commit, or
@@ -168,7 +176,8 @@ class CheckpointManager:
             latest = self.latest_step()
             step = 0 if latest is None else latest + 1
         step = int(step)
-        sharded = world is not None or rank is not None
+        sharded = world is not None or rank is not None or \
+            sharding is not None
         if extra is not None and not sharded:
             # the side payload (RNG streams, loop position) only exists in
             # the sharded manifest format — promote rather than drop it
@@ -182,8 +191,9 @@ class CheckpointManager:
             def job(should_abort):
                 jsw = _obs.Stopwatch()
                 man = ac.save_sharded(self.path, src, step, meta=meta,
-                                      world=world, rank=rank, tag=tag,
-                                      extra=extra, should_abort=should_abort)
+                                      config=sharding, world=world,
+                                      rank=rank, tag=tag, extra=extra,
+                                      should_abort=should_abort)
                 if man is not None:
                     nbytes = sum(s['size'] for s in man['shards'].values())
                     self._finish_commit(step, jsw, meta, nbytes,
@@ -339,14 +349,18 @@ class CheckpointManager:
 
     def restore(self, step=None, sharding=None, return_extra=False):
         """``load()`` for training state: numpy leaves on the host (bf16
-        ones as bf16 CPU tensors). Returns ``(state, meta)`` (or ``(state,
-        meta, extra)``), or None. ``sharding=`` raises."""
-        if sharding is not None:
-            raise _no_sharding('restore')
+        ones as bf16 CPU tensors). ``sharding=`` (a
+        ``distributed.ShardingConfig``): the resharding restore — this
+        rank's pieces of the reassembled state. Returns ``(state, meta)``
+        (or ``(state, meta, extra)``), or None."""
         got = self._load_any(step, True)
         if got is None:
             return None
         state, meta, extra, _s = got
+        if sharding is not None:
+            from ..distributed.strategy import resolve_sharding
+            from .async_checkpoint import place_with_config
+            state = place_with_config(state, resolve_sharding(sharding))
         if return_extra:
             return state, meta, extra
         return state, meta

@@ -27,12 +27,16 @@ against, on the CPU, deterministically:
   trend is wrong — drives the doctor's ``latency_creep`` detector);
 - ``slow_loader`` — Dataset wrapper sleeping before EVERY sample (the
   input-bound model the anomaly doctor's dataloader-wait detector names);
-- ``retrace_bait``, ``corrupt_compile_cache``, ``slow_collective`` and
-  ``boot_fail`` act on subsystems the port does not have yet: each raises
-  ``NotImplementedError`` naming where it comes (ROADMAP.md, Queue 1
-  item 7: ``compilecache/``, whose ``kernels.builds`` counter takes the
-  place of the reference's ``jax.compiles``; item 5: ``distributed/``'s
-  collectives and ``launch``);
+- ``slow_collective`` — every collective of ``distributed/`` sleeps
+  first, against ``distributed.set_timeout``'s deadline; ``boot_fail`` —
+  a supervised ``spawn`` rank crashes before its started marker, the
+  case ``max_restarts`` restarts (``distributed/``'s model-parallel
+  collectives wait for ROADMAP.md, Queue 1 item 5b);
+- ``retrace_bait`` and ``corrupt_compile_cache`` act on a subsystem the
+  port does not have yet: each raises ``NotImplementedError`` naming where
+  it comes (ROADMAP.md, Queue 1 item 7: ``compilecache/``, whose
+  ``kernels.builds`` counter takes the place of the reference's
+  ``jax.compiles``);
 - ``kill_replica_at_request`` / ``hang_replica`` / ``slow_replica`` —
   serving-replica chaos (siblings of ``kill_rank_at_step``/``slow_rank``):
   abrupt engine death right after admitting the Nth request, a wedged
@@ -399,14 +403,25 @@ def retrace_bait(n=8, base=4):
         "(ROADMAP.md, Queue 1 item 7)")
 
 
+@contextlib.contextmanager
 def slow_collective(delay_s, ops=None):
-    """Delay every eager collective launch in this process: not ported
-    yet, the port has no ``distributed/`` collectives (ROADMAP.md, Queue 1
-    item 5)."""
-    raise NotImplementedError(
-        "faultinject.slow_collective is not ported to paddle_tpu_torch "
-        "yet: it delays distributed/ collectives (ROADMAP.md, Queue 1 "
-        "item 5)")
+    """Delay every collective this process issues by ``delay_s`` seconds
+    (optionally only the named ``ops``), through ``distributed.deadline``'s
+    ``_delay_hook``: the delay counts against ``distributed.set_timeout``,
+    so that the deadline expires deterministically on the CPU."""
+    from ..distributed import deadline as _deadline
+    only = set(ops) if ops else None
+
+    def hook(op):
+        if only is None or op in only:
+            time.sleep(delay_s)
+
+    prev = _deadline._delay_hook[0]
+    _deadline._delay_hook[0] = hook
+    try:
+        yield
+    finally:
+        _deadline._delay_hook[0] = prev
 
 
 @contextlib.contextmanager
@@ -561,14 +576,22 @@ def slow_replica(engine, delay_s):
     return engine
 
 
+@contextlib.contextmanager
 def boot_fail(rank, times=1):
-    """Arm rank bootstrap crashes in supervised spawn/launch children: not
-    ported yet, the port has no ``distributed.launch`` (ROADMAP.md, Queue
-    1 item 5)."""
-    raise NotImplementedError(
-        "faultinject.boot_fail is not ported to paddle_tpu_torch yet: it "
-        "arms distributed.launch bootstrap crashes (ROADMAP.md, Queue 1 "
-        "item 5)")
+    """Arm ``times`` bootstrap crashes (``os._exit(43)`` before the started
+    marker) for ``rank`` in every supervised ``spawn`` child started inside
+    the context: the transient bring-up failure that bounded restart
+    (``max_restarts``) exists for."""
+    key = 'PADDLE_TPU_FI_BOOT_FAIL'
+    prev = os.environ.get(key)
+    os.environ[key] = f"{int(rank)}:{int(times)}"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = prev
 
 
 class PreemptAtStep:

@@ -95,8 +95,9 @@ class CausalSelfAttention(nn.Module):
         super().__init__()
         if config.use_ring_attention:
             raise NotImplementedError(
-                "GPT use_ring_attention=True: ring attention comes with the "
-                "port's distributed/ slice (ROADMAP.md, Queue 1 item 5)")
+                "GPT use_ring_attention=True: ring attention comes with "
+                "distributed/'s model parallelism (ROADMAP.md, Queue 1 item "
+                "5b)")
         self.num_heads = config.num_heads
         self.hidden = config.hidden_size
         kw = dict(device=device, generator=generator)

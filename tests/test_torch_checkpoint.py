@@ -316,13 +316,31 @@ def test_extra_promotes_to_the_sharded_format(tmp_path):
 
 
 def test_mesh_sharding_raises_naming_distributed(tmp_path):
+    """``sharding=`` is ported (distributed/): a bad value raises as the
+    reference's (no sharding config in an object; a resharding restore
+    needs an engine-layout state), and without a process group a
+    ``ShardingConfig`` save is the one-rank sharded format, its restore
+    the saved state bit for bit (the multi-rank matrix:
+    tests/test_torch_distributed_fit.py)."""
+    from paddle_tpu_torch.distributed import ShardingConfig
     mgr = CheckpointManager(tmp_path)
-    with pytest.raises(NotImplementedError, match='distributed/'):
+    with pytest.raises(TypeError, match='cannot resolve a sharding'):
         mgr.save(_state(), sharding=object())
-    with pytest.raises(NotImplementedError, match='distributed/'):
+    with pytest.raises(ValueError, match='engine-layout'):
+        ac.place_with_config({'w': np.zeros(4)}, ShardingConfig())
+    cfg = ShardingConfig()
+    mgr.save(_state(), step=0, sharding=cfg)
+    man = mgr.load_manifest(0)
+    assert man['format'] == 2 and man['world'] == 1
+    assert man['mesh'] == {'axes': {'data': 1}, 'fsdp': True,
+                           'tensor_parallel_degree': 1}
+    with pytest.raises(TypeError, match='cannot resolve a sharding'):
         mgr.restore(sharding=object())
-    with pytest.raises(NotImplementedError, match='distributed/'):
-        ac.save_sharded(str(tmp_path), _state(), 0, config=object())
+    state, _ = mgr.restore(sharding=cfg)
+    want = _state()
+    assert np.array_equal(state['params']['w1'], want['params']['w1'])
+    assert np.array_equal(state['opt']['w0']['moment1'],
+                          want['opt']['w0']['moment1'])
 
 
 # -- framework.save / load ----------------------------------------------------

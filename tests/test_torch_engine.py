@@ -227,10 +227,39 @@ def test_adam_l2_decay_and_untouched_parameters():
     dict(sharding=object()), dict(in_shardings=object())],
     ids=lambda o: next(iter(o)))
 def test_unsupported_options_raise(option):
+    """``sharding=`` / ``in_shardings=`` are ported (distributed/): a bad
+    value raises as the reference's (an object is no sharding config; the
+    two together are refused), and without a process group the step is
+    the one-process step, bit for bit (the multi-rank behaviour:
+    tests/test_torch_sharding.py)."""
+    from paddle_tpu_torch.distributed import ShardingConfig
     net = _small()
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        build_train_step(net=net, loss=net.pretraining_loss,
-                         optimizer=topt.AdamW(), device='cpu', **option)
+    if 'sharding' in option:
+        with pytest.raises(TypeError, match='cannot resolve a sharding'):
+            build_train_step(net=net, loss=net.pretraining_loss,
+                             optimizer=topt.AdamW(), device='cpu', **option)
+        option = dict(sharding=ShardingConfig())
+    else:
+        with pytest.raises(ValueError, match='one or the other'):
+            build_train_step(net=net, loss=net.pretraining_loss,
+                             optimizer=topt.AdamW(), device='cpu',
+                             sharding=ShardingConfig(), **option)
+        option = dict(in_shardings=(None, ('data',)))
+    plain = _small()
+    plain.load_state_dict(net.state_dict())
+    batch = _batch(0)
+    states = []
+    for model, kw in ((plain, {}), (net, option)):
+        step = build_train_step(net=model, loss=model.pretraining_loss,
+                                optimizer=topt.AdamW(1e-3), device='cpu',
+                                **kw)
+        state = step.init_state()
+        losses = [float(step(state, batch)[1].loss) for _ in range(2)]
+        states.append((losses, {k: v.clone()
+                                for k, v in state['params'].items()}))
+    assert states[0][0] == states[1][0]
+    for k, v in states[0][1].items():
+        assert torch.equal(v, states[1][1][k]), k
 
 
 @pytest.mark.parametrize("option", [

@@ -157,11 +157,47 @@ def test_fit_matches_reference(reference_run):
     dict(world=2), dict(rank=0), dict(sharding=object()),
     dict(serve_artifacts='art'), dict(serve_generative=object())],
     ids=lambda o: next(iter(o)))
-def test_unported_options_raise(option):
+def test_unported_options_raise(option, tmp_path):
+    """The serving export still waits (ROADMAP.md, Queue 1 item 7).
+    ``world``/``rank``/``sharding`` are ported (distributed/): without a
+    process group ``world``/``rank`` split the checkpoint as the
+    reference's does (this process writes every rank's piece with rank
+    None, rank 0's alone with rank 0) and train as without them;
+    ``sharding`` resolves as the reference's (an object is a TypeError)
+    and, with no group, trains as without it, bit for bit (the multi-rank
+    behaviour: tests/test_torch_distributed_fit.py)."""
     net = _port_model()
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        engine.fit(net, net.pretraining_loss, topt.SGD(), _batches(1),
-                   device='cpu', **option)
+    name = next(iter(option))
+    if name.startswith('serve_'):
+        with pytest.raises(NotImplementedError, match=name):
+            engine.fit(net, net.pretraining_loss, topt.SGD(), _batches(1),
+                       device='cpu', **option)
+        return
+    if name == 'sharding':
+        with pytest.raises(TypeError, match='cannot resolve a sharding'):
+            engine.fit(net, net.pretraining_loss, topt.SGD(), _batches(1),
+                       device='cpu', **option)
+        from paddle_tpu_torch.distributed import ShardingConfig
+        option = dict(sharding=ShardingConfig())
+    plain = _port_model()
+    want = engine.fit(plain, plain.pretraining_loss, topt.AdamW(1e-3),
+                      _batches(2), device='cpu')
+    extra = dict(checkpoint=str(tmp_path)) if name != 'sharding' else {}
+    got = engine.fit(net, net.pretraining_loss, topt.AdamW(1e-3),
+                     _batches(2), device='cpu', **option, **extra)
+    assert got['loss'] == want['loss']
+    for (k, a), (_, b) in zip(net.named_parameters(),
+                              plain.named_parameters()):
+        assert torch.equal(a, b), k
+    if extra:
+        from paddle_tpu_torch.resilience import CheckpointManager
+        mgr = CheckpointManager(tmp_path)
+        man = mgr.load_manifest(mgr.latest_step())
+        assert man['world'] == option.get('world', 1)
+        assert man['meta']['world'] == option.get('world', 1)
+        state, _ = mgr.restore()
+        for k, p in net.named_parameters():
+            assert np.array_equal(state['params'][k], p.detach().numpy())
 
 
 @pytest.mark.parametrize("option", ['checkpoint', 'resume_from'])

@@ -430,11 +430,31 @@ def test_callbacks_stop_and_write(tmp_path):
 
 
 def test_options_that_wait_raise(tmp_path, monkeypatch):
+    # strategy= is ported (distributed/): a bad one raises as the
+    # reference's; a knobs-off fleet strategy changes nothing (the model
+    # stays eager); a ShardingConfig takes the jit path and, with no
+    # process group, trains as the plain jit model, bit for bit (the
+    # multi-rank behaviour: tests/test_torch_distributed_fit.py)
+    from paddle_tpu_torch.distributed import (DistributedStrategy,
+                                              ShardingConfig)
     model = _port_model(_port_bert(), False, metrics=False)
-    with pytest.raises(NotImplementedError, match='distributed'):
+    with pytest.raises(TypeError, match='cannot resolve a sharding'):
         model.prepare(strategy=object())
-    with pytest.raises(NotImplementedError, match='distributed'):
+    with pytest.raises(TypeError, match='cannot resolve a sharding'):
         model.fit(TData(4, 0), strategy=object(), verbose=0)
+    model = _port_model(_port_bert(), False, metrics=False)
+    model.fit(TData(4, 0), strategy=DistributedStrategy(), verbose=0)
+    assert not model._use_jit
+    sharded = _port_model(_port_bert(), False, metrics=False)
+    sharded.fit(TData(4, 0), strategy=ShardingConfig(), verbose=0,
+                shuffle=False)
+    plain = _port_model(_port_bert(), True, metrics=False)
+    plain.fit(TData(4, 0), verbose=0, shuffle=False)
+    assert sharded._use_jit
+    for (k, a), b in zip(sharded.network.state_dict().items(),
+                         plain.network.state_dict().values()):
+        assert torch.equal(a, b), k
+    model = _port_model(_port_bert(), False, metrics=False)
     with pytest.raises(NotImplementedError, match='inference'):
         model.save(str(tmp_path / 'm'), training=False)
     # telemetry no longer waits: the environment's switch is read when the

@@ -373,6 +373,11 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         "'serving.autoscaler', 'resilience.faultinject', 'tools.doctor', "
         "'tools.telemetry_dump', 'tools.postmortem', 'tools.perfwatch'):\n"
         "    assert 'paddle_tpu_torch.' + m in sys.modules, m\n"
+        # the data-parallel slice: every module of distributed/
+        "for m in ('deadline', 'env', 'collective', 'launch', "
+        "'_spawn_entry', 'parallel', 'strategy', 'sharding', 'fleet', "
+        "'role_maker', 'metrics', 'recompute'):\n"
+        "    assert 'paddle_tpu_torch.distributed.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
         "or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
