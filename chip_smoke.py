@@ -709,7 +709,8 @@ def _attention_case(fa, q, k, v, do, causal, kb, p, seed, offset,
     return errs
 
 
-def attention_mask_probe(dtype, device, length, p, seed, offset, heads=2):
+def attention_mask_probe(dtype, device, length, p, seed, offset, heads=2,
+                         head_map=None):
     """Read the attention dropout mask back, bit for bit, through the
     forward, dQ and dK/dV, on one 64-key (forward, dQ) or 64-query (dK/dV)
     window per batch row: batch row b probes window 64 b .. 64 b + 63, so
@@ -728,10 +729,12 @@ def attention_mask_probe(dtype, device, length, p, seed, offset, heads=2):
       elsewhere, so dv[b, h, key, j] != 0 iff (b H + h, 64 b + j, key) is
       kept.
 
-    CUDA tensors run the kernels, CPU tensors the plain versions. -> {
-    'forward': (read, want), 'dq': (read, want), 'dkv': (read, want)}:
-    boolean masks of the probed elements, ``want`` from
-    ``philox.keep_mask``."""
+    CUDA tensors run the kernels, CPU tensors the plain versions. With
+    ``head_map=(heads of the model, first head)`` (a tensor-parallel
+    rank's local heads) the kernels and ``want`` key the mask on the
+    model's (batch, head) rows. -> {'forward': (read, want), 'dq': (read,
+    want), 'dkv': (read, want)}: boolean masks of the probed elements,
+    ``want`` from ``philox.keep_mask``."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import philox
     D = 64
@@ -742,8 +745,9 @@ def attention_mask_probe(dtype, device, length, p, seed, offset, heads=2):
     onehot = (pos[:, None] % D == torch.arange(D, device=device)[None, :])
     zeros = torch.zeros(shape, dtype=dtype, device=device)
     stats = torch.zeros(shape[:3], dtype=torch.float32, device=device)
-    keep = philox.keep_mask((B * heads, length, length), p, seed, offset,
-                            device).reshape(B, heads, length, length)
+    keep = philox.keep_mask((B, heads, length, length), p, seed, offset,
+                            device, philox.head_block(
+                                (B, heads, length, length), head_map))
     windows = [slice(D * b, min(D * (b + 1), length)) for b in range(B)]
 
     def key_windows(out):
@@ -755,20 +759,21 @@ def attention_mask_probe(dtype, device, length, p, seed, offset, heads=2):
     bias = torch.where(window, 0.0, float('-inf')).to(torch.float32)
     v = onehot.to(dtype).expand(shape).contiguous()
     o, _ = fa.flash_attention_forward(zeros, zeros, v, False, None, bias, p,
-                                      seed, offset)
+                                      seed, offset, head_map)
     out = {'forward': key_windows(o)}
 
     ones = torch.zeros(shape, dtype=dtype, device=device)
     ones[..., 0] = 1
     dq = fa.flash_attention_dq(zeros, v, ones, ones, stats, stats, False,
-                               1.0 / D ** 0.5, bias, p, seed, offset)
+                               1.0 / D ** 0.5, bias, p, seed, offset,
+                               head_map)
     out['dq'] = key_windows(dq)
 
     do = (window[:, :, None] & onehot[None]).to(dtype)[:, None].expand(
         shape).contiguous()
     _, dv = fa.flash_attention_dkv(zeros, zeros, zeros, do, stats, stats,
                                    False, 1.0 / D ** 0.5, None, p, seed,
-                                   offset)
+                                   offset, head_map)
     out['dkv'] = (
         torch.cat([(dv[b, :, :, :w.stop - w.start] != 0).flatten()
                    for b, w in enumerate(windows)]),
@@ -1475,6 +1480,15 @@ def _loss_and_grads(model, x, y, device, bf16=False, fp16=False):
              for n, g in zip(params, grads)})
 
 
+def _grad_errs(got, want):
+    """``{name: max abs error over the tensor's max abs value}``, the scale
+    floored at 1e-3 of the largest entry of ``want`` (see
+    ``_compare_grads``)."""
+    top = max(float(g.abs().max()) for g in want.values())
+    return {n: max_err(got[n], r) / max(float(r.abs().max()), 1e-3 * top)
+            for n, r in want.items()}
+
+
 def _compare_grads(what, got, want, tol=GRAD_TOL, mean_tol=None):
     """Each gradient's max abs error over its tensor's max abs value ->
     (worst, its name, mean over the tensors); raises past ``tol`` (and
@@ -1482,9 +1496,7 @@ def _compare_grads(what, got, want, tol=GRAD_TOL, mean_tol=None):
     zero (the key bias: softmax ignores a shift of a row's scores) holds
     rounding noise on both sides, so the scale has a floor of 1e-3 of the
     model's largest gradient entry."""
-    top = max(float(g.abs().max()) for g in want.values())
-    errs = {n: max_err(got[n], r) / max(float(r.abs().max()), 1e-3 * top)
-            for n, r in want.items()}
+    errs = _grad_errs(got, want)
     worst_name = max(errs, key=lambda n: (errs[n] != errs[n], errs[n]))
     mean = float(np.mean(list(errs.values())))
     check(f'{what}: gradient of {worst_name}', errs[worst_name], tol)
@@ -6291,6 +6303,551 @@ def phase_dp_two_ranks(seed, card):
     return total, row
 
 
+# -- model parallelism (distributed/: tensor, sequence, pipeline) -----------
+
+# the three phases: two ranks on the one card through gloo, joined within
+MP_JOIN_S = 400
+# tp_two_ranks: BERT-large at full width; the training steps' depth (the
+# forward parity runs at the full 24 layers whatever this is)
+TP_LAYERS = 24
+TP_STEPS = 2
+TP_LR = {'adamw': 1e-4, 'sgd': 1e-3}
+# ring_two_ranks: gpt_small on 8 x 1024 tokens, two blocks of 512
+RING_BATCH, RING_SEQ = 8, 1024
+# pipeline_two_ranks: 4 microbatches of 2 x 512, one encoder layer a stage
+PIPE_MICRO, PIPE_ROWS = 4, 2
+
+
+def _tp_launches(layers, steps):
+    """A BERT step's launches on a tensor-parallel rank at p = 0: each
+    layer's attention kernels once on the local heads, its two
+    add+LayerNorms, the embeddings' and the MLM head's LayerNorm."""
+    per = {'flash_attention_fwd': layers, 'flash_attention_dq': layers,
+           'flash_attention_dkv': layers, 'add_layer_norm_fwd': 2 * layers,
+           'layer_norm_fwd': 2, 'dropout_grad': 0, 'rms_norm_fwd': 0}
+    return {k: v * steps for k, v in per.items()}
+
+
+def _tp_model(seed, layers, p=0.0):
+    from paddle_tpu_torch.text.bert import BertForPretraining, bert_large
+    cfg = bert_large(hidden_dropout_prob=p, attention_probs_dropout_prob=p)
+    cfg.num_hidden_layers = layers
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 17)
+    return BertForPretraining(cfg, device=dev, generator=gen)
+
+
+def _tp_batch(seed, rows=TRAIN_BATCH):
+    dev = torch.device('cuda', 0)
+    x, y = _pretraining_batch(np.random.RandomState(seed + 11), rows, VOCAB)
+    return ({k: torch.from_numpy(v).to(dev) for k, v in x.items()},
+            tuple(torch.from_numpy(v).to(dev) for v in y))
+
+
+def _tp_train(model, opt, batch, sharding=None):
+    """``TP_STEPS`` steps -> (losses, each step's ms (synchronised), the
+    step)."""
+    from paddle_tpu_torch import engine
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+    step = engine.build_train_step(
+        net=model, loss=model.pretraining_loss, sharding=sharding,
+        optimizer=(AdamW if opt == 'adamw' else SGD)(
+            learning_rate=TP_LR[opt]))
+    state = step.init_state()
+    losses, ms = [], []
+    for _ in range(TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(state, batch)[1].loss))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, step
+
+
+def _tp_rank(seed, paths, probe_seed):
+    """One rank of ``phase_tp_two_ranks`` on the card (gloo, mesh (1,
+    2)): BERT-large turned tensor-parallel by ``megatron_rules``; its
+    24-layer forward against the one process's logits; ``TP_STEPS`` steps
+    of ``build_train_step(sharding=ShardingConfig(tensor_parallel_degree=
+    2, fsdp=False, param_rules=...))`` with SGD and AdamW (their launches
+    and collectives counted, the parameters' pieces against the one
+    process's); the mask probes at p = 0.1."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.sharding import (
+        apply_tensor_parallel, megatron_rules, tp_pieces)
+    from paddle_tpu_torch.kernels import philox
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env((1, 2), ('data', 'model'))
+    rank = dist.get_rank('model')
+    batch = _tp_batch(seed)
+    rules = megatron_rules()
+    out = {'rank': rank, 'backend': str(torch.distributed.get_backend())}
+    # the forward at 24 layers, p = 0
+    model = _tp_model(seed, 24).eval()
+    apply_tensor_parallel(model, rules)
+    with torch.no_grad():
+        logits = model(**batch[0])[0]
+    want = torch.load(paths['logits'], map_location='cuda:0')
+    out['forward_err'] = max_err(logits, want) / float(want.abs().max())
+    del model, logits, want
+    torch.cuda.empty_cache()
+    cfg = dist.ShardingConfig(tensor_parallel_degree=2, fsdp=False,
+                              param_rules=rules)
+    out['runs'] = {}
+    for opt in ('sgd', 'adamw'):
+        model = _tp_model(seed, TP_LAYERS).train()
+        init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        collective.reset_collective_counts()
+        losses, ms, step = _tp_train(model, opt, batch, cfg)
+        counts = kernels.launch_counts()
+        colls = collective.collective_counts()
+        ref = tp_pieces(torch.load(paths[opt], map_location='cuda:0'), model)
+        init = tp_pieces(init, model)
+        out['runs'][opt] = {
+            'losses': losses, 'step_ms': ms, 'launches': counts,
+            'collectives': colls,
+            'peak_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
+            'param_err': _param_err(model, ref),
+            'update_rel_err': _update_rel_err(model, ref, init),
+            'heads': model.bert.encoder.layers[0].self_attn.num_heads}
+        del model, step, ref, init
+        torch.cuda.empty_cache()
+    # p = 0.1: the TP forward draws the dense model's masks (two layers at
+    # full width, against the one process's output) ...
+    model = _tp_model(seed, 2, 0.1).train()
+    apply_tensor_parallel(model, rules)
+    dist.parallel.mask_ranks(model, True)
+    with torch.no_grad():
+        seq = model.bert(**{k: v for k, v in batch[0].items()
+                            if k != 'masked_positions'})[0]
+    want = torch.load(paths['masked'], map_location='cuda:0')
+    out['masked_err'] = max_err(seq, want) / float(want.abs().max())
+    out['mask_rank'] = model.dropout_state.rank
+    # ... and the attention kernels read the dense model's bits of this
+    # rank's heads (2 of 4), bit for bit
+    s, off = philox.DropoutState(probe_seed).next()
+    probe = attention_mask_probe(torch.float32, torch.device('cuda', 0),
+                                 300, 0.1, s, off, heads=2,
+                                 head_map=(4, 2 * rank))
+    torch.cuda.synchronize()
+    out['probe_wrong'] = {k: int((r != w).sum()) for k, (r, w) in
+                          probe.items()}
+    out['probe_bits'] = {k: int(w.numel()) for k, (_, w) in probe.items()}
+    return out
+
+
+def phase_tp_two_ranks(seed, card):
+    """Tensor parallelism at degree 2 on the one card: two ranks through
+    ``distributed.spawn(nprocs=2, backend='gloo')`` on a (data 1, model
+    2) mesh, joined within ``MP_JOIN_S``, BERT-large at full width, fp32,
+    p = 0, the 8 x 512 batch of ``bench.py::bench_bert``, against one
+    process on the card:
+
+    - the 24-layer forward's prediction logits within ``MODEL_TOL`` of the
+      one process's (max abs over the largest);
+    - ``TP_STEPS`` steps of SGD and of AdamW at ``TP_LAYERS`` layers: the
+      losses within ``MODEL_TOL`` (relative); SGD's parameters (each
+      rank's pieces) within the parity gate (``_param_err``); AdamW's
+      update error printed, not held (``_update_rel_err``; Adam moves an
+      element by the sign of its gradient);
+    - each rank's launches exactly ``_tp_launches`` (the dense step's, on
+      local heads), its collectives exactly the Megatron plan: two
+      all-reduces a layer forward and two backward, each of B x L x
+      hidden fp32, on the model axis, and nothing else;
+    - the masks at p = 0.1: each rank's 2-layer forward equals the one
+      process's (its attention masks are the dense model's for its heads,
+      its hidden masks the other rank's), and the attention kernels read
+      the dense model's bits of its heads (``attention_mask_probe`` with
+      ``head_map``), bit for bit.
+
+    -> (the ranks' summed launch counts of the AdamW run, a row)."""
+    from paddle_tpu_torch import distributed as dist
+    root = tempfile.mkdtemp(prefix='tp_two_ranks_')
+    t0 = time.perf_counter()
+    alone, paths = {}, {}
+    try:
+        batch = _tp_batch(seed)
+        model = _tp_model(seed, 24).eval()
+        with torch.no_grad():
+            logits = model(**batch[0])[0]
+        paths['logits'] = os.path.join(root, 'logits.pt')
+        torch.save(logits, paths['logits'])
+        del model, logits
+        for opt in ('sgd', 'adamw'):
+            model = _tp_model(seed, TP_LAYERS).train()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms, step = _tp_train(model, opt, batch)
+            alone[opt] = {'losses': losses, 'step_ms': ms,
+                          'peak_gb': torch.cuda.max_memory_allocated()
+                          / 2 ** 30}
+            paths[opt] = os.path.join(root, f'{opt}.pt')
+            torch.save({n: p.detach() for n, p in model.named_parameters()},
+                       paths[opt])
+            del model, step
+            torch.cuda.empty_cache()
+        model = _tp_model(seed, 2, 0.1).train()
+        with torch.no_grad():
+            seq = model.bert(**{k: v for k, v in batch[0].items()
+                                if k != 'masked_positions'})[0]
+        paths['masked'] = os.path.join(root, 'masked.pt')
+        torch.save(seq, paths['masked'])
+        del model, seq, batch
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = dist.spawn(_tp_rank, args=(seed, paths, 0x7E5 + seed),
+                           nprocs=2, backend='gloo',
+                           join=False).join(timeout=MP_JOIN_S)
+        spawn_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ranks = sorted(ranks, key=lambda r: r['rank'])
+    if [r['rank'] for r in ranks] != [0, 1] or \
+            any(r['backend'] != 'gloo' for r in ranks):
+        raise AssertionError(f"tp_two_ranks: ranks {ranks}")
+    want = _tp_launches(TP_LAYERS, TP_STEPS)
+    act = TRAIN_BATCH * SEQ * 1024 * 4
+    plan = {'model.all_reduce': {'calls': 4 * TP_LAYERS * TP_STEPS,
+                                 'bytes': 4 * TP_LAYERS * TP_STEPS * act}}
+    row = {'phase': 'tp_two_ranks', 'card': card, 'entry':
+           'distributed.spawn(nprocs=2, backend="gloo") + init_parallel_env('
+           '(1, 2)) + build_train_step(sharding=ShardingConfig('
+           'tensor_parallel_degree=2, fsdp=False, param_rules='
+           'megatron_rules()))',
+           'model': f'BertForPretraining(bert_large()), {TP_LAYERS} layers '
+                    f'trained (24 in the forward parity), fp32, p = 0',
+           'steps': TP_STEPS, 'lr': TP_LR, 'rows': TRAIN_BATCH, 'runs': {}}
+    for r in ranks:
+        check(f"tp_two_ranks: rank {r['rank']} 24-layer forward",
+              r['forward_err'], MODEL_TOL)
+        check(f"tp_two_ranks: rank {r['rank']} masked forward (p = 0.1)",
+              r['masked_err'], MODEL_TOL)
+        if r['mask_rank'] != 0 or any(r['probe_wrong'].values()):
+            raise AssertionError(f"tp_two_ranks: rank {r['rank']}'s masks "
+                                 f"are not the dense model's: "
+                                 f"{r['probe_wrong']}")
+    for opt in ('sgd', 'adamw'):
+        runs = [r['runs'][opt] for r in ranks]
+        for r, run in zip(ranks, runs):
+            if run['launches'] != want:
+                raise AssertionError(
+                    f"tp_two_ranks {opt}: rank {r['rank']} launched "
+                    f"{run['launches']}, expected {want}")
+            if run['collectives'] != plan:
+                raise AssertionError(
+                    f"tp_two_ranks {opt}: rank {r['rank']} collectives "
+                    f"{run['collectives']}, expected {plan}")
+            if run['heads'] != 8:
+                raise AssertionError("tp_two_ranks: not 8 local heads")
+        loss_err = max(abs(a - b) / abs(b) for run in runs
+                       for a, b in zip(run['losses'], alone[opt]['losses']))
+        check(f'tp_two_ranks {opt}: losses', loss_err, MODEL_TOL)
+        if opt == 'sgd':
+            for r, run in zip(ranks, runs):
+                check(f"tp_two_ranks sgd: rank {r['rank']} parameters",
+                      run['param_err'], MODEL_TOL)
+        row['runs'][opt] = {
+            'one_process': alone[opt],
+            'rank_losses': [run['losses'] for run in runs],
+            'loss_rel_err': loss_err,
+            'rank_step_ms': [run['step_ms'] for run in runs],
+            'rank_peak_gb': [run['peak_gb'] for run in runs],
+            'param_err': [run['param_err'] for run in runs],
+            'update_rel_err': [run['update_rel_err'] for run in runs],
+            'parameters_held': opt == 'sgd',
+            'collectives_a_step': {
+                k: {f: v // TP_STEPS for f, v in c.items()}
+                for k, c in runs[0]['collectives'].items()}}
+    total = {n: sum(r['runs']['adamw']['launches'][n] for r in ranks)
+             for n in want}
+    row.update({'launches_a_rank': want,
+                'forward_err': [r['forward_err'] for r in ranks],
+                'masked_err': [r['masked_err'] for r in ranks],
+                'mask_probe_bits': ranks[0]['probe_bits'],
+                'spawn_s': spawn_s, 'phase_s': time.perf_counter() - t0})
+    emit(row)
+    return total, row
+
+
+def _ring_model(seed, ring):
+    from paddle_tpu_torch.text.gpt import gpt_small
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 41)
+    return gpt_small(device=dev, generator=gen,
+                     use_ring_attention=ring).eval()
+
+
+def _ring_batch(seed):
+    rs = np.random.RandomState(seed + 41)
+    ids = rs.randint(0, 50304, size=(RING_BATCH, RING_SEQ + 1))
+    dev = torch.device('cuda', 0)
+    return (torch.from_numpy(ids[:, :-1]).to(dev),
+            torch.from_numpy(ids[:, 1:]).to(dev))
+
+
+def _ring_pass(model, ids, labels):
+    """The logits (no grad) and every parameter's gradient of the loss."""
+    with torch.no_grad():
+        logits = model(ids)
+    loss = model.loss(ids, labels)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return logits, loss.detach(), dict(zip(
+        [n for n, _ in model.named_parameters()], grads))
+
+
+def _ring_rank(seed, paths):
+    """One rank of ``phase_ring_two_ranks`` on the card (gloo, a ``'seq'``
+    axis of 2): gpt_small with ``use_ring_attention``, its logits and
+    gradients against the one process's, the launches of the logits' and
+    the loss's forward and backward."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed import collective
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env((2,), ('seq',))
+    model = _ring_model(seed, True)
+    ids, labels = _ring_batch(seed)
+    _ring_pass(model, ids, labels)       # warm-up: a process's first calls
+    kernels.reset_launch_counts()
+    collective.reset_collective_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, loss, grads = _ring_pass(model, ids, labels)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    colls = collective.collective_counts()
+    want = torch.load(paths['logits'], map_location='cuda:0')
+    logits_err = max_err(logits, want) / float(want.abs().max())
+    del want, logits
+    grad_err = max(_grad_errs(grads, torch.load(
+        paths['grads'], map_location='cuda:0')).values())
+    return {'rank': dist.get_rank('seq'), 'loss': float(loss),
+            'logits_err': logits_err, 'grad_err': grad_err,
+            'launches': counts, 'collectives': colls, 'ms': ms,
+            'peak_gb': torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_ring_two_ranks(seed, card):
+    """Ring attention on the one card: gpt_small (hidden 768, 12 layers, 12
+    heads, vocab 50304) at full width with ``use_ring_attention=True`` on
+    a ``'seq'`` axis of two gloo ranks, fp32, eval mode, 8 x 1024 tokens
+    (two blocks of 512), against the one-process causal model on the same
+    weights: the logits and the loss's gradient of every parameter within
+    ``MODEL_TOL`` / ``GRAD_TOL`` (max abs over the largest); each rank's
+    launches exactly: a layer's forward (twice: the logits, then the
+    loss) on rank 0 one diagonal block, on rank 1 one full block and one
+    diagonal block, the backward the same blocks' dQ and dK/dV; every
+    other kernel the one process's. The gradients' error is
+    ``_compare_grads``' (the key biases' true gradient is zero). -> (the
+    ranks' summed launches, a row)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import kernels
+    root = tempfile.mkdtemp(prefix='ring_two_ranks_')
+    t0 = time.perf_counter()
+    try:
+        model = _ring_model(seed, False)
+        ids, labels = _ring_batch(seed)
+        _ring_pass(model, ids, labels)       # warm-up
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, loss, grads = _ring_pass(model, ids, labels)
+        torch.cuda.synchronize()
+        alone_ms = (time.perf_counter() - t1) * 1e3
+        alone_counts = kernels.launch_counts()
+        paths = {'logits': os.path.join(root, 'logits.pt'),
+                 'grads': os.path.join(root, 'grads.pt')}
+        torch.save(logits, paths['logits'])
+        torch.save(grads, paths['grads'])
+        alone_loss = float(loss)
+        del model, logits, grads
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = dist.spawn(_ring_rank, args=(seed, paths), nprocs=2,
+                           backend='gloo', join=False).join(
+                               timeout=MP_JOIN_S)
+        spawn_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ranks = sorted(ranks, key=lambda r: r['rank'])
+    layers = 12
+    for r in ranks:
+        blocks = 1 + r['rank']            # rank 1: a full and a diagonal
+        want = dict(alone_counts)
+        want['flash_attention_fwd'] = 2 * layers * blocks
+        want['flash_attention_dq'] = layers * blocks
+        want['flash_attention_dkv'] = layers * blocks
+        if r['launches'] != want:
+            raise AssertionError(f"ring_two_ranks: rank {r['rank']} "
+                                 f"launched {r['launches']}, expected {want}")
+        check(f"ring_two_ranks: rank {r['rank']} logits", r['logits_err'],
+              MODEL_TOL)
+        check(f"ring_two_ranks: rank {r['rank']} gradients", r['grad_err'],
+              GRAD_TOL)
+        check(f"ring_two_ranks: rank {r['rank']} loss",
+              abs(r['loss'] - alone_loss) / abs(alone_loss), MODEL_TOL)
+    row = {'phase': 'ring_two_ranks', 'card': card,
+           'entry': 'distributed.spawn(nprocs=2, backend="gloo") + '
+                    'init_parallel_env((2,), ("seq",)) + '
+                    'gpt_small(use_ring_attention=True)',
+           'tokens': [RING_BATCH, RING_SEQ], 'block': RING_SEQ // 2,
+           'one_process': {'loss': alone_loss, 'ms': alone_ms,
+                           'launches': alone_counts},
+           'ranks': [{k: r[k] for k in ('rank', 'loss', 'logits_err',
+                                        'grad_err', 'launches', 'ms',
+                                        'peak_gb', 'collectives')}
+                     for r in ranks],
+           'spawn_s': spawn_s, 'phase_s': time.perf_counter() - t0}
+    emit(row)
+    return {n: sum(r['launches'][n] for r in ranks) for n in alone_counts}, \
+        row
+
+
+def _pipe_layers(seed):
+    from paddle_tpu_torch.nn import TransformerEncoderLayer
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 53)
+    return [TransformerEncoderLayer(1024, 16, 4096, dropout=0.0,
+                                    activation='gelu', device=dev,
+                                    generator=gen).eval()
+            for _ in range(2)]
+
+
+def _pipe_input(seed):
+    g = torch.Generator(device='cuda')
+    g.manual_seed(seed + 54)
+    shape = (PIPE_MICRO * PIPE_ROWS, SEQ, 1024)
+    return (torch.randn(shape, device='cuda', generator=g),
+            torch.randn(shape, device='cuda', generator=g))
+
+
+def _pipe_rank(seed, paths):
+    """One rank (stage) of ``phase_pipeline_two_ranks`` on the card (gloo,
+    a ``'pipe'`` axis of 2): ``pipeline_apply`` of the two stacked encoder
+    layers on ``PIPE_MICRO`` microbatches, the output and this stage's
+    gradients against the one process's, its launches."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed import collective, pipeline
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env((2,), ('pipe',))
+    s = dist.get_rank('pipe')
+    layers = _pipe_layers(seed)
+    stacked = {k: v.detach().requires_grad_() for k, v in
+               pipeline.stack_stage_params(
+                   [dict(layer.named_parameters()) for layer in layers])
+               .items()}
+    x, w = _pipe_input(seed)
+
+    def stage(params, mb):
+        return torch.func.functional_call(layers[0], params, (mb,))
+
+    def run():
+        y = pipeline.pipeline_apply(stage, stacked, x, PIPE_MICRO)
+        return y, torch.autograd.grad((y * w).sum(), list(stacked.values()))
+    run()                                # warm-up: a process's first calls
+    kernels.reset_launch_counts()
+    collective.reset_collective_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, grads = run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    ref = torch.load(paths['ref'], map_location='cuda:0')
+    out_err = max_err(y, ref['y']) / float(ref['y'].abs().max())
+    grad_err = max(_grad_errs({k: g[s] for k, g in zip(stacked, grads)},
+                              ref['grads'][s]).values())
+    return {'rank': s, 'out_err': out_err, 'grad_err': grad_err,
+            'launches': counts, 'ms': ms,
+            'collectives': collective.collective_counts(),
+            'schedule': pipeline.schedule(2, PIPE_MICRO)}
+
+
+def phase_pipeline_two_ranks(seed, card):
+    """The GPipe pipeline on the one card: ``pipeline_apply`` over a
+    ``'pipe'`` axis of two gloo ranks, each stage one BERT-large encoder
+    layer (hidden 1024, 16 heads, FFN 4096, fp32, p = 0; the two layers'
+    parameters stacked), ``PIPE_MICRO`` microbatches of ``PIPE_ROWS`` x
+    512, ``checkpoint=True``, against both layers run in one process on
+    the whole batch: the output and each stage's parameter gradients (of
+    ``sum(y * w)``, ``w`` fixed random) within ``MODEL_TOL`` /
+    ``GRAD_TOL`` (the gradients' error ``_compare_grads``'); each
+    stage's launches exactly: its layer's kernels on
+    each microbatch in the forward, and again (the recompute) with the
+    attention's dQ and dK/dV in the backward. -> (the ranks' summed
+    launches, a row)."""
+    from paddle_tpu_torch import distributed as dist
+    root = tempfile.mkdtemp(prefix='pipeline_two_ranks_')
+    t0 = time.perf_counter()
+    try:
+        layers = _pipe_layers(seed)
+        x, w = _pipe_input(seed)
+
+        def run():
+            y = layers[1](layers[0](x))
+            return y, [torch.autograd.grad((y * w).sum(),
+                                           list(layer.parameters()),
+                                           retain_graph=True)
+                       for layer in layers]
+        run()                                # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y, grads = run()
+        torch.cuda.synchronize()
+        alone_ms = (time.perf_counter() - t1) * 1e3
+        paths = {'ref': os.path.join(root, 'ref.pt')}
+        torch.save({'y': y.detach(), 'grads': [
+            dict(zip([n for n, _ in layer.named_parameters()], g))
+            for layer, g in zip(layers, grads)]}, paths['ref'])
+        del layers, x, w, y, grads
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = dist.spawn(_pipe_rank, args=(seed, paths), nprocs=2,
+                           backend='gloo', join=False).join(
+                               timeout=MP_JOIN_S)
+        spawn_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ranks = sorted(ranks, key=lambda r: r['rank'])
+    want = {'flash_attention_fwd': 2 * PIPE_MICRO,
+            'flash_attention_dq': PIPE_MICRO,
+            'flash_attention_dkv': PIPE_MICRO,
+            'add_layer_norm_fwd': 4 * PIPE_MICRO, 'layer_norm_fwd': 0,
+            'dropout_grad': 0, 'rms_norm_fwd': 0}
+    for r in ranks:
+        if r['launches'] != want:
+            raise AssertionError(f"pipeline_two_ranks: stage {r['rank']} "
+                                 f"launched {r['launches']}, expected "
+                                 f"{want}")
+        check(f"pipeline_two_ranks: stage {r['rank']} output", r['out_err'],
+              MODEL_TOL)
+        check(f"pipeline_two_ranks: stage {r['rank']} gradients",
+              r['grad_err'], GRAD_TOL)
+    row = {'phase': 'pipeline_two_ranks', 'card': card,
+           'entry': 'distributed.spawn(nprocs=2, backend="gloo") + '
+                    'init_parallel_env((2,), ("pipe",)) + pipeline_apply',
+           'stages': 'one BERT-large encoder layer each, fp32, p = 0',
+           'microbatches': [PIPE_MICRO, PIPE_ROWS, SEQ],
+           'schedule': ranks[0]['schedule'], 'one_process_ms': alone_ms,
+           'launches_a_stage': want,
+           'ranks': [{k: r[k] for k in ('rank', 'out_err', 'grad_err', 'ms',
+                                        'collectives')} for r in ranks],
+           'spawn_s': spawn_s, 'phase_s': time.perf_counter() - t0}
+    emit(row)
+    return {n: sum(r['launches'][n] for r in ranks) for n in want}, row
+
+
 SOURCES = {
     'flash_attention_fwd': ('paddle_tpu_torch/kernels/csrc/flash_attention.cu',
                             'paddle_tpu/kernels/flash_attention.py:95'),
@@ -6383,6 +6940,13 @@ def main():
     torch.cuda.empty_cache()
     dp_ranks, _ = phase_dp_two_ranks(args.seed, card)
     torch.cuda.empty_cache()
+    # model parallelism: two gloo ranks a phase, no profiler session
+    tp_ranks, _ = phase_tp_two_ranks(args.seed, card)
+    torch.cuda.empty_cache()
+    ring_ranks, _ = phase_ring_two_ranks(args.seed, card)
+    torch.cuda.empty_cache()
+    pipe_ranks, _ = phase_pipeline_two_ranks(args.seed, card)
+    torch.cuda.empty_cache()
     # launches: each main path's counts, zeroed just before the path and
     # read just after (serving: 21 batches; serve_tenants: the tenants
     # engine's pumped and threaded batches; serve_fleet: every replica's
@@ -6396,7 +6960,10 @@ def main():
     # Model.fit calls, 24 steps, and 12 eval-mode forwards; train_telemetry:
     # its telemetry-on runs, two engine.fit calls and two with a checkpoint,
     # 20 steps each, and a Model.fit of 6 steps; train_sharded: the FSDP
-    # fit, 20 steps; dp_two_ranks: both ranks' AdamW steps, 3 each); the
+    # fit, 20 steps; dp_two_ranks: both ranks' AdamW steps, 3 each;
+    # tp_two_ranks: both ranks' AdamW steps; ring_two_ranks: both ranks'
+    # logits and loss forward and backward; pipeline_two_ranks: both
+    # stages' forward and backward); the
     # top-level numbers are bf16's, the dtype of the reference's training
     # recipe, and ``gpt`` holds the fp32 cases at generate's shapes
     paths = {'serve': served, 'serve_tenants': served_tenants,
@@ -6407,7 +6974,9 @@ def main():
              'train_resume': resumed, 'nn.RMSNorm': rms_path,
              'generate': generated, 'serve_generative': served_gen,
              'hapi_fit': hapi, 'train_telemetry': telemetry,
-             'train_sharded': sharded, 'dp_two_ranks': dp_ranks}
+             'train_sharded': sharded, 'dp_two_ranks': dp_ranks,
+             'tp_two_ranks': tp_ranks, 'ring_two_ranks': ring_ranks,
+             'pipeline_two_ranks': pipe_ranks}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'share_of_bound', 'achieved_tflops',
             'achieved_tb_per_s')

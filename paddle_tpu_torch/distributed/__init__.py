@@ -1,22 +1,29 @@
-"""``paddle_tpu_torch.distributed``: data-parallel training over a
-``torch.distributed`` process group. Counterpart of
+"""``paddle_tpu_torch.distributed``: data- and model-parallel training over
+a ``torch.distributed`` process group. Counterpart of
 ``paddle_tpu/distributed`` (parity: ``python/paddle/distributed``).
 
 One process a rank, a process group (NCCL for CUDA tensors, gloo for CPU
 ones) and collectives that really run:
 
 - ``env``: ``init_parallel_env`` / ``init_distributed``, ``get_rank``,
-  ``get_world_size``, ``ParallelEnv``, ``get_mesh``;
+  ``get_world_size``, ``ParallelEnv``, ``get_mesh``; a mesh of several
+  axes (``'data'`` x ``'model'``, ``'pipe'``, ``'seq'``) with a process
+  group an axis;
 - ``collective``: ``all_reduce`` (``ReduceOp``), ``all_gather``,
   ``broadcast``, ``reduce``, ``scatter``, ``reduce_scatter``,
-  ``alltoall``, ``barrier``, ``send`` / ``recv``, ``new_group``, each
-  counted and under ``deadline``'s ``set_timeout``;
+  ``alltoall``, ``ppermute``, ``barrier``, ``send`` / ``recv``,
+  ``new_group``, each on an axis (``axis=``), counted and under
+  ``deadline``'s ``set_timeout``;
 - ``launch``: ``spawn`` and ``launch`` under the supervisor (boot
   restarts, elastic downsize and rejoin, ``RankFailedError``);
 - ``parallel.DataParallel``, ``strategy.ShardingConfig`` /
   ``resolve_sharding`` (the FSDP step of ``engine.build_train_step``,
   ``engine.fit``, ``hapi.Model``), ``sharding`` (``fsdp_pspecs``,
-  ``shard_tensor``), ``fleet``, ``metrics``, ``recompute``.
+  ``shard_tensor``; tensor parallelism: ``ColumnParallelLinear``,
+  ``RowParallelLinear``, ``VocabParallelEmbedding``,
+  ``apply_tensor_parallel``), ``ring_attention``, ``pipeline``
+  (``pipeline_apply``), ``ps`` (``SparseShardedTable``), ``fs``
+  (``LocalFS``, ``HDFSClient``), ``fleet``, ``metrics``, ``recompute``.
 
 Rules every module keeps: no process group, no collectives (each entry
 point then runs as one process, bit for bit as without this package); a
@@ -28,17 +35,9 @@ once the gradients are sharded; where the gradients are averaged over
 the ranks (a ``sharding=`` or ``DataParallel`` step, an eager
 ``DataParallel``), each rank draws its own dropout masks
 (``kernels.philox.DropoutState``: the rank in the offset's high word), and
-ranks that synchronise nothing draw rank 0's.
-
-Waiting for ROADMAP.md Queue 1 item 5b (model parallelism), each raising
-``NotImplementedError`` naming it: ``ring_attention``, ``pipeline`` /
-``pipeline_apply``, the tensor-parallel layers and rules
-(``ColumnParallelLinear``, ``RowParallelLinear``,
-``VocabParallelEmbedding``, ``param_rules``), ``ps.SparseShardedTable``
-and ``fs`` (``LocalFS``, ``HDFSClient``).
+ranks that synchronise nothing draw rank 0's; the model ranks of one
+data replica draw the same.
 """
-import types
-
 from . import deadline, env
 from .env import (init_parallel_env, init_distributed, get_rank,
                   get_world_size, ParallelEnv, get_mesh, set_mesh)
@@ -48,9 +47,15 @@ from .collective import (ReduceOp, all_reduce, all_gather, broadcast, reduce,
                          split_group)
 from .parallel import DataParallel, ParallelStrategy, prepare_context
 from . import fleet, sharding, strategy
-from .sharding import shard_tensor, shard_layer
+from .sharding import (shard_tensor, shard_layer, ColumnParallelLinear,
+                       RowParallelLinear, VocabParallelEmbedding)
 from .strategy import ShardingConfig, resolve_sharding
+from .ring_attention import ring_attention
+from . import pipeline
+from .pipeline import pipeline_apply
 from .recompute import recompute
+from . import ps
+from .ps import SparseShardedTable
 from .launch import spawn, launch, RankFailedError
 from .deadline import set_timeout, get_timeout, DistributedTimeoutError
 from .fleet import Fleet, DistributedStrategy  # noqa: F401
@@ -59,25 +64,10 @@ from .metrics import (acc, auc, mae, mse, rmse,  # noqa: F401
 from .role_maker import (PaddleCloudRoleMaker,  # noqa: F401
                          UserDefinedRoleMaker)
 from .fleet import _FleetUtils as UtilBase  # noqa: F401
-
-
-def _waits_5b(name):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            f"distributed.{name}: model parallelism waits for ROADMAP.md, "
-            f"Queue 1 item 5b")
-    refuse.__name__ = name.rpartition('.')[2]
-    return refuse
-
-
-ring_attention = _waits_5b('ring_attention')
-pipeline_apply = _waits_5b('pipeline.pipeline_apply')
-SparseShardedTable = _waits_5b('ps.SparseShardedTable')
-LocalFS = _waits_5b('fs.LocalFS')
-HDFSClient = _waits_5b('fs.HDFSClient')
-pipeline = types.SimpleNamespace(pipeline_apply=pipeline_apply)
-ps = types.SimpleNamespace(SparseShardedTable=SparseShardedTable)
-fs = types.SimpleNamespace(LocalFS=LocalFS, HDFSClient=HDFSClient)
+from . import fs  # noqa: E402
+from .fs import (FS, LocalFS, HDFSClient, ExecuteError,  # noqa: F401
+                 FSFileExistsError, FSFileNotExistsError, FSTimeOut,
+                 FSShellCmdAborted)
 
 
 class _FleetDataset:

@@ -26,24 +26,36 @@ a mesh position. The port is PyTorch's model: **one process a rank**, a
   reference's retry and backoff, under the collective deadline
   (``deadline.set_timeout``), whose value is also the group's own timeout;
 - ``get_mesh()`` is a 1-D ``DeviceMesh`` over the group's ranks with the
-  axis ``'data'``. A mesh of more than one axis (tensor parallelism) waits
-  for ROADMAP.md Queue 1 item 5b.
+  axis ``'data'``, unless ``init_parallel_env(mesh_shape=, axis_names=)``
+  installed a ``Mesh`` of its own: a 2-D ``('data', 'model')`` mesh
+  (tensor parallelism), or a mesh of one ``'pipe'`` or ``'seq'`` axis
+  (the pipeline, ring attention). Ranks follow the reference's
+  ``devices.reshape(mesh_shape)``: on a ``(d, m)`` mesh rank ``i * m + j``
+  sits at data index ``i``, model index ``j`` (the model axis varies
+  fastest). Each axis has a process group of its own (``axis_group``):
+  ``get_world_size(axis)`` and ``get_rank(axis)`` answer on it, and an
+  axis the mesh lacks has one rank, as the reference's
+  ``mesh.shape.get(axis, 1)``.
 
 Under a supervised launch each rank also heartbeats into the run dir and
 writes its started marker (``_announce_to_supervisor``).
 """
 import datetime
+import itertools
 import math
 import os
 import tempfile
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 __all__ = ['init_parallel_env', 'init_distributed', 'get_rank',
            'get_world_size', 'ParallelEnv', 'get_mesh', 'set_mesh',
-           'is_initialized', 'device', 'shutdown', 'DATA_AXIS',
-           'MODEL_AXIS', 'PIPE_AXIS', 'SEQ_AXIS']
+           'is_initialized', 'device', 'shutdown', 'axis_group', 'axis_ranks',
+           'rank_at',
+           'Mesh', 'SINGLE',
+           'DATA_AXIS', 'MODEL_AXIS', 'PIPE_AXIS', 'SEQ_AXIS']
 
 DATA_AXIS = 'data'
 MODEL_AXIS = 'model'
@@ -142,20 +154,87 @@ def _join(backend, init_method, rank, world):
                             rank=rank, world_size=world, **kwargs)
 
 
+class Mesh:
+    """The device mesh of ``init_parallel_env(mesh_shape=, axis_names=)``:
+    ``shape`` (``{axis: size}``, as the reference's ``Mesh.shape``),
+    ``axis_names``, this rank's ``coords`` (``{axis: index}``) and, for
+    each axis, the global ranks of this rank's group along it
+    (``ranks(axis)``) and that group (``get_group(axis)``; None is the
+    default group, when the axis spans every rank)."""
+
+    def __init__(self, shape, names, coords, ranks, groups):
+        self.shape = dict(zip(names, shape))
+        self.axis_names = tuple(names)
+        self.mesh_dim_names = self.axis_names
+        self.coords = coords
+        self._ranks = ranks
+        self._groups = groups
+
+    def size(self, dim=None):
+        if dim is None:
+            return math.prod(self.shape.values())
+        axis = self.axis_names[dim] if isinstance(dim, int) else dim
+        return self.shape[axis]
+
+    def ranks(self, axis):
+        return list(self._ranks[axis])
+
+    def get_group(self, axis):
+        return self._groups[axis]
+
+    def get_local_rank(self, axis):
+        return self.coords[axis]
+
+    def __repr__(self):
+        return f"Mesh({self.shape})"
+
+
+def _install_mesh(shape, names):
+    """Make every axis's process groups (each rank makes all of them, in
+    one order: ``new_group`` is collective) and install the ``Mesh``."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    coords = dict(zip(names, (int(i) for i in np.unravel_index(rank,
+                                                                shape))))
+    ranks, groups = {}, {}
+    for a, axis in enumerate(names):
+        others = [range(n) if b != a else [None]
+                  for b, n in enumerate(shape)]
+        for fixed in itertools.product(*others):
+            members = []
+            for i in range(shape[a]):
+                idx = list(fixed)
+                idx[a] = i
+                members.append(int(np.ravel_multi_index(idx, shape)))
+            mine = rank in members
+            if shape[a] == world:
+                group = None            # the default group: every rank
+            elif shape[a] == 1:
+                group = SINGLE
+            else:
+                group = dist.new_group(ranks=members)
+            if mine:
+                ranks[axis], groups[axis] = members, group
+    _global['mesh'] = Mesh(shape, names, coords, ranks, groups)
+
+
 def init_parallel_env(mesh_shape=None, axis_names=None, backend=None):
     """Join (once) the process group of this rank -> ``ParallelEnv()``.
 
-    ``mesh_shape``: None, or the 1-D ``(world,)`` (a second axis of more
-    than one rank, tensor parallelism, waits for ROADMAP.md Queue 1 item
-    5b). ``backend``: None (NCCL for CUDA tensors, gloo for CPU ones),
-    ``'nccl'``, ``'gloo'`` or ``'cpu'``."""
+    ``mesh_shape``: None (a 1-D ``'data'`` mesh over the ranks), or a
+    shape whose product is the world, with ``axis_names`` (default the
+    reference's ``('data', 'model', 'pipe', 'seq')[:len(mesh_shape)]``):
+    its ``Mesh`` and one process group an axis (see the module
+    docstring). ``backend``: None (NCCL for CUDA tensors, gloo for CPU
+    ones), ``'nccl'``, ``'gloo'`` or ``'cpu'``."""
     _announce_to_supervisor()
-    shape = None if mesh_shape is None else \
-        tuple(int(s) for s in mesh_shape)
-    if shape is not None and any(s > 1 for s in shape[1:]):
-        raise NotImplementedError(
-            f"init_parallel_env: a mesh of shape {shape} has a model axis; "
-            f"tensor parallelism waits for ROADMAP.md, Queue 1 item 5b")
+    shape = names = None
+    if mesh_shape is not None:
+        shape = tuple(int(s) for s in mesh_shape)
+        names = tuple(axis_names or (DATA_AXIS, MODEL_AXIS, PIPE_AXIS,
+                                     SEQ_AXIS)[:len(shape)])
+        if len(names) != len(shape) or len(set(names)) != len(names):
+            raise ValueError(f"init_parallel_env: axis names {names} do not "
+                             f"name the {len(shape)} axes of {shape}")
     if not dist.is_initialized():
         rank, world = _rank_world()
         if shape is not None and math.prod(shape) != world:
@@ -166,6 +245,11 @@ def init_parallel_env(mesh_shape=None, axis_names=None, backend=None):
         if 'nccl' in bk:
             torch.cuda.set_device(rank % torch.cuda.device_count())
         _join(bk, _init_method(world), rank, world)
+    elif shape is not None and math.prod(shape) != dist.get_world_size():
+        raise ValueError(f"init_parallel_env: mesh_shape {shape} does not "
+                         f"hold the {dist.get_world_size()} ranks")
+    if shape is not None and names != (DATA_AXIS,):
+        _install_mesh(shape, names)
     _global['device'] = None
     return ParallelEnv()
 
@@ -234,21 +318,81 @@ def is_initialized():
     return dist.is_available() and dist.is_initialized()
 
 
+def _custom_mesh():
+    m = _global['mesh']
+    return m if isinstance(m, Mesh) else None
+
+
 def get_world_size(axis=None):
-    """The group's size (1 without a group). ``axis``: ``'data'`` or None
-    is the group; any other axis has one rank (no model axis yet)."""
+    """The group's size (1 without a group); with ``axis``, that mesh
+    axis's size (1 for an axis the mesh lacks)."""
     if not is_initialized():
         return 1
-    if axis not in (None, DATA_AXIS):
-        return 1
-    return dist.get_world_size()
+    if axis is None:
+        return dist.get_world_size()
+    mesh = _custom_mesh()
+    if mesh is None:
+        return dist.get_world_size() if axis == DATA_AXIS else 1
+    return int(mesh.shape.get(axis, 1))
 
 
 def get_rank(axis=None):
-    """This process's rank in the group (0 without a group)."""
-    if not is_initialized() or axis not in (None, DATA_AXIS):
+    """This process's rank in the group (0 without a group); with
+    ``axis``, its index along that mesh axis."""
+    if not is_initialized():
         return 0
-    return dist.get_rank()
+    if axis is None:
+        return dist.get_rank()
+    mesh = _custom_mesh()
+    if mesh is None:
+        return dist.get_rank() if axis == DATA_AXIS else 0
+    return int(mesh.coords.get(axis, 0))
+
+
+# the group of an axis of one rank that is not the whole world (or that the
+# mesh lacks): its collectives are the identity, as the reference's on an
+# axis of size 1
+SINGLE = 'single-rank axis'
+
+
+def axis_group(axis):
+    """``(group, size, index)`` of this rank along mesh ``axis``: the
+    process group to issue its collectives on (None: the default group),
+    the axis's size and this rank's index on it. An axis of one rank that
+    is not the world, or that the mesh lacks, is ``(SINGLE, 1, 0)``."""
+    if not is_initialized():
+        return SINGLE, 1, 0
+    mesh = _custom_mesh()
+    if mesh is None:
+        if axis == DATA_AXIS:
+            return None, dist.get_world_size(), dist.get_rank()
+        return SINGLE, 1, 0
+    if axis not in mesh.shape:
+        return SINGLE, 1, 0
+    return mesh.get_group(axis), mesh.shape[axis], mesh.coords[axis]
+
+
+def rank_at(coords):
+    """The global rank at mesh ``coords`` (``{axis: index}``; an axis not
+    given is at index 0)."""
+    mesh = _custom_mesh()
+    if mesh is None:
+        return int(coords.get(DATA_AXIS, 0))
+    shape = tuple(mesh.shape.values())
+    return int(np.ravel_multi_index(
+        tuple(int(coords.get(a, 0)) for a in mesh.axis_names), shape))
+
+
+def axis_ranks(axis):
+    """The global ranks of this rank's group along ``axis``, in axis
+    order."""
+    mesh = _custom_mesh()
+    if mesh is None:
+        n = get_world_size(axis)
+        return list(range(n)) if n > 1 else [get_rank()]
+    if axis not in mesh.shape:
+        return [get_rank()]
+    return mesh.ranks(axis)
 
 
 def device():
@@ -265,8 +409,9 @@ def device():
 
 
 def get_mesh():
-    """A 1-D ``DeviceMesh`` over the group's ranks (axis ``'data'``), or
-    None without a group."""
+    """The ``Mesh`` ``init_parallel_env(mesh_shape=)`` installed, else a
+    1-D ``DeviceMesh`` over the group's ranks (axis ``'data'``), or None
+    without a group."""
     if not is_initialized():
         return None
     if _global['mesh'] is None:
@@ -278,7 +423,8 @@ def get_mesh():
 
 
 def set_mesh(mesh):
-    """Install ``mesh`` (a 1-D ``DeviceMesh`` over the group, or None)."""
+    """Install ``mesh`` (a ``Mesh``, a 1-D ``DeviceMesh`` over the group,
+    or None)."""
     _global['mesh'] = mesh
 
 

@@ -11,9 +11,14 @@ in ``engine.build_train_step`` by the step itself (the wrapper says so
 with ``syncs_gradients``). ``strategy.sharding`` resolves to the
 ``ShardingConfig`` every frontend then uses (``strategy.current_config``);
 the knobs that have no sharded step (``dgc``, ``pipeline``,
-``hierarchical_allreduce``) raise with it, as the reference's do, and
-``tensor_parallel`` waits for ROADMAP.md Queue 1 item 5b. Parameter-server
-mode is not the port's (no server runs): ``is_server()`` is False.
+``hierarchical_allreduce``) raise with it, as the reference's do.
+``strategy.tensor_parallel`` (``tensor_parallel_configs``:
+``tensor_parallel_degree``, ``param_rules``) installs the reference's 2-D
+``(world / tp, tp)`` ``('data', 'model')`` mesh, or raises its
+``tensor_parallel_degree=... does not divide`` error, and the config
+carries it to ``engine.fit`` and ``hapi.Model.fit(strategy=)``.
+Parameter-server mode is not the port's (no server runs): ``is_server()``
+is False.
 """
 import torch
 
@@ -81,7 +86,21 @@ class Fleet:
         self._strategy = strategy or DistributedStrategy()
         wants = strategy is not None and (strategy.sharding or
                                           strategy.tensor_parallel)
-        if not env.is_initialized():
+        tp = (int(strategy.tensor_parallel_configs.get(
+            'tensor_parallel_degree', 1) or 1)
+            if wants and strategy.tensor_parallel else 1)
+        if tp > 1 and mesh_shape is None and \
+                env.get_world_size(env.MODEL_AXIS) != tp:
+            # the reference's (total // tp, tp) data x model mesh
+            total = env.get_world_size() if env.is_initialized() \
+                else env._rank_world()[1]
+            if total % tp:
+                raise ValueError(
+                    f"tensor_parallel_degree={tp} does not divide the "
+                    f"{total} available devices")
+            env.init_parallel_env((total // tp, tp),
+                                  (env.DATA_AXIS, env.MODEL_AXIS))
+        elif not env.is_initialized():
             env.init_parallel_env(mesh_shape, axis_names)
         self._install_sharding(strategy if wants else None)
         return self

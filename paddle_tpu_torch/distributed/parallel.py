@@ -27,12 +27,15 @@ __all__ = ['DataParallel', 'ParallelStrategy', 'prepare_context']
 
 
 def mask_ranks(layers, synced):
-    """Key the dropout masks of ``layers`` on this process's rank where
-    its gradients are averaged over the process group (``synced``), on
+    """Key the dropout masks of ``layers`` on this process's rank on the
+    data axis where its gradients are averaged over it (``synced``), on
     rank 0's otherwise: the ``rank`` of every ``DropoutState`` the modules
-    of ``layers`` hold (``kernels/philox.py``)."""
+    of ``layers`` hold (``kernels/philox.py``). The model ranks of one
+    data replica (tensor parallelism) draw the same masks: their
+    replicated activations must drop alike."""
     from ..resilience.checkpoint import dropout_states
-    rank = env.get_rank() if synced and env.is_initialized() else 0
+    rank = env.get_rank(env.DATA_AXIS) if synced and env.is_initialized() \
+        else 0
     for state in dropout_states(layers).values():
         state.rank = rank
 
@@ -50,7 +53,7 @@ class DataParallel(torch.nn.Module):
     def scale_loss(self, loss):
         """The loss over the world (the reference scales by 1/nranks before
         backward; summed gradients then make the mean)."""
-        n = env.get_world_size()
+        n = env.get_world_size(env.DATA_AXIS)
         if n <= 1:
             return loss
         return loss / n

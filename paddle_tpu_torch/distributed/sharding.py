@@ -10,9 +10,25 @@ along the dim ``spec`` puts on the data axis (``x`` itself without a
 process group), and ``shard_layer`` swaps each matching parameter of a
 layer for its piece. Specs are tuples of axis names and None (the
 reference's ``PartitionSpec`` as a plain tuple, ``()`` for replicated).
-The tensor-parallel layers (``ColumnParallelLinear``,
-``RowParallelLinear``, ``VocabParallelEmbedding``) and specs on the model
-axis wait for ROADMAP.md Queue 1 item 5b and raise naming it.
+A spec on the model axis (``env.MODEL_AXIS``) cuts this rank's piece by
+its index on that axis, as one on the data axis does by its data index.
+
+Tensor parallelism (Megatron; the reference's ``ColumnParallelLinear``,
+``RowParallelLinear``, ``VocabParallelEmbedding``): each layer is an
+``nn.Module`` that holds its rank's piece of the dense layer, in torch's
+(out, in) layout, and moves its activations with the conjugate pairs of
+``autograd.Function``s over the model axis: ``_CopyToModel`` (identity,
+its gradient all-reduced) and ``_ReduceFromModel`` (all-reduce, identity
+gradient), ``_GatherFromModel`` (all-gather of the last dim, its gradient
+sliced) and ``_ScatterToModel`` (slice, gradient all-gathered). A
+layer's parameters carry ``tp_spec``, the reference's spec of the dense
+parameter in its (in, out) layout, and ``tp_dim`` / ``tp_full``, the
+torch dim the piece was cut along and the dense shape.
+``apply_tensor_parallel`` turns a dense module into the tensor-parallel
+one by a config's ``param_rules`` (see its docstring); ``tp_pieces`` cuts
+each rank's pieces from a dense state (the reference's state through
+``interop``, (in, out) weights transposed first) and ``gather_tp`` joins
+them back.
 
 ``FlatShards`` is the FSDP recipe of ``engine.build_train_step(sharding=)``
 (ZeRO, as the reference's ``ShardingConfig``): every leaf of at least
@@ -39,7 +55,9 @@ from . import env
 
 __all__ = ['shard_tensor', 'shard_layer', 'param_pspecs', 'fsdp_pspecs',
            'first_divisible_spec', 'ColumnParallelLinear',
-           'RowParallelLinear', 'VocabParallelEmbedding', 'FlatShards']
+           'RowParallelLinear', 'VocabParallelEmbedding', 'FlatShards',
+           'apply_tensor_parallel', 'megatron_rules', 'tp_pieces',
+           'gather_tp']
 
 
 def shard_dim(shape, world, min_size):
@@ -100,33 +118,38 @@ def param_pspecs(layer, rules, default=()):
     return out
 
 
-def _data_dim(spec):
-    """The dim ``spec`` puts on the data axis (None: replicated)."""
-    dim = None
+def _axis_dim(spec, axis):
+    """The dim ``spec`` puts on ``axis`` (None: replicated over it)."""
     for d, part in enumerate(tuple(spec)):
         parts = part if isinstance(part, tuple) else (part,)
-        if env.MODEL_AXIS in parts:
-            raise NotImplementedError(
-                f"shard_tensor: spec {spec} uses the model axis; tensor "
-                f"parallelism waits for ROADMAP.md, Queue 1 item 5b")
-        if env.DATA_AXIS in parts and dim is None:
-            dim = d
-    return dim
+        if axis in parts:
+            return d
+    return None
+
+
+def _data_dim(spec):
+    """The dim ``spec`` puts on the data axis (None: replicated)."""
+    return _axis_dim(spec, env.DATA_AXIS)
 
 
 def shard_tensor(x, spec):
-    """This rank's piece of ``x`` along the dim ``spec`` puts on the data
-    axis (``x`` itself without a process group, or for a replicated
-    spec)."""
+    """This rank's piece of ``x``: cut along the dim ``spec`` puts on the
+    data axis by this rank's data index, and along the one it puts on the
+    model axis by its model index (``x`` itself without a process group,
+    or for a replicated spec)."""
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
-    dim = _data_dim(spec)
-    n = env.get_world_size()
-    if dim is None or n == 1:
-        return t
-    if t.shape[dim] % n:
-        raise ValueError(f"shard_tensor: dim {dim} of {tuple(t.shape)} is "
-                         f"not divisible by the {n} ranks")
-    return t.chunk(n, dim=dim)[env.get_rank()].clone()
+    out = t
+    for axis in (env.DATA_AXIS, env.MODEL_AXIS):
+        dim = _axis_dim(spec, axis)
+        n = env.get_world_size(axis)
+        if dim is None or n == 1:
+            continue
+        if out.shape[dim] % n:
+            raise ValueError(f"shard_tensor: dim {dim} of "
+                             f"{tuple(out.shape)} is not divisible by the "
+                             f"{n} ranks of the {axis!r} axis")
+        out = out.chunk(n, dim=dim)[env.get_rank(axis)]
+    return out if out is t else out.clone()
 
 
 def shard_layer(layer, rules):
@@ -141,23 +164,409 @@ def shard_layer(layer, rules):
     return layer
 
 
-class _Waits5b:
-    def __init__(self, *a, **k):
-        raise NotImplementedError(
-            f"{type(self).__name__}: the tensor-parallel layers wait for "
-            f"ROADMAP.md, Queue 1 item 5b")
+# -- tensor parallelism ------------------------------------------------------
+
+def _all_reduce_model(t, axis):
+    """``t``'s sum over the model ``axis``, as a new tensor."""
+    from . import collective
+    out = t.contiguous().clone()
+    collective.all_reduce(out, axis=axis)
+    return out
 
 
-class ColumnParallelLinear(_Waits5b):
-    pass
+def _gather_last(t, axis):
+    """Every model rank's ``t`` joined along the last dim."""
+    from . import collective
+    g = env.axis_group(axis)[0]
+    if g is env.SINGLE:
+        return t
+    rows = collective._gather_stack(t.contiguous(), g, f'{axis}.')
+    return torch.cat(rows.unbind(0), dim=-1)
 
 
-class RowParallelLinear(_Waits5b):
-    pass
+def _own_last(t, axis):
+    _, n, r = env.axis_group(axis)
+    return t.chunk(n, dim=-1)[r].contiguous()
 
 
-class VocabParallelEmbedding(_Waits5b):
-    pass
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over the model axis (the
+    replicated input of a column-parallel product)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_model(g, ctx.axis), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The partial products of a row-parallel layer summed over the model
+    axis; identity gradient."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _all_reduce_model(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The model ranks' column blocks joined on the last dim; the gradient
+    is this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _gather_last(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_last(g, ctx.axis), None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    """This rank's block of the last dim; the gradient gathered."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _own_last(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_last(g, ctx.axis), None
+
+
+def _piece_param(p, dim, n, r, spec):
+    """A parameter of rank ``r``'s piece of ``p`` (``n`` pieces along torch
+    dim ``dim``), with ``p``'s ``ParamAttr`` settings and ``tp_spec`` /
+    ``tp_dim`` / ``tp_full``."""
+    from ..nn.initializer import _ATTRS
+    with torch.no_grad():
+        value = p.detach().chunk(n, dim=dim)[r].clone()
+    q = torch.nn.Parameter(value, requires_grad=p.requires_grad)
+    for a in _ATTRS:
+        if hasattr(p, a):
+            setattr(q, a, getattr(p, a))
+    q.tp_spec, q.tp_dim, q.tp_full = tuple(spec), dim, tuple(p.shape)
+    q.tp_axis = next(a for a in spec if a is not None)
+    return q
+
+
+def _divides(n, size, what):
+    if size % n:
+        raise ValueError(f"{what}: {size} is not divisible by the {n} ranks "
+                         f"of the model axis")
+
+
+class ColumnParallelLinear(torch.nn.Module):
+    """``y = x W^T + b`` with the output features split over the model
+    axis: this rank holds rows ``r out/n .. (r + 1) out/n`` of the dense
+    (out, in) weight and the bias's block. ``gather_output``: the ranks'
+    column blocks are all-gathered into the dense output (Megatron's
+    semantics); else the output is this rank's block (the input of a
+    ``RowParallelLinear(input_is_parallel=True)``). The dense layer is
+    drawn as ``nn.Linear`` draws it (from ``generator``), then cut, so
+    ranks that share a seed hold the pieces of one dense layer."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, gather_output=True, axis=env.MODEL_AXIS,
+                 name=None, *, device=None, generator=None):
+        super().__init__()
+        from ..nn.layer.common import Linear
+        dense = Linear(in_features, out_features, weight_attr,
+                       None if has_bias else False, device=device,
+                       generator=generator)
+        self._adopt(dense, gather_output, axis)
+
+    @classmethod
+    def from_linear(cls, linear, gather_output=True, axis=env.MODEL_AXIS):
+        """The column-parallel form of the dense ``linear``."""
+        self = cls.__new__(cls)
+        torch.nn.Module.__init__(self)
+        self._adopt(linear, gather_output, axis)
+        return self
+
+    def _adopt(self, dense, gather_output, axis):
+        _, n, r = env.axis_group(axis)
+        _divides(n, dense.out_features, 'ColumnParallelLinear out_features')
+        self.axis, self.gather_output = axis, bool(gather_output)
+        # False where the caller sums the input's gradient over the model
+        # axis itself (one all-reduce for the q, k and v of one input)
+        self.copy_input = True
+        self.in_features, self.out_features = dense.in_features, \
+            dense.out_features
+        self.weight = _piece_param(dense.weight, 0, n, r, (None, axis))
+        self.bias = None if dense.bias is None else \
+            _piece_param(dense.bias, 0, n, r, (axis,))
+
+    def forward(self, x):
+        from ..nn import functional as F
+        if self.copy_input:
+            x = _CopyToModel.apply(x, self.axis)
+        out = F.linear(x, self.weight, self.bias)
+        if self.gather_output:
+            out = _GatherFromModel.apply(out, self.axis)
+        return out
+
+    def extra_repr(self):
+        return (f"in_features={self.in_features}, out_features="
+                f"{self.out_features}, gather_output={self.gather_output}")
+
+
+class RowParallelLinear(torch.nn.Module):
+    """``y = x W^T + b`` with the input features split over the model
+    axis: this rank holds columns ``r in/n .. (r + 1) in/n`` of the dense
+    (out, in) weight, and the whole bias, added once after the partial
+    products are all-reduced. ``input_is_parallel``: ``x`` is already this
+    rank's block of the input features (a column-parallel layer's
+    ungathered output); else the dense ``x`` is sliced here."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, input_is_parallel=False, axis=env.MODEL_AXIS,
+                 name=None, *, device=None, generator=None):
+        super().__init__()
+        from ..nn.layer.common import Linear
+        dense = Linear(in_features, out_features, weight_attr,
+                       None if has_bias else False, device=device,
+                       generator=generator)
+        self._adopt(dense, input_is_parallel, axis)
+
+    @classmethod
+    def from_linear(cls, linear, input_is_parallel=False,
+                    axis=env.MODEL_AXIS):
+        """The row-parallel form of the dense ``linear``."""
+        self = cls.__new__(cls)
+        torch.nn.Module.__init__(self)
+        self._adopt(linear, input_is_parallel, axis)
+        return self
+
+    def _adopt(self, dense, input_is_parallel, axis):
+        _, n, r = env.axis_group(axis)
+        _divides(n, dense.in_features, 'RowParallelLinear in_features')
+        self.axis, self.input_is_parallel = axis, bool(input_is_parallel)
+        self.in_features, self.out_features = dense.in_features, \
+            dense.out_features
+        self.weight = _piece_param(dense.weight, 1, n, r, (axis, None))
+        self.bias = dense.bias
+
+    def forward(self, x):
+        from ..nn import functional as F
+        if not self.input_is_parallel:
+            x = _ScatterToModel.apply(x, self.axis)
+        out = _ReduceFromModel.apply(F.linear(x, self.weight), self.axis)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)
+        return out
+
+    def extra_repr(self):
+        return (f"in_features={self.in_features}, out_features="
+                f"{self.out_features}, input_is_parallel="
+                f"{self.input_is_parallel}")
+
+
+class VocabParallelEmbedding(torch.nn.Module):
+    """An embedding table with its rows (the vocabulary) split over the
+    model axis: each rank looks up the ids in its block, zero elsewhere,
+    and the blocks' lookups are all-reduced (the reference's
+    ``shard_map`` branch). The gradient reaches this rank's rows only."""
+
+    def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
+                 axis=env.MODEL_AXIS, name=None, *, device=None,
+                 generator=None, std=0.02):
+        super().__init__()
+        from ..nn.layer.common import Embedding
+        dense = Embedding(num_embeddings, embedding_dim, std,
+                          weight_attr=weight_attr, device=device,
+                          generator=generator)
+        self._adopt(dense, axis)
+
+    @classmethod
+    def from_embedding(cls, embedding, axis=env.MODEL_AXIS):
+        self = cls.__new__(cls)
+        torch.nn.Module.__init__(self)
+        self._adopt(embedding, axis)
+        return self
+
+    def _adopt(self, dense, axis):
+        _, n, r = env.axis_group(axis)
+        rows = dense.weight.shape[0]
+        _divides(n, rows, 'VocabParallelEmbedding num_embeddings')
+        self.axis, self.num_embeddings = axis, rows
+        self.per, self.lo = rows // n, r * (rows // n)
+        self.weight = _piece_param(dense.weight, 0, n, r, (axis, None))
+
+    def forward(self, x):
+        local = x.to(torch.int64) - self.lo
+        inside = (local >= 0) & (local < self.per)
+        out = torch.nn.functional.embedding(
+            torch.where(inside, local, torch.zeros_like(local)),
+            self.weight)
+        out = torch.where(inside[..., None], out, torch.zeros_like(out))
+        return _ReduceFromModel.apply(out, self.axis)
+
+
+def megatron_rules(axis=env.MODEL_AXIS):
+    """The reference-layout ``param_rules`` of Megatron's transformer split
+    for the port's ``MultiHeadAttention`` and ``TransformerEncoderLayer``:
+    the q/k/v projections and ``linear1`` column-parallel, ``out_proj``
+    and ``linear2`` row-parallel."""
+    rules = {}
+    for name in ('q_proj', 'k_proj', 'v_proj', 'linear1'):
+        rules[f'{name}.weight'] = (None, axis)
+        rules[f'{name}.bias'] = (axis,)
+    for name in ('out_proj', 'linear2'):
+        rules[f'{name}.weight'] = (axis, None)
+    return rules
+
+
+def _rule(rules, name):
+    for pat, spec in rules.items():
+        if pat in name:
+            return tuple(spec)
+    return None
+
+
+def _kind(spec, axis):
+    """A Linear's rule -> 'column', 'row' or None (no model axis)."""
+    if spec is None or _axis_dim(spec, axis) is None:
+        return None
+    return 'column' if _axis_dim(spec, axis) == len(spec) - 1 else 'row'
+
+
+def apply_tensor_parallel(net, rules, axis=env.MODEL_AXIS):
+    """Turn ``net`` into its tensor-parallel form, in place, by ``rules``
+    (``{name-substring: spec}`` in the reference's (in, out) layout; a
+    parameter whose spec does not touch the model axis is left alone) ->
+    ``{name: parameter}`` of the model-parallel pieces.
+
+    - a ``MultiHeadAttention`` whose q/k/v weights are column-parallel and
+      whose ``out_proj`` is row-parallel, and a ``TransformerEncoderLayer``
+      whose ``linear1`` is column-parallel and ``linear2`` row-parallel,
+      become Megatron's gather-free pairs: the attention runs on its
+      ``num_heads / n`` local heads (its dropout masks keyed on the dense
+      model's heads), the FFN on its block of ``dim_feedforward`` (its
+      activation dropout keyed on the dense block's columns);
+    - any other ``Linear`` with a model-axis rule takes the gathered form
+      (column: ``gather_output=True``; row: the dense input sliced), and
+      an ``Embedding`` whose rows are on the model axis the
+      vocab-parallel form: each computes what the dense layer computes,
+      as the reference's rules do under GSPMD;
+    - a model-axis rule on any other parameter raises ``ValueError``.
+
+    Modules already tensor-parallel (built as ``ColumnParallelLinear``
+    and friends) keep their layout."""
+    from ..nn.layer.common import Embedding, Linear
+    from ..nn.layer.transformer import (MultiHeadAttention,
+                                        TransformerEncoderLayer)
+    _, n, r = env.axis_group(axis)
+
+    def kind(prefix):
+        return _kind(_rule(rules, f'{prefix}weight'), axis)
+    paired = set()
+    for prefix, m in net.named_modules():
+        pre = prefix + '.' if prefix else ''
+        if isinstance(m, MultiHeadAttention) and all(
+                isinstance(getattr(m, k), Linear) for k in
+                ('q_proj', 'k_proj', 'v_proj', 'out_proj')) and all(
+                kind(f'{pre}{k}.') == 'column'
+                for k in ('q_proj', 'k_proj', 'v_proj')) and \
+                kind(f'{pre}out_proj.') == 'row':
+            _divides(n, m.num_heads, 'MultiHeadAttention num_heads')
+            for k in ('q_proj', 'k_proj', 'v_proj'):
+                col = ColumnParallelLinear.from_linear(getattr(m, k), False,
+                                                       axis)
+                col.copy_input = False     # the attention copies its inputs
+                setattr(m, k, col)
+            m.out_proj = RowParallelLinear.from_linear(m.out_proj, True,
+                                                       axis)
+            m.local_heads(n, r, axis)
+            paired.update(id(getattr(m, k)) for k in
+                          ('q_proj', 'k_proj', 'v_proj', 'out_proj'))
+        if isinstance(m, TransformerEncoderLayer) and \
+                isinstance(m.linear1, Linear) and \
+                isinstance(m.linear2, Linear) and \
+                kind(f'{pre}linear1.') == 'column' and \
+                kind(f'{pre}linear2.') == 'row':
+            m.linear1 = ColumnParallelLinear.from_linear(m.linear1, False,
+                                                         axis)
+            m.linear2 = RowParallelLinear.from_linear(m.linear2, True, axis)
+            m.dropout.shard = (n, r)
+            paired.update((id(m.linear1), id(m.linear2)))
+    for prefix, m in list(net.named_modules()):
+        if id(m) in paired or not prefix:
+            continue
+        parent_name, _, attr = prefix.rpartition('.')
+        parent = net.get_submodule(parent_name) if parent_name else net
+        if isinstance(m, Linear):
+            k = kind(prefix + '.')
+            if k == 'column':
+                setattr(parent, attr, ColumnParallelLinear.from_linear(
+                    m, True, axis))
+            elif k == 'row':
+                setattr(parent, attr, RowParallelLinear.from_linear(
+                    m, False, axis))
+        elif isinstance(m, Embedding):
+            spec = _rule(rules, f'{prefix}.weight')
+            if spec is not None and _axis_dim(spec, axis) == 0:
+                setattr(parent, attr,
+                        VocabParallelEmbedding.from_embedding(m, axis))
+    out = {}
+    for name, p in net.named_parameters():
+        if getattr(p, 'tp_spec', None) is not None:
+            out[name] = p
+            continue
+        spec = _rule(rules, name)
+        if spec is not None and _axis_dim(spec, axis) is not None:
+            raise ValueError(
+                f"apply_tensor_parallel: rule {spec} on {name}: a model-axis "
+                f"rule takes a Linear's weight or bias or an Embedding's "
+                f"rows")
+    return out
+
+
+@torch.no_grad()
+def tp_pieces(state, net):
+    """This rank's pieces of a dense state (``{name: full tensor}`` in the
+    port's layout: the reference's state through
+    ``interop.load_paddle_tpu_state``'s transposes) for the tensor-parallel
+    ``net``: each of its model-parallel parameters cut as its ``tp_dim``
+    says, the others as they are."""
+    out = {}
+    for name, p in net.named_parameters():
+        v = state[name]
+        dim = getattr(p, 'tp_dim', None)
+        if dim is not None:
+            _, n, r = env.axis_group(p.tp_axis)
+            v = v.chunk(n, dim=dim)[r]
+        out[name] = v.clone()
+    return out
+
+
+@torch.no_grad()
+def gather_tp(params, dims=None):
+    """``{name: tensor}`` of a tensor-parallel model's parameters (or of
+    values shaped like them: ``dims`` gives ``{name: (tp_dim, tp_axis)}``)
+    -> ``{name: dense tensor}``: each model-parallel piece all-gathered
+    over its axis and joined along ``tp_dim``; every rank calls it."""
+    from . import collective
+    out = {}
+    for name, p in params.items():
+        dim, axis = (dims or {}).get(name) or (getattr(p, 'tp_dim', None),
+                                               getattr(p, 'tp_axis', None))
+        g = env.axis_group(axis)[0] if dim is not None else env.SINGLE
+        if g is env.SINGLE:
+            out[name] = p.detach()
+            continue
+        rows = collective._gather_stack(p.detach(), g, f'{axis}.')
+        out[name] = torch.cat(rows.unbind(0), dim=dim)
+    return out
 
 
 # each piece starts on a multiple of this many elements of its flat buffer:
@@ -187,11 +596,15 @@ def pack(tensors):
 
 @torch.no_grad()
 def reduce_over_ranks(tensors, mean=False, wire_dtype=None, group=None):
-    """Each of ``tensors`` summed (``mean``: averaged) over the ranks: ONE
-    all-reduce a (dtype, device) of their packed buffer (sent as
-    ``wire_dtype`` when given: fleet's ``dgc``) -> views of the buffers,
-    in order."""
+    """Each of ``tensors`` summed (``mean``: averaged) over the ranks of
+    ``group`` (default: the data axis): ONE all-reduce a (dtype, device)
+    of their packed buffer (sent as ``wire_dtype`` when given: fleet's
+    ``dgc``) -> views of the buffers, in order (the tensors themselves on
+    an axis of one rank)."""
     from . import collective as c
+    group, n, _ = c._resolve(group)
+    if group is env.SINGLE:
+        return list(tensors)
     out = [None] * len(tensors)
     groups = {}
     for i, t in enumerate(tensors):
@@ -205,7 +618,7 @@ def reduce_over_ranks(tensors, mean=False, wire_dtype=None, group=None):
         if wire is not flat:
             flat.copy_(wire)
         if mean:
-            flat.div_(env.get_world_size())
+            flat.div_(n)
         for i, v in zip(idx, views):
             out[i] = v
     return out
@@ -222,25 +635,34 @@ class _Leaf:
 
 class FlatShards:
     """The FSDP layout of ``params`` (``{name: full tensor}``, in order)
-    over the process group (see the module docstring). ``layout[name]``
-    holds each sharded leaf's ``dim``, ``full_shape``, ``shard_shape`` and
-    its place in its dtype's flat buffer; ``whole`` names the leaves every
-    rank keeps whole; ``config``: the ``ShardingConfig`` it was made from
-    (a checkpoint of the step's state takes both: ``save(sharding=)``)."""
+    over the data axis's group ``group`` of ``world`` ranks, this one
+    ``rank`` (default: the whole process group; see the module
+    docstring). ``layout[name]`` holds each sharded leaf's ``dim``,
+    ``full_shape``, ``shard_shape`` and its place in its dtype's flat
+    buffer; ``whole`` names the leaves every rank keeps whole (all of them
+    for ``min_size=None``); ``tp`` (``{name: (tp_dim, tp_axis)}``) and
+    ``tp_full`` the step's model-parallel pieces, which it never gathers
+    and whose gradients it averages over the data axis as the whole
+    leaves'; ``config``: the ``ShardingConfig`` it was made from (a
+    checkpoint of the step's state takes all of it: ``save(sharding=)``)."""
 
-    def __init__(self, params, min_size=1024, group=None, config=None):
+    def __init__(self, params, min_size=1024, group=None, config=None,
+                 world=None, rank=None, tp=None):
         from . import collective
         self._c = collective
         self.group = group
         self.config = config
         self.min_size = min_size
-        self.world = env.get_world_size()
-        self.rank = env.get_rank()
+        self.world = env.get_world_size() if world is None else world
+        self.rank = env.get_rank() if rank is None else rank
+        self.tp = {n: (p.tp_dim, p.tp_axis) for n, p in (tp or {}).items()}
+        self.tp_full = {n: tuple(p.tp_full) for n, p in (tp or {}).items()}
         self.layout, self.whole = {}, []
         self.buckets, self.length = {}, {}
         for name, p in params.items():
             shape = tuple(p.shape)
-            dim = shard_dim(shape, self.world, min_size)
+            dim = None if min_size is None else \
+                shard_dim(shape, self.world, min_size)
             if dim is None:
                 self.whole.append(name)
                 continue
@@ -279,6 +701,32 @@ class FlatShards:
         if lf is None:
             return full
         return full.chunk(self.world, dim=lf.dim)[self.rank]
+
+    def tp_piece(self, name):
+        """The shape of this rank's model-parallel piece of ``name``."""
+        dim, axis = self.tp[name]
+        shape = list(self.tp_full[name])
+        shape[dim] //= env.get_world_size(axis)
+        return tuple(shape)
+
+    def localize(self, v, name):
+        """A restored leaf of ``name`` at its full (dense) shape -> this
+        rank's piece (a model-parallel one cut by its model index); any
+        other shape as it is."""
+        lf = self.layout.get(name)
+        if lf is not None:
+            full, dim, n, r = lf.full_shape, lf.dim, self.world, self.rank
+        elif name in self.tp:
+            dim, axis = self.tp[name]
+            full = self.tp_full[name]
+            _, n, r = env.axis_group(axis)
+        else:
+            return v
+        if tuple(np.shape(v)) != full:
+            return v
+        t = v if isinstance(v, torch.Tensor) \
+            else torch.from_numpy(np.asarray(v))
+        return t.chunk(n, dim=dim)[r]
 
     def _view(self, flat, name):
         lf = self.layout[name]
@@ -360,7 +808,8 @@ class FlatShards:
             for n in names:
                 if grads.get(n) is not None:
                     out[n] = self._view(flat, n)
-        whole = [n for n in self.whole if grads.get(n) is not None]
+        whole = [n for n in self.whole + list(self.tp)
+                 if grads.get(n) is not None]
         for n, g in zip(whole, reduce_over_ranks(
                 [grads[n] for n in whole], mean=True, group=self.group)):
             out[n] = g
@@ -375,9 +824,20 @@ class FlatShards:
         from ..nn import clip as _clip
         by_id = {id(m): n for n, m in metas.items()}
         masks = self._masks
+        # with model-parallel pieces a parameter's norm sums over every
+        # rank: its FSDP pieces over the data axis (else data index 0's
+        # copy), its model-parallel pieces over the model axis (else model
+        # index 0's copy)
+        axis = next(iter(self.tp.values()))[1] if self.tp else None
+        mr = env.get_rank(axis) if axis else 0
+        group = None if axis else self.group
+
+        def counts(n):
+            return (self.sharded(n) or self.rank == 0) and \
+                (n in self.tp or mr == 0)
 
         def gathered(norms, keys):
-            if self.rank != 0:
+            if self.rank != 0 or mr != 0:
                 names = tuple(k if isinstance(k, str) else by_id.get(id(k))
                               for k in keys)
                 key = (names, norms.device)
@@ -385,10 +845,10 @@ class FlatShards:
                     # made once, kept: a copy from the host each step would
                     # wait for the device
                     masks[key] = torch.tensor(
-                        [self.sharded(n) for n in names], device=norms.device)
+                        [counts(n) for n in names], device=norms.device)
                 norms = torch.where(masks[key], norms,
                                     torch.zeros_like(norms))
-            return self._c._gather_stack(norms, self.group)
+            return self._c._gather_stack(norms, group)
 
         prev = _clip._rank_norms[0]
         _clip._rank_norms[0] = gathered

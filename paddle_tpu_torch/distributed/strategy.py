@@ -15,14 +15,23 @@ the compute the replicated step's, sharding trades memory and bandwidth,
 not numbers.
 
 The shard rule is the reference's (``sharding.first_divisible_spec``):
-each leaf is split along its first dim that the world divides; leaves
+each leaf is split along its first dim that the data axis divides; leaves
 under ``min_size`` elements, and leaves with no such dim, stay whole. The
-"mesh" is the process group: ``data_degree`` / ``fsdp_degree`` /
-``num_devices`` are its size (1 without one). Specs are tuples of axis
-names and None, the reference's ``PartitionSpec`` as a plain tuple.
+mesh is the process group's (``env.get_mesh()``): its data axis's size is
+``data_degree`` / ``fsdp_degree``, ``num_devices`` is the world (1 without
+a group). Specs are tuples of axis names and None, the reference's
+``PartitionSpec`` as a plain tuple.
 
-Tensor parallelism (``tensor_parallel_degree > 1``, ``param_rules``)
-waits for ROADMAP.md Queue 1 item 5b and raises naming it.
+Tensor parallelism composes on the model axis, as in the reference:
+``tensor_parallel_degree`` is the model axis's size (the default mesh is
+the installed one, which must have a ``'model'`` axis of that size: the
+reference's error otherwise), and ``param_rules`` (``{name-substring:
+spec}`` in the reference's (in, out) layout) name the parameters that
+keep a model-axis layout through the step: the step turns them into
+Megatron's layers (``sharding.apply_tensor_parallel``), FSDP shards only
+the others, over the data axis, and nothing gathers the model-axis
+pieces. ``with_rules_from(layer)`` adds the rules of a module's
+tensor-parallel layers (``ColumnParallelLinear`` and friends).
 """
 import numpy as np
 
@@ -72,21 +81,29 @@ def _tree_leaves(tree):
         yield tree
 
 
-def _waits_5b(what):
-    return NotImplementedError(
-        f"ShardingConfig: {what}: tensor parallelism waits for ROADMAP.md, "
-        f"Queue 1 item 5b")
+def mesh_axes(mesh):
+    """``{axis: size}`` of a mesh: ``env.Mesh``'s own, a 1-D
+    ``DeviceMesh``'s data axis, ``{'data': 1}`` for None (no group)."""
+    if mesh is None:
+        return {env.DATA_AXIS: 1}
+    if isinstance(mesh, env.Mesh):
+        return dict(mesh.shape)
+    names = getattr(mesh, 'mesh_dim_names', None) or (env.DATA_AXIS,)
+    return {names[i]: int(mesh.size(i)) for i in range(len(names))}
 
 
 class ShardingConfig:
     """The resolved sharding plan of a train step.
 
-    - ``mesh``: the process group's ``DeviceMesh`` (``env.get_mesh()``),
-      or None for world 1;
-    - ``fsdp``: shard parameters and optimizer moments over the ranks;
+    - ``mesh``: the process group's mesh (``env.get_mesh()``), or None
+      for world 1;
+    - ``fsdp``: shard parameters and optimizer moments over the data
+      axis;
     - ``min_size``: leaves under this many elements stay whole;
     - ``gather_params``: the ZeRO use-time gather (must be True);
-    - ``fsdp_axes``: the data axis (the one axis there is)."""
+    - ``fsdp_axes``: the data axis;
+    - ``tensor_parallel_degree``, ``param_rules``: see the module
+      docstring."""
 
     def __init__(self, mesh=None, data_axis=env.DATA_AXIS,
                  model_axis=env.MODEL_AXIS, fsdp=True, min_size=1024,
@@ -99,11 +116,6 @@ class ShardingConfig:
         self.tensor_parallel_degree = int(tensor_parallel_degree)
         self.param_rules = dict(param_rules or {})
         self.gather_params = bool(gather_params)
-        if self.tensor_parallel_degree > 1:
-            raise _waits_5b(f"tensor_parallel_degree="
-                            f"{self.tensor_parallel_degree}")
-        if self.param_rules:
-            raise _waits_5b("param_rules")
         if not self.gather_params:
             raise NotImplementedError(
                 "ShardingConfig(gather_params=False): the reference lets "
@@ -112,36 +124,101 @@ class ShardingConfig:
         self.fsdp_axes = tuple(fsdp_axes) if fsdp_axes else (data_axis,)
         if self.fsdp_axes != (data_axis,):
             raise ValueError(f"ShardingConfig: fsdp_axes {self.fsdp_axes}: "
-                             f"the process group has the one axis "
-                             f"{data_axis!r}")
-        self.mesh = mesh if mesh is not None else env.get_mesh()
+                             f"FSDP shards over the data axis {data_axis!r}")
+        self.mesh = mesh if mesh is not None else self._default_mesh()
+        axes = mesh_axes(self.mesh)
+        for ax in self.fsdp_axes + ((model_axis,)
+                                    if self.tensor_parallel_degree > 1
+                                    else ()):
+            if ax not in axes:
+                raise ValueError(f"ShardingConfig: axis {ax!r} not in mesh "
+                                 f"axes {tuple(axes)}")
+
+    def _default_mesh(self):
+        """The installed mesh, if it can carry this plan (the reference's
+        errors otherwise); None without a group."""
+        existing = env.get_mesh()
+        tp = self.tensor_parallel_degree
+        if existing is None:
+            if tp > 1:
+                raise ValueError(
+                    f"tensor_parallel_degree={tp} does not divide the 1 "
+                    f"available devices")
+            return None
+        axes = mesh_axes(existing)
+        if self.data_axis in axes and \
+                (tp <= 1 or axes.get(self.model_axis, 1) == tp):
+            return existing
+        raise ValueError(
+            f"the installed device mesh (axes {axes}) cannot carry this "
+            f"sharding plan (need axis {self.data_axis!r}"
+            + (f" and {self.model_axis!r} of size {tp}" if tp > 1 else "")
+            + "); re-init the mesh or pass mesh= explicitly")
 
     # -- sizes ---------------------------------------------------------------
     @property
     def data_degree(self):
-        if self.mesh is not None:
-            return int(self.mesh.size())
-        return env.get_world_size()
+        return int(mesh_axes(self.mesh).get(self.data_axis, 1))
 
     fsdp_degree = data_degree
-    num_devices = data_degree
+
+    @property
+    def model_degree(self):
+        return int(mesh_axes(self.mesh).get(self.model_axis, 1))
+
+    @property
+    def num_devices(self):
+        return int(np.prod(list(mesh_axes(self.mesh).values())))
 
     # -- spec derivation -----------------------------------------------------
+    def _tp_spec(self, name):
+        for pat, spec in self.param_rules.items():
+            if pat in name:
+                return tuple(spec)
+        return None
+
     def _fsdp_spec(self, shape):
         from .sharding import first_divisible_spec
         return first_divisible_spec(shape, self.fsdp_degree,
                                     self.fsdp_axes[0], self.min_size)
 
     def param_specs(self, params):
-        """``{name: spec}`` for a params dict (name -> value or shape)."""
-        return {name: (self._fsdp_spec(_leaf_shape(v)) if self.fsdp
-                       else ())
-                for name, v in params.items()}
+        """``{name: spec}`` for a params dict (name -> value or shape): a
+        rule's spec, else the FSDP spec (``()`` without ``fsdp``)."""
+        out = {}
+        for name, v in params.items():
+            spec = self._tp_spec(name)
+            if spec is None:
+                spec = self._fsdp_spec(_leaf_shape(v)) if self.fsdp else ()
+            out[name] = spec
+        return out
+
+    def with_rules_from(self, layer):
+        """A config with the rules of ``layer``'s tensor-parallel layers
+        added (their parameters' ``tp_spec``, the reference's eager
+        placements), so that the step keeps their layout; ``self`` when
+        there are none."""
+        rules = dict(self.param_rules)
+        added = False
+        for name, p in layer.named_parameters():
+            spec = getattr(p, 'tp_spec', None)
+            if spec is not None and self.model_axis in spec and \
+                    name not in rules:
+                rules[name] = tuple(spec)
+                added = True
+        if not added:
+            return self
+        import copy
+        clone = copy.copy(self)
+        clone.param_rules = rules
+        return clone
 
     def gather_names(self, params, specs=None):
-        """Parameters the step all-gathers at use: the sharded ones."""
+        """Parameters the step all-gathers at use: the FSDP-sharded ones
+        (a rule's model-axis pieces keep their layout)."""
         specs = specs if specs is not None else self.param_specs(params)
-        return frozenset(n for n, s in specs.items() if s != ())
+        return frozenset(n for n, s in specs.items()
+                         if s != () and self._tp_spec(n) is None)
 
     def state_shardings(self, state, specs=None):
         """The spec tree of an engine state (``{'params', 'opt', 'guard'?,
@@ -191,17 +268,18 @@ class ShardingConfig:
             return 0
         total = 0
         for name, v in params.items():
-            if specs.get(name, ()) == ():
+            if specs.get(name, ()) == () or self._tp_spec(name) is not None:
                 continue
             total += 3 * _nbytes(v) * (k - 1) // k
         return total
 
     def describe(self):
-        return {'mesh': {self.data_axis: self.data_degree},
+        return {'mesh': mesh_axes(self.mesh),
                 'fsdp': self.fsdp, 'fsdp_axes': list(self.fsdp_axes),
                 'min_size': self.min_size,
                 'tensor_parallel_degree': self.tensor_parallel_degree,
-                'gather_params': self.gather_params, 'tp_rules': {}}
+                'gather_params': self.gather_params,
+                'tp_rules': {k: list(v) for k, v in self.param_rules.items()}}
 
 
 # knobs on fleet.DistributedStrategy that have NO sharded-step

@@ -85,6 +85,14 @@ runs the one-process step, bit for bit as before:
   (until the first step it holds the values it was built with);
   ``write_back`` gathers the state into it (``engine.fit`` does at its
   end);
+- tensor parallelism: a ``sharding=`` config whose ``param_rules`` put
+  parameters on the model axis turns ``net`` into its tensor-parallel
+  form, in place (``distributed.sharding.apply_tensor_parallel``), and
+  the parameters of layers built tensor-parallel stay this rank's
+  pieces: never gathered, their gradients averaged over the data axis
+  as a whole leaf's; FSDP shards only the others, over the data axis;
+  ``full_params`` / ``full_slots`` gather the pieces to the dense model's
+  layout;
 - a ``distributed.DataParallel`` net (or a ``fleet.distributed_optimizer``
   optimizer): the gradients' mean over the ranks, one all-reduce of their
   packed buffer a dtype, before the unscale, the clip and the update;
@@ -246,6 +254,7 @@ def build_train_step(loss_fn=None, optimizer=None, *, net=None, loss=None,
     if isinstance(net, DataParallel):
         # the wrapped module runs (functional_call keys are its own names)
         net, data_parallel = net._layers, True
+    tp = _tensor_parallel(sharding, net, params)
     if net is not None:
         if loss_fn is not None:
             raise ValueError("build_train_step: pass loss_fn OR net+loss, "
@@ -276,11 +285,34 @@ def build_train_step(loss_fn=None, optimizer=None, *, net=None, loss=None,
                                   else dict(params_meta)),
                      remat=remat, remat_by_layer=by_layer,
                      sharding=sharding, data_parallel=data_parallel,
-                     in_shardings=in_shardings)
+                     in_shardings=in_shardings, tp=tp)
     if net is not None:
         # each rank its own masks where the step averages the gradients
         mask_ranks(net, step._synced)
     return step
+
+
+def _tensor_parallel(sharding, net, params):
+    """The model-parallel parameters of a step (``{name: parameter}``):
+    ``net`` turned into its tensor-parallel form by ``sharding``'s
+    ``param_rules`` (``distributed.sharding.apply_tensor_parallel``), and
+    the parameters of layers built tensor-parallel."""
+    from ..distributed.sharding import _axis_dim, apply_tensor_parallel
+    if sharding is None:
+        return {}
+    axis = sharding.model_axis
+    rules = {k: v for k, v in sharding.param_rules.items()
+             if _axis_dim(v, axis) is not None}
+    if net is not None:
+        if rules:
+            apply_tensor_parallel(net, rules, axis)
+        params = dict(net.named_parameters())
+    elif rules:
+        raise ValueError("build_train_step: param_rules turn the layers of "
+                         "net= into their tensor-parallel form; a loss_fn "
+                         "step takes tensor-parallel layers as built")
+    return {n: p for n, p in (params or {}).items()
+            if getattr(p, 'tp_dim', None) is not None}
 
 
 def _is_spec(spec):
@@ -305,8 +337,9 @@ def _split_feeds(batch, spec, world):
     if dim is None or not hasattr(batch, 'shape'):
         return batch
     n = batch.shape[dim] // world
+    r = env.get_rank(env.DATA_AXIS)
     sl = [slice(None)] * len(batch.shape)
-    sl[dim] = slice(env.get_rank() * n, (env.get_rank() + 1) * n)
+    sl[dim] = slice(r * n, (r + 1) * n)
     return batch[tuple(sl)]
 
 
@@ -331,13 +364,18 @@ class TrainStep:
     def __init__(self, loss_fn, optimizer, params, trainable, device,
                  scaler=None, nan_guard=False, microbatch=1,
                  params_meta=None, remat=None, remat_by_layer=False,
-                 sharding=None, data_parallel=False, in_shardings=None):
+                 sharding=None, data_parallel=False, in_shardings=None,
+                 tp=None):
         from ..distributed import env as _env
         self.optimizer = optimizer
         self.sharding = sharding
-        # the process group this step synchronises over (None: one process)
+        # the process group this step synchronises over (None: one
+        # process): the data axis's
         grouped = _env.is_initialized()
-        self._world = _env.get_world_size() if grouped else 1
+        self._data_group, self._world, self._data_rank = \
+            _env.axis_group(_env.DATA_AXIS) if grouped else (None, 1, 0)
+        # the model-parallel pieces (never gathered; distributed/sharding)
+        self._tp = dict(tp or {})
         self._shards = None
         self._dp = grouped and bool(data_parallel) and sharding is None
         self._synced = grouped and (sharding is not None or self._dp)
@@ -371,9 +409,18 @@ class TrainStep:
             self._params = master
         elif sharding is not None and grouped:
             from ..distributed.sharding import FlatShards
-            self._shards = FlatShards(params, min_size=sharding.min_size,
-                                      config=sharding)
-            self._params = self._shards.shard(params)
+            # FSDP over the data axis, of the parameters that are not
+            # model-parallel pieces; without fsdp (or on a data axis of one
+            # rank of a larger mesh) every leaf stays whole and its
+            # gradient is averaged over the data axis
+            rest = {n: p for n, p in params.items() if n not in self._tp}
+            fsdp = sharding.fsdp and self._data_group is not _env.SINGLE
+            self._shards = FlatShards(
+                rest, min_size=sharding.min_size if fsdp else None,
+                config=sharding, group=self._data_group, world=self._world,
+                rank=self._data_rank, tp=self._tp)
+            pieces = self._shards.shard(rest)
+            self._params = {n: pieces.get(n, p) for n, p in params.items()}
             # what a released parameter holds: nothing, one tensor a dtype
             self._empty = {p.dtype: p.new_empty(0) for p in params.values()}
             self._collective_bytes_est = \
@@ -454,22 +501,42 @@ class TrainStep:
                 'sharded_params': sharded}
 
     @torch.no_grad()
-    def full_params(self, state):
+    def full_params(self, state, dense=True):
         """``{name: full parameter}`` of ``state``: gathered from the ranks'
         pieces on a sharded step (one all-gather a dtype; every rank calls
-        it), else the state's own."""
+        it), else the state's own; the model-parallel pieces gathered over
+        the model axis too (the dense model's parameters) unless
+        ``dense=False``."""
         if self._shards is None:
             return state['params']
-        return self._shards.gather(state['params'])
+        full = self._shards.gather(state['params'])
+        if dense and self._tp:
+            from ..distributed.sharding import gather_tp
+            full.update(gather_tp({n: state['params'][n] for n in self._tp},
+                                  self._shards.tp))
+        return {n: full.get(n, state['params'][n]) for n in state['params']}
 
     @torch.no_grad()
-    def full_slots(self, state):
+    def full_slots(self, state, dense=True):
         """The optimizer slots of ``state`` at their parameters' full
         shapes (gathered, one all-gather a slot name and dtype, on a
-        sharded step)."""
+        sharded step; a model-parallel parameter's slots over the model
+        axis too unless ``dense=False``)."""
         opt = state.get('opt', {})
         if self._shards is None:
             return opt
+        if dense and self._tp:
+            from ..distributed.sharding import gather_tp
+            opt = dict(opt)
+            for n in self._tp:
+                if n not in opt:
+                    continue
+                shape = tuple(state['params'][n].shape)
+                slots = {s: v for s, v in opt[n].items()
+                         if isinstance(v, torch.Tensor)
+                         and tuple(v.shape) == shape}
+                dims = {s: self._shards.tp[n] for s in slots}
+                opt[n] = {**opt[n], **gather_tp(slots, dims)}
         by_slot = {}
         for n, slots in opt.items():
             lf = self._shards.layout.get(n)
@@ -493,12 +560,13 @@ class TrainStep:
         slots only (``engine.write_back_state``)."""
         from .loop import write_back_state
         if self._shards is not None:
-            for n, v in self.full_params(state).items():
+            # the model-parallel pieces stay the module's own
+            for n, v in self.full_params(state, dense=False).items():
                 if v is not self._full[n]:
                     self._full[n].data = v
         if optimizer is not None:
             write_back_state(None, optimizer,
-                             {'opt': self.full_slots(state)})
+                             {'opt': self.full_slots(state, dense=False)})
 
     @torch.no_grad()
     def adopt_state(self, state):
@@ -582,12 +650,7 @@ class TrainStep:
         """A restored state's leaves at their full shapes -> this rank's
         pieces (leaves already at their piece's shape stay)."""
         def piece(v, n):
-            lf = self._shards.layout.get(n)
-            if lf is None or tuple(np.shape(v)) != lf.full_shape:
-                return v
-            t = v if isinstance(v, torch.Tensor) \
-                else torch.from_numpy(np.asarray(v))
-            return self._shards.piece(t, n)
+            return self._shards.localize(v, n)
         out = dict(state)
         out['params'] = {n: piece(v, n) for n, v in state['params'].items()}
         out['opt'] = {n: {s: piece(v, n) for s, v in slots.items()}
@@ -720,7 +783,8 @@ class TrainStep:
                 grads = [pieces[n] for n in names]
             elif self._dp:
                 from ..distributed.sharding import reduce_over_ranks
-                grads = reduce_over_ranks(grads, mean=True)
+                grads = reduce_over_ranks(grads, mean=True,
+                                          group=self._data_group)
             if use_scaler:
                 ok = ok & _unscale_and_check(grads, scale)
         if self._synced:

@@ -249,8 +249,7 @@ def fit(network, loss, optimizer, data, *, epochs=1, microbatch=1,
               'donated': False, 'checkpoints': 0, 'resumed_from': None,
               'preempted': False}
     if resume_mgr is not None:
-        got = resume_mgr.restore(return_extra=True, sharding=(
-            None if pieces is None else pieces.config))
+        got = resume_mgr.restore(return_extra=True, sharding=pieces)
         if got is not None:
             loaded, meta, extra = got
             state = step.adopt_state(loaded)

@@ -108,11 +108,11 @@ class BatchSampler(Sampler):
 
 
 def _world():
-    """(world size, rank) of the ``torch.distributed`` group, or (1, 0)."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return 1, 0
+    """(size, rank) of the process group's data axis, or (1, 0): the model
+    ranks of one data replica (tensor parallelism) feed the same rows."""
+    from ..distributed import env
+    return (env.get_world_size(env.DATA_AXIS),
+            env.get_rank(env.DATA_AXIS))
 
 
 class DistributedBatchSampler(BatchSampler):

@@ -126,6 +126,7 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* sv = sk + kFwdStages * kKTile; // kFwdStages stages
 
     const int bh = blockIdx.x, b = bh / H, h = bh % H;
+    [[maybe_unused]] const int mbh = mask_bh(drop, b, h, bh);   // the mask's row
     const int q0 = blockIdx.y * kRowsB;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t4 = lane & 3;
@@ -250,7 +251,7 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
             for (int n = 0; n < kKeyN; ++n) {
                 float ks[4];
                 if (kDrop)
-                    fragment_keep(drop, bh, qr, k0 + 8 * n + 2 * t4, L, lane,
+                    fragment_keep(drop, mbh, qr, k0 + 8 * n + 2 * t4, L, lane,
                                   ks);
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
@@ -410,6 +411,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
     float* sv = sk + kFwdStages * kKTile;   // kFwdStages stages
 
     const int bh = blockIdx.x, b = bh / H, h = bh % H;
+    [[maybe_unused]] const int mbh = mask_bh(drop, b, h, bh);   // the mask's row
     const int q0 = blockIdx.y * kBQ;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t4 = lane & 3;
@@ -523,7 +525,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
         for (int n = 0; n < kKeyN; ++n) {
             float ks[4];
             if (kDrop)
-                fragment_keep(drop, bh, qr, k0 + 8 * n + 2 * t4, L, lane, ks);
+                fragment_keep(drop, mbh, qr, k0 + 8 * n + 2 * t4, L, lane, ks);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const float p = ex2(fmaf(sc[n][e], xscale, -ml[e >> 1]));
@@ -638,8 +640,8 @@ int dispatch_tf32(const void* q, const void* k, const void* v,
 // q, k, v, o: (B, H, L, D), fp32 (dtype kF32), bf16 (kBF16) or fp16 (kF16),
 // with shared strides (sb, sh, sl) and a contiguous head dim; bh = B * H.
 // bias: (B, L) contiguous fp32 or null. lse: (B*H, L) contiguous fp32 or null.
-// D <= 128. Dropout is on iff drop_scale != 1. Returns cudaGetLastError()
-// after the launch.
+// D <= 128. Dropout is on iff drop_scale != 1; mask_heads / mask_head0 as in
+// DropoutArgs (philox.cuh). Returns cudaGetLastError() after the launch.
 extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        void* o, void* lse, int64_t bh,
@@ -648,6 +650,7 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
                                        float scale, int causal,
                                        uint64_t seed, uint64_t offset,
                                        uint32_t threshold, float drop_scale,
+                                       int mask_heads, int mask_head0,
                                        int dtype, void* stream) {
     if (bh <= 0 || bh > 0x7fffffff || L <= 0 || (L + kBQ - 1) / kBQ > 65535 ||
         d <= 0 || H <= 0)
@@ -657,7 +660,8 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
     const auto st = static_cast<cudaStream_t>(stream);
     const int Li = static_cast<int>(L), di = static_cast<int>(d),
               Hi = static_cast<int>(H);
-    const DropoutArgs drop{seed, offset, threshold, drop_scale};
+    const DropoutArgs drop{seed, offset, threshold, drop_scale,
+                           mask_heads, mask_head0};
     if (dtype != kF32 && dtype != kBF16 && dtype != kF16)
         return static_cast<int>(cudaErrorInvalidValue);
     // one instantiation with a key bias and one without (fwd_scores)

@@ -143,6 +143,7 @@ flash_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float* sdelta = slse + kDkvStages * kBQ;
 
     const int bh = blockIdx.x, b = bh / H, h = bh % H;
+    [[maybe_unused]] const int mbh = mask_bh(drop, b, h, bh);   // the mask's row
     const int k0 = blockIdx.y * kBK;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t4 = lane & 3;
@@ -244,7 +245,7 @@ flash_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                   qc + 1 < L ? lq.y : kLseEmpty};
             const float dl[2] = {dq.x, dq.y};
             float ks[4];
-            if (kDrop) fragment_keep_t(drop, bh, kr, qc, L, lane, ks);
+            if (kDrop) fragment_keep_t(drop, mbh, kr, qc, L, lane, ks);
             fragment_scores<true>(sc[n], scale, kb, kr, qc, L, causal,
                                   edge);
 #pragma unroll
@@ -349,6 +350,7 @@ flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* sv = sk + kDqStages * kTile;      // kDqStages stages
 
     const int bh = blockIdx.x, b = bh / H, h = bh % H;
+    [[maybe_unused]] const int mbh = mask_bh(drop, b, h, bh);   // the mask's row
     const int q0 = blockIdx.y * kBQ;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t4 = lane & 3;
@@ -450,7 +452,7 @@ flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
             fragment_scores<false>(sc[n], scale, kb, qr, kc, L, causal,
                                    edge);
             float ks[4];
-            if (kDrop) fragment_keep(drop, bh, qr, kc, L, lane, ks);
+            if (kDrop) fragment_keep(drop, mbh, qr, kc, L, lane, ks);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const float p = ex2((sc[n][e] - lr[e >> 1]) * kLog2e);
@@ -535,6 +537,7 @@ flash_dq_tf32_kernel(const float* __restrict__ q,
     float* sv = sk + kDqStages * kTile;     // kDqStages stages
 
     const int bh = blockIdx.x, b = bh / H, h = bh % H;
+    [[maybe_unused]] const int mbh = mask_bh(drop, b, h, bh);   // the mask's row
     const int q0 = blockIdx.y * kBQ;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t4 = lane & 3;
@@ -620,7 +623,7 @@ flash_dq_tf32_kernel(const float* __restrict__ q,
             fragment_scores<false>(sc[n], scale, kb, qr, kc, L, causal,
                                    edge);
             float ks[4];
-            if (kDrop) fragment_keep(drop, bh, qr, kc, L, lane, ks);
+            if (kDrop) fragment_keep(drop, mbh, qr, kc, L, lane, ks);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const float p = ex2((sc[n][e] - lr[e >> 1]) * kLog2e);
@@ -712,6 +715,7 @@ flash_dkv_tf32_kernel(const float* __restrict__ q,
     float* sdelta = slse + kDkvTf32Stages * kQT;  // kDkvTf32Stages stages
 
     const int bh = blockIdx.x, b = bh / H, h = bh % H;
+    [[maybe_unused]] const int mbh = mask_bh(drop, b, h, bh);   // the mask's row
     const int k0 = blockIdx.y * kBK;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int t4 = lane & 3;
@@ -806,7 +810,7 @@ flash_dkv_tf32_kernel(const float* __restrict__ q,
                                   qc + 1 < L ? lq.y : kLseEmpty};
             const float dl[2] = {dq.x, dq.y};
             float ks[4];
-            if (kDrop) fragment_keep_t(drop, bh, kr, qc, L, lane, ks);
+            if (kDrop) fragment_keep_t(drop, mbh, kr, qc, L, lane, ks);
             fragment_scores<true>(sc[n], scale, kb, kr, qc, L, causal,
                                   edge);
 #pragma unroll
@@ -1002,14 +1006,16 @@ BwdArgs make_args(const void* q, const void* k, const void* v,
                   const void* bias, void* dq, void* dk, void* dv, int64_t bh,
                   int64_t L, int64_t d, int64_t H, const int64_t* strides,
                   float scale, int causal, uint64_t seed, uint64_t offset,
-                  uint32_t threshold, float drop_scale, void* stream) {
+                  uint32_t threshold, float drop_scale, int mask_heads,
+                  int mask_head0, void* stream) {
     const auto f = [](const void* p) { return static_cast<const float*>(p); };
     return BwdArgs{q, k, v, dout, f(lse), f(delta), f(bias),
                    dq, dk, dv, bh, static_cast<int>(L),
                    static_cast<int>(d), static_cast<int>(H),
                    Strides{strides[0], strides[1], strides[2]},
                    Strides{strides[3], strides[4], strides[5]}, scale, causal,
-                   DropoutArgs{seed, offset, threshold, drop_scale},
+                   DropoutArgs{seed, offset, threshold, drop_scale,
+                               mask_heads, mask_head0},
                    static_cast<cudaStream_t>(stream)};
 }
 
@@ -1019,20 +1025,23 @@ BwdArgs make_args(const void* q, const void* k, const void* v,
 // with shared strides (sb, sh, sl); dO, in the same dtype, with its own (gsb,
 // gsh, gsl); every head dim contiguous; bh = B * H. lse, delta: (B*H, L)
 // contiguous fp32. bias: (B, L) contiguous fp32 or null. D <= 128. Dropout is
-// on iff drop_scale != 1. Returns cudaGetLastError() after the launch.
+// on iff drop_scale != 1; mask_heads / mask_head0 as in DropoutArgs
+// (philox.cuh). Returns cudaGetLastError() after the launch.
 extern "C" int ptt_flash_attention_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* bias, void* dq,
     int64_t bh, int64_t L, int64_t d, int64_t H, int64_t sb, int64_t sh,
     int64_t sl, int64_t gsb, int64_t gsh, int64_t gsl, float scale,
     int causal, uint64_t seed, uint64_t offset, uint32_t threshold,
-    float drop_scale, int dtype, void* stream) {
+    float drop_scale, int mask_heads, int mask_head0, int dtype,
+    void* stream) {
     if (L > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
     const int64_t strides[6] = {sb, sh, sl, gsb, gsh, gsl};
     return dispatch<false>(make_args(q, k, v, dout, lse, delta, bias, dq,
                                      nullptr, nullptr, bh, L, d, H, strides,
                                      scale, causal, seed, offset, threshold,
-                                     drop_scale, stream),
+                                     drop_scale, mask_heads, mask_head0,
+                                     stream),
                            dtype);
 }
 
@@ -1043,12 +1052,14 @@ extern "C" int ptt_flash_attention_dkv(
     int64_t bh, int64_t L, int64_t d, int64_t H, int64_t sb, int64_t sh,
     int64_t sl, int64_t gsb, int64_t gsh, int64_t gsl, float scale,
     int causal, uint64_t seed, uint64_t offset, uint32_t threshold,
-    float drop_scale, int dtype, void* stream) {
+    float drop_scale, int mask_heads, int mask_head0, int dtype,
+    void* stream) {
     if (L > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
     const int64_t strides[6] = {sb, sh, sl, gsb, gsh, gsl};
     return dispatch<true>(make_args(q, k, v, dout, lse, delta, bias, nullptr,
                                     dk, dv, bh, L, d, H, strides, scale,
                                     causal, seed, offset, threshold,
-                                    drop_scale, stream),
+                                    drop_scale, mask_heads, mask_head0,
+                                    stream),
                           dtype);
 }

@@ -98,12 +98,26 @@ __device__ __forceinline__ PhiloxWords philox4x32_10(const PhiloxKeys& keys,
 }
 
 // What every dropout kernel is handed: p > 0 iff `scale` != 1.
+// mask_heads / mask_head0 (the attention kernels only; 0 / 0 elsewhere): a
+// call that holds heads mask_head0 .. mask_head0 + H - 1 of a model with
+// mask_heads heads (tensor parallelism: a rank's local heads) keys its
+// masks on that model's (batch, head) rows, so that each rank drops what
+// the dense model drops (mask_bh).
 struct DropoutArgs {
     uint64_t seed;
     uint64_t offset;
     uint32_t threshold;   // min(int(p * 2^32), 2^32 - 1)
     float scale;          // 1 / (1 - p)
+    int32_t mask_heads;   // 0: the call's own heads
+    int32_t mask_head0;
 };
+
+// The (batch, head) row of the probabilities a mask is keyed on: the
+// call's own bh = b * H + h, or b * mask_heads + mask_head0 + h.
+__host__ __device__ __forceinline__ int mask_bh(const DropoutArgs& a, int b,
+                                                int h, int bh) {
+    return a.mask_heads > 0 ? b * a.mask_heads + a.mask_head0 + h : bh;
+}
 
 // DropoutArgs with the key schedule computed on the host (dropout on iff
 // `scale` != 1), for kernels that make many Philox calls a thread.

@@ -28,7 +28,10 @@ probabilities, that never stores an (L, L) matrix in either direction.
 
 The dropout mask is a function of ``(seed, offset)`` and the element
 (b * H + h, query row, key column) — see ``philox.py`` — so ``dropout_p >
-0`` needs both. On CUDA the kernels take fp32, bf16 or fp16 (q, k, v and
+0`` needs both. ``head_map=(heads, h0)`` keys it on the (b * heads + h0 +
+h) rows of a model of ``heads`` heads instead, whose heads ``h0 ..`` the
+call holds: each tensor-parallel rank then drops what the dense model
+drops on its heads (``mask_args``). On CUDA the kernels take fp32, bf16 or fp16 (q, k, v and
 dO in one dtype; ``lse``, ``delta`` and the key bias fp32), Lq == Lk, D <= 128,
 and q/k/v with one common layout whose head dim is contiguous (a (B, L, H,
 D) tensor seen through ``transpose(1, 2)`` needs no copy); the outputs and
@@ -54,7 +57,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .philox import keep_scale
+from .philox import head_block, keep_scale
 
 __all__ = ['flash_attention_bhld', 'flash_attention_forward',
            'flash_attention_backward', 'flash_attention_dq',
@@ -65,12 +68,13 @@ NEG_INF = -1e30
 LSE_EMPTY = 1e30   # lse of a row with no unmasked key: exp(s - LSE_EMPTY) == 0
 MAX_HEAD_DIM = 128
 
+# after the dropout words: the mask's head map (mask_heads, mask_head0)
 _FWD_ARGTYPES = (_build.P,) * 6 + (_build.I64,) * 7 + \
-    (_build.F32, _build.I32) + _build.DROPOUT_ARGTYPES + (_build.I32,
-                                                         _build.P)
+    (_build.F32, _build.I32) + _build.DROPOUT_ARGTYPES + \
+    (_build.I32, _build.I32, _build.I32, _build.P)
 _DQ_ARGTYPES = (_build.P,) * 8 + (_build.I64,) * 10 + \
-    (_build.F32, _build.I32) + _build.DROPOUT_ARGTYPES + (_build.I32,
-                                                         _build.P)
+    (_build.F32, _build.I32) + _build.DROPOUT_ARGTYPES + \
+    (_build.I32, _build.I32, _build.I32, _build.P)
 _DKV_ARGTYPES = (_build.P,) + _DQ_ARGTYPES
 
 
@@ -103,8 +107,17 @@ def _rounded(t, dtype):
     return t.to(dtype).to(t.dtype)
 
 
+def _keep_scale(p, dropout_p, seed, offset, head_map):
+    """``keep / (1 - p)`` of the probabilities ``p`` (their mask keyed on
+    ``head_map``'s rows when given)."""
+    if head_map is None:
+        return keep_scale(p.shape, dropout_p, seed, offset, p.device, p.dtype)
+    return keep_scale(p.shape, dropout_p, seed, offset, p.device, p.dtype,
+                      head_block(p.shape, head_map))
+
+
 def _attn_reference(q, k, v, causal, scale, kpad_bias=None, dropout_p=0.0,
-                    seed=None, offset=None):
+                    seed=None, offset=None, head_map=None):
     """Plain attention on (B, H, L, D) -> ``(o, lse)`` with the kernel's
     conventions: scores above the causal diagonal are ``-inf`` (the
     reference's ``NEG_INF`` there gives the same zero weight on every row
@@ -112,16 +125,16 @@ def _attn_reference(q, k, v, causal, scale, kpad_bias=None, dropout_p=0.0,
     ``-inf`` scores gets ``o = 0`` and ``lse = LSE_EMPTY`` instead of
     NaN), and dropout, when asked, falls on
     the normalised probabilities with the Philox mask of ``(seed,
-    offset)``. Unnormalised P, dropped, is rounded to ``v``'s dtype before
-    the P.V product, as the reference rounds it."""
+    offset)`` (keyed on the rows of ``head_map``'s heads when given: see
+    ``mask_args``). Unnormalised P, dropped, is rounded to ``v``'s dtype
+    before the P.V product, as the reference rounds it."""
     _check_dropout(dropout_p, seed, offset)
     s = _scores(q, k, causal, scale, kpad_bias)
     m = s.amax(-1, keepdim=True).clamp_min(NEG_INF)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     if dropout_p > 0.0:
-        p = p * keep_scale(p.shape, dropout_p, seed, offset, p.device,
-                           p.dtype)
+        p = p * _keep_scale(p, dropout_p, seed, offset, head_map)
     denom = l.clamp_min(1e-30)
     o = torch.matmul(_rounded(p, v.dtype), v.to(p.dtype)) / denom
     lse = torch.where(l > 0, m + torch.log(denom),
@@ -130,7 +143,7 @@ def _attn_reference(q, k, v, causal, scale, kpad_bias=None, dropout_p=0.0,
 
 
 def _p_ds(q, k, v, do, lse, delta, causal, scale, kpad_bias, dropout_p, seed,
-          offset):
+          offset, head_map=None):
     """``(P * keep/(1-p), dS)`` written out as (B, H, L, L) matrices: P is
     rebuilt from ``lse``, ``dS = P * (dP * keep/(1-p) - delta)``; both
     rounded to the input dtype, which the products that take them read."""
@@ -139,7 +152,7 @@ def _p_ds(q, k, v, do, lse, delta, causal, scale, kpad_bias, dropout_p, seed,
     dp = torch.matmul(do.to(s.dtype), v.to(s.dtype).transpose(-1, -2))
     p_drop = p
     if dropout_p > 0.0:
-        ks = keep_scale(p.shape, dropout_p, seed, offset, p.device, p.dtype)
+        ks = _keep_scale(p, dropout_p, seed, offset, head_map)
         p_drop = p * ks
         dp = dp * ks
     ds = p * (dp - delta.to(s.dtype).unsqueeze(-1))
@@ -147,19 +160,19 @@ def _p_ds(q, k, v, do, lse, delta, causal, scale, kpad_bias, dropout_p, seed,
 
 
 def _dq_reference(q, k, v, do, lse, delta, causal, scale, kpad_bias=None,
-                  dropout_p=0.0, seed=None, offset=None):
+                  dropout_p=0.0, seed=None, offset=None, head_map=None):
     """Plain version of the dQ kernel: ``dq = scale * dS K``."""
     _, ds = _p_ds(q, k, v, do, lse, delta, causal, scale, kpad_bias,
-                  dropout_p, seed, offset)
+                  dropout_p, seed, offset, head_map)
     return (torch.matmul(ds, k.to(ds.dtype)) * scale).to(q.dtype)
 
 
 def _dkv_reference(q, k, v, do, lse, delta, causal, scale, kpad_bias=None,
-                   dropout_p=0.0, seed=None, offset=None):
+                   dropout_p=0.0, seed=None, offset=None, head_map=None):
     """Plain version of the dK/dV kernel: ``dk = scale * dS^T Q``,
     ``dv = (P * keep/(1-p))^T dO``."""
     p_drop, ds = _p_ds(q, k, v, do, lse, delta, causal, scale, kpad_bias,
-                       dropout_p, seed, offset)
+                       dropout_p, seed, offset, head_map)
     dk = torch.matmul(ds.transpose(-1, -2), q.to(ds.dtype)) * scale
     dv = torch.matmul(p_drop.transpose(-1, -2), do.to(ds.dtype))
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -194,7 +207,22 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_forward(q, k, v, kpad_bias, causal, scale, dropout, want_lse):
+def mask_args(head_map):
+    """The kernels' ``(mask_heads, mask_head0)``: ``head_map = (heads,
+    h0)`` says the call holds heads ``h0 .. h0 + H - 1`` of a model of
+    ``heads`` heads (a tensor-parallel rank's local heads), whose dropout
+    masks it then draws, keyed on that model's (batch, head) rows; None
+    keys them on the call's own (``(0, 0)``)."""
+    if head_map is None:
+        return 0, 0
+    heads, h0 = int(head_map[0]), int(head_map[1])
+    if heads <= 0 or h0 < 0:
+        raise ValueError(f"flash attention: head_map {head_map}")
+    return heads, h0
+
+
+def _launch_forward(q, k, v, kpad_bias, causal, scale, dropout, want_lse,
+                    head_map=None):
     q, k, v, kpad_bias = _kernel_inputs(q, k, v, kpad_bias)
     b, h, L, d = q.shape
     o = torch.empty_like(q)              # keeps q's strides
@@ -208,7 +236,8 @@ def _launch_forward(q, k, v, kpad_bias, causal, scale, dropout, want_lse):
                     _ptr(kpad_bias), o.data_ptr(), _ptr(lse), b * h, L, d, h,
                     q.stride(0), q.stride(1), q.stride(2), float(scale),
                     int(bool(causal)), *_build.dropout_args(*dropout),
-                    _build.dtype_code(q), _build.stream(q.device))
+                    *mask_args(head_map), _build.dtype_code(q),
+                    _build.stream(q.device))
     return o, lse
 
 
@@ -229,7 +258,8 @@ def _backward_inputs(q, k, v, do, lse, delta, kpad_bias):
     return q, k, v, do, lse, delta, kpad_bias
 
 
-def _backward_call(kernel, argtypes, tensors, outs, causal, scale, dropout):
+def _backward_call(kernel, argtypes, tensors, outs, causal, scale, dropout,
+                   head_map=None):
     q, k, v, do, lse, delta, kpad_bias = tensors
     b, h, L, d = q.shape
     if q.numel() == 0:
@@ -242,7 +272,8 @@ def _backward_call(kernel, argtypes, tensors, outs, causal, scale, dropout):
                     q.stride(0), q.stride(1), q.stride(2), do.stride(0),
                     do.stride(1), do.stride(2), float(scale),
                     int(bool(causal)), *_build.dropout_args(*dropout),
-                    _build.dtype_code(q), _build.stream(q.device))
+                    *mask_args(head_map), _build.dtype_code(q),
+                    _build.stream(q.device))
 
 
 def _attention_work(kernel):
@@ -272,7 +303,8 @@ def _attention_work(kernel):
 
 @_build.work('flash_attention_dq', _attention_work('flash_attention_dq'))
 def flash_attention_dq(q, k, v, do, lse, delta, causal, scale,
-                       kpad_bias=None, dropout_p=0.0, seed=None, offset=None):
+                       kpad_bias=None, dropout_p=0.0, seed=None, offset=None,
+                       head_map=None):
     """``dq`` of attention on (B, H, L, D) from the saved ``lse`` and
     ``delta = rowsum(dO * O)``, both (B, H, L). CUDA tensors run the dQ
     kernel, CPU tensors ``_dq_reference``."""
@@ -280,43 +312,45 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal, scale,
     _check_dropout(*dropout)
     if not _build.use_kernels(q):
         return _dq_reference(q, k, v, do, lse, delta, causal, scale,
-                             kpad_bias, *dropout)
+                             kpad_bias, *dropout, head_map)
     tensors = _backward_inputs(q, k, v, do, lse, delta, kpad_bias)
     dq = torch.empty_like(tensors[0])
     _backward_call('flash_attention_dq', _DQ_ARGTYPES, tensors, (dq,),
-                   causal, scale, dropout)
+                   causal, scale, dropout, head_map)
     return dq
 
 
 @_build.work('flash_attention_dkv', _attention_work('flash_attention_dkv'))
 def flash_attention_dkv(q, k, v, do, lse, delta, causal, scale,
                         kpad_bias=None, dropout_p=0.0, seed=None,
-                        offset=None):
+                        offset=None, head_map=None):
     """``(dk, dv)``, as ``flash_attention_dq``. CUDA tensors run the dK/dV
     kernel, CPU tensors ``_dkv_reference``."""
     dropout = (float(dropout_p), seed, offset)
     _check_dropout(*dropout)
     if not _build.use_kernels(q):
         return _dkv_reference(q, k, v, do, lse, delta, causal, scale,
-                              kpad_bias, *dropout)
+                              kpad_bias, *dropout, head_map)
     tensors = _backward_inputs(q, k, v, do, lse, delta, kpad_bias)
     dk, dv = torch.empty_like(tensors[0]), torch.empty_like(tensors[0])
     _backward_call('flash_attention_dkv', _DKV_ARGTYPES, tensors, (dk, dv),
-                   causal, scale, dropout)
+                   causal, scale, dropout, head_map)
     return dk, dv
 
 
 @_build.work('flash_attention_fwd', _attention_work('flash_attention_fwd'))
-def _forward(q, k, v, causal, scale, kpad_bias, dropout, want_lse):
+def _forward(q, k, v, causal, scale, kpad_bias, dropout, want_lse,
+             head_map=None):
     if not _build.use_kernels(q):
-        return _attn_reference(q, k, v, causal, scale, kpad_bias, *dropout)
+        return _attn_reference(q, k, v, causal, scale, kpad_bias, *dropout,
+                               head_map)
     return _launch_forward(q, k, v, kpad_bias, causal, scale, dropout,
-                           want_lse)
+                           want_lse, head_map)
 
 
 def flash_attention_backward(q, k, v, o, lse, do, causal=False, scale=None,
                              kpad_bias=None, dropout_p=0.0, seed=None,
-                             offset=None):
+                             offset=None, head_map=None):
     """``(dq, dk, dv)`` of attention on (B, H, L, D) from the forward's
     inputs and outputs and the output gradient ``do``: ``delta`` in a
     torch op (fp32, as the reference's), then ``flash_attention_dq`` and
@@ -326,8 +360,8 @@ def flash_attention_backward(q, k, v, o, lse, do, causal=False, scale=None,
     ct = torch.promote_types(q.dtype, torch.float32)
     delta = (do.to(ct) * o.to(ct)).sum(-1)          # (B, H, L)
     rest = (lse, delta, causal, scale, kpad_bias, dropout_p, seed, offset)
-    dq = flash_attention_dq(q, k, v, do, *rest)
-    dk, dv = flash_attention_dkv(q, k, v, do, *rest)
+    dq = flash_attention_dq(q, k, v, do, *rest, head_map=head_map)
+    dk, dv = flash_attention_dkv(q, k, v, do, *rest, head_map=head_map)
     return dq, dk, dv
 
 
@@ -347,32 +381,41 @@ def _dropout(dropout_p, seed, offset):
 def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kpad_bias: Optional[torch.Tensor], causal: bool,
                      scale: float, dropout_p: float, seed: int,
-                     offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                     offset: int, mask_heads: int,
+                     mask_head0: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The differentiable forward -> ``(o, lse)``, an op the dispatcher
     sees: selective checkpointing (``nn/remat.py``, ``'dots'``) keeps its
     outputs by name. ``seed`` and ``offset`` come as int64 (the schema has
-    no unsigned type)."""
+    no unsigned type); ``mask_heads`` / ``mask_head0``: ``mask_args``."""
     return _forward(q, k, v, causal, scale, kpad_bias,
-                    _dropout(dropout_p, seed, offset), True)
+                    _dropout(dropout_p, seed, offset), True,
+                    _head_map(mask_heads, mask_head0))
+
+
+def _head_map(mask_heads, mask_head0):
+    return (mask_heads, mask_head0) if mask_heads > 0 else None
 
 
 def _save_for_backward(ctx, inputs, output):
-    q, k, v, kpad_bias, causal, scale, dropout_p, seed, offset = inputs
+    (q, k, v, kpad_bias, causal, scale, dropout_p, seed, offset, mask_heads,
+     mask_head0) = inputs
     ctx.save_for_backward(q, k, v, *output, kpad_bias)
     # lse gets no gradient: no zero tensor is made for it
     ctx.set_materialize_grads(False)
     ctx.args = (causal, scale)
     ctx.dropout = _dropout(dropout_p, seed, offset)
+    ctx.head_map = _head_map(mask_heads, mask_head0)
 
 
 def _flash_attention_backward(ctx, g, _):
     if g is None:                   # o took no gradient either
-        return (None,) * 9
+        return (None,) * 11
     q, k, v, o, lse, kpad_bias = ctx.saved_tensors
     causal, scale = ctx.args
     dq, dk, dv = flash_attention_backward(
-        q, k, v, o, lse, g, causal, scale, kpad_bias, *ctx.dropout)
-    return dq, dk, dv, None, None, None, None, None, None
+        q, k, v, o, lse, g, causal, scale, kpad_bias, *ctx.dropout,
+        head_map=ctx.head_map)
+    return (dq, dk, dv) + (None,) * 8
 
 
 _flash_attention.register_autograd(_flash_attention_backward,
@@ -386,7 +429,7 @@ def _int64(word):
 
 def flash_attention_forward(q, k, v, causal=False, scale=None,
                             kpad_bias=None, dropout_p=0.0, seed=None,
-                            offset=None):
+                            offset=None, head_map=None):
     """Attention on (B, H, L, D) -> ``(o, lse)``; lse is (B, H, L) fp32.
     Not differentiable: ``flash_attention_bhld`` is."""
     dropout_p = float(dropout_p)
@@ -394,15 +437,17 @@ def flash_attention_forward(q, k, v, causal=False, scale=None,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _forward(q, k, v, causal, scale, kpad_bias,
-                    (dropout_p, seed, offset), True)
+                    (dropout_p, seed, offset), True, head_map)
 
 
 def flash_attention_bhld(q, k, v, causal=False, scale=None, kpad_bias=None,
-                         dropout_p=0.0, seed=None, offset=None):
+                         dropout_p=0.0, seed=None, offset=None,
+                         head_map=None):
     """Attention on (B, H, L, D) -> ``o``. ``kpad_bias``: optional (B, Lk)
     additive key-padding bias (0 keeps a key, a large negative value or
     ``-inf`` masks it). ``dropout_p > 0`` needs the call's Philox ``seed``
-    and ``offset``. Differentiable in q, k and v."""
+    and ``offset``; ``head_map``: see ``mask_args``. Differentiable in q,
+    k and v."""
     dropout_p = float(dropout_p)
     _check_dropout(dropout_p, seed, offset)
     if scale is None:
@@ -410,6 +455,6 @@ def flash_attention_bhld(q, k, v, causal=False, scale=None, kpad_bias=None,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _flash_attention(q, k, v, kpad_bias, bool(causal),
                                 float(scale), dropout_p, _int64(seed or 0),
-                                _int64(offset or 0))[0]
+                                _int64(offset or 0), *mask_args(head_map))[0]
     return _forward(q, k, v, causal, scale, kpad_bias,
-                    (dropout_p, seed, offset), False)[0]
+                    (dropout_p, seed, offset), False, head_map)[0]

@@ -19,9 +19,10 @@ into the high 32 bits of the offset it hands out (the stored count stays
 the call count, so a replay that sets it back draws the same masks). The
 rank is 0 unless the model's gradients are averaged over a process group:
 a train step that synchronises them (``sharding=`` or a ``DataParallel``
-net) and ``distributed.DataParallel`` set it to the process's rank, so
-that ranks that share a seed and average their gradients draw different
-masks. Ranks that synchronise nothing (``engine.fit(world=, rank=)``
+net) and ``distributed.DataParallel`` set it to the process's rank on the
+data axis, so that ranks that share a seed and average their gradients
+draw different masks, while the model ranks of one data replica (tensor
+parallelism) draw the same. Ranks that synchronise nothing (``engine.fit(world=, rank=)``
 alone) keep rank 0's masks, and with them stay equal when fed the same
 batches. Rank 0's offsets, and with them a world of one, are unchanged.
 All arithmetic is int64 holding 32-bit words; the 32 x 32 -> 64-bit
@@ -32,7 +33,7 @@ import weakref
 import torch
 
 __all__ = ['DropoutState', 'live_states', 'philox4x32', 'threshold',
-           'keep_mask', 'keep_scale']
+           'keep_mask', 'keep_scale', 'block_index', 'head_block']
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -115,9 +116,30 @@ def threshold(p):
     return min(int(p * 4294967296.0), 4294967295)
 
 
-def keep_mask(shape, p, seed, offset, device=None):
+def block_index(full_shape, starts, shape, device=None):
+    """The row-major linear indices in a tensor of ``full_shape`` of the
+    block of ``shape`` that starts at ``starts`` -> int64 of ``shape``."""
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(full_shape))):
+        pos = torch.arange(int(starts[d]), int(starts[d]) + int(shape[d]),
+                           dtype=torch.int64, device=device) * stride
+        idx = idx + pos.reshape((-1,) + (1,) * (len(full_shape) - 1 - d))
+        stride *= int(full_shape[d])
+    return idx.expand(tuple(int(s) for s in shape))
+
+
+def keep_mask(shape, p, seed, offset, device=None, within=None):
     """Boolean keep mask of ``shape``: element ``i`` (row-major) is kept
-    where its Philox word is ``>= threshold(p)``."""
+    where its Philox word is ``>= threshold(p)``. ``within=(full_shape,
+    starts)``: the tensor is the block of a ``full_shape`` tensor that
+    starts at ``starts``, and each element takes the word of its index
+    there (a tensor-parallel rank's piece draws the dense model's mask)."""
+    if within is not None:
+        idx = block_index(within[0], within[1], shape, device)
+        words = philox4x32(seed, offset, idx >> 2)
+        word = words.gather(-1, (idx & 3).unsqueeze(-1)).squeeze(-1)
+        return word >= threshold(p)
     n = 1
     for s in shape:
         n *= int(s)
@@ -126,7 +148,19 @@ def keep_mask(shape, p, seed, offset, device=None):
     return (words >= threshold(p)).reshape(tuple(shape))
 
 
-def keep_scale(shape, p, seed, offset, device=None, dtype=torch.float32):
+def head_block(shape, head_map):
+    """``keep_mask``'s ``within`` for (B, H, ...) probabilities that hold
+    heads ``h0 .. h0 + H - 1`` of a model of ``heads`` heads (``head_map
+    = (heads, h0)``; None: the tensor's own)."""
+    if head_map is None:
+        return None
+    heads, h0 = head_map
+    full = (shape[0], int(heads)) + tuple(shape[2:])
+    return full, (0, int(h0)) + (0,) * (len(shape) - 2)
+
+
+def keep_scale(shape, p, seed, offset, device=None, dtype=torch.float32,
+               within=None):
     """``keep / (1 - p)`` as a ``dtype`` tensor of ``shape``."""
-    keep = keep_mask(shape, p, seed, offset, device)
+    keep = keep_mask(shape, p, seed, offset, device, within)
     return keep.to(dtype) * (1.0 / (1.0 - p))

@@ -45,12 +45,15 @@ def next_dropout_call(dropout_state, p_eff, what):
     return dropout_state.next()
 
 
-def dropout(x, p=0.5, training=True, dropout_state=None):
+def dropout(x, p=0.5, training=True, dropout_state=None, shard=None):
     """Inverted dropout: in training each element is zeroed with
     probability ``p`` and the rest divided by ``1 - p``, in ``x``'s dtype:
     the reference's ``where(keep, v / (1 - p), 0)``, whose ``1 - p`` is a
     weakly typed scalar and so takes ``x``'s dtype (0.9 becomes 0.8999 in
-    fp16, 0.8984 in bf16); the quotient is rounded once."""
+    fp16, 0.8984 in bf16); the quotient is rounded once. ``shard=(n,
+    r)``: ``x`` is column block ``r`` of ``n`` (last dim) of the dense
+    activation and draws the dense mask's block (a tensor-parallel rank's
+    piece)."""
     p_eff = float(p) if training else 0.0
     if not 0.0 <= p_eff < 1.0:
         if p_eff == 1.0:
@@ -59,6 +62,12 @@ def dropout(x, p=0.5, training=True, dropout_state=None):
     seed, offset = next_dropout_call(dropout_state, p_eff, 'dropout')
     if seed is None:
         return x
-    keep = keep_mask(x.shape, p_eff, seed, offset, x.device)
+    if shard is None:
+        keep = keep_mask(x.shape, p_eff, seed, offset, x.device)
+    else:
+        n, r = shard
+        w = x.shape[-1]
+        keep = keep_mask(x.shape, p_eff, seed, offset, x.device, within=(
+            tuple(x.shape[:-1]) + (n * w,), (0,) * (x.dim() - 1) + (r * w,)))
     kept = float(torch.tensor(1.0 - p_eff, dtype=x.dtype))
     return torch.where(keep, x / kept, 0.0)

@@ -18,7 +18,7 @@ import math
 import torch
 
 from ...kernels.flash_attention import MAX_HEAD_DIM, flash_attention_bhld
-from ...kernels.philox import keep_scale
+from ...kernels.philox import head_block, keep_scale
 from .common import next_dropout_call
 
 __all__ = ['scaled_dot_product_attention']
@@ -42,7 +42,8 @@ def _mask_as_kpad_bias(m, batch, lk):
     return bias
 
 
-def _composed(q, k, v, mask, dropout_p, is_causal, seed, offset):
+def _composed(q, k, v, mask, dropout_p, is_causal, seed, offset,
+              head_map=None):
     """Plain attention on (B, H, L, D) for masks the kernel does not take."""
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if mask is not None:
@@ -57,14 +58,19 @@ def _composed(q, k, v, mask, dropout_p, is_causal, seed, offset):
     probs = torch.softmax(scores, dim=-1)
     if dropout_p > 0.0:
         probs = probs * keep_scale(probs.shape, dropout_p, seed, offset,
-                                   probs.device, probs.dtype)
+                                   probs.device, probs.dtype,
+                                   head_block(probs.shape, head_map))
     return torch.matmul(probs, v)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, dropout_state=None):
-    """query/key/value: (B, L, H, D). Returns (B, L, H, D)."""
+                                 training=True, dropout_state=None,
+                                 head_map=None):
+    """query/key/value: (B, L, H, D). Returns (B, L, H, D).
+    ``head_map=(heads, h0)``: the H heads are heads ``h0 ..`` of a model
+    of ``heads`` heads, whose dropout masks they draw
+    (``kernels.flash_attention.mask_args``)."""
     p_eff = float(dropout_p) if training else 0.0
     seed, offset = next_dropout_call(dropout_state, p_eff,
                                      'scaled_dot_product_attention')
@@ -79,7 +85,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if flashable:
         out = flash_attention_bhld(q, k, v, causal=is_causal,
                                    kpad_bias=kpad, dropout_p=p_eff,
-                                   seed=seed, offset=offset)
+                                   seed=seed, offset=offset,
+                                   head_map=head_map)
     else:
-        out = _composed(q, k, v, attn_mask, p_eff, is_causal, seed, offset)
+        out = _composed(q, k, v, attn_mask, p_eff, is_causal, seed, offset,
+                        head_map)
     return out.transpose(1, 2)

@@ -86,9 +86,13 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = p
         self.dropout_state = dropout_state
+        # (n, r): the input is column block r of n of the dense activation
+        # (tensor parallelism), whose mask it draws (F.dropout's shard)
+        self.shard = None
 
     def forward(self, x):
-        return F.dropout(x, self.p, self.training, self.dropout_state)
+        return F.dropout(x, self.p, self.training, self.dropout_state,
+                         shard=self.shard)
 
     def extra_repr(self):
         return f"p={self.p}"

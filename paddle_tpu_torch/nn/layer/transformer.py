@@ -15,7 +15,10 @@ output. Every dropout site of a layer, and of the encoder's copies of it,
 draws its ``(seed, offset)`` from the one ``DropoutState`` passed as
 ``dropout_state=``; a layer built without one raises when training asks it
 to drop. Under ``nn.remat.scope`` (``build_train_step(remat=)``) the
-encoder runs each layer under the scope's rematerialisation policy. KV
+encoder runs each layer under the scope's rematerialisation policy. Under
+tensor parallelism (``distributed.sharding.apply_tensor_parallel``) the
+attention runs on its rank's local heads (``local_heads``) and the FFN on
+its block of ``dim_feedforward``, their masks the dense model's. KV
 caches and decoder layers are not ported yet.
 """
 import copy
@@ -47,6 +50,9 @@ class MultiHeadAttention(nn.Module):
                              f"not a multiple of num_heads {num_heads}")
         self.dropout = dropout
         self.dropout_state = dropout_state
+        # (heads of the dense model, first head held), the model axis: see
+        # local_heads
+        self.head_map = self.tp_axis = None
         kw = dict(weight_attr=weight_attr, bias_attr=bias_attr,
                   device=device, generator=generator)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
@@ -54,21 +60,40 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = Linear(embed_dim, embed_dim, **kw)
         self.out_proj = Linear(embed_dim, embed_dim, **kw)
 
+    def local_heads(self, n, r, axis):
+        """Run on heads ``r H/n .. (r + 1) H/n`` of the ``H`` heads (rank
+        ``r`` of the ``n`` of model ``axis``, whose q/k/v projections yield
+        those heads' columns): the dropout masks stay the dense model's,
+        and each distinct input's gradient is summed over the axis once
+        (``distributed.sharding._CopyToModel``)."""
+        self.head_map = (self.num_heads, r * (self.num_heads // n))
+        self.num_heads //= n
+        self.tp_axis = axis
+
     def forward(self, query, key=None, value=None, attn_mask=None):
         key = query if key is None else key
         value = key if value is None else value
+        if self.tp_axis is not None:
+            query, key, value = _copy_to_model((query, key, value),
+                                               self.tp_axis)
         B = query.shape[0]
-        heads = (B, -1, self.num_heads, self.head_dim)
-        q = self.q_proj(query).reshape(heads)
-        k = self.k_proj(key).reshape(heads)
-        v = self.v_proj(value).reshape(heads)
+        # every dim named: projections whose width is not num_heads x
+        # head_dim (column-parallel ones left on all heads) fail here
+        # instead of folding their width into the length
+        q = self.q_proj(query).reshape(B, query.shape[1], self.num_heads,
+                                       self.head_dim)
+        k = self.k_proj(key).reshape(B, key.shape[1], self.num_heads,
+                                     self.head_dim)
+        v = self.v_proj(value).reshape(B, value.shape[1], self.num_heads,
+                                       self.head_dim)
         if attn_mask is not None and attn_mask.dtype != torch.bool:
             attn_mask = attn_mask.to(query.dtype)
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask,
             dropout_p=self.dropout, training=self.training,
-            dropout_state=self.dropout_state)
-        return self.out_proj(out.reshape(B, -1, self.embed_dim))
+            dropout_state=self.dropout_state, head_map=self.head_map)
+        return self.out_proj(out.reshape(B, query.shape[1],
+                                         self.num_heads * self.head_dim))
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -144,6 +169,17 @@ class TransformerEncoder(nn.Module):
         if self.norm is not None:
             src = self.norm(src)
         return src
+
+
+def _copy_to_model(inputs, axis):
+    """The attention's inputs, each distinct one through one
+    ``_CopyToModel`` (its gradient summed over the model axis)."""
+    from ...distributed.sharding import _CopyToModel
+    done = {}
+    for x in inputs:
+        if id(x) not in done:
+            done[id(x)] = _CopyToModel.apply(x, axis)
+    return tuple(done[id(x)] for x in inputs)
 
 
 @torch.no_grad()

@@ -15,8 +15,11 @@ The port's counterpart of ``paddle_tpu/observability/interpose.py``.
   PCIe" number.
 - ``record_collective(op, nbytes)``: every collective of
   ``distributed.collective`` (and the train step's, which go through it)
-  counts ``collective.<op>.calls`` and ``collective.<op>.bytes``; the
-  model-parallel ones come with ROADMAP.md Queue 1 item 5b.
+  counts ``collective.<op>.calls`` and ``collective.<op>.bytes``; those
+  on a model-parallel axis under the axis's name
+  (``collective.model.all_reduce.calls``, ``collective.seq.ppermute.bytes``,
+  ``collective.pipe.ppermute.calls``), and a gloo group's CUDA collectives
+  that run as all-reduces also as ``host_transfer.collective.gloo_cuda``.
 """
 from . import registry, state
 
@@ -70,8 +73,8 @@ def summary():
     serving tallies and the cost ledger's. The reference's
     ``jax_traces`` / ``jax_compiles`` / ``jax_compile_ms`` are
     ``kernel_builds`` / ``kernel_build_ms`` here (the port has no trace
-    to count); its distributed keys read ``distributed/``'s counters
-    (the model-parallel ones wait for ROADMAP.md, Queue 1 item 5b)."""
+    to count); its distributed keys read ``distributed/``'s counters,
+    the model-parallel axes' under ``collective.<axis>.<op>``."""
     snap = registry.snapshot()['counters']
     return {
         'kernel_builds': snap.get('kernels.builds', 0),

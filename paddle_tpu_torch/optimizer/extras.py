@@ -16,9 +16,9 @@ order.
 activations are recomputed in the backward pass, with the same dropout
 masks and precision (the reference records the checkpoints and leaves
 the recompute to ``jax.checkpoint``).
-``PipelineOptimizer`` raises ``NotImplementedError``: pipeline
-parallelism comes with ``distributed/``'s model parallelism (ROADMAP.md,
-Queue 1 item 5b).
+``PipelineOptimizer`` validates its configuration and delegates to the
+inner optimizer, as the reference's: the pipeline itself is
+``distributed.pipeline_apply``.
 """
 import functools
 
@@ -156,14 +156,29 @@ class ModelAverage(_Swap):
 
 
 class PipelineOptimizer:
-    """The 1.8 pipeline-training wrapper: raises until ``distributed/``'s
-    pipeline (ROADMAP.md, Queue 1 item 5b)."""
+    """The 1.8 pipeline-training wrapper (parity: ``fluid/optimizer.py:
+    3666``), as the reference's: it validates the configuration and
+    delegates to the inner optimizer (``minimize`` and every other
+    attribute); the microbatches are ``distributed.pipeline_apply``'s
+    (``num_microbatches``), not a host scheduler's."""
 
     def __init__(self, optimizer, num_microbatches=1, start_cpu_core_id=0):
-        raise NotImplementedError(
-            "PipelineOptimizer is not ported yet: pipeline parallelism "
-            "comes with distributed/'s model parallelism (ROADMAP.md, Queue "
-            "1 item 5b)")
+        if num_microbatches < 1:
+            raise ValueError("num_microbatches must be a positive value.")
+        if start_cpu_core_id < 0:
+            raise ValueError(
+                "start_cpu_core_id must be greater than or equal to 0.")
+        self._optimizer = optimizer
+        self._num_microbatches = num_microbatches
+        self._start_cpu_core_id = start_cpu_core_id
+
+    def __getattr__(self, name):
+        return getattr(self._optimizer, name)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        return self._optimizer.minimize(loss, startup_program,
+                                        parameter_list, no_grad_set)
 
 
 class RecomputeOptimizer:

@@ -20,8 +20,8 @@
 the whole layer is testable on the CPU. The resharding restore
 (``CheckpointManager.restore(sharding=)``,
 ``async_checkpoint.place_with_config``) places a checkpoint written at any
-world size onto this rank's pieces; model-parallel layouts wait for ROADMAP.md, Queue 1
-item 5b.
+world size onto this rank's pieces, the tensor-parallel ones included (a
+save at (data 2, model 2) restores at (1, 2) and unsharded).
 """
 from . import async_checkpoint, atomic_io, faultinject, watchdog
 from .atomic_io import (AtomicWriteError, atomic_open, atomic_pickle_dump,

@@ -180,17 +180,19 @@ def _dtype_name(leaf):
 # shard planning
 # ---------------------------------------------------------------------------
 
-def _plan(n, path, leaf, full, dim, world):
+def _plan(n, path, leaf, full, dim, world, owners=None):
     """One leaf's piece plan: ``world`` pieces of the ``full`` shape along
-    ``dim``, or (None) one piece, rank 0's."""
+    ``dim`` (piece i written by rank ``owners[i]``, default i), or (None)
+    one piece, rank 0's."""
     if dim is None:
         pieces = [{'rank': 0, 'index': [[0, d] for d in full]}]
     else:
-        chunk = full[dim] // world
+        owners = list(range(world)) if owners is None else owners
+        chunk = full[dim] // len(owners)
         pieces = []
-        for r in range(world):
+        for i, r in enumerate(owners):
             index = [[0, d] for d in full]
-            index[dim] = [r * chunk, (r + 1) * chunk]
+            index[dim] = [i * chunk, (i + 1) * chunk]
             pieces.append({'rank': r, 'index': index})
     return {'path': list(path), 'key': 'L%05d' % n, 'shape': list(full),
             'dtype': _dtype_name(leaf), 'dim': dim, 'pieces': pieces}
@@ -231,31 +233,40 @@ def _plan_config(state, config):
     ``ShardingConfig``, or the step's ``distributed.sharding.FlatShards``,
     whose ``layout`` (``{name: ...}`` of the step's sharded parameters)
     makes a ``params.<name>`` leaf, or an optimizer slot, at its piece's
-    shape this rank's piece of the full shape recorded; any other leaf is
-    split by the FSDP rule at its own shape. ``local`` marks the
-    former."""
+    shape this rank's piece of the full shape recorded (piece i written by
+    the rank at data index i, model index 0), and its ``tp`` pieces (a
+    model-parallel parameter, or a slot of its shape) those of their
+    dense shape (piece j by the rank at data index 0, model index j); any
+    other leaf, whole on every rank, is split over the world by the FSDP
+    rule at its own shape. ``local`` marks the former two."""
     from ..distributed import env
     from ..distributed.sharding import FlatShards, shard_dim
     world = max(env.get_world_size(), 1)
-    layout = config.layout if isinstance(config, FlatShards) else None
+    flat = config if isinstance(config, FlatShards) else None
     plans, local = [], []
     for n, (path, leaf) in enumerate(_leaf_paths(state)):
         shape = tuple(int(s) for s in leaf.shape)
-        lf = None
-        if layout is not None and len(path) >= 2 and \
-                path[0] in ('params', 'opt'):
-            lf = layout.get(path[1])
-            if lf is not None and shape != lf.shard_shape:
-                lf = None
-        if lf is not None:
+        name = path[1] if flat is not None and len(path) >= 2 and \
+            path[0] in ('params', 'opt') else None
+        lf = flat.layout.get(name) if name is not None else None
+        owners = None
+        if lf is not None and shape == lf.shard_shape:
             full, dim = lf.full_shape, lf.dim
+            owners = [env.rank_at({env.DATA_AXIS: i})
+                      for i in range(flat.world)]
+        elif name in getattr(flat, 'tp', {}) and \
+                shape == flat.tp_piece(name):
+            dim, axis = flat.tp[name]
+            full = flat.tp_full[name]
+            owners = [env.rank_at({axis: j})
+                      for j in range(env.get_world_size(axis))]
         else:
             full = shape
-            dim = shard_dim(shape, world, config.min_size)
+            dim = shard_dim(shape, world, config.min_size or 1 << 62)
         if world == 1:
             dim = None
-        plans.append(_plan(n, path, leaf, full, dim, world))
-        local.append(lf is not None and dim is not None)
+        plans.append(_plan(n, path, leaf, full, dim, world, owners))
+        local.append(owners is not None and dim is not None)
     return plans, world, local
 
 
@@ -417,12 +428,16 @@ def save_sharded(root, state, step, meta=None, config=None, world=None,
     mesh_desc = None
     if config is not None:
         from ..distributed import env
+        from ..distributed.strategy import mesh_axes
         plans, nranks, local = _plan_config(state, config)
         rank = env.get_rank() if env.is_initialized() else None
         cfg = getattr(config, 'config', None) or config
-        mesh_desc = {'axes': {cfg.data_axis: nranks},
+        axes = mesh_axes(env.get_mesh())
+        mesh_desc = {'axes': {a: n for a, n in axes.items() if n > 1}
+                     or {cfg.data_axis: nranks},
                      'fsdp': bool(cfg.fsdp),
-                     'tensor_parallel_degree': 1}
+                     'tensor_parallel_degree':
+                         int(cfg.tensor_parallel_degree)}
     else:
         nranks = max(int(world or 1), 1)
         plans = _plan_world(state, nranks, min_size=min_size)
@@ -593,8 +608,11 @@ def place_with_config(state, config):
     engine's layout (``{'params', 'opt', ...}``, full shapes, saved at any
     world) -> this rank's pieces over ``config``'s process group, each
     parameter and each optimizer slot of its shape cut along the FSDP
-    split dim (``distributed.sharding.shard_dim``), byte for byte; other
-    leaves whole. ``None`` config, or a world of one, returns ``state``."""
+    split dim (``distributed.sharding.shard_dim``) over the data axis,
+    byte for byte; other leaves whole. ``config`` may be the step's
+    ``FlatShards``, whose layout then cuts them, the model-parallel pieces
+    included (``FlatShards.localize``). ``None`` config, or a data axis
+    of one rank, returns ``state``."""
     if config is None:
         return state
     if not (isinstance(state, dict) and 'params' in state):
@@ -603,8 +621,16 @@ def place_with_config(state, config):
             "resharding restore needs an engine-layout state "
             "({'params', 'opt', ...}) — got %r" % (got,))
     from ..distributed import env
-    from ..distributed.sharding import shard_dim
-    world, rank = env.get_world_size(), env.get_rank()
+    from ..distributed.sharding import FlatShards, shard_dim
+    if isinstance(config, FlatShards):
+        out = dict(state)
+        out['params'] = {n: config.localize(v, n)
+                         for n, v in state['params'].items()}
+        out['opt'] = {n: {s: config.localize(v, n) if hasattr(v, 'shape')
+                          else v for s, v in slots.items()}
+                      for n, slots in state.get('opt', {}).items()}
+        return out
+    world, rank = env.get_world_size(env.DATA_AXIS), env.get_rank(env.DATA_AXIS)
     if world == 1:
         return state
 

@@ -358,9 +358,12 @@ class CheckpointManager:
             return None
         state, meta, extra, _s = got
         if sharding is not None:
+            from ..distributed.sharding import FlatShards
             from ..distributed.strategy import resolve_sharding
             from .async_checkpoint import place_with_config
-            state = place_with_config(state, resolve_sharding(sharding))
+            state = place_with_config(
+                state, sharding if isinstance(sharding, FlatShards)
+                else resolve_sharding(sharding))
         if return_extra:
             return state, meta, extra
         return state, meta

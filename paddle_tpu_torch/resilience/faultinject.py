@@ -30,8 +30,8 @@ against, on the CPU, deterministically:
 - ``slow_collective`` — every collective of ``distributed/`` sleeps
   first, against ``distributed.set_timeout``'s deadline; ``boot_fail`` —
   a supervised ``spawn`` rank crashes before its started marker, the
-  case ``max_restarts`` restarts (``distributed/``'s model-parallel
-  collectives wait for ROADMAP.md, Queue 1 item 5b);
+  case ``max_restarts`` restarts (the model-parallel collectives,
+  ``ppermute`` included, go through the same deadline and sleep too);
 - ``retrace_bait`` and ``corrupt_compile_cache`` act on a subsystem the
   port does not have yet: each raises ``NotImplementedError`` naming where
   it comes (ROADMAP.md, Queue 1 item 7: ``compilecache/``, whose

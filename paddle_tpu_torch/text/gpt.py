@@ -29,8 +29,12 @@ Attention:
 ``pos`` is a host int: the port's decode loop runs in Python, so nothing
 needs a traced offset. ``generate`` follows the reference's
 ``_generate_fn`` step for step as a loop on the device (see its
-docstring). ``use_ring_attention=True`` raises ``NotImplementedError``:
-ring attention comes with ``distributed/``.
+docstring). ``use_ring_attention=True`` runs the no-cache attention as
+``distributed.ring_attention`` over the ``'seq'`` axis (its global form:
+each rank takes its block of the sequence, the blocks travel the ring,
+the output is all-gathered), causal and without dropout, as the
+reference's; without a ``'seq'`` axis of more than one rank that is the
+causal flash forward. The cached (decode) path is the same either way.
 """
 import math
 
@@ -93,11 +97,7 @@ class CausalSelfAttention(nn.Module):
     def __init__(self, config, *, device=None, generator=None,
                  dropout_state=None):
         super().__init__()
-        if config.use_ring_attention:
-            raise NotImplementedError(
-                "GPT use_ring_attention=True: ring attention comes with "
-                "distributed/'s model parallelism (ROADMAP.md, Queue 1 item "
-                "5b)")
+        self.use_ring = config.use_ring_attention
         self.num_heads = config.num_heads
         self.hidden = config.hidden_size
         kw = dict(device=device, generator=generator)
@@ -113,9 +113,14 @@ class CausalSelfAttention(nn.Module):
         if cache is not None:
             out, cache = self._cached_attention(q, k, v, cache, pos)
             return self.dropout(self.proj(out.reshape(B, L, E))), cache
-        # the reference passes no dropout_p: attention never drops
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                             training=self.training)
+        if self.use_ring:
+            from ..distributed.ring_attention import ring_attention
+            out = ring_attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                                 causal=True).transpose(1, 2)
+        else:
+            # the reference passes no dropout_p: attention never drops
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 training=self.training)
         return self.dropout(self.proj(out.reshape(B, L, E)))
 
     def _cached_attention(self, q, k, v, cache, pos):

@@ -126,13 +126,13 @@ def sgd_clip():
                     grad_clip=ClipGradByGlobalNorm(CLIP_NORM))
 
 
-def join_group():
+def join_group(mesh_shape=None, axis_names=None):
     """Every rank case: one thread (the ranks share the machine's cores,
     and a fixed count keeps the CPU kernels' order of summation) and the
-    process group."""
+    process group (with ``mesh_shape`` / ``axis_names``: that mesh)."""
     from paddle_tpu_torch import distributed as dist
     torch.set_num_threads(1)
-    dist.init_parallel_env()
+    dist.init_parallel_env(mesh_shape, axis_names)
     return dist, dist.get_rank(), dist.get_world_size()
 
 
@@ -532,3 +532,395 @@ def fit_cases(init, ref_ckpt, port_ckpt, n_samples, lr):
     out['unsynced'] = unsynced_fit(init, port_ckpt + '-unsynced', world,
                                    rank)
     return out
+
+
+# -- model parallelism -------------------------------------------------------
+
+def _linear(w, b):
+    """A port ``Linear`` holding the reference-layout (in, out) ``w``."""
+    from paddle_tpu_torch.nn import Linear
+    lin = Linear(w.shape[0], w.shape[1], device='cpu')
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(np.array(w.T)))
+        lin.bias.copy_(torch.from_numpy(np.array(b)))
+    return lin
+
+
+def _grads_np(loss, tensors):
+    return [g.numpy().copy() for g in torch.autograd.grad(loss, tensors)]
+
+
+def tp_layer_cases(col, row, emb):
+    """The tensor-parallel layers on a (1, 2) mesh, forward and backward
+    (loss: the sum of the squared dense output): ``col`` / ``row`` are
+    ``(w (in, out), b, x)``, ``emb`` ``(table, ids)`` -> {case: (output,
+    this rank's weight and bias gradients, x's gradient)}."""
+    dist, rank, world = join_group((1, 2))
+    S = dist.sharding
+    out = {}
+    for gather in (True, False):
+        lin = S.ColumnParallelLinear.from_linear(_linear(col[0], col[1]),
+                                                 gather_output=gather)
+        x = torch.from_numpy(col[2]).requires_grad_()
+        y = lin(x)
+        out[f'column_gather_{gather}'] = (y.detach().numpy().copy(), *(
+            _grads_np((y ** 2).sum(), [lin.weight, lin.bias, x])))
+    for parallel in (False, True):
+        lin = S.RowParallelLinear.from_linear(_linear(row[0], row[1]),
+                                              input_is_parallel=parallel)
+        xs = row[2] if not parallel else \
+            np.split(row[2], world, axis=-1)[rank]
+        x = torch.from_numpy(np.ascontiguousarray(xs)).requires_grad_()
+        y = lin(x)
+        out[f'row_parallel_{parallel}'] = (y.detach().numpy().copy(), *(
+            _grads_np((y ** 2).sum(), [lin.weight, lin.bias, x])))
+    from paddle_tpu_torch.nn import Embedding
+    dense = Embedding(*emb[0].shape, device='cpu')
+    with torch.no_grad():
+        dense.weight.copy_(torch.from_numpy(emb[0]))
+    vocab = S.VocabParallelEmbedding.from_embedding(dense)
+    y = vocab(torch.from_numpy(emb[1]))
+    out['vocab'] = (y.detach().numpy().copy(),
+                    *_grads_np((y ** 2).sum(), [vocab.weight]))
+    out['counts'] = dist.collective.collective_counts()
+    # rules on an unmodified module: the gathered forms, the dense result
+    from paddle_tpu_torch import observability as obs
+    rules = {'0.weight': (None, 'model'), '0.bias': ('model',),
+             '2.weight': ('model', None)}
+    nets = [torch.nn.Sequential(_linear(row[0].T[:, :16], col[1]),
+                                torch.nn.Tanh(),
+                                _linear(row[0], row[1])) for _ in range(2)]
+    S.apply_tensor_parallel(nets[1], rules)
+    obs.enable()
+    res = []
+    for net in nets:
+        x = torch.from_numpy(col[2]).requires_grad_()
+        y = net(x)
+        gx, = torch.autograd.grad((y ** 2).sum(), [x])
+        res.append((y.detach().numpy(), gx.numpy()))
+    counters = obs.snapshot()['counters']
+    obs.disable()
+    obs.reset()
+    out['gathered'] = res
+    out['kinds'] = [type(m).__name__ for m in nets[1]]
+    out['counters'] = {k: v for k, v in counters.items()
+                       if k.startswith('collective.model.')}
+    out['rules_from'] = dist.ShardingConfig(
+        tensor_parallel_degree=2).with_rules_from(nets[1]).param_rules
+    out['shard_tensor'] = S.shard_tensor(torch.arange(8.0).reshape(2, 4),
+                                         (None, 'model')).numpy()
+    return rank, out
+
+
+def _tp_bert_rules():
+    from paddle_tpu_torch.distributed.sharding import megatron_rules
+    return megatron_rules()
+
+
+def bert_tp_cases(init, x, y, steps=3):
+    """BERT at tensor-parallel degree 2 on a (1, 2) mesh: ``steps`` AdamW
+    steps of ``build_train_step(sharding=...)`` on the batch ``(x, y)``
+    (eval mode, p = 0) -> the losses, the dense parameters and moments
+    after them, the collectives of one step; the TP model's forward at
+    p = 0.1 against the dense model's from one dropout offset; an encoder
+    layer with every dropout at 0.1 (its FFN's activation dropout too),
+    forward and backward, against the dense layer."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.engine import build_train_step
+    from paddle_tpu_torch.nn import TransformerEncoderLayer
+    from paddle_tpu_torch.kernels.philox import DropoutState
+    dist, rank, world = join_group((1, 2))
+    feed = (tuple(torch.from_numpy(a) for a in x),
+            tuple(torch.from_numpy(a) for a in y))
+    out = {'rank': rank, 'model_rank': dist.get_rank('model'),
+           'data_rank': dist.get_rank('data')}
+    net = model(init).eval()
+    cfg = dist.ShardingConfig(tensor_parallel_degree=2, fsdp=False,
+                              param_rules=_tp_bert_rules())
+    step = build_train_step(net=net, loss=net.pretraining_loss,
+                            optimizer=topt.AdamW(learning_rate=LR,
+                                                 weight_decay=0.01),
+                            sharding=cfg, device='cpu')
+    state = step.init_state()
+    out['heads'] = net.bert.encoder.layers[0].self_attn.num_heads
+    out['pieces'] = {k: tuple(p.shape) for k, p in step._tp.items()}
+    losses = []
+    for i in range(steps):
+        dist.collective.reset_collective_counts()
+        state, res = step(state, feed)
+        losses.append(float(res.loss))
+    out['counts_one_step'] = dist.collective.collective_counts()
+    out['losses'] = losses
+    out['params'] = numpy_tree(step.full_params(state))
+    out['opt'] = numpy_tree(step.full_slots(state))
+    # p = 0.1: the TP forward draws the dense model's masks
+    drop = dict(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
+    dense = model(init, **drop).train()
+    tp = model(init, **drop).train()
+    dist.sharding.apply_tensor_parallel(tp, _tp_bert_rules())
+    dist.parallel.mask_ranks(tp, True)
+    with torch.no_grad():
+        want = dense(*feed[0])[0].numpy()
+        got = tp(*feed[0])[0].numpy()
+    out['masked_forward'] = (got, want, tp.dropout_state.rank)
+    # an encoder layer, every dropout (the FFN's activation too) at 0.1
+    layers = []
+    for _ in range(2):
+        g = torch.Generator().manual_seed(3)
+        layers.append(TransformerEncoderLayer(
+            64, 4, 128, dropout=0.1, activation='gelu',
+            dropout_state=DropoutState(77), device='cpu',
+            generator=g).train())
+    dist.sharding.apply_tensor_parallel(layers[1], _tp_bert_rules())
+    src = torch.randn(2, 16, 64, generator=torch.Generator().manual_seed(4))
+    res = []
+    for layer in layers:
+        x0 = src.clone().requires_grad_()
+        o = layer(x0)
+        gx, = torch.autograd.grad((o ** 2).sum(), [x0])
+        res.append((o.detach().numpy(), gx.numpy()))
+    out['layer_p01'] = res
+    return out
+
+
+class _TPBlock(torch.nn.Module):
+    """The reference's ``tests/test_sharding_train.py`` ``_TPBlock``: a
+    column-parallel (64 -> 128, ungathered) and a row-parallel (128 -> 8,
+    parallel input) layer, from the dense weights ``w``."""
+
+    def __init__(self, w):
+        super().__init__()
+        from paddle_tpu_torch.distributed import sharding as S
+        self.col = S.ColumnParallelLinear.from_linear(
+            _linear(w['col.weight'], w['col.bias']), gather_output=False)
+        self.row = S.RowParallelLinear.from_linear(
+            _linear(w['row.weight'], w['row.bias']), input_is_parallel=True)
+
+    def forward(self, x):
+        return self.row(self.col(x))
+
+
+def _mse(out, y):
+    return ((out - y) ** 2).mean()
+
+
+def _tp_block_step(dense_w, mesh):
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.engine import build_train_step
+    net = _TPBlock(dense_w)
+    cfg = dist.ShardingConfig(fsdp=True, min_size=64,
+                              tensor_parallel_degree=mesh[1])
+    step = build_train_step(net=net, loss=_mse,
+                            optimizer=topt.Adam(learning_rate=1e-2),
+                            sharding=cfg, device='cpu')
+    return net, step
+
+
+def tp_fsdp_cases(dense_w, data, ckpt_dir):
+    """TP with FSDP on a (2, 2) mesh (4 ranks): the reference's
+    ``test_tensor_parallel_composes_with_fsdp_config`` case, each data
+    rank on its half of each global batch -> losses, dense parameters,
+    the pieces' layouts; then the step's state saved as a sharded
+    checkpoint in ``ckpt_dir`` (each rank its pieces, rank 0 commits)."""
+    from paddle_tpu_torch.resilience import CheckpointManager
+    dist, rank, world = join_group((2, 2))
+    net, step = _tp_block_step(dense_w, (2, 2))
+    state = step.init_state()
+    d, dr = dist.get_world_size('data'), dist.get_rank('data')
+    losses = []
+    for bx, by in data:
+        n = bx.shape[0] // d
+        feed = ((torch.from_numpy(bx[dr * n:(dr + 1) * n]),),
+                (torch.from_numpy(by[dr * n:(dr + 1) * n]),))
+        state, res = step(state, feed)
+        losses.append(float(res.loss))
+    out = {'rank': rank, 'losses': losses,
+           'tp': {k: (p.tp_dim, tuple(p.shape)) for k, p in
+                  step._tp.items()},
+           'fsdp': sorted(step._shards.layout),
+           'params': numpy_tree(step.full_params(state)),
+           'opt': numpy_tree(step.full_slots(state))}
+    CheckpointManager(ckpt_dir).save(state, step=3, sharding=step._shards)
+    dist.collective.barrier()
+    return out
+
+
+def tp_restore_case(dense_w, ckpt_dir):
+    """The (2, 2) checkpoint restored at (1, 2) by the same block's step,
+    once the (2, 2) job (another spawn, running alongside) has committed
+    it -> the dense parameters and moments it adopted."""
+    from paddle_tpu_torch.resilience import CheckpointManager
+    dist, rank, world = join_group((1, 2))
+    manifest = os.path.join(ckpt_dir, 'ckpt_00000003', 'manifest.json')
+    deadline = time.monotonic() + 180
+    while not os.path.exists(manifest):     # the (2, 2) job commits it
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no checkpoint at {manifest}")
+        time.sleep(0.05)
+    net, step = _tp_block_step(dense_w, (1, 2))
+    state = step.init_state()
+    loaded, meta = CheckpointManager(ckpt_dir).restore(
+        sharding=step._shards)
+    state = step.adopt_state(loaded)
+    return {'params': numpy_tree(step.full_params(state)),
+            'opt': numpy_tree(step.full_slots(state)),
+            'pieces': {k: tuple(v.shape) for k, v in
+                       state['params'].items()}}
+
+
+def fleet_tp_case(init):
+    """``fleet.init`` with ``strategy.tensor_parallel`` on a group of two
+    ranks: the (1, 2) mesh it installs and the config; then
+    ``hapi.Model.fit(strategy=)`` (SGD, 2 batches of 4) -> the dense
+    parameters, and those of the same fit without the strategy."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import fleet, sharding, strategy
+    dist, rank, world = join_group()
+    st = fleet.DistributedStrategy()
+    st.tensor_parallel = True
+    st.tensor_parallel_configs = {'tensor_parallel_degree': 2,
+                                  'param_rules': _tp_bert_rules()}
+    fleet.fleet.init(is_collective=True, strategy=st)
+    cfg = strategy.current_config()
+    out = {'axes': dict(dist.get_mesh().shape),
+           'degree': cfg.tensor_parallel_degree,
+           'model_rank': dist.get_rank('model')}
+    items = samples(8)
+    for key, strat in (('tp', st), ('dense', None)):
+        net = model(init)
+        m = pt.Model(net, device='cpu')
+        m.prepare(topt.SGD(learning_rate=0.05,
+                           parameters=net.named_parameters()),
+                  net.pretraining_loss)
+        m.fit(_loader(items, 4), epochs=1, strategy=strat, verbose=0)
+        out[key] = numpy_tree(sharding.gather_tp(dict(
+            net.named_parameters())))
+    strategy.set_current_config(None)
+    return out
+
+
+def tp_rank_cases(col, row, emb, init, x, y, dense_w, ckpt_dir):
+    """Every two-rank case of ``tests/test_torch_tensor_parallel.py``."""
+    fleet = fleet_tp_case(init)
+    layers = tp_layer_cases(col, row, emb)
+    return {'layers': layers, 'bert': bert_tp_cases(init, x, y),
+            'restore': tp_restore_case(dense_w, ckpt_dir), 'fleet': fleet}
+
+
+# ring attention, ppermute, the pipeline, the sparse table (no JAX: the
+# tests hold the results against the reference)
+
+def _ring_world():
+    from paddle_tpu_torch import distributed as dist
+    torch.set_num_threads(1)
+    world = int(os.environ.get('PADDLE_TRAINERS_NUM', '1'))
+    dist.init_parallel_env((world,), ('seq',))
+    return dist, dist.get_rank('seq'), world
+
+
+def ring_cases(qkv, gpt=None):
+    """Ring attention over a ``'seq'`` axis of every rank: the global form
+    (forward, and q/k/v gradients of the squared output's sum) causal and
+    not, the local form on this rank's blocks; ``ppermute``'s ring shift
+    and a partial permutation (and its gradient); with ``gpt`` (``(config
+    kwargs, weights, ids)``) a GPT's logits and parameter gradients with
+    ``use_ring_attention``."""
+    dist, rank, world = _ring_world()
+    out = {'rank': rank}
+    for causal in (True, False):
+        q, k, v = (torch.from_numpy(a).requires_grad_() for a in qkv)
+        o = dist.ring_attention(q, k, v, causal=causal)
+        out[f'global_{causal}'] = (o.detach().numpy(),
+                                   *_grads_np((o ** 2).sum(), [q, k, v]))
+        blocks = [torch.from_numpy(np.ascontiguousarray(
+            np.split(a, world, axis=2)[rank])).requires_grad_()
+            for a in qkv]
+        o = dist.ring_attention(*blocks, causal=causal, local=True)
+        out[f'local_{causal}'] = (o.detach().numpy(),
+                                  *_grads_np((o ** 2).sum(), blocks))
+    x = torch.tensor([float(rank), 10.0 + rank]).requires_grad_()
+    ring = [(i, (i + 1) % world) for i in range(world)]
+    shifted = dist.ppermute(x, ring, axis='seq')
+    g, = torch.autograd.grad((shifted * (rank + 1)).sum(), [x])
+    partial = dist.ppermute(x.detach(), [(0, world - 1), (1, 0)],
+                            axis='seq')
+    out['ppermute'] = (shifted.detach().numpy(), g.numpy(),
+                       partial.numpy())
+    out['counts'] = dist.collective.collective_counts()
+    if gpt is not None:
+        from paddle_tpu_torch.text.gpt import GPTConfig, GPTModel
+        cfg, weights, ids = gpt
+        net = GPTModel(GPTConfig(**cfg), device='cpu').eval()
+        with torch.no_grad():
+            for name, p in net.named_parameters():
+                p.copy_(torch.from_numpy(weights[name]))
+        logits = net(torch.from_numpy(ids))
+        names = [n for n, _ in net.named_parameters()]
+        grads = torch.autograd.grad((logits ** 2).mean(),
+                                    [p for _, p in net.named_parameters()])
+        out['gpt'] = (logits.detach().numpy(),
+                      {n: g.numpy() for n, g in zip(names, grads)})
+    return out
+
+
+def _mlp_stage(params, x):
+    return torch.tanh(x @ params['w1'] + params['b1']) @ params['w2'] + \
+        params['b2']
+
+
+def pipeline_cases(per_stage, x, cases):
+    """``pipeline_apply`` over a ``'pipe'`` axis of every rank, the
+    reference's MLP stages (``tests/test_pipeline.py``): for each
+    ``(n_micro, checkpoint)`` of ``cases`` the output, x's gradient and
+    this stage's slice of each stacked parameter's gradient (loss: the sum
+    of the squared output); the schedule; the stage-count error."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import pipeline as pp
+    torch.set_num_threads(1)
+    world = int(os.environ.get('PADDLE_TRAINERS_NUM', '1'))
+    dist.init_parallel_env((world,), ('pipe',))
+    s = dist.get_rank('pipe')
+    out = {'rank': s}
+    for n_micro, ckpt in cases:
+        stacked = {k: v.requires_grad_() for k, v in pp.stack_stage_params(
+            [{k: torch.from_numpy(v) for k, v in p.items()}
+             for p in per_stage]).items()}
+        xt = torch.from_numpy(x).requires_grad_()
+        y = pp.pipeline_apply(_mlp_stage, stacked, xt, n_micro,
+                              checkpoint=ckpt)
+        grads = _grads_np((y ** 2).sum(), [xt] + list(stacked.values()))
+        out[(n_micro, ckpt)] = (y.detach().numpy(), grads[0], {
+            k: g[s] for k, g in zip(stacked, grads[1:])})
+    out['schedule'] = pp.schedule(world, cases[0][0])
+    # one stage more than the axis has ranks
+    extra = pp.stack_stage_params(
+        [{k: torch.from_numpy(v) for k, v in per_stage[0].items()}] *
+        (world + 1))
+    try:
+        pp.pipeline_apply(_mlp_stage, extra, torch.from_numpy(x), 2)
+        out['mismatch'] = None
+    except ValueError as e:
+        out['mismatch'] = str(e)
+    return out
+
+
+def table_cases(weight, ids, grads, lr):
+    """``SparseShardedTable`` over a ``'model'`` axis of every rank: the
+    whole table after ``set_state_dict(weight)``, ``pull(ids)`` and its
+    gradient (of the pulled rows' sum) on this rank's block, then
+    ``push(ids, grads, lr)`` -> the whole table."""
+    from paddle_tpu_torch import distributed as dist
+    torch.set_num_threads(1)
+    world = int(os.environ.get('PADDLE_TRAINERS_NUM', '1'))
+    dist.init_parallel_env((1, world))
+    t = dist.SparseShardedTable(*weight.shape, device='cpu',
+                                generator=torch.Generator().manual_seed(0))
+    t.set_state_dict({'weight': weight})
+    rows = t.pull(torch.from_numpy(ids))
+    g, = torch.autograd.grad(rows.sum(), [t.weight])
+    t.push(torch.from_numpy(ids), torch.from_numpy(grads), lr=lr)
+    return {'rank': dist.get_rank('model'), 'rows': rows.detach().numpy(),
+            'grad': g.numpy(), 'lo': t.lo,
+            'after': t.state_dict()['weight'].numpy()}

@@ -247,9 +247,21 @@ def test_sampled_generate_repeats_under_a_seed(pair):
     assert (a[:, :5].numpy() == ids).all()
 
 
-def test_generate_refuses_past_max_seq_and_ring_attention(pair):
-    _, port = pair
+def test_generate_refuses_past_max_seq_and_ring_attention(pair,
+                                                           jax_steps):
+    ref, port = pair
     with pytest.raises(ValueError, match='exceeds max_seq_len'):
         port.generate(_ids(length=60), max_new_tokens=5)
-    with pytest.raises(NotImplementedError, match='distributed/'):
-        GPTModel(GPTConfig(use_ring_attention=True, **SMALL), device='cpu')
+    # use_ring_attention without a 'seq' axis: the causal attention of the
+    # model without it, as the reference's ring falls back to its plain
+    # attention (two ranks: tests/test_torch_ring_attention.py)
+    ring = GPTModel(GPTConfig(use_ring_attention=True, **SMALL),
+                    device='cpu').eval()
+    ring.load_state_dict(port.state_dict())
+    ids = _ids()
+    with torch.no_grad():
+        got = ring(_t(ids)).numpy()
+        torch.testing.assert_close(ring(_t(ids)), port(_t(ids)),
+                                   rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(jax_steps[0](ids)),
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)

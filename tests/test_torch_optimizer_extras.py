@@ -202,5 +202,21 @@ def test_recompute_wrapper_equals_the_plain_run():
 
 
 def test_pipeline_optimizer_raises_naming_distributed():
-    with pytest.raises(NotImplementedError, match='distributed/'):
-        textras.PipelineOptimizer(topt.SGD(), num_microbatches=2)
+    """The reference's wrapper: its configuration errors, word for word,
+    and the inner optimizer's API (the pipeline itself is
+    distributed.pipeline_apply: tests/test_torch_pipeline.py)."""
+    from paddle_tpu.optimizer import extras as rextras
+    for kw in ({'num_microbatches': 0}, {'start_cpu_core_id': -1}):
+        errors = []
+        for mod in (rextras, textras):
+            with pytest.raises(ValueError) as e:
+                mod.PipelineOptimizer(object(), **kw)
+            errors.append(str(e.value))
+        assert errors[0] == errors[1]
+    w = torch.nn.Parameter(torch.tensor([1.0, 2.0]))
+    opt = textras.PipelineOptimizer(
+        topt.SGD(learning_rate=0.5, parameters=[w]), num_microbatches=4)
+    assert opt._num_microbatches == 4
+    assert opt.get_lr() == 0.5
+    opt.minimize((w ** 2).sum())
+    assert torch.equal(w.detach(), torch.tensor([0.0, 0.0]))

@@ -29,6 +29,7 @@ import torch
 
 import jax
 from jax.sharding import Mesh
+from jax.sharding import PartitionSpec as r_P
 
 import paddle_tpu as paddle
 from paddle_tpu import engine as r_engine
@@ -37,6 +38,7 @@ from paddle_tpu.core import rng as r_rng
 from paddle_tpu.distributed import env as r_env
 from paddle_tpu.distributed import fleet as r_fleet
 from paddle_tpu.distributed import strategy as r_strategy
+from paddle_tpu.distributed import sharding as r_sharding
 from paddle_tpu.distributed.sharding import (
     first_divisible_spec as r_first_divisible, fsdp_pspecs as r_fsdp_pspecs)
 from paddle_tpu.nn.layer_base import buffer_values, param_values
@@ -168,19 +170,42 @@ def side_resolve(side):
 def test_unsupported_knobs_raise_as_reference():
     assert _knobs(t_fleet) == _knobs(r_fleet) == [True, 'ShardingConfig',
                                                   64]
-    # tensor parallelism itself waits for item 5b
-    st = t_fleet.DistributedStrategy()
-    st.tensor_parallel = True
-    st.tensor_parallel_configs = {'tensor_parallel_degree': 2}
-    with pytest.raises(NotImplementedError, match='Queue 1 item 5b'):
-        t_strategy.resolve_sharding(st)
+    # tensor parallelism resolves as the reference's, and a degree the
+    # devices do not divide raises its error (the port's one process has
+    # one device, the reference's 8 host devices divide 2 but not 3)
+    for side, tp, devices in ((t_fleet, 2, 1), (r_fleet, 3, 8)):
+        st = side.DistributedStrategy()
+        st.tensor_parallel = True
+        st.tensor_parallel_configs = {'tensor_parallel_degree': tp}
+        with pytest.raises(ValueError, match=f'tensor_parallel_degree={tp} '
+                           f'does not divide the {devices} available'):
+            side_resolve(side)(st)
+    # the layers without a model axis are the dense layers, as the
+    # reference's without a mesh
+    paddle.seed(2)
+    ref_col = r_sharding.ColumnParallelLinear(4, 6)
+    col = t_sharding.ColumnParallelLinear.from_linear(
+        R._linear(np.asarray(ref_col.weight.numpy()),
+                  np.asarray(ref_col.bias.numpy())))
+    x = np.random.RandomState(0).randn(3, 4).astype(np.float32)
+    np.testing.assert_allclose(
+        col(torch.from_numpy(x)).detach().numpy(),
+        np.asarray(ref_col(paddle.to_tensor(x)).numpy()), rtol=1e-6)
     for cls in (t_sharding.ColumnParallelLinear,
                 t_sharding.RowParallelLinear,
                 t_sharding.VocabParallelEmbedding):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 5b'):
-            cls(4, 4)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 5b'):
-        t_strategy.ShardingConfig(param_rules={'w': (None, 'model')})
+        layer = cls(4, 4, device='cpu')
+        assert all(getattr(p, 'tp_spec', None) is not None
+                   for n, p in layer.named_parameters()
+                   if n.endswith('weight'))
+    # param_rules: the reference's specs, FSDP for the rest
+    rules = {'w': (None, 'model')}
+    shapes = {'w': (8, 8), 'v': (2048,)}
+    got = t_strategy.ShardingConfig(param_rules=rules).param_specs(shapes)
+    want = r_strategy.ShardingConfig(
+        mesh=Mesh(np.asarray(jax.devices()[:1]), ('data',)),
+        param_rules={'w': r_P(None, 'model')}).param_specs(shapes)
+    assert got == {k: tuple(v) for k, v in want.items()}
     with pytest.raises(ValueError, match='FlatFusedUpdate'):
         from paddle_tpu_torch.optimizer.fused import FlatFusedUpdate
         net = R.model()
@@ -354,14 +379,39 @@ def test_sharding_gauges_and_collectives(ranks, shared):
 
 
 def test_model_parallel_names_wait_for_5b():
-    for call in (lambda: t_dist.ring_attention(None, None, None),
-                 lambda: t_dist.pipeline.pipeline_apply(None),
-                 lambda: t_dist.ps.SparseShardedTable(8, 4),
-                 lambda: t_dist.fs.LocalFS(), lambda: t_dist.HDFSClient(),
-                 lambda: t_dist.ppermute(None, [(0, 1)]),
-                 lambda: t_dist.init_parallel_env(mesh_shape=(1, 2))):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 5b'):
-            call()
+    """The model-parallel names work in one process as the reference's do
+    without a model-parallel mesh (their gloo-rank cases:
+    tests/test_torch_tensor_parallel.py,
+    test_torch_ring_attention.py, test_torch_pipeline.py,
+    test_torch_ps_fs.py)."""
+    from paddle_tpu.distributed.ring_attention import ring_attention as rr
+    from paddle_tpu.kernels.flash_attention import _attn_reference
+    rs = np.random.RandomState(0)
+    qkv = [rs.randn(1, 2, 16, 8).astype(np.float32) for _ in range(3)]
+    # no 'seq' axis: plain causal attention, the reference's fallback
+    got = t_dist.ring_attention(*(torch.from_numpy(a) for a in qkv))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(rr(*qkv, mesh=None)), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(_attn_reference(*qkv, True, 8 ** -0.5)),
+        rtol=1e-5, atol=1e-6)
+    # no pipe axis: every stacked stage in sequence
+    stacked = {'w': torch.stack([torch.eye(3) * 2, torch.eye(3) * 3])}
+    out = t_dist.pipeline.pipeline_apply(lambda p, x: x @ p['w'], stacked,
+                                         torch.ones(4, 3), 2)
+    assert torch.equal(out, torch.full((4, 3), 6.0))
+    table = t_dist.ps.SparseShardedTable(
+        8, 4, device='cpu', generator=torch.Generator().manual_seed(0))
+    assert tuple(table.pull(torch.tensor([1, 1])).shape) == (2, 4)
+    assert t_dist.fs.LocalFS().is_exist('/')
+    assert t_dist.HDFSClient is t_dist.fs.HDFSClient
+    # a one-rank axis: (0, 0) keeps the value, a rank no pair targets gets
+    # zeros, as lax.ppermute's
+    x = torch.tensor([1.0, 2.0])
+    assert torch.equal(t_dist.ppermute(x, [(0, 0)]), x)
+    assert torch.equal(t_dist.ppermute(x, []), torch.zeros(2))
+    with pytest.raises(ValueError, match='does not hold the 1 ranks'):
+        t_dist.init_parallel_env(mesh_shape=(1, 2))
     with pytest.raises(NotImplementedError, match='all_reduce'):
         t_dist.collective.in_jit_all_reduce(None)
 
