@@ -237,7 +237,27 @@ Phases, each printing one JSON line:
    3 steps each with AdamW and with SGD against one process on the whole
    batch (losses 1e-3; SGD's parameters 1e-3; AdamW's printed, not held),
    the ranks bit for bit, exact launches from each child, and
-   rank-distinct dropout masks with rank 0's the one process's.
+   rank-distinct dropout masks with rank 0's the one process's;
+29. vision parity — ``resnet50`` at 2 x 3 x 64 x 64 on the card against
+   the same model on the CPU, cuDNN TF32 off: the train pass (logits,
+   loss, running statistics, every gradient) in fp64 within ``TOL``, its
+   fp32 logits, loss and statistics within ``GRAD_TOL`` (the fp32
+   gradients printed: ill-conditioned at this size), eval within
+   ``TOL``; NHWC and the space-to-depth stem against NCHW; eval forwards
+   of ``mobilenet_v2``, ``vgg11`` and ``LeNet``;
+30. serve resnet — ``ServingEngine.register(layer=resnet50())`` at 3 x
+   224 x 224, fp32, in waves over buckets 1-16: the CPU's logits within
+   ``MODEL_TOL`` of the max, none of the seven kernels; req/s, p50/p99
+   per bucket, peak; a profiled bucket-16 batch;
+31. train resnet — ``bench.py::bench_resnet50``'s recipe: NHWC, batch
+   256 x 224, bf16 on fp32 masters through ``FlatFusedUpdate``,
+   Momentum(0.1, 0.9, 1e-4), BatchNorm's statistics in
+   ``state['buffers']``, 2 + 10 steps: a falling, finite loss, moving
+   statistics, a NaN batch skipped bitwise (master, momentum, buffers);
+   step ms, images/s, peak, host syncs, copies; a profiled step;
+32. hapi fit resnet — ``hapi.Model(resnet50())`` ``fit`` fp32 on one
+   Flowers batch of 32 through ``vision.transforms``, 6 epochs: a falling
+   loss, ``flops`` equal to the reference's formula's 8178368512.
 
 Every kernel row carries ``share_of_bound`` (bound ms over kernel ms) and
 the achieved TFLOP/s and TB/s beside the library call's time. Then a
@@ -246,8 +266,9 @@ level and under ``bf16``, fp32 under ``fp32``, fp16 under ``fp16``, the
 GPT cases under ``gpt``, launches by path: ``serve``,
 ``serve_tenants``, ``serve_fleet``, the training paths,
 ``train_resume``, ``nn.RMSNorm``, ``generate``, ``serve_generative``,
-``hapi_fit``, ``train_telemetry``, ``train_sharded`` and
-``dp_two_ranks``) and, last, ``{"ok": true,
+``hapi_fit``, ``train_telemetry``, ``train_sharded``,
+``dp_two_ranks``, the model-parallel phases and the three ResNet-50 paths, which
+launch none) and, last, ``{"ok": true,
 "device": ...}``. Any failure raises and exits non-zero; without a CUDA
 device (or without the package beside this file) it exits non-zero and
 prints no result. fp32 matrix products run in full
@@ -6848,6 +6869,430 @@ def phase_pipeline_two_ranks(seed, card):
     return {n: sum(r['launches'][n] for r in ranks) for n in want}, row
 
 
+# ---------------------------------------------------------------------------
+# vision: ResNet-50 served and trained, the convolutional nn on the card
+# ---------------------------------------------------------------------------
+
+# the reference's formula (paddle_tpu/hapi/model_summary.py) for
+# resnet50(), [1, 3, 224, 224]: 2 k (cin / groups) cout H W N a convolution
+# and 2 in out the Linear, as paddle_tpu.hapi.model_summary.flops counts it
+# on the CPU
+RESNET50_FLOPS = 8178368512
+VISION_PARITY_SHAPE = (2, 3, 64, 64)
+# serve_resnet's traffic: waves of 1, 2, 4, 8 and 16 requests (one batch
+# each, buckets 1-16), 64 requests in all
+RESNET_WAVES = [1] * 4 + [2] * 2 + [4] * 2 + [8] * 2 + [16] * 2
+RESNET_CHECKED = 3            # requests held against the port on the CPU
+TRAIN_RESNET_BATCH = 256      # bench.py::_resnet50_batch
+TRAIN_RESNET_WARMUP = 2
+TRAIN_RESNET_STEPS = 10
+HAPI_RESNET_BATCH = 32
+HAPI_RESNET_EPOCHS = 6        # one batch, repeated: the loss must fall
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """cuDNN's convolutions and cuBLAS's products in full fp32 inside,
+    the previous settings restored after."""
+    before = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = before
+
+
+def _zero_counts(counts, what):
+    if any(counts.values()):
+        raise AssertionError(f"{what}: the port's kernels launched "
+                             f"{counts}; a vision path runs none of them")
+
+
+def _vision_model(name, gen, dev, **kw):
+    from paddle_tpu_torch import vision
+    return getattr(vision.models, name)(device=dev, generator=gen, **kw)
+
+
+def _train_pass(model, x, y):
+    """One train-mode forward and backward -> (logits, loss, gradients,
+    running statistics), all detached."""
+    from paddle_tpu_torch.nn import functional as F
+    model.train()
+    model.zero_grad(set_to_none=True)
+    logits = model(x)
+    loss = F.cross_entropy(logits, y)
+    loss.backward()
+    grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+    stats = {n: b.detach().clone() for n, b in model.named_buffers()}
+    return logits.detach(), loss.detach(), grads, stats
+
+
+def _train_errors(cpu, gpu, x, y, dev):
+    """``_train_pass`` on both devices -> (errors of the logits, the loss
+    and the running statistics, each over the CPU's largest entry; the
+    gradients' ``_grad_errs``)."""
+    want = _train_pass(cpu, x, y)
+    got = _train_pass(gpu, x.to(dev), y.to(dev))
+    got = [g.cpu() if isinstance(g, torch.Tensor) else
+           {n: t.cpu() for n, t in g.items()} for g in got]
+    return ({'logits': rel_err(got[0], want[0]),
+             'loss': rel_err(got[1], want[1]),
+             'running_stats': max(rel_err(got[3][n], want[3][n])
+                                  for n in want[3])},
+            _grad_errs(got[2], want[2]))
+
+
+def phase_vision_parity(seed):
+    """The port's vision models on the card against the same models (the
+    same weights) on the CPU, cuDNN's TF32 off (restored after):
+    ``resnet50`` at ``VISION_PARITY_SHAPE`` in train mode (logits, the
+    loss, the running statistics after the forward, every gradient) and
+    in eval; NHWC against NCHW and the space-to-depth stem against the
+    plain stem on the card; eval forwards of ``mobilenet_v2``, ``vgg11``
+    and ``LeNet``. fp32: the eval outputs within ``TOL`` of their largest
+    entry; the train-mode logits, loss and running statistics within
+    ``GRAD_TOL``; the fp32 gradients printed, not held: ResNet-50's
+    train-mode backward at this size is ill-conditioned in fp32 (the
+    port's own CPU pass in fp32 against fp64 differs by 3 % of the
+    largest gradient entry, with torch's own ``batch_norm`` too), so the
+    train pass is held in fp64 on both devices, every gradient within
+    ``TOL`` (``_compare_grads``)."""
+    dev = torch.device('cuda', 0)
+    t0 = time.perf_counter()
+    rows = {}
+    with tf32_off():
+        gen = torch.Generator().manual_seed(seed + 40)
+        cpu = _vision_model('resnet50', gen, 'cpu', num_classes=1000)
+        gpu = copy.deepcopy(cpu).to(dev)
+        rs = np.random.RandomState(seed + 41)
+        x = torch.from_numpy(rs.randn(*VISION_PARITY_SHAPE).astype(
+            np.float32))
+        y = torch.from_numpy(rs.randint(0, 1000, VISION_PARITY_SHAPE[0]))
+        train, grads = _train_errors(cpu, gpu, x, y, dev)
+        for key, err in train.items():
+            check(f'resnet50 train {key}, GPU vs CPU', err, GRAD_TOL)
+        worst = max(grads, key=grads.get)
+        rows['fp32_train'] = {**train, 'gradients_worst': grads[worst],
+                              'gradients_worst_of': worst,
+                              'gradients_mean': float(np.mean(
+                                  list(grads.values())))}
+        cpu.load_state_dict(copy.deepcopy(gpu).cpu().state_dict())
+        cpu64, gpu64 = copy.deepcopy(cpu).double(), copy.deepcopy(gpu).double()
+        train64, grads64 = _train_errors(cpu64, gpu64, x.double(), y, dev)
+        for key, err in train64.items():
+            check(f'resnet50 fp64 train {key}, GPU vs CPU', err, TOL)
+        worst64 = max(grads64, key=grads64.get)
+        check(f'resnet50 fp64 train: gradient of {worst64}',
+              grads64[worst64], TOL)
+        rows['fp64_train'] = {**train64, 'gradients_worst': grads64[worst64],
+                              'gradients_worst_of': worst64}
+        del cpu64, gpu64
+        cpu.eval()
+        gpu.eval()
+        with torch.no_grad():
+            e_cpu = cpu(x)
+            e_gpu = gpu(x.to(dev)).cpu()
+            rows['eval_logits'] = rel_err(e_gpu, e_cpu)
+            check('resnet50 eval, GPU vs CPU', rows['eval_logits'], TOL)
+            # NHWC and the packed stem, on the card, on the same weights
+            state = gpu.state_dict()
+            xh = x.permute(0, 2, 3, 1).contiguous().to(dev)
+            for key, kw in (('nhwc', {}),
+                            ('space_to_depth_stem',
+                             {'space_to_depth_stem': True})):
+                m = _vision_model('resnet50', None, dev, num_classes=1000,
+                                  data_format='NHWC', **kw)
+                m.load_state_dict(state)
+                m.eval()
+                rows[key] = rel_err(m(xh).cpu(), e_gpu)
+                check(f'resnet50 {key} vs NCHW', rows[key], TOL)
+                del m
+            for name, shape, kw in (
+                    ('mobilenet_v2', (2, 3, 64, 64), {}),
+                    ('vgg11', (2, 3, 64, 64), {}),
+                    ('LeNet', (2, 1, 28, 28), {})):
+                c = _vision_model(name, gen, 'cpu', **kw).eval()
+                g = copy.deepcopy(c).to(dev).eval()
+                v = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+                rows[name] = rel_err(g(v.to(dev)).cpu(), c(v))
+                check(f'{name} eval, GPU vs CPU', rows[name], TOL)
+        tf32 = torch.backends.cudnn.allow_tf32
+    torch.cuda.synchronize()
+    emit({'phase': 'vision_parity', 'shape': list(VISION_PARITY_SHAPE),
+          'cudnn_tf32': tf32, 'tolerance_eval_and_fp64': TOL,
+          'tolerance_fp32_train': GRAD_TOL, 'errors': rows,
+          'seconds': time.perf_counter() - t0})
+
+
+def _resnet_waves(eng, ep, reqs):
+    """``RESNET_WAVES`` through ``ep``, each wave submitted and pumped
+    until idle -> (responses, {bucket: [batch ms]}, seconds)."""
+    from paddle_tpu_torch.serving import DEFAULT_BATCH_BUCKETS, select_bucket
+    batch_ms, served = {}, []
+    at = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in RESNET_WAVES:
+        futs = [ep.submit(r) for r in reqs[at:at + n]]
+        at += n
+        eng.run_until_idle()
+        resps = [f.result(timeout=600) for f in futs]
+        batch_ms.setdefault(select_bucket(n, DEFAULT_BATCH_BUCKETS),
+                            []).append(resps[0].breakdown['run'])
+        served += resps
+    return served, batch_ms, time.perf_counter() - t0
+
+
+def phase_serve_resnet(seed, card):
+    """``ServingEngine.register(layer=resnet50())`` at full width (3 x 224
+    x 224, 1000 classes), fp32, eval, cuDNN TF32 as ``main`` set it (off),
+    served in ``RESNET_WAVES`` (buckets 1-16). Gates: every response ok
+    with 1000 finite logits; the first ``RESNET_CHECKED`` requests' logits
+    within 1e-3 of the largest logit of the port's model on the CPU (the
+    same weights); the seven kernels' launch counters exactly zero.
+    Printed: requests/s over the waves, p50/p99 batch ms per bucket, peak
+    memory, host syncs; then one profiled bucket-16 batch. -> the path's
+    launch counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import ServingEngine
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 42)
+    t0 = time.perf_counter()
+    model = _vision_model('resnet50', gen, dev, num_classes=1000)
+    eng = ServingEngine(queue_capacity=64, device=dev)
+    ep = eng.register('resnet50', layer=model,
+                      example={'x': np.zeros((3, 224, 224), np.float32)})
+    warm = eng.warmup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rs = np.random.RandomState(seed + 43)
+    reqs = [{'x': rs.randn(3, 224, 224).astype(np.float32)}
+            for _ in range(sum(RESNET_WAVES))]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()              # the main path starts here
+    (served, batch_ms, serve_s), syncs, sync_sites = _count_syncs(
+        lambda: _resnet_waves(eng, ep, reqs))
+    counts = kernels.launch_counts()           # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    _zero_counts(counts, 'serve_resnet')
+    for i, resp in enumerate(served):
+        if not resp.ok:
+            raise AssertionError(f"resnet request {i}: {resp.status}")
+        out = np.asarray(resp.outputs)
+        if out.shape != (1000,) or not np.isfinite(out).all():
+            raise AssertionError(f"resnet request {i}: logits {out.shape}")
+    cpu = copy.deepcopy(model).to('cpu').eval()
+    with torch.inference_mode():
+        want = cpu(torch.from_numpy(np.stack(
+            [r['x'] for r in reqs[:RESNET_CHECKED]]))).numpy()
+    err = max(float(np.abs(np.asarray(served[i].outputs) - want[i]).max())
+              for i in range(RESNET_CHECKED)) / float(np.abs(want).max())
+    check('resnet50 served on the GPU vs the CPU', err, MODEL_TOL)
+    lat = {str(bk): {'batches': len(v), 'p50_ms': float(np.percentile(v, 50)),
+                     'p99_ms': float(np.percentile(v, 99))}
+           for bk, v in sorted(batch_ms.items())}
+    emit({'phase': 'serve_resnet', 'model': 'resnet50', 'image': [3, 224, 224],
+          'classes': 1000, 'dtype': 'float32',
+          'cudnn_tf32': torch.backends.cudnn.allow_tf32, 'card': card,
+          'setup_s': setup_s, 'warmup_buckets': warm['resnet50'],
+          'requests': len(served), 'requests_per_s': len(served) / serve_s,
+          'batch_latency_ms': lat, 'peak_gb': peak / 1e9,
+          'launches': counts, 'host_syncs_waves': syncs,
+          'host_sync_sites': sync_sites, 'cpu_rel_err': err})
+
+    def one_batch():
+        futs = [ep.submit(r) for r in reqs[:16]]
+        eng.run_until_idle()
+        for f in futs:
+            f.result(timeout=600)
+    phase_profile('serve_resnet', one_batch, {}, bucket=16)
+    return counts
+
+
+def phase_train_resnet(seed, card):
+    """``bench.py::bench_resnet50``'s recipe at full width:
+    ``resnet50(num_classes=1000, data_format='NHWC')`` in train mode,
+    batch ``TRAIN_RESNET_BATCH`` of 224 x 224 images (bf16) and labels
+    made on the card from a seeded generator, bf16 compute on fp32
+    masters (``FlatFusedUpdate(compute_dtype=bf16)``, the loss on fp32
+    logits), ``Momentum(0.1, 0.9, weight_decay=1e-4)`` through the flat
+    update, BatchNorm's running statistics in the step's
+    ``state['buffers']``, ``nan_guard=True``; ``TRAIN_RESNET_WARMUP``
+    steps, then ``TRAIN_RESNET_STEPS`` timed ones (CUDA events around
+    each). Gates: every loss finite and one after the first below it (the
+    same batch each step; at lr 0.1 without warm-up a later step may
+    overshoot again); the running statistics moved and finite; a
+    batch with a NaN leaves the master, the momentum and every buffer
+    bitwise as they were; the seven kernels' launch counters zero.
+    Printed: step ms (median), images/s, peak GB, host syncs a step,
+    the copies and casts of one more step by source line, then one
+    profiled step. -> the path's launch counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.engine import build_train_step
+    from paddle_tpu_torch.nn import functional as F
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 44)
+    t0 = time.perf_counter()
+    net = _vision_model('resnet50', gen, dev, num_classes=1000,
+                        data_format='NHWC').train()
+    b = TRAIN_RESNET_BATCH
+    images = torch.randn((b, 224, 224, 3), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+    labels = torch.randint(0, 1000, (b,), generator=gen, device=dev)
+    params = dict(net.named_parameters())
+    flat = topt.FlatFusedUpdate(
+        topt.Momentum(learning_rate=0.1, momentum=0.9, weight_decay=1e-4),
+        params, compute_dtype=torch.bfloat16)
+    step = build_train_step(
+        net=net, loss=lambda logits, y: F.cross_entropy(logits.float(), y),
+        optimizer=flat, nan_guard=True, device=dev)
+    state = step.init_state()
+    stats0 = {n: v.clone() for n, v in state['buffers'].items()}
+    batch = ((images,), (labels,))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses = []
+    for _ in range(TRAIN_RESNET_WARMUP):
+        state, out = step(state, batch)
+        losses.append(out.losses)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(TRAIN_RESNET_STEPS)]
+
+    def timed():
+        for start, end in events:
+            start.record()
+            st, res = step(state, batch)
+            end.record()
+            losses.append(res.losses)
+    kernels.reset_launch_counts()              # the main path starts here
+    _, syncs, sync_sites = _count_syncs(timed)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()           # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    _zero_counts(counts, 'train_resnet')
+    ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not min(losses[1:]) < losses[0]:
+        raise AssertionError(f"train_resnet: losses {losses}")
+    moved = sum(not torch.equal(stats0[n], v)
+                for n, v in state['buffers'].items())
+    if moved != len(stats0) or not all(
+            torch.isfinite(v).all() for v in state['buffers'].values()):
+        raise AssertionError(f"train_resnet: {moved} of {len(stats0)} "
+                             f"running statistics moved (or not finite)")
+    # a poisoned batch: the guard skips it, and nothing moves
+    before = {'master': state['params'].clone(),
+              **{f'opt.{k}': v.clone() for k, v in state['opt'].items()
+                 if isinstance(v, torch.Tensor)},
+              **{f'buffers.{k}': v.clone()
+                 for k, v in state['buffers'].items()}}
+    bad = images.clone()
+    bad[0, 0, 0, 0] = float('nan')
+    state, res = step(state, ((bad,), (labels,)))
+    after = {'master': state['params'],
+             **{f'opt.{k}': v for k, v in state['opt'].items()
+                if isinstance(v, torch.Tensor)},
+             **{f'buffers.{k}': v for k, v in state['buffers'].items()}}
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    if np.isfinite(float(res.loss)) or changed:
+        raise AssertionError(f"train_resnet: the poisoned step changed "
+                             f"{changed[:8]} (loss {float(res.loss)})")
+    guard = step.sync(state)['guard']
+    if guard['skipped'] != 1:
+        raise AssertionError(f"train_resnet: guard {guard}")
+    med = float(np.median(ms))
+    emit({'phase': 'train_resnet', 'model': 'resnet50', 'format': 'NHWC',
+          'batch': b, 'image': 224, 'dtype': 'bf16 compute, fp32 masters',
+          'optimizer': 'Momentum(0.1, 0.9, weight_decay=1e-4), flat',
+          'card': card, 'setup_s': setup_s, 'step_ms': ms,
+          'step_ms_median': med, 'images_per_s': b / (med / 1e3),
+          'peak_gb': peak / 1e9, 'losses': losses,
+          'launches': counts, 'host_syncs_per_step': syncs /
+          TRAIN_RESNET_STEPS, 'host_sync_sites': sync_sites,
+          'running_stats_moved': moved, 'poisoned_step_skipped': True})
+    copy_accounting('resnet50_bf16_flat',
+                    lambda: step(state, batch))
+    phase_profile('train_resnet', lambda: step(state, batch), {})
+    return counts
+
+
+def phase_hapi_fit_resnet(seed, card):
+    """``hapi.Model(resnet50()).prepare(Momentum, nn.CrossEntropyLoss(),
+    metric.Accuracy()).fit(...)``, fp32, eager, on the synthetic Flowers
+    test set (224 x 224) through ``vision.transforms`` (``ToTensor``,
+    ``Normalize``): one batch of ``HAPI_RESNET_BATCH`` for
+    ``HAPI_RESNET_EPOCHS`` epochs. Gates: finite losses, one after the
+    first below it; accuracy in [0, 1]; ``hapi.flops(resnet50(), [1, 3, 224,
+    224])`` equal to ``RESNET50_FLOPS``; the seven kernels' launch
+    counters zero. Printed: step ms (median, batch end to batch end),
+    images/s, peak GB. -> the path's launch counts."""
+    from paddle_tpu_torch import Model, kernels, metric, nn
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch import vision
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.hapi.model_summary import flops
+    from paddle_tpu_torch.io import Subset
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 45)
+    net = _vision_model('resnet50', gen, dev, num_classes=1000)
+    counted = flops(net, [1, 3, 224, 224])
+    if counted != RESNET50_FLOPS:
+        raise AssertionError(f"flops(resnet50) = {counted}, the "
+                             f"reference's formula {RESNET50_FLOPS}")
+    tr = vision.transforms.Compose([
+        vision.transforms.ToTensor(),
+        vision.transforms.Normalize([0.485, 0.456, 0.406],
+                                    [0.229, 0.224, 0.225])])
+    data = vision.datasets.Flowers(mode='test', transform=tr)
+    data = Subset(data, list(range(HAPI_RESNET_BATCH)))
+
+    class Steps(Callback):
+        def __init__(self):
+            super().__init__()
+            self.t, self.logs = [], []
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            self.t.append(time.perf_counter())
+            self.logs.append(dict(logs))
+    rec = Steps()
+    model = Model(net, device=dev)
+    model.prepare(topt.Momentum(learning_rate=0.01, momentum=0.9,
+                                parameters=net.parameters()),
+                  nn.CrossEntropyLoss(), metric.Accuracy())
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()              # the main path starts here
+    model.fit(data, batch_size=HAPI_RESNET_BATCH, epochs=HAPI_RESNET_EPOCHS,
+              shuffle=False, verbose=0, callbacks=[rec])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()           # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    _zero_counts(counts, 'hapi_fit_resnet')
+    losses = [float(np.ravel(l['loss'])[0]) for l in rec.logs]
+    accs = [float(l['acc']) for l in rec.logs]
+    if not all(np.isfinite(losses)) or not min(losses[1:]) < losses[0]:
+        raise AssertionError(f"hapi_fit_resnet: losses {losses}")
+    if not all(0.0 <= a <= 1.0 for a in accs):
+        raise AssertionError(f"hapi_fit_resnet: accuracy {accs}")
+    ms = list(np.diff(rec.t) * 1e3)
+    med = float(np.median(ms))
+    emit({'phase': 'hapi_fit_resnet', 'model': 'resnet50', 'format': 'NCHW',
+          'batch': HAPI_RESNET_BATCH, 'image': 224, 'dtype': 'float32',
+          'cudnn_tf32': torch.backends.cudnn.allow_tf32, 'card': card,
+          'steps': len(losses), 'losses': losses, 'accuracy': accs,
+          'step_ms': ms, 'step_ms_median': med,
+          'images_per_s': HAPI_RESNET_BATCH / (med / 1e3),
+          'peak_gb': peak / 1e9, 'flops': counted, 'launches': counts})
+    return counts
+
+
 SOURCES = {
     'flash_attention_fwd': ('paddle_tpu_torch/kernels/csrc/flash_attention.cu',
                             'paddle_tpu/kernels/flash_attention.py:95'),
@@ -6947,6 +7392,15 @@ def main():
     torch.cuda.empty_cache()
     pipe_ranks, _ = phase_pipeline_two_ranks(args.seed, card)
     torch.cuda.empty_cache()
+    # vision: the convolutional nn and ResNet-50, none of the seven kernels
+    phase_vision_parity(args.seed)
+    torch.cuda.empty_cache()
+    serve_resnet = phase_serve_resnet(args.seed, card)
+    torch.cuda.empty_cache()
+    train_resnet = phase_train_resnet(args.seed, card)
+    torch.cuda.empty_cache()
+    hapi_resnet = phase_hapi_fit_resnet(args.seed, card)
+    torch.cuda.empty_cache()
     # launches: each main path's counts, zeroed just before the path and
     # read just after (serving: 21 batches; serve_tenants: the tenants
     # engine's pumped and threaded batches; serve_fleet: every replica's
@@ -6963,8 +7417,9 @@ def main():
     # fit, 20 steps; dp_two_ranks: both ranks' AdamW steps, 3 each;
     # tp_two_ranks: both ranks' AdamW steps; ring_two_ranks: both ranks'
     # logits and loss forward and backward; pipeline_two_ranks: both
-    # stages' forward and backward); the
-    # top-level numbers are bf16's, the dtype of the reference's training
+    # stages' forward and backward; serve_resnet, train_resnet and
+    # hapi_fit_resnet: ResNet-50's waves, steps and fit, which launch
+    # none); the top-level numbers are bf16's, the dtype of the reference's training
     # recipe, and ``gpt`` holds the fp32 cases at generate's shapes
     paths = {'serve': served, 'serve_tenants': served_tenants,
              'serve_fleet': served_fleet,
@@ -6976,7 +7431,8 @@ def main():
              'hapi_fit': hapi, 'train_telemetry': telemetry,
              'train_sharded': sharded, 'dp_two_ranks': dp_ranks,
              'tp_two_ranks': tp_ranks, 'ring_two_ranks': ring_ranks,
-             'pipeline_two_ranks': pipe_ranks}
+             'pipeline_two_ranks': pipe_ranks, 'serve_resnet': serve_resnet,
+             'train_resnet': train_resnet, 'hapi_fit_resnet': hapi_resnet}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'share_of_bound', 'achieved_tflops',
             'achieved_tb_per_s')

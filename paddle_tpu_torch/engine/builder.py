@@ -27,6 +27,17 @@ loss scaler and the NaN guard run on the device too.
   (ok=)``), not a Python ``if`` on a tensor. ``TrainStep.sync`` reads the
   counters (the one host sync, at the caller's cadence) into the host
   ``GradScaler`` and ``resilience.NanGuard``.
+- Buffers (a BatchNorm's running statistics): ``state['buffers']`` holds
+  the module's persistent buffers (``net=``'s, or ``buffers=`` beside a
+  ``loss_fn``), the live tensors. A training forward updates them in
+  place; a step that is not ``ok`` puts every one back bitwise (the same
+  device-side select over one snapshot a dtype, taken only when the step
+  can be skipped). A ``loss_fn(params, buffers, batch)`` of three
+  arguments is the reference's form: it returns ``(loss, outputs,
+  new_buffers)`` and the step writes ``new_buffers`` into the live ones.
+  Under ``remat`` the recompute in the backward sees the buffers the
+  forward saw and leaves them as the forward left them. A model without
+  buffers has no ``'buffers'`` in its state and runs as before.
 - ``microbatch=k``: one call runs k full steps, one update each, on batch
   leaves with a leading k axis, as the reference's ``lax.scan`` does;
   ``result.losses`` holds the k losses, and outputs are returned only when
@@ -96,7 +107,11 @@ runs the one-process step, bit for bit as before:
 - a ``distributed.DataParallel`` net (or a ``fleet.distributed_optimizer``
   optimizer): the gradients' mean over the ranks, one all-reduce of their
   packed buffer a dtype, before the unscale, the clip and the update;
-- with ``sharding=`` or a ``DataParallel`` net, each rank draws its own
+- with ``sharding=`` or a ``DataParallel`` net, a training ``batch_norm``
+  takes its statistics over the global batch (``nn.functional.norm.
+  batch_stats_over_ranks``: the per-channel sums all-reduced, forward and
+  backward), as the reference's sharded step, one program over the global
+  batch, does; each rank draws its own
   dropout masks (the rank is set into the ``net``'s ``DropoutState``s;
   ``kernels/philox.py``); any other step of a ``net`` sets rank 0's
   masks, so ranks that synchronise nothing stay equal;
@@ -120,6 +135,7 @@ sampled device wait on the step's losses: the 1st and every
 (``host_transfer.engine.loss_fetch`` / ``engine.state_sync``). With
 telemetry off none of it runs.
 """
+import inspect
 import itertools
 
 import numpy as np
@@ -128,6 +144,7 @@ import torch
 from .. import observability as _obs
 from ..device import resolve_device
 from ..nn import remat as _remat
+from ..nn.functional.norm import batch_stats_over_ranks
 from ..nn.layer.transformer import TransformerEncoder
 from ..optimizer.fused import FlatFusedUpdate
 from ..optimizer.optimizer import _each
@@ -209,16 +226,36 @@ def _net_loss_fn(net, loss, functional):
     return loss_fn
 
 
+def persistent_buffers(net):
+    """``{name: buffer}`` of ``net``'s buffers that its state dict holds."""
+    keys = set(net.state_dict(keep_vars=True))
+    return {n: b for n, b in net.named_buffers() if n in keys}
+
+
+def _takes_buffers(loss_fn):
+    """True for the reference's ``loss_fn(params, buffers, batch)``."""
+    try:
+        sig = inspect.signature(loss_fn)
+    except (TypeError, ValueError):
+        return False
+    positional = [p for p in sig.parameters.values()
+                  if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    return len(positional) == 3
+
+
 def build_train_step(loss_fn=None, optimizer=None, *, net=None, loss=None,
-                     params=None, params_meta=None, trainable=None,
-                     scaler=None, nan_guard=False, microbatch=1, remat=None,
-                     in_shardings=None, sharding=None, device=None):
+                     params=None, buffers=None, params_meta=None,
+                     trainable=None, scaler=None, nan_guard=False,
+                     microbatch=1, remat=None, in_shardings=None,
+                     sharding=None, device=None):
     """Build ONE train step.
 
     Either pass ``net=`` and ``loss=`` — the step calls ``net`` on
     ``batch_x`` and ``loss(*outputs, *batch_y)`` — or a ``loss_fn(params,
     batch) -> loss | (loss, outputs)`` with ``params=`` (``{name: leaf
-    tensor}``). ``optimizer`` is a ``paddle_tpu_torch.optimizer``
+    tensor}``), or the reference's ``loss_fn(params, buffers, batch) ->
+    (loss, outputs, new_buffers)`` with ``buffers=`` (``{name: live
+    buffer}``). ``optimizer`` is a ``paddle_tpu_torch.optimizer``
     optimizer (its ``functional_update`` is the update) or a
     ``FlatFusedUpdate`` over those parameters.
 
@@ -264,6 +301,8 @@ def build_train_step(loss_fn=None, optimizer=None, *, net=None, loss=None,
         loss_fn = _net_loss_fn(net, loss, flat)
         if params is None:
             params = dict(net.named_parameters())
+        if buffers is None:
+            buffers = persistent_buffers(net)
     if loss_fn is None:
         raise ValueError("build_train_step: need loss_fn= or net=+loss=")
     if params is None:
@@ -285,7 +324,10 @@ def build_train_step(loss_fn=None, optimizer=None, *, net=None, loss=None,
                                   else dict(params_meta)),
                      remat=remat, remat_by_layer=by_layer,
                      sharding=sharding, data_parallel=data_parallel,
-                     in_shardings=in_shardings, tp=tp)
+                     in_shardings=in_shardings, tp=tp,
+                     buffers=dict(buffers or {}),
+                     functional_buffers=net is None and _takes_buffers(
+                         loss_fn))
     if net is not None:
         # each rank its own masks where the step averages the gradients
         mask_ranks(net, step._synced)
@@ -365,7 +407,7 @@ class TrainStep:
                  scaler=None, nan_guard=False, microbatch=1,
                  params_meta=None, remat=None, remat_by_layer=False,
                  sharding=None, data_parallel=False, in_shardings=None,
-                 tp=None):
+                 tp=None, buffers=None, functional_buffers=False):
         from ..distributed import env as _env
         self.optimizer = optimizer
         self.sharding = sharding
@@ -392,7 +434,11 @@ class TrainStep:
         self._params_meta = params_meta
         self.cost_label = f'engine.train_step{next(_STEP_SEQ)}'
         self._cost_captured = False
-        for name, p in params.items():
+        # the live buffers (updated in place by the forward) and whether
+        # the loss_fn takes and returns them (the reference's form)
+        self._buffers = dict(buffers or {})
+        self._functional_buffers = functional_buffers
+        for name, p in {**params, **self._buffers}.items():
             if p.device != device:
                 raise ValueError(
                     f"build_train_step: parameter {name} is on {p.device}, "
@@ -440,6 +486,8 @@ class TrainStep:
         elif self._shards is not None:
             opt_state = self._place_slots(opt_state)
         state = {'params': self._params, 'opt': opt_state}
+        if self._buffers:
+            state['buffers'] = self._buffers
 
         def i32(v):
             # a fill, not a copy from the host: nothing waits
@@ -589,9 +637,10 @@ class TrainStep:
         state = dict(state)
         if self._shards is not None:
             state = self._localize(state)
-        if state.pop('buffers', None):
+        saved_buffers = state.pop('buffers', None) or {}
+        if saved_buffers and not self._buffers:
             raise ValueError("TrainStep.adopt_state: the checkpoint carries "
-                             "buffers; the port's step keeps none")
+                             "buffers; this step keeps none")
         fresh = self.init_state()
         shared = {}
 
@@ -634,6 +683,8 @@ class TrainStep:
             adopt(dict(self._params), state['params'], 'params')
         out = {'params': self._params,
                'opt': adopt(fresh['opt'], state['opt'], 'opt')}
+        if self._buffers:
+            out['buffers'] = adopt(self._buffers, saved_buffers, 'buffers')
         for slot, enabled in (('guard', self.guard_enabled),
                               ('scaler', self.scaler is not None)):
             if enabled:
@@ -758,12 +809,60 @@ class TrainStep:
         with _remat.scope(r):
             return self._loss_fn(leaves, batch)
 
+    def _snapshot(self):
+        """The buffers' values: one flat copy a dtype."""
+        by_dtype = {}
+        for b in self._buffers.values():
+            by_dtype.setdefault(b.dtype, []).append(b)
+        return {dt: (group, torch.cat([b.reshape(-1) for b in group]))
+                for dt, group in by_dtype.items()}
+
+    @staticmethod
+    def _restore(snap, ok=None):
+        """Copy ``snap`` back into the buffers (with ``ok``, only where the
+        step is NOT ok: a device-side select, no host sync)."""
+        for group, old in snap.values():
+            if ok is not None:
+                now = torch.cat([b.reshape(-1) for b in group])
+                old = torch.where(ok, now, old)
+            torch._foreach_copy_(group, [v.view_as(b) for v, b in zip(
+                old.split([b.numel() for b in group]), group)])
+
+    def _forward(self, leaves, batch):
+        """The loss on ``leaves`` -> ``(loss, outputs)``; the reference's
+        three-argument ``loss_fn`` gets the buffers and its new ones are
+        written into them."""
+        if not self._functional_buffers:
+            out = self._loss(leaves, batch)
+            return out if isinstance(out, tuple) else (out, None)
+        r = self.remat
+        args = (leaves, self._buffers, batch)
+        loss, outs, new = self._loss_fn(*args) if r is None \
+            else r(self._loss_fn, *args)
+        with torch.no_grad():
+            for n, b in self._buffers.items():
+                if new[n] is not b:
+                    b.copy_(new[n])
+        return loss, outs
+
     def _one_step(self, state, batch):
+        with batch_stats_over_ranks(self._synced):
+            return self._run_one_step(state, batch)
+
+    def _run_one_step(self, state, batch):
         use_scaler = self.scaler is not None
         use_guard = self.guard_enabled
+        keep = self._buffers and (use_scaler or use_guard)
+        before = self._snapshot() if keep or \
+            (self._buffers and self.remat is not None) else None
         leaves, names = self._leaves(state)
-        out = self._loss(leaves, batch)
-        loss, outs = out if isinstance(out, tuple) else (out, None)
+        loss, outs = self._forward(leaves, batch)
+        after = None
+        if self._buffers and self.remat is not None:
+            # the recompute in the backward reruns the forward: from the
+            # buffers the forward read, and the forward's result after it
+            after = self._snapshot()
+            self._restore(before)
         scale = state['scaler']['scale'] if use_scaler else None
         ok = torch.isfinite(loss) if (use_scaler or use_guard) else None
         loss_ok = ok
@@ -787,8 +886,12 @@ class TrainStep:
                                           group=self._data_group)
             if use_scaler:
                 ok = ok & _unscale_and_check(grads, scale)
+        if after is not None:
+            self._restore(after)
         if self._synced:
             loss, ok, loss_ok = self._global(loss, ok, loss_ok)
+        if keep:
+            self._restore(before, ok)
         if self._shards is not None:
             self._release()
         if names:

@@ -7,11 +7,14 @@ table (type, module path, output shape, the module's own parameter count)
 and returns ``{'total_params', 'trainable_params'}`` over
 ``net.parameters()`` (a tied weight counts once). Inputs are zeros of
 ``input_size`` (None or -1 read as 1) in ``dtypes`` (default float32) on
-the device of the net's first parameter, or ``input``. ``flops`` counts
-2 x in x out for each ``Linear`` call, as the reference does; the
-convolutions it also counts come with ``vision/`` (ROADMAP.md, Queue 1
-item 6).
+the device of the net's first parameter, or ``input``. ``flops`` counts,
+by the reference's formula, 2 x k x (in / groups) x out x the output's
+spatial size x the batch for each ``Conv1D/2D/3D`` call (its output's
+spatial axes read by its ``data_format``) and 2 x in x out for each
+``Linear`` call.
 """
+import math
+
 import torch
 
 __all__ = ['summary', 'flops']
@@ -90,16 +93,28 @@ def summary(net, input_size=None, dtypes=None, input=None):
 
 
 def flops(net, input_size, custom_ops=None, print_detail=False):
-    """Rough FLOPs: 2 x in_features x out_features per ``Linear`` call."""
-    from ..nn import Linear
+    """Rough FLOPs of one forward on zeros of ``input_size``: 2 x k x
+    (in / groups) x out x spatial x batch a convolution, 2 x in x out a
+    ``Linear`` call."""
+    from ..nn import Conv1D, Conv2D, Conv3D, Linear
     total = [0]
     hooks = []
+
+    def conv_hook(m, inputs, output):
+        out = output[0] if isinstance(output, (list, tuple)) else output
+        spatial = out.shape[1:-1] if not m._data_format.startswith('NC') \
+            else out.shape[2:]
+        total[0] += 2 * math.prod(m._kernel_size) * \
+            (m._in_channels // m._groups) * m._out_channels * \
+            math.prod(spatial) * out.shape[0]
 
     def linear_hook(m, inputs, output):
         total[0] += 2 * m.in_features * m.out_features
 
     for m in net.modules():
-        if isinstance(m, (Linear, torch.nn.Linear)):
+        if isinstance(m, (Conv1D, Conv2D, Conv3D)):
+            hooks.append(m.register_forward_hook(conv_hook))
+        elif isinstance(m, (Linear, torch.nn.Linear)):
             hooks.append(m.register_forward_hook(linear_hook))
     try:
         _run(net, [_zeros(input_size, 'float32', _device_of(net))])

@@ -6,7 +6,10 @@ The port's own counterpart of the weight-moving half of
 ``load_paddle_tpu_state(module, state)`` takes a reference layer's
 ``state_dict()`` as ``{key: numpy array}`` — keys such as
 ``encoder.layers.0.self_attn.q_proj.weight`` — and copies it into a port
-module whose attribute names match. Every ``Linear`` weight is transposed:
+module whose attribute names match (buffers too: a BatchNorm's ``_mean``
+and ``_variance`` are state-dict entries on both sides, and a
+convolution's weight has the same layout in both packages, so neither is
+transposed). Every ``Linear`` weight is transposed:
 the reference stores (in, out), ``torch.nn.functional.linear`` takes
 (out, in). Shape alone cannot tell (q/k/v/out projections are square), so
 the transpose is chosen by module type. BERT's tied MLM decoder is one
@@ -175,21 +178,20 @@ def from_paddle_tpu_train_state(module, ref_state):
     array}, 'buffers': {}, 'opt': {key: {slot: array}}, 'guard': {...},
     'scaler': {...}}``) as the port's step keeps it (``TrainStep.
     adopt_state`` takes it): ``Linear`` weights and their slots transposed
-    to (out, in), 0-dim slots and the guard's and scaler's counters as
-    they are, numpy throughout. Raises ``ValueError`` on buffers (the
-    port's step keeps none) or on keys ``module`` does not have."""
+    to (out, in), buffers (a BatchNorm's running statistics), 0-dim slots
+    and the guard's and scaler's counters as they are, numpy throughout.
+    Raises ``ValueError`` on keys ``module`` does not have."""
+    from .engine.builder import persistent_buffers
     linear_weights = _linear_weights(module)
     own = dict(module.named_parameters())
-    if ref_state.get('buffers'):
-        raise ValueError(
-            f"from_paddle_tpu_train_state: the port's step keeps no buffers, "
-            f"the state has {sorted(ref_state['buffers'])[:8]}")
     unknown = sorted((set(ref_state['params']) | set(ref_state['opt']))
                      - set(own))
+    unknown += sorted(set(ref_state.get('buffers') or {})
+                      - set(persistent_buffers(module)))
     if unknown:
         raise ValueError(
             f"from_paddle_tpu_train_state: keys {unknown[:8]} are not "
-            f"parameters of the module")
+            f"parameters or buffers of the module")
 
     def layout(key, value):
         value = np.asarray(value)
@@ -201,6 +203,9 @@ def from_paddle_tpu_train_state(module, ref_state):
                       ref_state['params'].items()},
            'opt': {k: {s: layout(k, v) for s, v in slots.items()}
                    for k, slots in ref_state['opt'].items()}}
+    if ref_state.get('buffers'):
+        out['buffers'] = {k: np.asarray(v)
+                          for k, v in ref_state['buffers'].items()}
     for slot in ('guard', 'scaler'):
         if slot in ref_state:
             out[slot] = {k: np.asarray(v) for k, v in ref_state[slot].items()}

@@ -1,12 +1,19 @@
 """Layers of the port. Counterpart of ``paddle_tpu/nn/layer``."""
-from .activation import GELU
-from .common import Dropout, Embedding, Linear
+from . import (activation, common, container, conv, distance, loss, norm,
+               pooling, transformer)
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
 from .container import LayerList, Sequential
-from .norm import LayerNorm, RMSNorm
+from .conv import *  # noqa: F401,F403
+from .distance import PairwiseDistance
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = ['GELU', 'Dropout', 'Embedding', 'Linear', 'LayerList',
-           'Sequential', 'LayerNorm', 'RMSNorm',
-           'MultiHeadAttention', 'TransformerEncoder',
-           'TransformerEncoderLayer']
+__all__ = sorted({*activation.__all__, *common.__all__, *conv.__all__,
+                  *loss.__all__, *norm.__all__, *pooling.__all__,
+                  'LayerList', 'Sequential', 'PairwiseDistance',
+                  'MultiHeadAttention', 'TransformerEncoder',
+                  'TransformerEncoderLayer'})

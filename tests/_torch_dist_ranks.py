@@ -924,3 +924,57 @@ def table_cases(weight, ids, grads, lr):
     return {'rank': dist.get_rank('model'), 'rows': rows.detach().numpy(),
             'grad': g.numpy(), 'lo': t.lo,
             'after': t.state_dict()['weight'].numpy()}
+
+
+def bn_net(init=None):
+    """A conv + BatchNorm net (the reference's layout and names), on
+    ``init`` (reference names)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.interop import load_paddle_tpu_state
+    net = nn.Sequential(nn.Conv2D(3, 4, 3, padding=1, device='cpu'),
+                        nn.BatchNorm2D(4, device='cpu'), nn.ReLU(),
+                        nn.Flatten(), nn.Linear(4 * 5 * 5, 3, device='cpu'))
+    if init is not None:
+        load_paddle_tpu_state(net, init)
+    return net
+
+
+def bn_cases(init, data, lr):
+    """A conv + BatchNorm net stepped (SGD) on this rank's slice of each
+    global batch by the DataParallel step and by the FSDP step: the losses
+    and the net's state (reference names) after the steps. Both take
+    BatchNorm's statistics over the global batch. Also a ``SyncBatchNorm``
+    forward in training on this rank's rows of the first batch: its
+    output and running statistics."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.engine import build_train_step
+    from paddle_tpu_torch.interop import to_paddle_tpu_state
+    dist, rank, world = join_group()
+    out = {}
+    for kind in ('dp', 'fsdp'):
+        net = bn_net(init)
+        target = dist.DataParallel(net) if kind == 'dp' else net
+        step = build_train_step(
+            net=target, loss=nn.CrossEntropyLoss(),
+            optimizer=topt.SGD(learning_rate=lr),
+            sharding=dist.ShardingConfig(min_size=1) if kind == 'fsdp'
+            else None, device='cpu')
+        state = step.init_state()
+        losses = []
+        for x, y in data:
+            n = len(x) // world
+            sl = slice(rank * n, (rank + 1) * n)
+            state, res = step(state, ((torch.from_numpy(x[sl]),),
+                                      (torch.from_numpy(y[sl]),)))
+            losses.append(float(res.loss))
+        step.write_back(state)
+        out[kind] = (losses, to_paddle_tpu_state(net))
+    # SyncBatchNorm's forward on this rank's rows, in training
+    sbn = nn.SyncBatchNorm(3, device='cpu')
+    x = data[0][0]
+    n = len(x) // world
+    y = sbn(torch.from_numpy(x[rank * n:(rank + 1) * n]))
+    out['sync_bn'] = (y.detach().numpy(), sbn._mean.numpy().copy(),
+                      sbn._variance.numpy().copy())
+    return out
