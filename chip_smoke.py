@@ -257,7 +257,36 @@ Phases, each printing one JSON line:
    step ms, images/s, peak, host syncs, copies; a profiled step;
 32. hapi fit resnet — ``hapi.Model(resnet50())`` ``fit`` fp32 on one
    Flowers batch of 32 through ``vision.transforms``, 6 epochs: a falling
-   loss, ``flops`` equal to the reference's formula's 8178368512.
+   loss, ``flops`` equal to the reference's formula's 8178368512;
+33. detection parity — every function of ``vision/ops.py`` and
+   ``vision/detection_train.py`` on the card against the CPU on the same
+   inputs (``_detection_cases``): fp64 within ``TOL`` (the gradients of
+   ``ssd_loss``, ``yolov3_loss``, ``roi_align``, ``deformable_conv`` and
+   the focal loss too), fp32 within ``MODEL_TOL``, at small sizes and at
+   the YOLOv3 head at 608 x 608 (batch 8, COCO's nine anchors, 80
+   classes, 50 padded boxes), the RPN on a 50 x 68 stride-16 map with 15
+   anchors a cell, ``roi_align`` 7 x 7 on 1024 channels of that map; the
+   NMS forms exactly, the CPU fed the card's own pre-NMS tensors, with
+   the candidate pairs whose IoU lies within ``NEAR_THRESHOLD`` of the
+   threshold counted; priors, anchors, samplers and ``multi_box_head`` on
+   the card;
+34. serve ssd — ``register(layer=SSDDetector(SSDMobileNet()))``,
+   PaddleDetection's ``ssd_mobilenet_v1_voc`` at full width (3 x 300 x
+   300, 21 classes, 1917 priors), fp32, in waves over buckets 1-16, a
+   request's (out (200, 6), count): the pre-NMS boxes and scores within
+   ``MODEL_TOL`` of the CPU's, the served detections equal to the CPU's
+   NMS on the card's pre-NMS tensors, ``detection_output``'s host syncs
+   within ``DETECT_SYNC_BUDGET`` at ``nms_top_k`` 400 and 100, none of
+   the seven kernels; req/s, p50/p99 per bucket, ``detection_output``'s
+   ms, peak; a profiled bucket-16 batch;
+35. train ssd — the SSD through ``build_train_step(loss_fn=, params=,
+   buffers=)``, batch 32 x 300 x 300, fp32, RMSProp(0.001) with
+   L2Decay(5e-5), ``nan_guard``, 2 + 10 steps: a falling, finite loss,
+   moving statistics, a NaN batch skipped bitwise, none of the seven
+   kernels; step ms, images/s, peak, host syncs; a profiled step; then
+   one fp64 train pass at 2 x 3 x 300 x 300, GPU against CPU: the loss,
+   the location and confidence gradients, every parameter gradient and
+   the BatchNorm statistics within ``TOL``.
 
 Every kernel row carries ``share_of_bound`` (bound ms over kernel ms) and
 the achieved TFLOP/s and TB/s beside the library call's time. Then a
@@ -267,8 +296,9 @@ GPT cases under ``gpt``, launches by path: ``serve``,
 ``serve_tenants``, ``serve_fleet``, the training paths,
 ``train_resume``, ``nn.RMSNorm``, ``generate``, ``serve_generative``,
 ``hapi_fit``, ``train_telemetry``, ``train_sharded``,
-``dp_two_ranks``, the model-parallel phases and the three ResNet-50 paths, which
-launch none) and, last, ``{"ok": true,
+``dp_two_ranks``, the model-parallel phases, the three ResNet-50 paths
+and the two SSD paths, ``serve_ssd`` and ``train_ssd``, which launch
+none) and, last, ``{"ok": true,
 "device": ...}``. Any failure raises and exits non-zero; without a CUDA
 device (or without the package beside this file) it exits non-zero and
 prints no result. fp32 matrix products run in full
@@ -278,6 +308,7 @@ import argparse
 import contextlib
 import copy
 import json
+import math
 import os
 import shutil
 import signal
@@ -7027,15 +7058,15 @@ def phase_vision_parity(seed):
           'seconds': time.perf_counter() - t0})
 
 
-def _resnet_waves(eng, ep, reqs):
-    """``RESNET_WAVES`` through ``ep``, each wave submitted and pumped
-    until idle -> (responses, {bucket: [batch ms]}, seconds)."""
+def _waves(eng, ep, reqs, waves):
+    """``waves`` (request counts) through ``ep``, each wave submitted and
+    pumped until idle -> (responses, {bucket: [batch ms]}, seconds)."""
     from paddle_tpu_torch.serving import DEFAULT_BATCH_BUCKETS, select_bucket
     batch_ms, served = {}, []
     at = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for n in RESNET_WAVES:
+    for n in waves:
         futs = [ep.submit(r) for r in reqs[at:at + n]]
         at += n
         eng.run_until_idle()
@@ -7074,7 +7105,7 @@ def phase_serve_resnet(seed, card):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()              # the main path starts here
     (served, batch_ms, serve_s), syncs, sync_sites = _count_syncs(
-        lambda: _resnet_waves(eng, ep, reqs))
+        lambda: _waves(eng, ep, reqs, RESNET_WAVES))
     counts = kernels.launch_counts()           # ... and ends here
     peak = torch.cuda.max_memory_allocated()
     _zero_counts(counts, 'serve_resnet')
@@ -7293,6 +7324,922 @@ def phase_hapi_fit_resnet(seed, card):
     return counts
 
 
+# detection (PaddleDetection's ssd_mobilenet_v1_voc, PaddlePaddle 1.8 era):
+# MobileNetV1 at 300 x 300, four extra stride-2 pairs, priors from
+# prior_box, ssd_loss for training, detection_output for serving
+SSD_IMAGE = 300
+SSD_CLASSES = 21                  # VOC's 20 and the background, label 0
+SSD_ASPECT_RATIOS = [[2.], [2., 3.], [2., 3.], [2., 3.], [2., 3.], [2., 3.]]
+SSD_MIN_SIZES = [60., 105., 150., 195., 240., 285.]
+SSD_MAX_SIZES = [[], 150., 195., 240., 285., 300.]
+SSD_VARIANCE = (0.1, 0.1, 0.2, 0.2)
+SSD_EXTRAS = ((256, 512), (128, 256), (128, 256), (64, 128))
+SSD_PRIORS = 1917                 # 19^2 * 3 + (10^2 + 5^2 + 3^2 + 2^2 + 1) * 6
+SSD_MAX_GT = 16                   # ground-truth rows an image, -1 padded
+SSD_DETECT = dict(nms_threshold=0.45, nms_top_k=400, keep_top_k=200,
+                  score_threshold=0.01)
+SSD_LOSS = dict(overlap_threshold=0.5, neg_pos_ratio=3.0)
+SSD_CHECKED = 4                   # requests held against the CPU
+TRAIN_SSD_BATCH = 32
+TRAIN_SSD_WARMUP = 2
+TRAIN_SSD_STEPS = 10
+SSD_PARITY_BATCH = 2              # the fp64 train pass, GPU against CPU
+# the YOLOv3 head at 608 x 608 (COCO): three levels of 3 anchors each
+YOLO_IMAGE = 608
+YOLO_BATCH = 8
+YOLO_CLASSES = 80
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_LEVELS = (([6, 7, 8], 32), ([3, 4, 5], 16), ([0, 1, 2], 8))
+YOLO_MAX_GT = 50
+# Faster R-CNN's RPN on an 800 x 1088 image: stride 16, 15 anchors a cell
+RPN_MAP = (50, 68)
+RPN_SIZES = [32., 64., 128., 256., 512.]
+RPN_RATIOS = [0.5, 1., 2.]
+ROI_COUNT = 256                   # rois over the batch of 2 images
+ROI_CHANNELS = 1024
+NEAR_THRESHOLD = 1e-6             # IoUs this close to an NMS threshold
+DETECT_SYNC_BUDGET = 0            # host syncs of one detection_output call
+
+
+def _ssd_size(n, halvings):
+    """A side after ``halvings`` stride-2 convolutions (kernel 3, pad 1)."""
+    for _ in range(halvings):
+        n = (n - 1) // 2 + 1
+    return n
+
+
+class SSDMobileNet(torch.nn.Module):
+    """PaddleDetection's ``ssd_mobilenet_v1_voc`` (PaddlePaddle 1.8 era),
+    built from the port's modules: ``MobileNetV1(scale, num_classes=0,
+    with_pool=False)`` (``conv1`` and ``blocks[:11]`` give the 19 x 19 map
+    at 300 x 300, ``blocks[11:]`` the 10 x 10 one), four extra pairs (a
+    1 x 1 conv, then a 3 x 3 stride-2 conv, each with BatchNorm and ReLU:
+    5, 3, 2 and 1), and a 1 x 1 loc and conf ``Conv2D`` head a map; the
+    priors from ``vision.ops.prior_box`` at ``SSD_MIN_SIZES`` /
+    ``SSD_MAX_SIZES`` scaled to ``image``, flipped ``SSD_ASPECT_RATIOS``,
+    offset 0.5 (``SSD_PRIORS`` of them at 300). ``forward`` returns the
+    heads: loc (B, P, 4) and conf logits (B, P, C); ``SSDDetector`` serves
+    it."""
+
+    def __init__(self, num_classes=SSD_CLASSES, image=SSD_IMAGE, scale=1.0,
+                 *, device=None, generator=None):
+        from paddle_tpu_torch import nn
+        from paddle_tpu_torch.vision import models
+        from paddle_tpu_torch.vision.models.mobilenetv1 import ConvBNLayer
+        from paddle_tpu_torch.vision.ops import prior_box
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.num_classes = num_classes
+        self.backbone = models.MobileNetV1(scale=scale, num_classes=0,
+                                           with_pool=False, **kw)
+        c = [int(512 * scale), int(1024 * scale)]
+        extras = []
+        for mid, out in SSD_EXTRAS:
+            mid, out = int(mid * scale), int(out * scale)
+            extras.append(nn.Sequential(
+                ConvBNLayer(c[-1], mid, 1, 1, 0, **kw),
+                ConvBNLayer(mid, out, 3, 2, 1, **kw)))
+            c.append(out)
+        self.extras = nn.LayerList(extras)
+        sides = [_ssd_size(image, 4 + i) for i in range(len(c))]
+        ratio = image / SSD_IMAGE
+        boxes, variances, per_cell = [], [], []
+        for i, side in enumerate(sides):
+            mx = SSD_MAX_SIZES[i]
+            box, var = prior_box(
+                np.zeros((1, 1, side, side)), np.zeros((1, 3, image, image)),
+                [SSD_MIN_SIZES[i] * ratio], [mx * ratio] if mx else None,
+                SSD_ASPECT_RATIOS[i], SSD_VARIANCE, flip=True, offset=0.5,
+                device=device)
+            per_cell.append(box.shape[2])
+            boxes.append(box.reshape(-1, 4))
+            variances.append(var.reshape(-1, 4))
+        self.register_buffer('priors', torch.cat(boxes), persistent=False)
+        self.register_buffer('prior_vars', torch.cat(variances),
+                             persistent=False)
+        self.loc_heads = nn.LayerList([
+            nn.Conv2D(ch, n * 4, 1, **kw) for ch, n in zip(c, per_cell)])
+        self.conf_heads = nn.LayerList([
+            nn.Conv2D(ch, n * num_classes, 1, **kw)
+            for ch, n in zip(c, per_cell)])
+
+    def feature_maps(self, x):
+        feats = []
+        x = self.backbone.conv1(x)
+        for i, block in enumerate(self.backbone.blocks):
+            x = block(x)
+            if i == 10:
+                feats.append(x)
+        feats.append(x)
+        for extra in self.extras:
+            x = extra(x)
+            feats.append(x)
+        return feats
+
+    def forward(self, x):
+        locs, confs = [], []
+        for f, lh, ch in zip(self.feature_maps(x), self.loc_heads,
+                             self.conf_heads):
+            b = f.shape[0]
+            locs.append(lh(f).permute(0, 2, 3, 1).reshape(b, -1, 4))
+            confs.append(ch(f).permute(0, 2, 3, 1).reshape(
+                b, -1, self.num_classes))
+        return torch.cat(locs, 1), torch.cat(confs, 1)
+
+
+class SSDDetector(torch.nn.Module):
+    """An ``SSDMobileNet`` with its inference output: ``forward(x)`` ->
+    ``detection_output``'s (out (B, 200, 6), counts (B,)) at
+    ``SSD_DETECT``."""
+
+    def __init__(self, ssd):
+        super().__init__()
+        self.ssd = ssd
+
+    def forward(self, x):
+        from paddle_tpu_torch.vision import detection_output
+        loc, conf = self.ssd(x)
+        return detection_output(loc, conf, self.ssd.priors,
+                                self.ssd.prior_vars, **SSD_DETECT)
+
+
+def ssd_loss_fn(model):
+    """The reference's ``loss_fn(params, buffers, batch)`` for
+    ``build_train_step``: PaddleDetection's loss, ``ssd_loss`` (overlap
+    0.5, 3 negatives a positive) summed over the batch; ``batch`` is
+    (images, gt boxes, gt labels)."""
+    from paddle_tpu_torch.vision import ssd_loss
+
+    def loss_fn(params, buffers, batch):
+        images, gt_box, gt_label = batch
+        loc, conf = torch.func.functional_call(
+            model, {**params, **buffers}, (images,))
+        loss = ssd_loss(loc, conf, gt_box, gt_label, model.priors,
+                        model.prior_vars, **SSD_LOSS).sum()
+        return loss, (loc, conf), buffers
+    return loss_fn
+
+
+def ssd_ground_truth(rs, batch, max_gt=SSD_MAX_GT, classes=SSD_CLASSES):
+    """Synthetic VOC-like targets: 1 to ``max_gt`` boxes an image
+    (normalized xyxy, sides 0.05-0.6), labels 1..classes-1, the rest of
+    the rows zero boxes labelled -1 -> (boxes (B, G, 4) float32, labels
+    (B, G) int64)."""
+    boxes = np.zeros((batch, max_gt, 4), np.float32)
+    labels = np.full((batch, max_gt), -1, np.int64)
+    for b in range(batch):
+        n = rs.randint(1, max_gt + 1)
+        wh = 0.05 + 0.55 * rs.rand(n, 2)
+        xy = rs.rand(n, 2) * (1 - wh)
+        boxes[b, :n] = np.concatenate([xy, xy + wh], 1)
+        labels[b, :n] = rs.randint(1, classes, n)
+    return boxes, labels
+
+
+def _nms_near(boxes, scores, thr, top_k, score_threshold=-math.inf,
+              normalized=True):
+    """The pairs of NMS candidates (the ``top_k`` best above
+    ``score_threshold`` a row of ``scores`` (..., M); ``boxes`` (..., M, 4)
+    broadcast against it), in fp64 on the host, whose IoU lies within
+    ``NEAR_THRESHOLD`` of ``thr``: where a last-bit difference could flip
+    a suppression."""
+    from paddle_tpu_torch.vision.ops import _pairwise_iou
+    s = scores.detach().double().cpu()
+    s = torch.where(s > score_threshold, s, torch.tensor(-math.inf,
+                                                         dtype=s.dtype))
+    order = torch.argsort(-s, dim=-1, stable=True)[..., :top_k]
+    b = boxes.detach().double().cpu().expand(*s.shape, 4)
+    cand = b.gather(-2, order[..., None].expand(*order.shape, 4))
+    live = torch.isfinite(s.gather(-1, order))
+    iou = _pairwise_iou(cand, cand, normalized)
+    upper = torch.ones(iou.shape[-2:], dtype=torch.bool).triu(1)
+    near = ((iou - thr).abs() < NEAR_THRESHOLD) & upper \
+        & live[..., :, None] & live[..., None, :]
+    return int(near.sum())
+
+
+def _to(value, dev, dtype):
+    if isinstance(value, np.ndarray):
+        t = torch.from_numpy(value)
+        return t.to(dev, dtype) if t.is_floating_point() else t.to(dev)
+    return value
+
+
+def _on_both(fn, arrays, dtype, dev, grads=(), **kw):
+    """``fn`` on the card and on the CPU, the float inputs at ``dtype`` ->
+    (card outputs, CPU outputs, card gradients, CPU gradients), outputs
+    flattened to lists of CPU tensors; gradients of the first output's sum
+    against a fixed cotangent with respect to ``arrays[i]``, i in
+    ``grads``."""
+    outs = []
+    for d in (dev, torch.device('cpu')):
+        ts = [_to(a, d, dtype) for a in arrays]
+        for i in grads:
+            ts[i].requires_grad_(True)
+        out = fn(*ts, **kw)
+        flat = list(out) if isinstance(out, (list, tuple)) else [out]
+        g = []
+        if grads:
+            cot = torch.cos(torch.arange(flat[0].numel(), dtype=dtype,
+                                         device=d)).reshape(flat[0].shape)
+            g = torch.autograd.grad((flat[0] * cot).sum(),
+                                    [ts[i] for i in grads])
+        outs.append(([_flat_cpu(o) for o in flat],
+                     [x.detach().cpu() for x in g]))
+    return outs[0][0], outs[1][0], outs[0][1], outs[1][1]
+
+
+def _flat_cpu(o):
+    if isinstance(o, (list, tuple)):
+        return [_flat_cpu(x) for x in o]
+    return o.detach().cpu()
+
+
+def _held(name, got, want, tol, rows):
+    """Each float output within ``tol`` of its largest entry, each integer
+    output equal -> the worst error, recorded in ``rows``."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if isinstance(w, list):
+            for j, (a, b) in enumerate(zip(g, w)):
+                worst = max(worst, _held_one(f'{name}[{i}][{j}]', a, b, tol))
+            continue
+        worst = max(worst, _held_one(f'{name}[{i}]', g, w, tol))
+    rows[name] = worst
+    return worst
+
+
+def _held_one(name, g, w, tol):
+    if tuple(g.shape) != tuple(w.shape):
+        raise AssertionError(f"{name}: shape {tuple(g.shape)} on the card, "
+                             f"{tuple(w.shape)} on the CPU")
+    if not w.is_floating_point():
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: integer outputs differ")
+        return 0.0
+    if w.numel() == 0:
+        return 0.0
+    finite = torch.isfinite(w)
+    if not torch.equal(torch.isfinite(g), finite) or not torch.equal(
+            g[~finite], w[~finite]):
+        raise AssertionError(f"{name}: the infinities differ")
+    g, w = g[finite], w[finite]
+    err = rel_err(g, w) if float(w.abs().max()) > 0 else max_err(g, w)
+    check(f'{name}, GPU vs CPU', err, tol)
+    return err
+
+
+def _detection_cases(seed, dtype, full):
+    """The parity cases -> [(name, fn, arrays, kwargs, grad argnums)]: the
+    small ones, and with ``full`` the YOLOv3 head at 608 x 608, the RPN
+    and ``roi_align`` at Faster R-CNN's stride-16 map."""
+    from paddle_tpu_torch.nn.initializer import Assign, ParamAttr
+    from paddle_tpu_torch.vision import detection_train as D
+    from paddle_tpu_torch.vision import ops as O
+    rs = np.random.RandomState(seed + 50)
+    f = np.float32
+
+    def bx(n, scale=1.0, lo=0.05):
+        xy = rs.rand(n, 2) * (1 - lo)
+        wh = lo + rs.rand(n, 2) * (1 - lo - xy)
+        return (np.concatenate([xy, xy + wh], 1) * scale).astype(f)
+    prior = bx(60, lo=0.1)
+    var = np.tile(np.asarray(SSD_VARIANCE, f), (60, 1))
+    dw, db = 0.2 * rs.randn(8, 6, 3, 3), rs.randn(8)
+    gt, lab = ssd_ground_truth(rs, 3, 6, 5)
+    cases = [
+        ('iou_similarity', O.iou_similarity, [bx(40), prior], {}, ()),
+        ('box_coder encode', O.box_coder, [prior, var, bx(8)], {}, ()),
+        ('box_coder decode', O.box_coder,
+         [prior, var, (0.5 * rs.randn(3, 60, 4)).astype(f)],
+         dict(code_type='decode_center_size'), ()),
+        ('box_clip', O.box_clip, [(rs.randn(2, 9, 4) * 40 + 20).astype(f),
+                                  np.array([[30, 40, 1.], [60, 50, 2.]], f)],
+         {}, ()),
+        ('nms', O.nms, [bx(50, lo=0.2), rs.rand(50).astype(f)],
+         dict(iou_threshold=0.4, top_k=30), ()),
+        ('multiclass_nms', O.multiclass_nms,
+         [np.stack([bx(50, lo=0.2), bx(50, lo=0.2)]),
+          rs.rand(2, 4, 50).astype(f)],
+         dict(score_threshold=0.1, nms_top_k=30, keep_top_k=40,
+              nms_threshold=0.45, return_index=True), ()),
+        ('bipartite_match', D.bipartite_match, [rs.rand(3, 6, 40).astype(f)],
+         dict(match_type='per_prediction'), ()),
+        ('target_assign', D.target_assign,
+         [rs.randn(3, 6, 4).astype(f), rs.randint(-1, 6, (3, 40))], {}, ()),
+        ('ssd_loss', D.ssd_loss,
+         [(0.5 * rs.randn(3, 60, 4)).astype(f),
+          rs.randn(3, 60, 5).astype(f), gt, lab, prior, var], {}, (0, 1)),
+        ('sigmoid_focal_loss', D.sigmoid_focal_loss,
+         [rs.randn(30, 4).astype(f), rs.randint(0, 5, (30, 1)),
+          np.array([5])], {}, (0,)),
+        ('matrix_nms', D.matrix_nms,
+         [np.stack([bx(40, lo=0.2)] * 2), rs.rand(2, 3, 40).astype(f)],
+         dict(score_threshold=0.1, post_threshold=0.05, nms_top_k=30,
+              keep_top_k=20), ()),
+        ('polygon_box_transform', D.polygon_box_transform,
+         [rs.randn(2, 8, 5, 6).astype(f)], {}, ()),
+        ('distribute_fpn_proposals', D.distribute_fpn_proposals,
+         [bx(40, 600.)], dict(min_level=2, max_level=5, refer_level=4,
+                              refer_scale=224), ()),
+        ('collect_fpn_proposals',
+         lambda a, b, s, t: D.collect_fpn_proposals([a, b], [s, t], 2, 3,
+                                                    20),
+         [bx(15, 90.), bx(12, 90.), rs.rand(15, 1).astype(f),
+          rs.rand(12, 1).astype(f)], {}, ()),
+        ('box_decoder_and_assign', D.box_decoder_and_assign,
+         [bx(20, 50.), np.tile(np.asarray(SSD_VARIANCE, f), (20, 1)),
+          rs.randn(20, 12).astype(f), rs.rand(20, 3).astype(f)],
+         dict(box_clip=4.135), ()),
+        ('roi_pool', lambda x, r, n: D.roi_pool(x, r, 3, 3, 0.7,
+                                                 rois_num=n),
+         [rs.randn(2, 6, 10, 12).astype(f), bx(7, 14.), np.array([4, 3])],
+         {}, ()),
+        ('psroi_pool', lambda x, r, n: D.psroi_pool(x, r, 2, 0.7, 3, 3,
+                                                     rois_num=n),
+         [rs.randn(2, 2 * 9, 10, 12).astype(f), bx(7, 14.),
+          np.array([4, 3])], {}, ()),
+        ('prroi_pool', D.prroi_pool,
+         [rs.randn(2, 6, 10, 12).astype(f), bx(7, 14.)],
+         dict(spatial_scale=0.7, pooled_height=3, pooled_width=3), ()),
+        ('roi_perspective_transform', D.roi_perspective_transform,
+         [rs.randn(1, 4, 10, 12).astype(f),
+          np.array([[1, 1, 9, 2, 10, 8, 2, 7]], f)],
+         dict(transformed_height=5, transformed_width=6), ()),
+        ('deformable_conv',
+         lambda x, o, m: D.deformable_conv(
+             x, o, m, 8, 3, padding=1, deformable_groups=2,
+             param_attr=ParamAttr(initializer=Assign(dw)),
+             bias_attr=ParamAttr(initializer=Assign(db))),
+         [rs.randn(2, 6, 9, 10).astype(f),
+          (1.5 * rs.randn(2, 36, 9, 10)).astype(f),
+          rs.rand(2, 18, 9, 10).astype(f)], {}, (0, 1, 2)),
+        ('deformable_roi_pooling', D.deformable_roi_pooling,
+         [rs.randn(1, 4, 10, 12).astype(f), bx(5, 10.),
+          (0.5 * rs.randn(5, 2, 3, 3)).astype(f)],
+         dict(pooled_height=3, pooled_width=3, sample_per_part=2), ()),
+    ]
+    if not full:
+        return cases
+    # the YOLOv3 head: (8, 255, 19 / 38 / 76, ...) at 608 x 608
+    ygt = np.zeros((YOLO_BATCH, YOLO_MAX_GT, 4), f)
+    ylab = np.zeros((YOLO_BATCH, YOLO_MAX_GT), np.int64)
+    for b in range(YOLO_BATCH):
+        n = rs.randint(5, YOLO_MAX_GT)
+        wh = 0.02 + 0.5 * rs.rand(n, 2)
+        ygt[b, :n] = np.concatenate([wh / 2 + rs.rand(n, 2) * (1 - wh),
+                                     wh], 1)
+        ylab[b, :n] = rs.randint(0, YOLO_CLASSES, n)
+    size = np.tile(np.array([[YOLO_IMAGE, YOLO_IMAGE]], np.int64),
+                   (YOLO_BATCH, 1))
+    for mask, stride in YOLO_LEVELS:
+        side = YOLO_IMAGE // stride
+        x = rs.randn(YOLO_BATCH, 3 * (5 + YOLO_CLASSES), side,
+                     side).astype(f)
+        anchors = [YOLO_ANCHORS[2 * m + i] for m in mask for i in (0, 1)]
+        cases.append((f'yolo_box {side}x{side}', O.yolo_box, [x, size],
+                      dict(anchors=anchors, class_num=YOLO_CLASSES,
+                           conf_thresh=0.01, downsample_ratio=stride), ()))
+        cases.append((f'yolov3_loss {side}x{side}', D.yolov3_loss,
+                      [x, ygt, ylab],
+                      dict(anchors=YOLO_ANCHORS, anchor_mask=mask,
+                           class_num=YOLO_CLASSES, ignore_thresh=0.7,
+                           downsample_ratio=stride), (0,)))
+    # Faster R-CNN's RPN: 50 x 68 cells, 15 anchors each, two images
+    feat = np.zeros((1, 1) + RPN_MAP)
+    an, av = (t.numpy() for t in O.anchor_generator(
+        feat, RPN_SIZES, RPN_RATIOS, stride=(16., 16.), device='cpu'))
+    A = an.shape[2]
+    h, w = RPN_MAP
+    info = np.array([[800, 1088, 1.0], [800, 1088, 1.0]], f)
+    cases.append(('generate_proposals (candidates)',
+                  lambda *a: D._proposal_candidates(*a, 6000, 0.1),
+                  [rs.randn(2, A, h, w).astype(f),
+                   (0.2 * rs.randn(2, 4 * A, h, w)).astype(f), info, an, av],
+                  {}, ()))
+    gtr = bx(20, 800., 0.05)
+    gtr[-4:] = 0.0
+    cases.append(('rpn_target_assign', D.rpn_target_assign,
+                  [rs.randn(an.size // 4, 4).astype(f),
+                   rs.randn(an.size // 4, 1).astype(f), an.reshape(-1, 4),
+                   av.reshape(-1, 4), gtr], {}, ()))
+    cases.append(('retinanet_target_assign', D.retinanet_target_assign,
+                  [rs.randn(an.size // 4, 4).astype(f),
+                   rs.randn(an.size // 4, 1).astype(f), an.reshape(-1, 4),
+                   av.reshape(-1, 4), gtr, rs.randint(1, 81, (20, 1))],
+                  {}, ()))
+    rois = np.concatenate([bx(ROI_COUNT // 2, 1000.), bx(ROI_COUNT // 2,
+                                                         1000.)])
+    cases.append(('roi_align 7x7', lambda x, r, n: O.roi_align(
+        x, r, 7, 7, 1 / 16., rois_num=n),
+        [rs.randn(2, ROI_CHANNELS, h, w).astype(f), rois,
+         np.array([ROI_COUNT // 2] * 2)], {}, (0,)))
+    return cases
+
+
+def _nms_exact(name, fn, inputs, rows, near):
+    """An NMS on the card against the same NMS on the CPU fed the card's
+    own inputs: every output equal (the IoUs are the same elementwise
+    operations on the same bits). ``near``: its candidate pairs within
+    ``NEAR_THRESHOLD`` of the threshold (``_nms_near``)."""
+    got = fn(*inputs)
+    want = fn(*[t.cpu() for t in inputs])
+    got = list(got) if isinstance(got, (list, tuple)) else [got]
+    want = list(want) if isinstance(want, (list, tuple)) else [want]
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"{name}: output {i} differs between the "
+                                 f"card and the CPU on the same inputs")
+    rows[name] = {'equal': True, 'near_threshold_pairs': near}
+
+
+def phase_detection_parity(seed):
+    """Every function of ``vision/ops.py`` and ``vision/detection_train.py``
+    on the card against the same function on the CPU, on the same inputs
+    (``_detection_cases``: small sizes, plus the YOLOv3 head at 608 x 608
+    for ``yolo_box`` / ``yolov3_loss``, the RPN at a 50 x 68 stride-16 map
+    with 15 anchors a cell for the proposal candidates and the assigners,
+    and ``roi_align`` with 7 x 7 bins on a 1024-channel map of that size).
+    fp64: every output within ``TOL`` of its largest entry (integer
+    outputs equal), and the gradients of ``ssd_loss``, ``yolov3_loss``,
+    ``roi_align`` and ``deformable_conv`` (and ``sigmoid_focal_loss``)
+    within ``TOL``; fp32: the outputs within ``MODEL_TOL`` (the fp32
+    gradients printed). The NMS forms are held exactly by feeding the CPU
+    the card's own inputs: ``nms``, ``multiclass_nms``, ``matrix_nms``,
+    ``detection_output`` after the card's decode and softmax,
+    ``generate_proposals`` after the card's candidates,
+    ``locality_aware_nms`` after its merge, ``retinanet_detection_output``
+    after its decode; the pairs whose IoU lies within ``NEAR_THRESHOLD`` of
+    the threshold are counted. The priors and anchors (host numpy) are
+    equal on both devices; ``multi_box_head`` and the host samplers run on
+    the card. -> None."""
+    from paddle_tpu_torch.vision import detection_train as D
+    from paddle_tpu_torch.vision import ops as O
+    dev = torch.device('cuda', 0)
+    t0 = time.perf_counter()
+    rows = {'fp64': {}, 'fp32': {}, 'fp64_grads': {}, 'fp32_grads': {},
+            'nms': {}}
+    with tf32_off():
+        for dtype, tol, key in ((torch.float64, TOL, 'fp64'),
+                                (torch.float32, MODEL_TOL, 'fp32')):
+            for name, fn, arrays, kw, grads in _detection_cases(seed, dtype,
+                                                                True):
+                got, want, ggot, gwant = _on_both(fn, arrays, dtype, dev,
+                                                  grads, **kw)
+                _held(name, got, want, tol, rows[key])
+                if grads:
+                    errs = [rel_err(g, w) for g, w in zip(ggot, gwant)]
+                    rows[f'{key}_grads'][name] = max(errs)
+                    if dtype == torch.float64:
+                        check(f'{name} gradients, GPU vs CPU', max(errs), TOL)
+        # the NMS forms, exact on the card's own inputs
+        rs = np.random.RandomState(seed + 51)
+        f32 = dict(dtype=torch.float32, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed + 52)
+        boxes = torch.rand((4, SSD_PRIORS, 2), generator=gen, **f32) * 0.7
+        boxes = torch.cat([boxes, boxes + 0.05 + 0.25 * torch.rand(
+            (4, SSD_PRIORS, 2), generator=gen, **f32)], -1)
+        scores = torch.rand((4, SSD_CLASSES, SSD_PRIORS), generator=gen,
+                            **f32)
+        bg = torch.arange(SSD_CLASSES, device=dev)[None, :, None] == 0
+        fg_scores = torch.where(bg, -math.inf, scores)
+        _nms_exact('nms', lambda b, s: O.nms(b, s, 0.45, 400, 0.01),
+                   [boxes[0], scores[0, 1]], rows['nms'],
+                   _nms_near(boxes[0], scores[0, 1], 0.45, 400, 0.01))
+        _nms_exact('multiclass_nms', lambda b, s: O.multiclass_nms(
+            b, s, return_index=True, **SSD_DETECT), [boxes, scores],
+            rows['nms'], _nms_near(boxes[:, None], fg_scores, 0.45, 400,
+                                   0.01))
+        _nms_exact('multiclass_nms nms_eta=0.9', lambda b, s:
+                   O.multiclass_nms(b, s, score_threshold=0.01,
+                                    nms_top_k=100, keep_top_k=100,
+                                    nms_threshold=0.7, nms_eta=0.9),
+                   [boxes[:, :300], scores[:, :4, :300]], rows['nms'], None)
+        _nms_exact('matrix_nms', lambda b, s: D.matrix_nms(
+            b, s, 0.01, nms_top_k=400, keep_top_k=200), [boxes, scores],
+            rows['nms'], None)
+        loc = torch.randn((4, SSD_PRIORS, 4), generator=gen, **f32) * 0.5
+        logits = torch.randn((4, SSD_PRIORS, SSD_CLASSES), generator=gen,
+                             **f32)
+        prior = boxes[0]
+        pvar = torch.tensor(SSD_VARIANCE, **f32).expand(SSD_PRIORS, 4)
+        decoded = O.box_coder(prior, pvar, loc,
+                              code_type='decode_center_size')
+        probs = torch.softmax(logits, -1).transpose(1, 2)
+        want = O.box_coder(prior.cpu(), pvar.cpu(), loc.cpu(),
+                           code_type='decode_center_size')
+        check('detection_output decode, GPU vs CPU',
+              rel_err(decoded.cpu(), want), MODEL_TOL)
+        check('detection_output softmax, GPU vs CPU',
+              rel_err(probs.cpu(), torch.softmax(logits.cpu(),
+                                                 -1).transpose(1, 2)),
+              MODEL_TOL)
+        _nms_exact('detection_output', lambda b, s: O.multiclass_nms(
+            b, s, return_index=True, **SSD_DETECT), [decoded, probs],
+            rows['nms'], _nms_near(decoded[:, None],
+                                   torch.where(bg, -math.inf, probs),
+                                   0.45, 400, 0.01))
+        full = D.detection_output(loc, logits, prior, pvar,
+                                  return_index=True, **SSD_DETECT)
+        nms_only = O.multiclass_nms(decoded, probs, return_index=True,
+                                    **SSD_DETECT)
+        if not all(torch.equal(a, b) for a, b in zip(full, nms_only)):
+            raise AssertionError("detection_output is not its decode, "
+                                 "softmax and multiclass_nms")
+        feat = np.zeros((1, 1) + RPN_MAP)
+        an, av = O.anchor_generator(feat, RPN_SIZES, RPN_RATIOS,
+                                    stride=(16., 16.), device=dev)
+        A = an.shape[2]
+        tb, ts = D._proposal_candidates(
+            torch.randn((2, A) + RPN_MAP, generator=gen, **f32),
+            0.2 * torch.randn((2, 4 * A) + RPN_MAP, generator=gen, **f32),
+            torch.tensor([[800., 1088., 1.]] * 2, **f32), an, av, 6000, 0.1)
+        _nms_exact('generate_proposals', lambda b, s: D._proposal_nms(
+            b, s, 1000, 0.7, 1.0), [tb, ts], rows['nms'],
+            _nms_near(tb, ts, 0.7, 6000, normalized=False))
+        merged = D._locality_merge(boxes, scores, 0.45, 0.3)
+        check('locality_aware_nms merge, GPU vs CPU',
+              rel_err(merged.cpu(), D._locality_merge(
+                  boxes.cpu(), scores.cpu(), 0.45, 0.3)), MODEL_TOL)
+        _nms_exact('locality_aware_nms', lambda b, s: O.multiclass_nms(
+            b, s, score_threshold=0.3, nms_top_k=400, keep_top_k=200,
+            nms_threshold=0.45, background_label=-1), [merged, scores],
+            rows['nms'], _nms_near(merged[:, None], scores, 0.45, 400, 0.3))
+        levels = [boxes[0, :1000] * 600, boxes[0, 1000:] * 600]
+        deltas = [0.3 * loc[:, :1000], 0.3 * loc[:, 1000:]]
+        dec = torch.cat([O.box_coder(a, [1.0] * 4, d,
+                                     code_type='decode_center_size')
+                         for a, d in zip(levels, deltas)], 1)
+        sc = scores[:, :4]
+        retina = dict(score_threshold=0.05, nms_top_k=1000, keep_top_k=100,
+                      nms_threshold=0.3, background_label=-1)
+        _nms_exact('retinanet_detection_output', lambda b, s:
+                   O.multiclass_nms(b, s, **retina), [dec, sc], rows['nms'],
+                   _nms_near(dec[:, None], sc, 0.3, 1000, 0.05))
+        full = D.retinanet_detection_output(
+            deltas, [sc[..., :1000].transpose(1, 2),
+                     sc[..., 1000:].transpose(1, 2)], levels, None,
+            nms_top_k=1000)
+        nms_only = O.multiclass_nms(dec, sc, **retina)
+        if not all(torch.equal(a, b) for a, b in zip(full, nms_only)):
+            raise AssertionError("retinanet_detection_output is not its "
+                                 "decode and multiclass_nms")
+        # host-side generators and samplers, and multi_box_head
+        img = np.zeros((1, 3, SSD_IMAGE, SSD_IMAGE))
+        for name, call in (
+                ('prior_box', lambda d: O.prior_box(
+                    np.zeros((1, 1, 19, 19)), img, [60.], None, [2.],
+                    flip=True, device=d)),
+                ('density_prior_box', lambda d: O.density_prior_box(
+                    np.zeros((1, 1, 19, 19)), img, [4, 2], [30., 60.],
+                    [1.], device=d)),
+                ('anchor_generator', lambda d: O.anchor_generator(
+                    feat, RPN_SIZES, RPN_RATIOS, stride=(16., 16.),
+                    device=d))):
+            for g, w in zip(call(dev), call('cpu')):
+                if g.device.type != 'cuda' or not torch.equal(g.cpu(), w):
+                    raise AssertionError(f"{name}: the card's differs")
+        rois = torch.tensor(rs.rand(30, 4) * 50, **f32).sort(-1).values
+        rois = rois[:, [0, 1, 3, 2]]
+        out = D.generate_proposal_labels(
+            rois, np.array([[3], [1]]), None,
+            np.array([[5., 5., 30., 30.], [20., 25., 45., 48.]], np.float32),
+            np.array([50., 50., 1.]), batch_size_per_im=16,
+            class_nums=4, use_random=True, rng=np.random.RandomState(seed))
+        masks = D.generate_mask_labels(
+            None, np.array([[3], [1]]), None,
+            np.array([[[5, 5], [30, 6], [28, 30]]] * 2, np.float32), out[0],
+            out[1], num_classes=4, resolution=7)
+        if not all(t.device.type == 'cuda' for t in (*out, *masks)):
+            raise AssertionError("the host samplers' tensors are not on "
+                                 "the card")
+        heads = D.multi_box_head(
+            [torch.randn((2, 32, 10, 10), generator=gen, **f32),
+             torch.randn((2, 64, 5, 5), generator=gen, **f32)],
+            torch.zeros((2, 3, 160, 160), **f32), 160, 5, [[2.], [2., 3.]],
+            min_sizes=[30., 60.], max_sizes=[[], 90.],
+            generator=torch.Generator(device=dev).manual_seed(seed))
+        if heads[0].shape != (2, 10 * 10 * 3 + 5 * 5 * 6, 4) or \
+                not torch.isfinite(heads[1]).all():
+            raise AssertionError(f"multi_box_head: {heads[0].shape}")
+    torch.cuda.synchronize()
+    emit({'phase': 'detection_parity', 'tolerance_fp64': TOL,
+          'tolerance_fp32': MODEL_TOL, 'near_threshold': NEAR_THRESHOLD,
+          'errors': rows, 'seconds': time.perf_counter() - t0})
+
+
+def _ssd_pre_nms(model, x):
+    """The eval SSD's decoded boxes (B, P, 4) and class probabilities
+    (B, C, P): what ``detection_output`` hands its NMS."""
+    from paddle_tpu_torch.vision.ops import box_coder
+    with torch.inference_mode():
+        loc, conf = model(x)
+        boxes = box_coder(model.priors, model.prior_vars, loc,
+                          code_type='decode_center_size')
+        return boxes, torch.softmax(conf, -1).transpose(1, 2)
+
+
+def _ssd_detect_syncs(model, x):
+    """``detection_output`` alone on one batch at ``nms_top_k`` 400 and 100
+    -> ({top_k: host syncs}, their sites, its device ms at 400 (CUDA
+    events, a median of 5))."""
+    from paddle_tpu_torch.vision import detection_output
+    with torch.inference_mode():
+        loc, conf = model(x)
+        syncs, sites = {}, []
+        for k in (400, 100):
+            kw = dict(SSD_DETECT, nms_top_k=k)
+            detection_output(loc, conf, model.priors, model.prior_vars, **kw)
+            torch.cuda.synchronize()
+            _, n, where = _count_syncs(lambda: detection_output(
+                loc, conf, model.priors, model.prior_vars, **kw))
+            syncs[k] = n - (_SYNC_NOTICE in ' '.join(where))
+            sites += [w for w in where if _SYNC_NOTICE not in w]
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            detection_output(loc, conf, model.priors, model.prior_vars,
+                             **SSD_DETECT)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+    return syncs, sorted(set(sites)), float(np.median(ms))
+
+
+def phase_serve_ssd(seed, card):
+    """``ServingEngine.register(layer=SSDDetector(SSDMobileNet()))`` (the
+    engine puts it in eval mode) at full
+    width (3 x 300 x 300, 21 classes, ``SSD_PRIORS`` priors), fp32, in
+    ``RESNET_WAVES`` (buckets 1-16); a request's response is (out (200, 6),
+    count). Gates: every response ok with those shapes; for the first
+    ``SSD_CHECKED`` requests the pre-NMS boxes and scores within
+    ``MODEL_TOL`` of the same model's on the CPU, and the served
+    detections equal to ``multiclass_nms`` run on the CPU on the card's
+    pre-NMS tensors; ``detection_output``'s host syncs at most
+    ``DETECT_SYNC_BUDGET``, the same at ``nms_top_k`` 400 and 100; the
+    seven kernels' launch counters zero.
+    Printed: requests/s, p50/p99 batch ms per bucket, ``detection_output``'s
+    own device ms at bucket 16 and its host syncs, peak memory; then one
+    profiled bucket-16 batch. -> the path's launch counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.vision.ops import multiclass_nms
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 53)
+    t0 = time.perf_counter()
+    model = SSDMobileNet(device=dev, generator=gen).eval()
+    if model.priors.shape[0] != SSD_PRIORS:
+        raise AssertionError(f"SSD priors: {model.priors.shape[0]}")
+    eng = ServingEngine(queue_capacity=64, device=dev)
+    ep = eng.register('ssd', layer=SSDDetector(model), example={
+        'x': np.zeros((3, SSD_IMAGE, SSD_IMAGE), np.float32)})
+    warm = eng.warmup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rs = np.random.RandomState(seed + 54)
+    reqs = [{'x': rs.randn(3, SSD_IMAGE, SSD_IMAGE).astype(np.float32)}
+            for _ in range(sum(RESNET_WAVES))]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()              # the main path starts here
+    (served, batch_ms, serve_s), syncs, sync_sites = _count_syncs(
+        lambda: _waves(eng, ep, reqs, RESNET_WAVES))
+    counts = kernels.launch_counts()           # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    _zero_counts(counts, 'serve_ssd')
+    found = []
+    for i, resp in enumerate(served):
+        if not resp.ok:
+            raise AssertionError(f"ssd request {i}: {resp.status}")
+        out, n = (np.asarray(o) for o in resp.outputs)
+        if out.shape != (SSD_DETECT['keep_top_k'], 6) or n.shape != () \
+                or not np.isfinite(out).all():
+            raise AssertionError(f"ssd request {i}: {out.shape}, {n}")
+        found.append(int(n))
+    # the checked requests were served one a batch (bucket 1): each is
+    # recomputed alone, so the convolutions run at the served shapes
+    cpu = copy.deepcopy(model).to('cpu').eval()
+    bg = torch.arange(SSD_CLASSES, device=dev)[None, :, None] == 0
+    pre = {'boxes': 0.0, 'scores': 0.0}
+    near = 0
+    for i in range(SSD_CHECKED):
+        x = torch.from_numpy(reqs[i]['x'][None])
+        boxes, probs = _ssd_pre_nms(model, x.to(dev))
+        cboxes, cprobs = _ssd_pre_nms(cpu, x)
+        pre['boxes'] = max(pre['boxes'], rel_err(boxes.cpu(), cboxes))
+        pre['scores'] = max(pre['scores'], rel_err(probs.cpu(), cprobs))
+        want, want_n = multiclass_nms(boxes.cpu(), probs.cpu(), **SSD_DETECT)
+        out, n = (torch.from_numpy(np.asarray(o))
+                  for o in served[i].outputs)
+        if not (torch.equal(out, want[0]) and int(n) == int(want_n[0])):
+            raise AssertionError(f"ssd request {i}: the served detections "
+                                 f"differ from the CPU's NMS on the card's "
+                                 f"pre-NMS tensors")
+        near += _nms_near(boxes[:, None], torch.where(bg, -math.inf, probs),
+                          SSD_DETECT['nms_threshold'],
+                          SSD_DETECT['nms_top_k'],
+                          SSD_DETECT['score_threshold'])
+    for key, err in pre.items():
+        check(f'ssd pre-NMS {key}, GPU vs CPU', err, MODEL_TOL)
+    big = torch.from_numpy(np.stack([r['x'] for r in reqs[:16]])).to(dev)
+    det_syncs, det_sites, det_ms = _ssd_detect_syncs(model, big)
+    if det_syncs[400] != det_syncs[100] or \
+            det_syncs[400] > DETECT_SYNC_BUDGET:
+        raise AssertionError(f"detection_output's host syncs: {det_syncs} "
+                             f"(budget {DETECT_SYNC_BUDGET}, the same at "
+                             f"every nms_top_k): {det_sites}")
+    lat = {str(bk): {'batches': len(v), 'p50_ms': float(np.percentile(v, 50)),
+                     'p99_ms': float(np.percentile(v, 99))}
+           for bk, v in sorted(batch_ms.items())}
+    emit({'phase': 'serve_ssd', 'model': 'ssd_mobilenet_v1_voc',
+          'image': [3, SSD_IMAGE, SSD_IMAGE], 'classes': SSD_CLASSES,
+          'priors': int(model.priors.shape[0]), 'detect': SSD_DETECT,
+          'dtype': 'float32', 'cudnn_tf32': torch.backends.cudnn.allow_tf32,
+          'card': card, 'setup_s': setup_s,
+          'warmup_buckets': warm['ssd'], 'requests': len(served),
+          'requests_per_s': len(served) / serve_s,
+          'batch_latency_ms': lat, 'peak_gb': peak / 1e9,
+          'detections_per_image': {'min': min(found), 'max': max(found),
+                                   'mean': float(np.mean(found))},
+          'detection_output_ms_bucket16': det_ms,
+          'detection_output_host_syncs': det_syncs,
+          'detection_output_sync_sites': det_sites,
+          'launches': counts, 'host_syncs_waves': syncs,
+          'host_sync_sites': sync_sites, 'pre_nms_rel_err': pre,
+          'near_threshold_pairs': near})
+
+    def one_batch():
+        futs = [ep.submit(r) for r in reqs[:16]]
+        eng.run_until_idle()
+        for f in futs:
+            f.result(timeout=600)
+    phase_profile('serve_ssd', one_batch, {}, bucket=16)
+    return counts
+
+
+def _ssd_batch(seed, batch, dev, dtype=torch.float32):
+    """Images made on the card from a seeded generator and
+    ``ssd_ground_truth`` targets -> (images, boxes, labels) on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.randn((batch, 3, SSD_IMAGE, SSD_IMAGE), generator=gen,
+                         device=dev, dtype=dtype)
+    boxes, labels = ssd_ground_truth(np.random.RandomState(seed), batch)
+    return (images, torch.from_numpy(boxes).to(dev, dtype),
+            torch.from_numpy(labels).to(dev))
+
+
+def _ssd_train_pass(model, batch):
+    """One train-mode forward and backward -> (loss, d loss / d loc,
+    d loss / d conf, {parameter: gradient}, {buffer: value}), detached."""
+    from paddle_tpu_torch.vision import ssd_loss
+    images, gt_box, gt_label = batch
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loc, conf = model(images)
+    loc.retain_grad()
+    conf.retain_grad()
+    loss = ssd_loss(loc, conf, gt_box, gt_label, model.priors,
+                    model.prior_vars, **SSD_LOSS).sum()
+    loss.backward()
+    return (loss.detach(), loc.grad.detach(), conf.grad.detach(),
+            {n: p.grad.detach() for n, p in model.named_parameters()},
+            {n: b.detach().clone() for n, b in model.named_buffers()
+             if n.endswith(('_mean', '_variance'))})
+
+
+def _ssd_state(state):
+    """The step's parameters, optimizer slots and buffers by name."""
+    out = {f'params.{k}': v for k, v in state['params'].items()}
+    for k, st in state['opt'].items():
+        items = st.items() if isinstance(st, dict) else [('', st)]
+        out.update({f'opt.{k}.{s}': t for s, t in items
+                    if isinstance(t, torch.Tensor)})
+    out.update({f'buffers.{k}': v for k, v in state['buffers'].items()})
+    return out
+
+
+def phase_train_ssd(seed, card):
+    """The SSD in train mode through ``engine.build_train_step(loss_fn=,
+    params=, buffers=)`` (``ssd_loss_fn``; BatchNorm's statistics in
+    ``state['buffers']``), batch ``TRAIN_SSD_BATCH`` x 3 x 300 x 300, fp32,
+    TF32 off, the published optimizer ``RMSProp(learning_rate=0.001)``
+    with ``L2Decay(5e-5)``, ``nan_guard=True``; ``TRAIN_SSD_WARMUP`` +
+    ``TRAIN_SSD_STEPS`` steps on a fixed batch (CUDA events around each
+    timed one). Gates: finite losses, the last below the first; the
+    running statistics moved; a batch with a NaN leaves the parameters,
+    RMSProp's slots and the buffers bitwise as they were; the seven
+    kernels' launch counters zero. Printed: step ms (median), images/s,
+    peak GB, host syncs a step; one profiled step. Then one train pass at
+    ``SSD_PARITY_BATCH`` x 3 x 300 x 300 in fp64 on the card against the
+    CPU: the loss, the location and confidence gradients, every parameter
+    gradient and the BatchNorm statistics within ``TOL``. -> the path's
+    launch counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.engine import build_train_step
+    from paddle_tpu_torch.engine.builder import persistent_buffers
+    from paddle_tpu_torch.nn.regularizer import L2Decay
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 55)
+    t0 = time.perf_counter()
+    model = SSDMobileNet(device=dev, generator=gen).train()
+    batch = _ssd_batch(seed + 56, TRAIN_SSD_BATCH, dev)
+    params = dict(model.named_parameters())
+    step = build_train_step(
+        ssd_loss_fn(model), topt.RMSProp(learning_rate=0.001,
+                                         weight_decay=L2Decay(5e-5)),
+        params=params, buffers=persistent_buffers(model), nan_guard=True,
+        device=dev)
+    state = step.init_state()
+    stats0 = {n: v.clone() for n, v in state['buffers'].items()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses = []
+    for _ in range(TRAIN_SSD_WARMUP):
+        state, out = step(state, batch)
+        losses.append(out.loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(TRAIN_SSD_STEPS)]
+
+    def timed():
+        for start, end in events:
+            start.record()
+            _, res = step(state, batch)
+            end.record()
+            losses.append(res.loss)
+    kernels.reset_launch_counts()              # the main path starts here
+    _, syncs, sync_sites = _count_syncs(timed)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()           # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    _zero_counts(counts, 'train_ssd')
+    ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_ssd: losses {losses}")
+    moved = sum(not torch.equal(stats0[n], v)
+                for n, v in state['buffers'].items())
+    if moved != len(stats0) or not all(
+            torch.isfinite(v).all() for v in state['buffers'].values()):
+        raise AssertionError(f"train_ssd: {moved} of {len(stats0)} running "
+                             f"statistics moved (or not finite)")
+    before = {k: v.clone() for k, v in _ssd_state(state).items()}
+    bad = batch[0].clone()
+    bad[0, 0, 0, 0] = float('nan')
+    state, res = step(state, (bad,) + batch[1:])
+    after = _ssd_state(state)
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    if np.isfinite(float(res.loss)) or changed:
+        raise AssertionError(f"train_ssd: the poisoned step changed "
+                             f"{changed[:8]} (loss {float(res.loss)})")
+    if step.sync(state)['guard']['skipped'] != 1:
+        raise AssertionError("train_ssd: the guard did not count the skip")
+    med = float(np.median(ms))
+    emit({'phase': 'train_ssd', 'model': 'ssd_mobilenet_v1_voc',
+          'batch': TRAIN_SSD_BATCH, 'image': SSD_IMAGE, 'dtype': 'float32',
+          'cudnn_tf32': torch.backends.cudnn.allow_tf32,
+          'optimizer': 'RMSProp(0.001), L2Decay(5e-5)', 'card': card,
+          'setup_s': setup_s, 'step_ms': ms, 'step_ms_median': med,
+          'images_per_s': TRAIN_SSD_BATCH / (med / 1e3),
+          'peak_gb': peak / 1e9, 'losses': losses, 'launches': counts,
+          'host_syncs_per_step': syncs / TRAIN_SSD_STEPS,
+          'host_sync_sites': sync_sites, 'running_stats_moved': moved,
+          'poisoned_step_skipped': True, 'state_tensors': len(before)})
+    phase_profile('train_ssd', lambda: step(state, batch), {})
+    del step, state
+    # the fp64 train pass, GPU against CPU, on one set of weights
+    with tf32_off():
+        cpu = SSDMobileNet(device='cpu',
+                           generator=torch.Generator().manual_seed(seed + 57))
+        cpu = cpu.double()
+        gpu = copy.deepcopy(cpu).to(dev)
+        small = _ssd_batch(seed + 58, SSD_PARITY_BATCH, 'cpu', torch.float64)
+        want = _ssd_train_pass(cpu, small)
+        got = _ssd_train_pass(gpu, tuple(t.to(dev) for t in small))
+        got = [g.cpu() if isinstance(g, torch.Tensor) else
+               {n: t.cpu() for n, t in g.items()} for g in got]
+        errs = {'loss': rel_err(got[0], want[0]),
+                'loc_grad': rel_err(got[1], want[1]),
+                'conf_grad': rel_err(got[2], want[2]),
+                'running_stats': max(rel_err(got[4][n], want[4][n])
+                                     for n in want[4])}
+        for key, err in errs.items():
+            check(f'ssd fp64 train {key}, GPU vs CPU', err, TOL)
+        worst, worst_of, mean = _compare_grads('ssd fp64 train', got[3],
+                                               want[3], TOL)
+    emit({'phase': 'train_ssd_parity', 'batch': SSD_PARITY_BATCH,
+          'dtype': 'float64', 'tolerance': TOL, 'errors': errs,
+          'gradients_worst': worst, 'gradients_worst_of': worst_of,
+          'gradients_mean': mean, 'seconds': time.perf_counter() - t0})
+    return counts
+
+
 SOURCES = {
     'flash_attention_fwd': ('paddle_tpu_torch/kernels/csrc/flash_attention.cu',
                             'paddle_tpu/kernels/flash_attention.py:95'),
@@ -7401,6 +8348,13 @@ def main():
     torch.cuda.empty_cache()
     hapi_resnet = phase_hapi_fit_resnet(args.seed, card)
     torch.cuda.empty_cache()
+    # detection: vision.ops and detection_train, the SSD served and trained
+    phase_detection_parity(args.seed)
+    torch.cuda.empty_cache()
+    serve_ssd = phase_serve_ssd(args.seed, card)
+    torch.cuda.empty_cache()
+    train_ssd = phase_train_ssd(args.seed, card)
+    torch.cuda.empty_cache()
     # launches: each main path's counts, zeroed just before the path and
     # read just after (serving: 21 batches; serve_tenants: the tenants
     # engine's pumped and threaded batches; serve_fleet: every replica's
@@ -7418,7 +8372,8 @@ def main():
     # tp_two_ranks: both ranks' AdamW steps; ring_two_ranks: both ranks'
     # logits and loss forward and backward; pipeline_two_ranks: both
     # stages' forward and backward; serve_resnet, train_resnet and
-    # hapi_fit_resnet: ResNet-50's waves, steps and fit, which launch
+    # hapi_fit_resnet: ResNet-50's waves, steps and fit, and serve_ssd and
+    # train_ssd: the SSD's waves and timed steps, which launch
     # none); the top-level numbers are bf16's, the dtype of the reference's training
     # recipe, and ``gpt`` holds the fp32 cases at generate's shapes
     paths = {'serve': served, 'serve_tenants': served_tenants,
@@ -7432,7 +8387,8 @@ def main():
              'train_sharded': sharded, 'dp_two_ranks': dp_ranks,
              'tp_two_ranks': tp_ranks, 'ring_two_ranks': ring_ranks,
              'pipeline_two_ranks': pipe_ranks, 'serve_resnet': serve_resnet,
-             'train_resnet': train_resnet, 'hapi_fit_resnet': hapi_resnet}
+             'train_resnet': train_resnet, 'hapi_fit_resnet': hapi_resnet,
+             'serve_ssd': serve_ssd, 'train_ssd': train_ssd}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'share_of_bound', 'achieved_tflops',
             'achieved_tb_per_s')
