@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases a,b,...]
+
+``--phases`` runs only the named phases (``PHASES``) and those whose
+results they read, a partial run while developing: it prints its phases'
+lines and ``{"phases_run": [...]}``, never the kernels line or the ok
+line. Without it every phase runs.
 
 Phases, each printing one JSON line:
 
@@ -286,19 +291,53 @@ Phases, each printing one JSON line:
    kernels; step ms, images/s, peak, host syncs; a profiled step; then
    one fp64 train pass at 2 x 3 x 300 x 300, GPU against CPU: the loss,
    the location and confidence gradients, every parameter gradient and
-   the BatchNorm statistics within ``TOL``.
+   the BatchNorm statistics within ``TOL``;
+36. ernie parity — ``ErnieForPretraining`` at ERNIE-large's widths, 2
+   layers, fp32, p = 0, on one ``ernie_mask_batch`` batch (2 x 333,
+   ragged padding masks, phrase spans): the loss within ``TOL`` and every
+   gradient within ``GRAD_TOL``, GPU against CPU; the flash forward, dQ
+   and dK/dV against their plain versions at L = 77, 200 and 333 (a tail
+   tile), fp32 and bf16, with a key bias, p = 0 and 0.1;
+37. finetune ernie — ERNIE-large (``bert_large(type_vocab_size=4)``) with
+   a sentence-pair classifier (``ErnieClassifier``) through
+   ``hapi.Model.fit``, eager, fp32, AdamW 2e-5 under a linear warm-up,
+   the global-norm clip, batch 16 at padded lengths cycling 128, 333, 512
+   and 77 with per-row padding masks, 2 + 8 steps: every step's launches
+   exactly (kernels 1, 2, 3, 4, 6 and 7 at every length), a held-out
+   batch's loss lower after the fit,
+   one host sync a step at most; step ms by length, samples/s, peak, the
+   idle share of a profiled step;
+38. seq2seq parity — ``Seq2SeqTransformer`` at Transformer-base's
+   widths, 2 + 2 layers, fp32, p = 0, on 8 sources and targets of 64
+   tokens: the loss within ``TOL`` and every gradient within
+   ``GRAD_TOL``, the card against the CPU in fp64, with the train step's
+   launches (the CPU's fp32 pass printed beside it); the
+   LayerNorm, add+LayerNorm and mask-gradient kernels against their plain
+   versions at width 512 and the seq2seq's rows (the train step's with
+   the saved statistics, at p = 0 and 0.1; ``translate``'s);
+39. seq2seq — ``Seq2SeqTransformer`` at Transformer-base (vocabularies
+   10000 and 10000) trained through ``build_train_step`` (AdamW on
+   ``NoamDecay``, batch 32 at 64 x 64 and 80 x 64, 2 + 6 steps, exact
+   launches), then ``translate`` of 16 sources of 64 ids, beam 4,
+   ``max_len`` 64 (kernels 1, 4 and 6): first-token ms, decode step ms,
+   tokens/s, host reads a step, peak; its beams against the CPU's step by
+   step up to each row's first near-tie, the final log-probabilities
+   within ``TOL``.
 
 Every kernel row carries ``share_of_bound`` (bound ms over kernel ms) and
 the achieved TFLOP/s and TB/s beside the library call's time. Then a
 ``{"kernels": [...]}`` line (all seven kernels, bf16 numbers at the top
 level and under ``bf16``, fp32 under ``fp32``, fp16 under ``fp16``, the
-GPT cases under ``gpt``, launches by path: ``serve``,
+GPT cases under ``gpt``, the attention kernels' ragged cases under
+``ragged``, the norm kernels' seq2seq cases under ``width_512``,
+launches by path: ``serve``,
 ``serve_tenants``, ``serve_fleet``, the training paths,
 ``train_resume``, ``nn.RMSNorm``, ``generate``, ``serve_generative``,
 ``hapi_fit``, ``train_telemetry``, ``train_sharded``,
 ``dp_two_ranks``, the model-parallel phases, the three ResNet-50 paths
 and the two SSD paths, ``serve_ssd`` and ``train_ssd``, which launch
-none) and, last, ``{"ok": true,
+none, ``finetune_ernie``, ``seq2seq_train`` and ``seq2seq_translate``)
+and, last, ``{"ok": true,
 "device": ...}``. Any failure raises and exits non-zero; without a CUDA
 device (or without the package beside this file) it exits non-zero and
 prints no result. fp32 matrix products run in full
@@ -318,6 +357,7 @@ import tempfile
 import threading
 import time
 import traceback
+import types
 from pathlib import Path
 
 import numpy as np
@@ -905,7 +945,11 @@ LN_ROUTES = {(16 * SEQ, 1024): 'ln_rows_warp_kernel',
              (TRAIN_BATCH * (SEQ * 15 // 100), 1024): 'ln_rows_warp_kernel',
              (4 * TRAIN_BATCH * SEQ, 1024): 'ln_rows_warp_kernel',
              (8 * SEQ, 768): 'ln_rows_warp_kernel',       # GPT's prefill
-             (8, 768): 'ln_rows_warp_kernel'}             # a decode step
+             (8, 768): 'ln_rows_warp_kernel',             # a decode step
+             # the seq2seq's decoder at Transformer-base's width: the
+             # train step's rows and a beam-search step's
+             (32 * 64, 512): 'ln_rows_warp_kernel',
+             (16 * 4, 512): 'ln_rows_warp_kernel'}
 RMS_ROUTES = {(TRAIN_BATCH * SEQ, 1024): 'rms_rows_warp_kernel',
               (TRAIN_BATCH * SEQ, 4096): 'rms_norm_fwd_kernel',
               (300, 1000): 'rms_rows_warp_kernel'}
@@ -8240,6 +8284,764 @@ def phase_train_ssd(seed, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# ERNIE fine-tuned and the Transformer seq2seq decoded with beam search
+# ---------------------------------------------------------------------------
+
+# the kernels 1-3 held at lengths that are no multiple of the 64-row tile
+RAGGED_LENGTHS = (77, 200, 333)
+RAGGED_SHAPE = (4, 16, 64)             # batch, heads, head dim
+ERNIE_PARITY_BATCH = 2
+ERNIE_PARITY_LEN = 333
+ERNIE_MAX_PREDICTIONS = 20             # the knowledge mask's static width
+# ERNIE 2.0 large-en: bert_large's widths with 4 sentence types
+ERNIE_TYPES = 4
+ERNIE_CLASSES = 3                      # a sentence-pair task (NLI)
+ERNIE_BATCH = 16
+ERNIE_LENGTHS = (128, 333, 512, 77)    # the padded lengths, batch by batch
+ERNIE_WARMUP = 2
+ERNIE_STEPS = 8
+ERNIE_LR = 2e-5
+# per step of ERNIE-large fine-tuning at p = 0.1: the encoder's attention
+# and epilogues, the embeddings' LayerNorm (no MLM head)
+FINETUNE_LAUNCHES = {**TRAIN_LAUNCHES, 'layer_norm_fwd': 1}
+FINETUNE_ROUTES = {**TRAIN_ROUTES, 'ln_rows_warp_kernel': 1}
+S2S_VOCAB = 10000                      # WMT16's default dictionary sizes
+S2S_LAYERS = 6
+S2S_BATCH = 32
+S2S_SHAPES = ((64, 64), (80, 64))      # (source, target) lengths, in turn
+S2S_WARMUP = 2
+S2S_STEPS = 6
+S2S_SOURCES = 16
+S2S_SOURCE_LEN = 64
+S2S_BEAM = 4
+S2S_MAX_LEN = 64
+S2S_PARITY_LAYERS = 2                  # encoder and decoder layers each
+S2S_PARITY_BATCH = 8
+NEAR_TIE = 1e-4                        # selected beam scores this close
+# the errors of the ragged cases each attention kernel answers for
+RAGGED_ERRS = {'flash_attention_fwd': ('o', 'o_rel', 'lse'),
+               'flash_attention_dq': ('dq',),
+               'flash_attention_dkv': ('dk', 'dv')}
+
+
+def _ragged_attention(seed):
+    """The forward, dQ and dK/dV kernels against their plain versions at
+    ``RAGGED_LENGTHS`` (a tail tile in every direction), fp32 and bf16,
+    with BERT's key bias and at p = 0 and 0.1 -> the cases. fp32: o within
+    ``TOL``, the gradients ``GRAD_TOL`` relative; bf16: o ``BF16_TOL``
+    relative, lse ``STAT_TOL``, the gradients ``BF16_TOL``."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 71)
+    b, h, d = RAGGED_SHAPE
+    cases = []
+    for dtype in (torch.float32, BF16):
+        for length in RAGGED_LENGTHS:
+            q, k, v, do = (torch.randn(b, h, length, d, device=dev,
+                                       generator=gen).to(dtype)
+                           for _ in range(4))
+            bias, keys = _key_bias(b, length, dev, gen)
+            for p in (0.0, 0.1):
+                e = _attention_case(fa, q, k, v, do, False, bias, p,
+                                    0x5EED + seed, 7)
+                what = f"ragged flash {str(dtype)[6:]} L={length} p={p}"
+                if dtype == torch.float32:
+                    check(f'{what}: o', e['o'], TOL)
+                    tol = GRAD_TOL
+                else:
+                    check(f'{what}: o over its max', e['o_rel'], BF16_TOL)
+                    check(f'{what}: lse', e['lse'], STAT_TOL)
+                    tol = BF16_TOL
+                for g in ('dq', 'dk', 'dv'):
+                    check(f'{what}: {g}', e[g], tol)
+                cases.append({'dtype': str(dtype)[6:], 'length': length,
+                              'tiles': -(-length // 64), 'p': p,
+                              'unmasked_keys': keys, **e})
+    return cases
+
+
+def _knowledge_masked(seed, batch, length, vocab):
+    """One ``ernie_mask_batch`` batch: random wordpieces grouped into
+    words (two or three pieces now and then), each row padded after a
+    length drawn in [length / 2, length], two phrase spans a row -> (the
+    feeds, (masked labels, NSP labels)) as numpy."""
+    from paddle_tpu_torch.text.ernie import ernie_mask_batch
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(1000, vocab, (batch, length)).astype(np.int64)
+    words = np.cumsum(rs.rand(batch, length) < 0.7, axis=1)
+    real = rs.randint(length // 2, length + 1, batch)
+    spans = []
+    for i, n in enumerate(real):
+        ids[i, n:], words[i, n:] = 0, -1
+        spans.append([(3, 6), (int(words[i, n // 2]),
+                               int(words[i, n // 2]) + 2)])
+    ids[:, 0] = 101                                      # [CLS]
+    masked, pos, labels = ernie_mask_batch(
+        ids, words, vocab, max_predictions=ERNIE_MAX_PREDICTIONS,
+        phrase_spans=spans, seed=seed)
+    feeds = {'input_ids': masked,
+             'token_type_ids': rs.randint(0, ERNIE_TYPES, (batch, length)),
+             'attention_mask': (words >= 0).astype(np.int64),
+             'masked_positions': pos}
+    return feeds, (labels, rs.randint(0, 2, (batch, 1)).astype(np.int64))
+
+
+def phase_ernie_parity(seed):
+    """``ErnieForPretraining`` at ERNIE-large's widths, 2 layers, fp32,
+    p = 0, TF32 off, on one knowledge-masked batch (``ernie_mask_batch``:
+    ``ERNIE_PARITY_BATCH`` x ``ERNIE_PARITY_LEN``, ragged padding masks,
+    phrase spans): the loss within ``TOL`` and every gradient within
+    ``GRAD_TOL`` (over its tensor's max), GPU against CPU on the same
+    weights; then ``_ragged_attention``."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.text.bert import bert_large
+    from paddle_tpu_torch.text.ernie import ErnieForPretraining
+    dev = torch.device('cuda', 0)
+    t0 = time.perf_counter()
+    cfg = bert_large(type_vocab_size=ERNIE_TYPES, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    cfg.num_hidden_layers = 2
+    x, y = _knowledge_masked(seed + 72, ERNIE_PARITY_BATCH, ERNIE_PARITY_LEN,
+                             cfg.vocab_size)
+    with tf32_off():
+        gen = torch.Generator(device=dev).manual_seed(seed + 73)
+        model = ErnieForPretraining(cfg, device=dev, generator=gen).train()
+        kernels.reset_launch_counts()
+        loss, grads = _loss_and_grads(model, x, y, dev)
+        counts = kernels.launch_counts()
+        cpu = copy.deepcopy(model).to('cpu')
+        ref_loss, ref_grads = _loss_and_grads(cpu, x, y, 'cpu')
+    del model, cpu
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    check('ernie parity: loss, GPU vs CPU', loss_err, TOL)
+    worst, worst_of, mean = _compare_grads('ernie parity', grads, ref_grads)
+    if counts != PARITY_LAUNCHES | {'dropout_grad': 0}:
+        raise AssertionError(f"ernie parity: launches {counts}")
+    cases = _ragged_attention(seed)
+    torch.cuda.empty_cache()
+    emit({'phase': 'ernie_parity', 'layers': 2, 'hidden': cfg.hidden_size,
+          'type_vocab_size': ERNIE_TYPES,
+          'batch': [ERNIE_PARITY_BATCH, ERNIE_PARITY_LEN],
+          'real_tokens': x['attention_mask'].sum(1).tolist(),
+          'masked_predictions': int((y[0] >= 0).sum()),
+          'tolerance': {'loss': TOL, 'gradients': GRAD_TOL},
+          'loss': loss, 'reference_loss': ref_loss, 'loss_rel_err': loss_err,
+          'gradients_worst': worst, 'gradients_worst_of': worst_of,
+          'gradients_mean': mean, 'gradients': len(grads),
+          'launches': counts, 'ragged_attention': cases,
+          'seconds': time.perf_counter() - t0})
+    return cases
+
+
+class ErnieClassifier(torch.nn.Module):
+    """ERNIE's sentence-pair classifier: the pooled output, dropout 0.1
+    (the model's ``DropoutState``), then ``Linear(hidden, classes)``."""
+
+    def __init__(self, cfg, classes, *, device, generator):
+        super().__init__()
+        from paddle_tpu_torch.nn import Dropout, Linear
+        from paddle_tpu_torch.text.ernie import ErnieModel
+        self.ernie = ErnieModel(cfg, device=device, generator=generator)
+        self.dropout = Dropout(cfg.hidden_dropout_prob,
+                               dropout_state=self.ernie.dropout_state)
+        self.classifier = Linear(cfg.hidden_size, classes, device=device,
+                                 generator=generator)
+
+    @property
+    def dropout_state(self):
+        return self.ernie.dropout_state
+
+    def forward(self, input_ids, token_type_ids, attention_mask):
+        _, pooled = self.ernie(input_ids, token_type_ids,
+                               attention_mask=attention_mask)
+        return self.classifier(self.dropout(pooled))
+
+
+def _finetune_set(seed, vocab, lengths):
+    """Batches of ``ERNIE_BATCH`` sentence pairs, batch j padded to
+    ``lengths[j]``: [CLS] A [SEP] B [SEP], sentence types 0 and 1, each
+    row's real length drawn in [L / 2, L] with its padding mask, the
+    labels balanced within a batch; half of a row's real tokens are one
+    id that its label picks, so that the loss can fall in a few steps.
+    -> an ``io.Dataset`` of ({'input_ids', 'token_type_ids',
+    'attention_mask'}, (label,)) in batch order."""
+    from paddle_tpu_torch import io
+    rs = np.random.RandomState(seed)
+    rows = []
+    for L in lengths:
+        for label in rs.permutation(np.arange(ERNIE_BATCH) % ERNIE_CLASSES):
+            n = rs.randint(L // 2, L + 1)
+            ids = rs.randint(1000, vocab, L)
+            ids[rs.rand(L) < 0.5] = 1000 + label
+            a = rs.randint(2, n - 2)
+            ids[0], ids[a], ids[n - 1], ids[n:] = 101, 102, 102, 0
+            types = np.zeros(L, np.int64)
+            types[a + 1:n] = 1
+            rows.append(({'input_ids': ids.astype(np.int64),
+                          'token_type_ids': types,
+                          'attention_mask': (np.arange(L) < n).astype(
+                              np.int64)},
+                         (np.int64(label),)))
+
+    class Pairs(io.Dataset):
+        def __len__(self):
+            return len(rows)
+
+        def __getitem__(self, i):
+            return rows[i]
+    return Pairs()
+
+
+def phase_finetune_ernie(seed, card):
+    """ERNIE-large fine-tuned through ``hapi.Model.fit``, the dygraph path:
+    ``ErnieClassifier`` on ``ErnieModel(bert_large(type_vocab_size=4))``
+    (24 layers, hidden 1024, dropout 0.1), fp32 (TF32 off), AdamW(2e-5,
+    weight decay 0.01, none on LayerNorm and biases) under a linear
+    warm-up, the gradient clipped to a global norm of 1.0; one epoch of
+    ``_finetune_set`` (batch 16, dynamic shapes: the padded length cycles
+    128, 333, 512, 77), the first ``ERNIE_WARMUP`` batches a warm-up.
+    Gates: every step launches ``FINETUNE_LAUNCHES`` exactly (kernels 1,
+    2, 3, 4, 6 and 7 at every length); finite losses; the loss of a
+    held-out batch (eval mode, outside the counted path) lower after the
+    fit than before it; at most one host sync a step (the loop's loss
+    fetch). Printed: step ms by length, samples/s, peak memory, the
+    device's idle share in one profiled step (at 512). -> the path's
+    launch counts."""
+    from paddle_tpu_torch import Model, io, kernels
+    from paddle_tpu_torch.hapi.callbacks import Callback, LRScheduler
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    from paddle_tpu_torch.text.bert import bert_large
+    dev = torch.device('cuda', 0)
+    t0 = time.perf_counter()
+    cfg = bert_large(type_vocab_size=ERNIE_TYPES)
+    gen = torch.Generator(device=dev).manual_seed(seed + 74)
+    net = ErnieClassifier(cfg, ERNIE_CLASSES, device=dev, generator=gen)
+    sched = lr.LinearWarmup(ERNIE_LR, ERNIE_WARMUP, 0.0, ERNIE_LR)
+    opt = AdamW(learning_rate=sched, weight_decay=0.01,
+                apply_decay_param_fun=lambda n: not _no_decay(n),
+                grad_clip=ClipGradByGlobalNorm(1.0),
+                parameters=net.named_parameters())
+
+    def loss(logits, label):
+        return F.cross_entropy(logits, label.reshape(-1))
+    model = Model(net, device=dev).prepare(opt, loss)
+    steps = ERNIE_WARMUP + ERNIE_STEPS
+    lengths = [ERNIE_LENGTHS[j % len(ERNIE_LENGTHS)] for j in range(steps)]
+    loader = io.DataLoader(_finetune_set(seed + 75, cfg.vocab_size, lengths),
+                           batch_size=ERNIE_BATCH, shuffle=False, device=dev)
+    # a held-out batch, scored in eval mode before and after the fit
+    held_out = next(iter(io.DataLoader(
+        _finetune_set(seed + 76, cfg.vocab_size, ERNIE_LENGTHS[:1]),
+        batch_size=ERNIE_BATCH, device=dev)))
+
+    class Launches(Callback):
+        """Each batch's own launches (the counters read, never reset)."""
+
+        def __init__(self):
+            super().__init__()
+            self.rows = []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.before = kernels.launch_counts()
+
+        def on_train_batch_end(self, step, logs=None):
+            now = kernels.launch_counts()
+            self.rows.append({k: now[k] - self.before[k] for k in now})
+    clock, launches = _step_clock(), Launches()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with tf32_off():
+        before = model.eval_batch(*held_out)[0][0]
+        kernels.reset_launch_counts()          # the main path: the fit
+        t1 = time.perf_counter()
+        _, n_sync, where = _count_syncs(lambda: model.fit(
+            loader, epochs=1, shuffle=False, verbose=0,
+            callbacks=[clock, LRScheduler(), launches]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = kernels.launch_counts()       # ... read right after it
+        after = model.eval_batch(*held_out)[0][0]
+    n_sync -= _SYNC_NOTICE in ' '.join(where)
+    peak = torch.cuda.max_memory_allocated()
+    bad = [(lengths[j], c) for j, c in enumerate(launches.rows)
+           if c != FINETUNE_LAUNCHES]
+    if len(launches.rows) != steps or bad:
+        raise AssertionError(f"finetune_ernie: {len(launches.rows)} steps, "
+                             f"launches off at {bad[:2]}")
+    losses = [float(r[3]['loss']) for r in clock.rows]
+    if not all(np.isfinite(losses)) or not after < before:
+        raise AssertionError(f"finetune_ernie: held-out loss {before} -> "
+                             f"{after}, losses {losses}")
+    if n_sync > steps:
+        raise AssertionError(f"finetune_ernie: {n_sync} host syncs in "
+                             f"{steps} steps: {where[:4]}")
+    ends = [r[2] for r in clock.rows]
+    ms = [1e3 * (b - a) for a, b in zip(ends, ends[1:])][ERNIE_WARMUP - 1:]
+    timed = lengths[ERNIE_WARMUP:]
+    by_length = {L: [m for m, n in zip(ms, timed) if n == L]
+                 for L in ERNIE_LENGTHS}
+    tokens = ERNIE_BATCH * sum(timed)
+    row = {'phase': 'finetune_ernie', 'model': 'ERNIE 2.0 large-en widths '
+           '(bert_large, type_vocab_size 4), sentence-pair classifier',
+           'entry': 'hapi.Model.fit (eager)', 'card': card,
+           'layers': cfg.num_hidden_layers,
+           'batch': ERNIE_BATCH, 'lengths': lengths, 'dropout': 0.1,
+           'dtype': 'float32 (TF32 off)',
+           'optimizer': f'AdamW({ERNIE_LR}, weight_decay=0.01, no decay on '
+                        f'LayerNorm and biases), LinearWarmup({ERNIE_WARMUP}'
+                        f' steps), ClipGradByGlobalNorm(1.0)',
+           'setup_s': setup_s, 'fit_wall_s': wall,
+           'step_ms_by_length': {str(L): v for L, v in by_length.items()},
+           'step_ms_median_by_length': {str(L): float(np.median(v))
+                                        for L, v in by_length.items()},
+           'samples_per_s': ERNIE_BATCH * len(ms) / (sum(ms) / 1e3),
+           'tokens_per_s': tokens / (sum(ms) / 1e3),
+           'peak_gb': peak / 1e9, 'own_peak_gb': (peak - held) / 1e9,
+           'losses': losses, 'held_out_loss': [before, after],
+           'host_syncs': n_sync,
+           'host_syncs_per_step': n_sync / steps, 'sync_sites': where[:4],
+           'launches_per_step': FINETUNE_LAUNCHES, 'launches': counts,
+           'seconds': time.perf_counter() - t0}
+    emit(row)
+    longest = max(ERNIE_LENGTHS)
+    batch = next(b for j, b in enumerate(loader) if lengths[j] == longest)
+    with tf32_off():
+        prof = phase_profile(f'finetune_ernie train_batch (L = {longest})',
+                             lambda: model.train_batch(*batch),
+                             FINETUNE_ROUTES, top_n=12,
+                             batch=[ERNIE_BATCH, longest])
+    emit({'phase': 'finetune_ernie_profile', 'wall_ms': prof['wall_ms'],
+          'device_busy_ms': prof['device_busy_ms'],
+          'device_idle_share': prof['device_idle_share']})
+    del model, net, opt, batch, loader
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _s2s_launches(src_len, trg_len, layers=S2S_LAYERS):
+    """One train step's launches at p = 0.1: the encoder's attention (and
+    the cross-attention when the lengths match) on kernels 1-3, its fused
+    epilogues (6, and 7 backward), the decoder's LayerNorms (4)."""
+    attn = layers * (2 if src_len == trg_len else 1)
+    return {'flash_attention_fwd': attn, 'flash_attention_dq': attn,
+            'flash_attention_dkv': attn, 'add_layer_norm_fwd': 2 * layers,
+            'dropout_grad': 2 * layers, 'layer_norm_fwd': 3 * layers,
+            'rms_norm_fwd': 0}
+
+
+def _translate_launches(steps, layers=S2S_LAYERS):
+    """One ``translate`` call's launches over ``steps`` decoding steps: the
+    encoder's self-attention (kernel 1) and epilogues (6), the first
+    step's self-attention (one query against the one key cached: kernel
+    1), each step's decoder LayerNorms (4)."""
+    return {'flash_attention_fwd': 2 * layers, 'flash_attention_dq': 0,
+            'flash_attention_dkv': 0, 'add_layer_norm_fwd': 2 * layers,
+            'dropout_grad': 0, 'layer_norm_fwd': 3 * layers * steps,
+            'rms_norm_fwd': 0}
+
+
+@contextlib.contextmanager
+def _traced_beams(tops=False):
+    """``text.seq2seq``'s beam search with each step's host time (taken
+    after the loop's host read, so every earlier step has finished on the
+    device) and outputs (the selected scores, ids and parents) kept; with
+    ``tops``, also each step's best ``beam + 1`` candidate scores (the
+    first one left out of the beams too), taken from the scores the
+    search's own top-W selects from."""
+    from paddle_tpu_torch.text import seq2seq
+    base = seq2seq.BeamSearchDecoder
+    trace = {'marks': [], 'outputs': [], 'tops': []}
+
+    class Traced(base):
+        def step(self, t, inputs, states, **kw):
+            trace['marks'].append(time.perf_counter())
+            out = super().step(t, inputs, states, **kw)
+            trace['outputs'].append(out[0])
+            return out
+
+        def _candidate_log_probs(self, logits, beam_state):
+            lp = super()._candidate_log_probs(logits, beam_state)
+            if tops:
+                trace['tops'].append(torch.topk(
+                    lp.reshape(lp.shape[0], -1), self.beam_size + 1).values)
+            return lp
+    seq2seq.BeamSearchDecoder = Traced
+    try:
+        yield trace
+    finally:
+        seq2seq.BeamSearchDecoder = base
+
+
+def _near_ties(tops):
+    """-> per source row, the first step at which two of its best ``beam +
+    1`` candidates lie within ``NEAR_TIE`` (None when none do): there a
+    different summation order may pick other beams."""
+    first = [None] * tops[0].shape[0]
+    for t, top in enumerate(tops):
+        gaps = top[:, :-1] - top[:, 1:]
+        for b in torch.nonzero(gaps.min(dim=1).values < NEAR_TIE
+                               ).flatten().tolist():
+            if first[b] is None:
+                first[b] = t
+    return first
+
+
+def _s2s_loss_and_grads(model, batch, device):
+    """One teacher-forced forward and backward of the target tokens'
+    cross-entropy -> (loss, {name: fp32 gradient on the host}), with the
+    model's dropout state rewound to offset 0."""
+    from paddle_tpu_torch.nn import functional as F
+    model.dropout_state.offset = 0
+    params = dict(model.named_parameters())
+    src, trg_in, trg_out = (torch.from_numpy(a).to(device) for a in batch)
+    logits = model(src, trg_in)
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           trg_out.reshape(-1))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return (float(loss.detach()),
+            {n: g.detach().float().cpu() for n, g in zip(params, grads)})
+
+
+def _width_512_norms(seed):
+    """Kernels 4, 6 and 7 against their plain versions at Transformer-base's
+    width, fp32, at the rows the seq2seq's paths give them: the train
+    step's (``S2S_BATCH`` x 64 tokens) with the saved statistics (y, mean,
+    rstd; y, yin, mean, rstd) and add+LayerNorm at p = 0 and 0.1, the
+    mask gradient at p = 0.1; ``translate``'s encoder rows (``S2S_SOURCES``
+    x ``S2S_SOURCE_LEN``, p = 0, no statistics) and a decoding step's
+    (``S2S_SOURCES`` x ``S2S_BEAM`` rows). Each within ``TOL``; the train
+    shapes also timed -> {kernel: [case, ...]}."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import fused_dropout_norm as fdn
+    from paddle_tpu_torch.kernels import fused_norm
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 78)
+    P, SEED, E = 0.1, 0x5EED + seed, 512
+    train_rows = S2S_BATCH * 64
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+    w, b = 1.0 + 0.1 * randn(E), 0.1 * randn(E)
+    out = {'layer_norm_fwd': [], 'add_layer_norm_fwd': [], 'dropout_grad': []}
+
+    def hold(name, what, fn, timed, work):
+        got = fn()
+        with kernels.plain_versions():
+            want = fn()
+            plain = time_ms(fn, flush) if timed else None
+        torch.cuda.synchronize()
+        err = max(max_err(a, c) for a, c in zip(got, want) if a is not None)
+        check(f'{name} {what}', err, TOL)
+        case = {'case': what, 'max_abs_err': err}
+        if timed:
+            case.update({'ms': time_ms(fn, flush), 'plain_ms': plain, **work})
+        out[name].append(case)
+
+    for rows, stats, timed in ((train_rows, True, True),
+                               (S2S_SOURCES * S2S_BEAM, False, False)):
+        x = randn(rows, E)
+        hold('layer_norm_fwd', f'({rows}, {E}) stats={stats}',
+             lambda x=x, st=stats: fused_norm._forward(x, w, b, 1e-5, st),
+             timed, bound(8.0 * rows * E, 4.0 * (2 * rows * E + 2 * E
+                                                 + 2 * rows)))
+    for rows, p, saved, timed in ((train_rows, 0.0, True, True),
+                                  (train_rows, P, True, True),
+                                  (S2S_SOURCES * S2S_SOURCE_LEN, 0.0, False,
+                                   False)):
+        x, res = randn(rows, E), randn(rows, E)
+        hold('add_layer_norm_fwd', f'({rows}, {E}) p={p} saved={saved}',
+             lambda x=x, res=res, p=p, sv=saved: fdn._forward(
+                 x, res, w, b, p, 1e-5, SEED, 5, sv), timed,
+             bound(9.0 * rows * E, 4.0 * (4 * rows * E + 2 * E + 2 * rows)))
+    g = randn(train_rows, E)
+    hold('dropout_grad', f'({train_rows}, {E}) p={P}',
+         lambda: (fdn.dropout_grad(g, P, SEED, 5),), True,
+         bound(1.0 * train_rows * E, 4.0 * 2 * train_rows * E))
+    del flush
+    return out
+
+
+def phase_seq2seq_parity(seed):
+    """``Seq2SeqTransformer`` at Transformer-base's widths (d_model 512, 8
+    heads, FFN 2048, vocabularies 10000), ``S2S_PARITY_LAYERS`` +
+    ``S2S_PARITY_LAYERS`` layers, p = 0, TF32 off, on one batch of
+    ``S2S_PARITY_BATCH`` sources and targets of 64 tokens (the
+    cross-attention on the flash kernel): the card's fp32 teacher-forced
+    loss within ``TOL`` and every gradient within ``GRAD_TOL`` (over its
+    tensor's max) of the CPU's in fp64 on the same weights, with the train
+    step's launches at p = 0. The CPU's fp32 pass is printed beside it,
+    not held: on this model the plain attention's fp32 backward (the CPU's
+    path) lies 3.4e-3 from fp64 on the encoder's last FFN, the kernels
+    2e-5. Then ``_width_512_norms`` -> its cases."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.text import Seq2SeqTransformer
+    dev = torch.device('cuda', 0)
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(seed + 79)
+    src = rs.randint(2, S2S_VOCAB, (S2S_PARITY_BATCH, 64))
+    trg = rs.randint(2, S2S_VOCAB, (S2S_PARITY_BATCH, 65))
+    trg[:, 0] = 0                                           # bos
+    batch = (src, trg[:, :-1], trg[:, 1:])
+    with tf32_off():
+        gen = torch.Generator(device=dev).manual_seed(seed + 80)
+        model = Seq2SeqTransformer(
+            S2S_VOCAB, S2S_VOCAB, num_encoder_layers=S2S_PARITY_LAYERS,
+            num_decoder_layers=S2S_PARITY_LAYERS, dropout=0.0, device=dev,
+            generator=gen).train()
+        kernels.reset_launch_counts()
+        loss, grads = _s2s_loss_and_grads(model, batch, dev)
+        counts = kernels.launch_counts()
+        cpu = copy.deepcopy(model).to('cpu')
+        cpu_loss, cpu_grads = _s2s_loss_and_grads(cpu, batch, 'cpu')
+        ref_loss, ref_grads = _s2s_loss_and_grads(cpu.double(), batch,
+                                                  'cpu')
+    del model, cpu
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    check('seq2seq parity: loss, GPU vs CPU fp64', loss_err, TOL)
+    worst, worst_of, mean = _compare_grads('seq2seq parity (GPU vs CPU '
+                                           'fp64)', grads, ref_grads)
+    cpu32 = {'loss_rel_err': abs(cpu_loss - ref_loss) / abs(ref_loss)}
+    for what, errs in (('cpu_fp32', _grad_errs(cpu_grads, ref_grads)),
+                       ('gpu_vs_cpu_fp32', _grad_errs(grads, cpu_grads))):
+        name = max(errs, key=errs.get)
+        cpu32[f'{what}_gradients_worst'] = [name, errs[name]]
+    want = _s2s_launches(64, 64, S2S_PARITY_LAYERS) | {'dropout_grad': 0}
+    if counts != want:
+        raise AssertionError(f"seq2seq parity: launches {counts}, expected "
+                             f"{want}")
+    norms = _width_512_norms(seed)
+    torch.cuda.empty_cache()
+    emit({'phase': 'seq2seq_parity',
+          'layers': [S2S_PARITY_LAYERS, S2S_PARITY_LAYERS], 'd_model': 512,
+          'batch': [S2S_PARITY_BATCH, 64, 64],
+          'against': 'the CPU in fp64, same weights',
+          'tolerance': {'loss': TOL, 'gradients': GRAD_TOL},
+          'loss': loss, 'reference_loss': ref_loss, 'loss_rel_err': loss_err,
+          'gradients_worst': worst, 'gradients_worst_of': worst_of,
+          'gradients_mean': mean, 'gradients': len(grads),
+          'cpu_fp32_not_held': cpu32,
+          'launches': counts, 'width_512': norms,
+          'seconds': time.perf_counter() - t0})
+    return norms
+
+
+def phase_seq2seq(seed, card):
+    """``Seq2SeqTransformer`` at Transformer-base (d_model 512, 8 heads, 6
+    + 6 layers, FFN 2048, dropout 0.1, 256 positions; vocabularies 10000
+    and 10000, ``text.datasets.WMT16``'s defaults), fp32 (TF32 off).
+
+    Train: ``engine.build_train_step`` with AdamW(beta2 0.98, eps 1e-9) on
+    ``NoamDecay(512, 4000)``, cross-entropy over the target tokens, batch
+    32, ``S2S_WARMUP + S2S_STEPS`` steps alternating (source, target) =
+    (64, 64) (the cross-attention on the flash kernel) and (80, 64)
+    (composed); every step's launches exactly ``_s2s_launches``, every
+    loss finite; ms a step and tokens/s; one profiled step.
+
+    Translate: ``translate`` of ``S2S_SOURCES`` sources of 64 ids, beam 4,
+    ``max_len`` 64 (the main path: kernels 1, 4 and 6), exact launches;
+    first-token ms, ms a decode step (p50), tokens/s, host reads a step,
+    peak memory; one profiled call. Then the same search on the CPU on the
+    same weights: every row's selected (score, id, parent) equal step by
+    step (scores within ``TOL`` of their max) up to its first near-tie
+    (two of its best ``beam + 1`` candidates within ``NEAR_TIE``, on
+    either side), and on the rows with none the best beam's ids equal and
+    the final log-probabilities within ``TOL``; the near-tie rows counted.
+    -> (the train path's launches, the translate path's)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.engine import build_train_step
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    from paddle_tpu_torch.text import Seq2SeqTransformer
+    dev = torch.device('cuda', 0)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 76)
+    model = Seq2SeqTransformer(S2S_VOCAB, S2S_VOCAB, device=dev,
+                               generator=gen).train()
+    sched = lr.NoamDecay(d_model=512, warmup_steps=4000)
+    opt = AdamW(learning_rate=sched, beta2=0.98, epsilon=1e-9)
+
+    def loss(logits, labels):
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1))
+    step = build_train_step(net=model, loss=loss, optimizer=opt, device=dev)
+    state = step.init_state()
+    rs = np.random.RandomState(seed + 77)
+    batches = []
+    for src_len, trg_len in S2S_SHAPES:
+        src = rs.randint(2, S2S_VOCAB, (S2S_BATCH, src_len))
+        trg = rs.randint(2, S2S_VOCAB, (S2S_BATCH, trg_len + 1))
+        trg[:, 0] = 0                                       # bos
+        batches.append(tuple(torch.from_numpy(a).to(dev) for a in
+                             (src, trg[:, :-1], trg[:, 1:])))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, ms, totals = [], [], {}
+    torch.cuda.reset_peak_memory_stats()
+    with tf32_off():
+        for i in range(S2S_WARMUP + S2S_STEPS):
+            src, trg_in, trg_out = batches[i % len(batches)]
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            kernels.reset_launch_counts()      # the main path: one step
+            start.record()
+            state, res = step(state, ((src, trg_in), (trg_out,)))
+            end.record()
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()   # ... read right after it
+            want = _s2s_launches(src.shape[1], trg_in.shape[1])
+            if counts != want:
+                raise AssertionError(f"seq2seq train step {i}: launches "
+                                     f"{counts}, expected {want}")
+            for k, n in counts.items():
+                totals[k] = totals.get(k, 0) + n
+            sched.step()
+            losses.append(float(res.loss))
+            if i >= S2S_WARMUP:
+                ms.append(start.elapsed_time(end))
+        train_peak = torch.cuda.max_memory_allocated()
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"seq2seq train: losses {losses}")
+        by_shape = {f'{s}x{t}': [m for i, m in enumerate(ms)
+                                 if S2S_SHAPES[(i + S2S_WARMUP) % 2] == (s, t)]
+                    for s, t in S2S_SHAPES}
+        emit({'phase': 'seq2seq_train', 'model': 'Transformer-base '
+              '(Seq2SeqTransformer defaults)', 'card': card,
+              'layers': [S2S_LAYERS, S2S_LAYERS], 'vocab': S2S_VOCAB,
+              'batch': S2S_BATCH, 'shapes': S2S_SHAPES, 'dropout': 0.1,
+              'dtype': 'float32 (TF32 off)',
+              'optimizer': 'AdamW(beta2=0.98, epsilon=1e-9) on '
+                           'NoamDecay(d_model=512, warmup_steps=4000)',
+              'setup_s': setup_s, 'step_ms': ms,
+              'step_ms_median_by_shape': {k: float(np.median(v))
+                                          for k, v in by_shape.items()},
+              'target_tokens_per_s': S2S_BATCH * 64 * len(ms) /
+              (sum(ms) / 1e3), 'peak_gb': train_peak / 1e9,
+              'losses': losses, 'launches': totals,
+              'launches_per_step': {f'{s}x{t}': _s2s_launches(s, t)
+                                    for s, t in S2S_SHAPES}})
+        src, trg_in, trg_out = batches[0]
+        prof = phase_profile('seq2seq train step (64 x 64)',
+                             lambda: step(state, ((src, trg_in),
+                                                  (trg_out,))), {},
+                             batch=[S2S_BATCH, 64])
+        emit({'phase': 'seq2seq_train_profile', 'wall_ms': prof['wall_ms'],
+              'device_busy_ms': prof['device_busy_ms'],
+              'device_idle_share': prof['device_idle_share']})
+        del step, state, batches, opt
+        torch.cuda.empty_cache()
+
+        model.eval()
+        sources = torch.from_numpy(rs.randint(
+            2, S2S_VOCAB, (S2S_SOURCES, S2S_SOURCE_LEN))).to(dev)
+        model.translate(sources[:2], beam_size=S2S_BEAM, max_len=4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with _traced_beams() as trace:
+            kernels.reset_launch_counts()      # the main path: translate
+            t1 = time.perf_counter()
+            ids, n_sync, where = _count_syncs(lambda: model.translate(
+                sources, beam_size=S2S_BEAM, max_len=S2S_MAX_LEN))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            decoded = kernels.launch_counts()  # ... read right after it
+        peak = torch.cuda.max_memory_allocated()
+        n_sync -= _SYNC_NOTICE in ' '.join(where)
+        steps = len(trace['outputs'])
+        want = _translate_launches(steps)
+        if decoded != want:
+            raise AssertionError(f"seq2seq translate: launches {decoded}, "
+                                 f"expected {want}")
+        if tuple(ids.shape) != (S2S_SOURCES, S2S_MAX_LEN, S2S_BEAM) or \
+                ids.min() < 0 or ids.max() >= S2S_VOCAB:
+            raise AssertionError(f"seq2seq translate: ids {ids.shape}")
+        marks = trace['marks'] + [t2]
+        step_ms = [1e3 * (b - a) for a, b in zip(marks[1:], marks[2:])]
+        # the same search again, for the final states and the candidates'
+        # scores, and on the CPU
+        with _traced_beams(tops=True) as gpu:
+            got, got_states = model.beam_decode(sources, 0, 1, S2S_BEAM,
+                                                S2S_MAX_LEN)
+        if not torch.equal(got, ids):
+            raise AssertionError("seq2seq translate: a second call differs")
+        t3 = time.perf_counter()
+        cpu = copy.deepcopy(model).to('cpu')
+        with _traced_beams(tops=True) as cpu_trace:
+            want_ids, want_states = cpu.beam_decode(
+                sources.cpu(), 0, 1, S2S_BEAM, S2S_MAX_LEN)
+        cpu_s = time.perf_counter() - t3
+    del cpu
+    gpu_trace = gpu['outputs']
+    ties = [min((t for t in (a, b) if t is not None), default=None)
+            for a, b in zip(_near_ties(gpu['tops']),
+                            _near_ties(cpu_trace['tops']))]
+    score_err, held_rows = 0.0, []
+    for b, tie in enumerate(ties):
+        upto = steps if tie is None else tie
+        if len(cpu_trace['outputs']) < upto:
+            raise AssertionError(f"seq2seq translate: the CPU's search "
+                                 f"stopped before step {upto} (row {b})")
+        for t in range(upto):
+            g = gpu_trace[t]
+            w = cpu_trace['outputs'][t]
+            for key in ('predicted_ids', 'parent_ids'):
+                if not torch.equal(g[key][b].cpu(), w[key][b]):
+                    raise AssertionError(
+                        f"seq2seq translate: row {b} step {t} {key} differ "
+                        f"from the CPU's before any near-tie")
+            score_err = max(score_err, rel_err(g['scores'][b].cpu(),
+                                               w['scores'][b]))
+        if tie is None:
+            held_rows.append(b)
+    check('seq2seq translate: step scores, GPU vs CPU', score_err, TOL)
+    rows = torch.tensor(held_rows, dtype=torch.long)
+    if not torch.equal(ids.cpu()[rows, :, 0], want_ids[rows, :, 0]):
+        raise AssertionError("seq2seq translate: the best beam's ids differ "
+                             "from the CPU's on a row without a near-tie")
+    lp_err = rel_err(got_states['log_probs'].cpu()[rows],
+                     want_states['log_probs'][rows])
+    check('seq2seq translate: final log-probabilities, GPU vs CPU', lp_err,
+          TOL)
+    total_s = t2 - t1
+    emit({'phase': 'seq2seq_translate', 'card': card,
+          'sources': [S2S_SOURCES, S2S_SOURCE_LEN], 'beam': S2S_BEAM,
+          'max_len': S2S_MAX_LEN, 'steps_run': steps,
+          'first_token_ms': 1e3 * (trace['marks'][1] - t1)
+          if steps > 1 else None,
+          'decode_step_ms_p50': float(np.median(step_ms)) if step_ms
+          else None, 'decode_step_ms_p99': float(np.percentile(step_ms, 99))
+          if step_ms else None,
+          'translate_ms': 1e3 * total_s,
+          'tokens_per_s': S2S_SOURCES * steps / total_s,
+          'beam_tokens_per_s': S2S_SOURCES * S2S_BEAM * steps / total_s,
+          'host_reads': n_sync, 'host_reads_per_step': n_sync / steps,
+          'sync_sites': where[:4], 'peak_gb': peak / 1e9,
+          'own_peak_gb': (peak - held) / 1e9, 'launches': decoded,
+          'parity': {'against': 'the CPU, same weights, fp32',
+                     'near_tie': NEAR_TIE,
+                     'near_tie_rows': sum(t is not None for t in ties),
+                     'first_near_tie_steps': ties, 'rows_held_whole':
+                     len(held_rows), 'step_scores_rel_err': score_err,
+                     'final_log_probs_rel_err': lp_err,
+                     'cpu_search_s': cpu_s},
+          'seconds': time.perf_counter() - t0})
+    prof = phase_profile('seq2seq translate', lambda: model.translate(
+        sources, beam_size=S2S_BEAM, max_len=S2S_MAX_LEN), {},
+        sources=[S2S_SOURCES, S2S_SOURCE_LEN])
+    emit({'phase': 'seq2seq_translate_profile', 'wall_ms': prof['wall_ms'],
+          'device_busy_ms': prof['device_busy_ms'],
+          'device_idle_share': prof['device_idle_share']})
+    del model
+    torch.cuda.empty_cache()
+    return totals, decoded
+
+
 SOURCES = {
     'flash_attention_fwd': ('paddle_tpu_torch/kernels/csrc/flash_attention.cu',
                             'paddle_tpu/kernels/flash_attention.py:95'),
@@ -8262,10 +9064,134 @@ SOURCES = {
 }
 
 
+def _kernel_phases(r):
+    """The kernel phases 3-5 and 18, which share one flush buffer -> their
+    rows at fp32, bf16 and fp16 (RMSNorm's among them), ``nn.RMSNorm``'s
+    path counts and GPT's rows."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
+                        device='cuda')       # 256 MB, five times the L2
+    rows = phase_kernels(r.seed, flush)
+    rows16 = phase_kernels_16(r.seed, flush)
+    rowsh = phase_kernels_16(r.seed, flush, FP16)
+    phase_mask_probe(r.seed)
+    rms_rows, rms_path = phase_rms(r.seed, flush)
+    for table, dtype in ((rows, 'fp32'), (rows16, 'bf16'), (rowsh, 'fp16')):
+        table['rms_norm_fwd'] = rms_rows[dtype]
+    return rows, rows16, rowsh, rms_path, phase_kernels_gpt(r.seed, flush)
+
+
+# The phases in the order the whole run takes them: (name, the results of
+# earlier phases it reads, the results it gives, run). ``run(r)`` returns
+# its results in that order (one result bare); ``r`` holds the seed, the
+# card and every result given so far. A result that later phases read is
+# dropped after the last of them ran; the others stay for the kernels line.
+PHASES = (
+    ('kernels', (), ('rows', 'rows16', 'rowsh', 'rms_path', 'gpt_rows'),
+     _kernel_phases),
+    ('parity', (), (), lambda r: phase_parity(r.seed)),
+    ('serve', (), ('served', 'serve'), lambda r: phase_serve(r.seed, r.card)),
+    ('serve_tenants', ('serve',), ('served_tenants',),
+     lambda r: phase_serve_tenants(r.seed, r.card, r.serve)),
+    ('serve_fleet', ('serve',), ('served_fleet',),
+     lambda r: phase_serve_fleet(r.seed, r.card, r.serve)),
+    ('train_parity', (), (), lambda r: phase_train_parity(r.seed)),
+    # the step's callable, and with it its model and state, goes
+    ('train', (), ('trained', 'train_ms'),
+     lambda r: phase_train(r.seed, r.card)[::2]),
+    ('train_parity_bf16', (), (), lambda r: phase_train_parity_bf16(r.seed)),
+    ('train_bf16', (), ('trained16',),
+     lambda r: phase_train(r.seed, r.card, 'bf16')[0]),
+    ('train_parity_flat', (), (), lambda r: phase_train_parity_flat(r.seed)),
+    ('train_bf16_flat', (), ('trained_flat',),
+     lambda r: phase_train(r.seed, r.card, 'bf16_flat')[0]),
+    ('train_parity_fp16', (), (), lambda r: phase_train_parity_fp16(r.seed)),
+    ('train_fp16_amp', (), ('trained_amp', 'amp_again'),
+     lambda r: phase_train(r.seed, r.card, 'fp16_amp')[:2]),
+    ('train_parity_fit', (), (), lambda r: phase_train_parity_fit(r.seed)),
+    ('train_fit', (), ('trained_fit', 'fit_row'),
+     lambda r: phase_train_fit(r.seed, r.card)),
+    ('remat_memory', (), (), lambda r: phase_remat_memory(r.seed, r.card)),
+    ('generate', (), ('generated',), lambda r: phase_generate(r.seed, r.card)),
+    ('serve_generative', (), ('served_gen',),
+     lambda r: phase_serve_generative(r.seed, r.card)),
+    ('hapi_parity', (), (), lambda r: phase_hapi_parity(r.seed)),
+    ('hapi_fit', ('train_ms',), ('hapi',),
+     lambda r: phase_hapi_fit(r.seed, r.card, r.train_ms['median'])),
+    ('routes', ('amp_again',), (), lambda r: phase_routes(r.seed,
+                                                         r.amp_again)),
+    # last: after it, a torch.profiler session loses its first device
+    # events (PERF.md, section 7), and every profile phase counts them
+    ('train_resume', (), ('resumed',),
+     lambda r: phase_train_resume(r.seed, r.card)),
+    # no profile follows: the training side's telemetry runs after it
+    ('train_telemetry', (), ('telemetry',),
+     lambda r: phase_train_telemetry(r.seed, r.card)),
+    # data parallelism: no profiler session here either (see above)
+    ('collectives', (), (), lambda r: phase_collectives(r.card)),
+    ('train_sharded', ('fit_row',), ('sharded',),
+     lambda r: phase_train_sharded(r.seed, r.card, r.fit_row)[0]),
+    ('dp_two_ranks', (), ('dp_ranks',),
+     lambda r: phase_dp_two_ranks(r.seed, r.card)[0]),
+    # model parallelism: two gloo ranks a phase, no profiler session
+    ('tp_two_ranks', (), ('tp_ranks',),
+     lambda r: phase_tp_two_ranks(r.seed, r.card)[0]),
+    ('ring_two_ranks', (), ('ring_ranks',),
+     lambda r: phase_ring_two_ranks(r.seed, r.card)[0]),
+    ('pipeline_two_ranks', (), ('pipe_ranks',),
+     lambda r: phase_pipeline_two_ranks(r.seed, r.card)[0]),
+    # vision: the convolutional nn and ResNet-50, none of the seven kernels
+    ('vision_parity', (), (), lambda r: phase_vision_parity(r.seed)),
+    ('serve_resnet', (), ('serve_resnet',),
+     lambda r: phase_serve_resnet(r.seed, r.card)),
+    ('train_resnet', (), ('train_resnet',),
+     lambda r: phase_train_resnet(r.seed, r.card)),
+    ('hapi_fit_resnet', (), ('hapi_resnet',),
+     lambda r: phase_hapi_fit_resnet(r.seed, r.card)),
+    # detection: vision.ops and detection_train, the SSD served and trained
+    ('detection_parity', (), (), lambda r: phase_detection_parity(r.seed)),
+    ('serve_ssd', (), ('serve_ssd',),
+     lambda r: phase_serve_ssd(r.seed, r.card)),
+    ('train_ssd', (), ('train_ssd',),
+     lambda r: phase_train_ssd(r.seed, r.card)),
+    # text: ERNIE fine-tuned, the Transformer seq2seq trained and decoded
+    ('ernie_parity', (), ('ragged',), lambda r: phase_ernie_parity(r.seed)),
+    ('finetune_ernie', (), ('finetuned',),
+     lambda r: phase_finetune_ernie(r.seed, r.card)),
+    ('seq2seq_parity', (), ('width_512',),
+     lambda r: phase_seq2seq_parity(r.seed)),
+    ('seq2seq', (), ('s2s_trained', 's2s_decoded'),
+     lambda r: phase_seq2seq(r.seed, r.card)),
+)
+
+
+def selected_phases(arg):
+    """``--phases a,b`` -> the phases to run, in ``PHASES``' order: those
+    named and those whose results they read; every phase without the flag.
+    Raises ``SystemExit`` on an unknown name."""
+    if arg is None:
+        return PHASES
+    names = {n.strip() for n in arg.split(',') if n.strip()}
+    unknown = sorted(names - {p[0] for p in PHASES})
+    if unknown or not names:
+        raise SystemExit(f"chip_smoke: unknown phases {unknown}; the phases "
+                         f"are {', '.join(p[0] for p in PHASES)}")
+    giver = {key: p[0] for p in PHASES for key in p[2]}
+    for name, reads, _, _ in reversed(PHASES):   # readers after givers
+        if name in names:
+            names.update(giver[key] for key in reads)
+    return tuple(p for p in PHASES if p[0] in names)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument(
+        '--phases', default=None,
+        help='comma-separated phases to run (with those whose results they '
+             'read), for a partial run: it prints no kernels line and no ok '
+             'line; without it every phase runs')
     args = parser.parse_args()
+    run = selected_phases(args.phases)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's GPU path cannot run "
               "here", file=sys.stderr)
@@ -8273,88 +9199,20 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
-
-    card = phase_card()
+    r = types.SimpleNamespace(seed=args.seed, card=phase_card())
     phase_build()
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
-                        device='cuda')   # 256 MB, five times the L2
-    rows = phase_kernels(args.seed, flush)
-    rows16 = phase_kernels_16(args.seed, flush)
-    rowsh = phase_kernels_16(args.seed, flush, FP16)
-    phase_mask_probe(args.seed)
-    rms_rows, rms_path = phase_rms(args.seed, flush)
-    rows['rms_norm_fwd'], rows16['rms_norm_fwd'], rowsh['rms_norm_fwd'] = \
-        rms_rows['fp32'], rms_rows['bf16'], rms_rows['fp16']
-    gpt_rows = phase_kernels_gpt(args.seed, flush)
-    del flush
-    phase_parity(args.seed)
-    served, serve = phase_serve(args.seed, card)
-    served_tenants = phase_serve_tenants(args.seed, card, serve)
-    served_fleet = phase_serve_fleet(args.seed, card, serve)
-    del serve
-    torch.cuda.empty_cache()
-    phase_train_parity(args.seed)
-    # the step's callable, and with it its model and state, goes
-    trained, _, train_ms = phase_train(args.seed, card)
-    torch.cuda.empty_cache()
-    phase_train_parity_bf16(args.seed)
-    trained16 = phase_train(args.seed, card, 'bf16')[0]
-    torch.cuda.empty_cache()
-    phase_train_parity_flat(args.seed)
-    trained_flat = phase_train(args.seed, card, 'bf16_flat')[0]
-    torch.cuda.empty_cache()
-    phase_train_parity_fp16(args.seed)
-    trained_amp, amp_again, _ = phase_train(args.seed, card, 'fp16_amp')
-    torch.cuda.empty_cache()
-    phase_train_parity_fit(args.seed)
-    trained_fit, fit_row = phase_train_fit(args.seed, card)
-    phase_remat_memory(args.seed, card)
-    torch.cuda.empty_cache()
-    generated = phase_generate(args.seed, card)
-    served_gen = phase_serve_generative(args.seed, card)
-    torch.cuda.empty_cache()
-    phase_hapi_parity(args.seed)
-    hapi = phase_hapi_fit(args.seed, card, train_ms['median'])
-    torch.cuda.empty_cache()
-    phase_routes(args.seed, amp_again)
-    del amp_again
-    torch.cuda.empty_cache()
-    # last: after it, a torch.profiler session loses its first device
-    # events (PERF.md, section 7), and every profile phase counts them
-    resumed = phase_train_resume(args.seed, card)
-    torch.cuda.empty_cache()
-    # no profile follows: the training side's telemetry runs after it
-    telemetry = phase_train_telemetry(args.seed, card)
-    torch.cuda.empty_cache()
-    # data parallelism: no profiler session here either (see above)
-    phase_collectives(card)
-    sharded, _ = phase_train_sharded(args.seed, card, fit_row)
-    torch.cuda.empty_cache()
-    dp_ranks, _ = phase_dp_two_ranks(args.seed, card)
-    torch.cuda.empty_cache()
-    # model parallelism: two gloo ranks a phase, no profiler session
-    tp_ranks, _ = phase_tp_two_ranks(args.seed, card)
-    torch.cuda.empty_cache()
-    ring_ranks, _ = phase_ring_two_ranks(args.seed, card)
-    torch.cuda.empty_cache()
-    pipe_ranks, _ = phase_pipeline_two_ranks(args.seed, card)
-    torch.cuda.empty_cache()
-    # vision: the convolutional nn and ResNet-50, none of the seven kernels
-    phase_vision_parity(args.seed)
-    torch.cuda.empty_cache()
-    serve_resnet = phase_serve_resnet(args.seed, card)
-    torch.cuda.empty_cache()
-    train_resnet = phase_train_resnet(args.seed, card)
-    torch.cuda.empty_cache()
-    hapi_resnet = phase_hapi_fit_resnet(args.seed, card)
-    torch.cuda.empty_cache()
-    # detection: vision.ops and detection_train, the SSD served and trained
-    phase_detection_parity(args.seed)
-    torch.cuda.empty_cache()
-    serve_ssd = phase_serve_ssd(args.seed, card)
-    torch.cuda.empty_cache()
-    train_ssd = phase_train_ssd(args.seed, card)
-    torch.cuda.empty_cache()
+    for i, (name, reads, gives, fn) in enumerate(run):
+        out = fn(r)
+        for key, value in zip(gives, out if len(gives) > 1 else (out,)):
+            setattr(r, key, value)
+        later = {key for p in run[i + 1:] for key in p[1]}
+        for key in set(reads) - later:
+            delattr(r, key)
+        torch.cuda.empty_cache()
+    if len(run) != len(PHASES):
+        # a partial run: its phases' lines only
+        emit({'phases_run': [p[0] for p in run], 'whole_run': False})
+        return 0
     # launches: each main path's counts, zeroed just before the path and
     # read just after (serving: 21 batches; serve_tenants: the tenants
     # engine's pumped and threaded batches; serve_fleet: every replica's
@@ -8374,24 +9232,34 @@ def main():
     # stages' forward and backward; serve_resnet, train_resnet and
     # hapi_fit_resnet: ResNet-50's waves, steps and fit, and serve_ssd and
     # train_ssd: the SSD's waves and timed steps, which launch
-    # none); the top-level numbers are bf16's, the dtype of the reference's training
-    # recipe, and ``gpt`` holds the fp32 cases at generate's shapes
-    paths = {'serve': served, 'serve_tenants': served_tenants,
-             'serve_fleet': served_fleet,
-             'train_fp32': trained,
-             'train_bf16': trained16, 'train_bf16_flat': trained_flat,
-             'train_fp16_amp': trained_amp, 'train_fit': trained_fit,
-             'train_resume': resumed, 'nn.RMSNorm': rms_path,
-             'generate': generated, 'serve_generative': served_gen,
-             'hapi_fit': hapi, 'train_telemetry': telemetry,
-             'train_sharded': sharded, 'dp_two_ranks': dp_ranks,
-             'tp_two_ranks': tp_ranks, 'ring_two_ranks': ring_ranks,
-             'pipeline_two_ranks': pipe_ranks, 'serve_resnet': serve_resnet,
-             'train_resnet': train_resnet, 'hapi_fit_resnet': hapi_resnet,
-             'serve_ssd': serve_ssd, 'train_ssd': train_ssd}
+    # none; finetune_ernie: ERNIE-large's fit, 10 steps at four lengths;
+    # seq2seq_train: 8 Transformer-base steps; seq2seq_translate: one
+    # translate call); the top-level numbers are bf16's, the dtype of the
+    # reference's training recipe, ``gpt`` holds the fp32 cases at
+    # generate's shapes and ``ragged`` the attention kernels' cases at
+    # RAGGED_LENGTHS (ernie_parity), ``width_512`` the norm kernels' cases
+    # at the seq2seq's rows (seq2seq_parity)
+    paths = {'serve': r.served, 'serve_tenants': r.served_tenants,
+             'serve_fleet': r.served_fleet,
+             'train_fp32': r.trained,
+             'train_bf16': r.trained16, 'train_bf16_flat': r.trained_flat,
+             'train_fp16_amp': r.trained_amp, 'train_fit': r.trained_fit,
+             'train_resume': r.resumed, 'nn.RMSNorm': r.rms_path,
+             'generate': r.generated, 'serve_generative': r.served_gen,
+             'hapi_fit': r.hapi, 'train_telemetry': r.telemetry,
+             'train_sharded': r.sharded, 'dp_two_ranks': r.dp_ranks,
+             'tp_two_ranks': r.tp_ranks, 'ring_two_ranks': r.ring_ranks,
+             'pipeline_two_ranks': r.pipe_ranks,
+             'serve_resnet': r.serve_resnet,
+             'train_resnet': r.train_resnet,
+             'hapi_fit_resnet': r.hapi_resnet,
+             'serve_ssd': r.serve_ssd, 'train_ssd': r.train_ssd,
+             'finetune_ernie': r.finetuned, 'seq2seq_train': r.s2s_trained,
+             'seq2seq_translate': r.s2s_decoded}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'share_of_bound', 'achieved_tflops',
             'achieved_tb_per_s')
+    rows, rows16, rowsh = r.rows, r.rows16, r.rowsh
     for row in (*rows.values(), *rows16.values(), *rowsh.values()):
         row.update(closeness(row))
     emit({'kernels': [
@@ -8404,8 +9272,13 @@ def main():
          'bf16': {k: rows16[name][k] for k in keys},
          'fp16': {k: rowsh[name][k] for k in keys},
          **({'gpt': {case: {k: row[k] for k in keys}
-                     for case, row in gpt_rows[name].items()}}
-            if name in gpt_rows else {})}
+                     for case, row in r.gpt_rows[name].items()}}
+            if name in r.gpt_rows else {}),
+         **({'ragged': [{k: c[k] for k in ('dtype', 'length', 'p', err)}
+                        for c in r.ragged for err in RAGGED_ERRS[name]]}
+            if name in RAGGED_ERRS else {}),
+         **({'width_512': r.width_512[name]} if name in r.width_512
+            else {})}
         for name in SOURCES]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

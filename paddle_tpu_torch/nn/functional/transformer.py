@@ -1,6 +1,7 @@
 """Attention functionals. Counterpart of
 ``paddle_tpu/nn/functional/transformer.py``
-(``scaled_dot_product_attention``, ``_mask_as_kpad_bias``).
+(``scaled_dot_product_attention``, ``_mask_as_kpad_bias``,
+``multi_head_attention``).
 
 Inputs are paddle-layout (B, L, H, D). With no mask, or a mask that
 reduces to a (B, Lk) key-padding bias — BERT's (B, 1, 1, L) padding mask —
@@ -19,9 +20,9 @@ import torch
 
 from ...kernels.flash_attention import MAX_HEAD_DIM, flash_attention_bhld
 from ...kernels.philox import head_block, keep_scale
-from .common import next_dropout_call
+from .common import linear, next_dropout_call
 
-__all__ = ['scaled_dot_product_attention']
+__all__ = ['scaled_dot_product_attention', 'multi_head_attention']
 
 
 def _mask_as_kpad_bias(m, batch, lk):
@@ -91,3 +92,30 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         out = _composed(q, k, v, attn_mask, p_eff, is_causal, seed, offset,
                         head_map)
     return out.transpose(1, 2)
+
+
+def multi_head_attention(query, key, value, num_heads, wq, wk, wv, wo,
+                         bq=None, bk=None, bv=None, bo=None, attn_mask=None,
+                         dropout_p=0.0, is_causal=False, cache=None,
+                         training=True, dropout_state=None):
+    """Functional attention on (B, L, E) inputs with the projection
+    weights in ``linear``'s layout, (out, in) (the reference's are (in,
+    out)). ``cache``: any object with ``append_k(k)`` / ``append_v(v)``
+    returning the keys and values to attend over, (B, T, H, D), as the
+    reference calls them."""
+    q, k, v = linear(query, wq, bq), linear(key, wk, bk), \
+        linear(value, wv, bv)
+    B, Lq, E = q.shape
+    hd = E // num_heads
+    q = q.reshape(B, Lq, num_heads, hd)
+    k = k.reshape(B, k.shape[1], num_heads, hd)
+    v = v.reshape(B, v.shape[1], num_heads, hd)
+    if cache is not None:
+        k = cache.append_k(k)
+        v = cache.append_v(v)
+    out = scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                       dropout_p=dropout_p,
+                                       is_causal=is_causal,
+                                       training=training,
+                                       dropout_state=dropout_state)
+    return linear(out.reshape(B, Lq, E), wo, bo)

@@ -9,11 +9,11 @@ from .distance import PairwiseDistance
 from .loss import *  # noqa: F401,F403
 from .norm import *  # noqa: F401,F403
 from .pooling import *  # noqa: F401,F403
-from .transformer import (MultiHeadAttention, TransformerEncoder,
-                          TransformerEncoderLayer)
+from .transformer import (MultiHeadAttention, Transformer,
+                          TransformerDecoder, TransformerDecoderLayer,
+                          TransformerEncoder, TransformerEncoderLayer)
 
 __all__ = sorted({*activation.__all__, *common.__all__, *conv.__all__,
                   *loss.__all__, *norm.__all__, *pooling.__all__,
                   'LayerList', 'Sequential', 'PairwiseDistance',
-                  'MultiHeadAttention', 'TransformerEncoder',
-                  'TransformerEncoderLayer'})
+                  *transformer.__all__})
