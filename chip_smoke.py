@@ -322,21 +322,59 @@ Phases, each printing one JSON line:
    ``max_len`` 64 (kernels 1, 4 and 6): first-token ms, decode step ms,
    tokens/s, host reads a step, peak; its beams against the CPU's step by
    step up to each row's first near-tie, the final log-probabilities
-   within ``TOL``.
+   within ``TOL``;
+40. rnn parity — the recurrent slice on the card, fp32 with TF32 off,
+   against the port on the CPU in fp64 on the same weights (the CPU's
+   fp32 distance printed): ``nn.SimpleRNN`` (tanh, relu), ``nn.LSTM`` and
+   ``nn.GRU`` of 2 layers, forward and bidirectional, batch- and
+   time-major, with and without initial states and lengths, the text
+   zoo's ``LSTM``, ``BidirectionalGRU`` (both ways of merging) and
+   ``RNN`` over a ``StackedLSTMCell`` with ``forget_bias``, at I = H =
+   256, batch 8, 40 steps: outputs and states within ``TOL``, gradients
+   within ``GRAD_TOL``, cuDNN's RNN against the CPU and the card's
+   per-step route against cuDNN's; ``F.linear_chain_crf`` at (300, 64,
+   57) and ``F.crf_decoding`` on the card's own emissions (paths equal up
+   to counted near-ties); ``SkipGram``; the text zoo's Transformer at
+   Transformer-base widths, 2 + 2 layers, 8 x 64: one pass within
+   ``TOL`` / ``GRAD_TOL`` with exactly one LayerNorm launch an ``n``
+   command, and a ``TransformerBeamSearchDecoder`` through
+   ``DynamicDecode`` (beam 4, 16 steps) equal to the CPU's up to each
+   row's first near-tie;
+41. train ptb lm — ``LSTMLanguageModel`` at PTB large (vocab 10000,
+   hidden 1500, 2 layers, dropout 0.65), ptb_lm's eager loop: 20 x 35
+   truncated BPTT with the state carried, SGD(1.0) with the global-norm
+   clip at 10, 2 + 20 steps; a falling loss, two cuDNN calls a step, none
+   of the seven kernels; step ms, words/s, peak, host syncs, perplexity,
+   a profiled step, cuDNN against the per-step route and against flat
+   weights;
+42. train lac — LAC's ``SequenceTagging`` (vocab 20940, 57 tags) through
+   ``hapi.Model.fit``: batch 300 x 64, Adam(1e-3), the CRF cost, the
+   chunk F1, 2 + 10 steps; a falling loss, none of the seven kernels;
+   step ms, sentences/s, tokens/s, peak, host syncs, a profiled step;
+43. serve lac — the trained tagger behind ``ServingEngine`` with batch
+   buckets 1-64 and the one length bucket it was trained at (64),
+   query-length sentences in waves: paths equal to the CPU's Viterbi on
+   each batch's own emissions, and each request's tags equal to those it
+   gets served alone, up to counted near-ties, at most
+   ``LAC_SYNC_BUDGET`` host syncs a batch, none of the seven kernels;
+   req/s, p50/p99 per bucket, a profiled batch.
 
 Every kernel row carries ``share_of_bound`` (bound ms over kernel ms) and
 the achieved TFLOP/s and TB/s beside the library call's time. Then a
 ``{"kernels": [...]}`` line (all seven kernels, bf16 numbers at the top
 level and under ``bf16``, fp32 under ``fp32``, fp16 under ``fp16``, the
 GPT cases under ``gpt``, the attention kernels' ragged cases under
-``ragged``, the norm kernels' seq2seq cases under ``width_512``,
+``ragged``, the norm kernels' seq2seq cases under ``width_512`` (with
+their library calls' times),
 launches by path: ``serve``,
 ``serve_tenants``, ``serve_fleet``, the training paths,
 ``train_resume``, ``nn.RMSNorm``, ``generate``, ``serve_generative``,
 ``hapi_fit``, ``train_telemetry``, ``train_sharded``,
 ``dp_two_ranks``, the model-parallel phases, the three ResNet-50 paths
 and the two SSD paths, ``serve_ssd`` and ``train_ssd``, which launch
-none, ``finetune_ernie``, ``seq2seq_train`` and ``seq2seq_translate``)
+none, ``finetune_ernie``, ``seq2seq_train``, ``seq2seq_translate``,
+``text_transformer``, and ``train_ptb_lm``, ``train_lac`` and
+``serve_lac``, which launch none)
 and, last, ``{"ok": true,
 "device": ...}``. Any failure raises and exits non-zero; without a CUDA
 device (or without the package beside this file) it exits non-zero and
@@ -8656,7 +8694,17 @@ def _traced_beams(tops=False):
     from paddle_tpu_torch.text import seq2seq
     base = seq2seq.BeamSearchDecoder
     trace = {'marks': [], 'outputs': [], 'tops': []}
+    seq2seq.BeamSearchDecoder = _traced_decoder(base, trace, tops)
+    try:
+        yield trace
+    finally:
+        seq2seq.BeamSearchDecoder = base
 
+
+def _traced_decoder(base, trace, tops):
+    """``base`` (a beam search decoder class) keeping each step's host
+    time and outputs in ``trace`` (and with ``tops`` each step's best
+    ``beam + 1`` candidate scores): ``_traced_beams``'s class."""
     class Traced(base):
         def step(self, t, inputs, states, **kw):
             trace['marks'].append(time.perf_counter())
@@ -8670,11 +8718,7 @@ def _traced_beams(tops=False):
                 trace['tops'].append(torch.topk(
                     lp.reshape(lp.shape[0], -1), self.beam_size + 1).values)
             return lp
-    seq2seq.BeamSearchDecoder = Traced
-    try:
-        yield trace
-    finally:
-        seq2seq.BeamSearchDecoder = base
+    return Traced
 
 
 def _near_ties(tops):
@@ -8689,6 +8733,37 @@ def _near_ties(tops):
             if first[b] is None:
                 first[b] = t
     return first
+
+
+def _beams_held(what, gpu, cpu, steps):
+    """Two traced searches (``_traced_decoder`` with ``tops``), the card's
+    and the CPU's: every row's selected (score, id, parent) equal step by
+    step (scores within ``TOL`` of their max) up to its first near-tie
+    (two of its best ``beam + 1`` candidates within ``NEAR_TIE``, on either
+    side) -> (each row's first near-tie step or None, the rows with none,
+    the scores' worst error)."""
+    ties = [min((t for t in (a, b) if t is not None), default=None)
+            for a, b in zip(_near_ties(gpu['tops']), _near_ties(cpu['tops']))]
+    score_err, held_rows = 0.0, []
+    for b, tie in enumerate(ties):
+        upto = steps if tie is None else tie
+        if len(cpu['outputs']) < upto:
+            raise AssertionError(f"{what}: the CPU's search stopped before "
+                                 f"step {upto} (row {b})")
+        for t in range(upto):
+            g = gpu['outputs'][t]
+            w = cpu['outputs'][t]
+            for key in ('predicted_ids', 'parent_ids'):
+                if not torch.equal(g[key][b].cpu(), w[key][b]):
+                    raise AssertionError(
+                        f"{what}: row {b} step {t} {key} differ from the "
+                        f"CPU's before any near-tie")
+            score_err = max(score_err, rel_err(g['scores'][b].cpu(),
+                                               w['scores'][b]))
+        if tie is None:
+            held_rows.append(b)
+    check(f'{what}: step scores, GPU vs CPU', score_err, TOL)
+    return ties, held_rows, score_err
 
 
 def _s2s_loss_and_grads(model, batch, device):
@@ -8714,11 +8789,18 @@ def _width_512_norms(seed):
     rstd; y, yin, mean, rstd) and add+LayerNorm at p = 0 and 0.1, the
     mask gradient at p = 0.1; ``translate``'s encoder rows (``S2S_SOURCES``
     x ``S2S_SOURCE_LEN``, p = 0, no statistics) and a decoding step's
-    (``S2S_SOURCES`` x ``S2S_BEAM`` rows). Each within ``TOL``; the train
-    shapes also timed -> {kernel: [case, ...]}."""
+    (``S2S_SOURCES`` x ``S2S_BEAM`` rows); the LayerNorm at the text zoo
+    Transformer's rows (``_text_transformer``): its pass's (``TT_BATCH`` x
+    ``TT_LEN``, with the statistics), its beam search's encoder (the same
+    rows, without) and decoding step (``TT_BATCH`` x ``TT_BEAM``,
+    without). Each within ``TOL``; the train
+    shapes also timed, beside their library yardsticks (the rows of the
+    kernels phases' own: ``torch.native_layer_norm`` with its statistics;
+    ``x + res``, then ``native_layer_norm``; the multiply by a stored mask)
+    and a device copy of as many bytes -> {kernel: [case, ...]}."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import fused_dropout_norm as fdn
-    from paddle_tpu_torch.kernels import fused_norm
+    from paddle_tpu_torch.kernels import fused_norm, philox
     dev = torch.device('cuda', 0)
     gen = torch.Generator(device=dev).manual_seed(seed + 78)
     P, SEED, E = 0.1, 0x5EED + seed, 512
@@ -8730,7 +8812,7 @@ def _width_512_norms(seed):
     w, b = 1.0 + 0.1 * randn(E), 0.1 * randn(E)
     out = {'layer_norm_fwd': [], 'add_layer_norm_fwd': [], 'dropout_grad': []}
 
-    def hold(name, what, fn, timed, work):
+    def hold(name, what, fn, timed, work, library=None):
         got = fn()
         with kernels.plain_versions():
             want = fn()
@@ -8740,16 +8822,24 @@ def _width_512_norms(seed):
         check(f'{name} {what}', err, TOL)
         case = {'case': what, 'max_abs_err': err}
         if timed:
-            case.update({'ms': time_ms(fn, flush), 'plain_ms': plain, **work})
+            case.update({'ms': time_ms(fn, flush), 'plain_ms': plain,
+                         'library': library[0],
+                         'library_ms': time_ms(library[1], flush),
+                         'copy_ms': copy_ms(work['bytes'], flush), **work})
         out[name].append(case)
 
     for rows, stats, timed in ((train_rows, True, True),
-                               (S2S_SOURCES * S2S_BEAM, False, False)):
+                               (S2S_SOURCES * S2S_BEAM, False, False),
+                               (TT_BATCH * TT_LEN, True, False),
+                               (TT_BATCH * TT_LEN, False, False),
+                               (TT_BATCH * TT_BEAM, False, False)):
         x = randn(rows, E)
         hold('layer_norm_fwd', f'({rows}, {E}) stats={stats}',
              lambda x=x, st=stats: fused_norm._forward(x, w, b, 1e-5, st),
              timed, bound(8.0 * rows * E, 4.0 * (2 * rows * E + 2 * E
-                                                 + 2 * rows)))
+                                                 + 2 * rows)),
+             ('torch.native_layer_norm (y, mean, rstd)',
+              lambda x=x: torch.native_layer_norm(x, (E,), w, b, 1e-5)))
     for rows, p, saved, timed in ((train_rows, 0.0, True, True),
                                   (train_rows, P, True, True),
                                   (S2S_SOURCES * S2S_SOURCE_LEN, 0.0, False,
@@ -8758,11 +8848,15 @@ def _width_512_norms(seed):
         hold('add_layer_norm_fwd', f'({rows}, {E}) p={p} saved={saved}',
              lambda x=x, res=res, p=p, sv=saved: fdn._forward(
                  x, res, w, b, p, 1e-5, SEED, 5, sv), timed,
-             bound(9.0 * rows * E, 4.0 * (4 * rows * E + 2 * E + 2 * rows)))
+             bound(9.0 * rows * E, 4.0 * (4 * rows * E + 2 * E + 2 * rows)),
+             (ADD_LN_LIBRARY, lambda x=x, res=res: torch.native_layer_norm(
+                 x + res, (E,), w, b, 1e-5)))
     g = randn(train_rows, E)
+    stored = philox.keep_scale(g.shape, P, SEED, 5, dev)
     hold('dropout_grad', f'({train_rows}, {E}) p={P}',
          lambda: (fdn.dropout_grad(g, P, SEED, 5),), True,
-         bound(1.0 * train_rows * E, 4.0 * 2 * train_rows * E))
+         bound(1.0 * train_rows * E, 4.0 * 2 * train_rows * E),
+         ('multiply by a stored (N, D) fp32 mask', lambda: g * stored))
     del flush
     return out
 
@@ -8977,29 +9071,8 @@ def phase_seq2seq(seed, card):
                 sources.cpu(), 0, 1, S2S_BEAM, S2S_MAX_LEN)
         cpu_s = time.perf_counter() - t3
     del cpu
-    gpu_trace = gpu['outputs']
-    ties = [min((t for t in (a, b) if t is not None), default=None)
-            for a, b in zip(_near_ties(gpu['tops']),
-                            _near_ties(cpu_trace['tops']))]
-    score_err, held_rows = 0.0, []
-    for b, tie in enumerate(ties):
-        upto = steps if tie is None else tie
-        if len(cpu_trace['outputs']) < upto:
-            raise AssertionError(f"seq2seq translate: the CPU's search "
-                                 f"stopped before step {upto} (row {b})")
-        for t in range(upto):
-            g = gpu_trace[t]
-            w = cpu_trace['outputs'][t]
-            for key in ('predicted_ids', 'parent_ids'):
-                if not torch.equal(g[key][b].cpu(), w[key][b]):
-                    raise AssertionError(
-                        f"seq2seq translate: row {b} step {t} {key} differ "
-                        f"from the CPU's before any near-tie")
-            score_err = max(score_err, rel_err(g['scores'][b].cpu(),
-                                               w['scores'][b]))
-        if tie is None:
-            held_rows.append(b)
-    check('seq2seq translate: step scores, GPU vs CPU', score_err, TOL)
+    ties, held_rows, score_err = _beams_held('seq2seq translate', gpu,
+                                             cpu_trace, steps)
     rows = torch.tensor(held_rows, dtype=torch.long)
     if not torch.equal(ids.cpu()[rows, :, 0], want_ids[rows, :, 0]):
         raise AssertionError("seq2seq translate: the best beam's ids differ "
@@ -9040,6 +9113,894 @@ def phase_seq2seq(seed, card):
     del model
     torch.cuda.empty_cache()
     return totals, decoded
+
+
+# the recurrent slice. rnn_parity's sizes; the text zoo's Transformer at
+# Transformer-base widths (Paddle's hapi ``transformer`` example builds on
+# these layers); PTB large (Zaremba et al. 2014, Paddle's ptb_lm 'large');
+# LAC (the reference's SequenceTagging defaults, LAC's published
+# dictionaries: ~20,940 words, 57 IOB tags of 28 chunk types)
+RNN_I = RNN_H = 256
+RNN_B, RNN_T = 8, 40
+CRF_SHAPE = (300, 64, 57)                 # batch, steps, tags
+TT_LAYERS, TT_HEADS, TT_DK, TT_DMODEL, TT_DINNER = 2, 8, 64, 512, 2048
+TT_BATCH, TT_LEN, TT_VOCAB, TT_BEAM, TT_STEPS = 8, 64, 10000, 4, 16
+PTB_VOCAB, PTB_HIDDEN, PTB_LAYERS, PTB_DROPOUT = 10000, 1500, 2, 0.65
+PTB_BATCH, PTB_BPTT, PTB_WARMUP, PTB_STEPS = 20, 35, 2, 20
+PTB_CYCLE, PTB_REPEATS = 50, 700          # a corpus of 50 ids, 700 times
+LAC_VOCAB, LAC_TAGS, LAC_CHUNK_TYPES = 20940, 57, 28
+LAC_BATCH, LAC_LEN, LAC_WARMUP, LAC_STEPS = 300, 64, 2, 10
+# one length bucket, the padding train_lac trained at: the tagger's reverse
+# GRU runs from the padding (its encoder is given no lengths, as the
+# reference's), so its tags depend on how far a request is padded
+LAC_BATCH_BUCKETS, LAC_LENGTH_BUCKETS = (1, 4, 16, 64), (LAC_LEN,)
+LAC_WAVES = (1, 4, 16, 64, 100, 100, 100)
+# host syncs of one served batch: the copies of its two feeds (pageable,
+# blocking) and the fetch of its paths; the tagger itself reads nothing
+LAC_SYNC_BUDGET = 3
+# a Viterbi path of the card that differs from the CPU's on the same fp32
+# emissions: accepted (and counted) only where the two paths' fp64 scores
+# lie this close, relative to the score
+VITERBI_NEAR_TIE = 1e-5
+# the LayerNorm launches of the text zoo's Transformer: each 'n' command,
+# 2 an encoder layer and 1 after the encoder, 3 a decoder layer and 1 after
+TT_ENC_NORMS = 2 * TT_LAYERS + 1
+TT_DEC_NORMS = 3 * TT_LAYERS + 1
+
+
+def _leaves(x):
+    if isinstance(x, dict):
+        return [y for k in sorted(x) for y in _leaves(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [y for part in x for y in _leaves(part)]
+    return [x]
+
+
+def _only_norms(counts, n, what):
+    """The counts of a text-zoo Transformer path: ``n`` LayerNorm launches,
+    no other kernel."""
+    want = {k: (n if k == 'layer_norm_fwd' else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def _projected_pass(model, arrays, run, device, dtype, seed=0):
+    """``run(model, *inputs)`` -> output tensors, the float arrays of
+    ``arrays`` as tensors of ``dtype`` on ``device`` that need a gradient
+    (the others passed as they are); the loss each output times a fixed
+    random projection, summed -> (loss, the outputs as fp64 CPU tensors,
+    {parameter: fp64 gradient}, [input gradients])."""
+    inputs = [torch.tensor(a, dtype=dtype, device=device, requires_grad=True)
+              if isinstance(a, np.ndarray) and a.dtype.kind == 'f' else a
+              for a in arrays]
+    outs = _leaves(run(model, *inputs))
+    rs = np.random.RandomState(seed + 88)
+    loss = sum((o * torch.tensor(rs.uniform(-1, 1, tuple(o.shape)),
+                                 dtype=o.dtype, device=device)).sum()
+               for o in outs)
+    params = dict(model.named_parameters())
+    xs = [t for t in inputs if isinstance(t, torch.Tensor)
+          and t.requires_grad]
+    grads = torch.autograd.grad(loss, list(params.values()) + xs,
+                                allow_unused=True)
+    host = [torch.zeros(()) if g is None else g.detach().double().cpu()
+            for g in grads]
+    return (float(loss.detach()), [o.detach().double().cpu() for o in outs],
+            dict(zip(params, host[:len(params)])), host[len(params):])
+
+
+def _held_pass(what, got, want, extra_grads=True):
+    """``_projected_pass`` results against the reference's: the loss within
+    ``TOL`` relative, every output within ``TOL`` of max(its largest entry,
+    1), every gradient within ``GRAD_TOL`` (``_compare_grads``) -> the
+    errors."""
+    loss_err = abs(got[0] - want[0]) / max(abs(want[0]), 1.0)
+    check(f'{what}: loss', loss_err, TOL)
+    out_err = max(max_err(g, w) / max(float(w.abs().max()), 1.0)
+                  for g, w in zip(got[1], want[1]))
+    check(f'{what}: outputs', out_err, TOL)
+    grads, ref = dict(got[2]), dict(want[2])
+    if extra_grads:
+        for i, (g, w) in enumerate(zip(got[3], want[3])):
+            grads[f'input{i}'], ref[f'input{i}'] = g, w
+    worst, worst_of, _ = _compare_grads(what, grads, ref)
+    return {'loss_rel_err': loss_err, 'outputs_err': out_err,
+            'gradients_worst': [worst_of, worst]}
+
+
+def _three_ways(what, make, arrays, run, seed):
+    """One model built by ``make(device, generator)`` on the card, its
+    copy on the CPU: the card's default route (cuDNN's RNN for standard
+    cells) in fp32 against the CPU's per-step route in fp64, and the card's
+    per-step route against its default one, each under ``_held_pass``; the
+    CPU's fp32 pass printed beside them -> the row, with the calls of each
+    route on the card."""
+    from paddle_tpu_torch.nn.functional import rnn as frnn
+    dev = torch.device('cuda', 0)
+    model = make(dev, torch.Generator(device=dev).manual_seed(seed))
+    frnn.reset_route_counts()
+    card = _projected_pass(model, arrays, run, dev, torch.float32)
+    routes = frnn.route_counts()
+    with frnn.rnn_route('per_step'):
+        per_step = _projected_pass(model, arrays, run, dev, torch.float32)
+    cpu = copy.deepcopy(model).to('cpu')
+    cpu32 = _projected_pass(cpu, arrays, run, 'cpu', torch.float32)
+    ref = _projected_pass(cpu.double(), arrays, run, 'cpu', torch.float64)
+    row = {'case': what, 'card_routes': routes,
+           'card_vs_cpu_fp64': _held_pass(f'{what} (card vs CPU fp64)',
+                                          card, ref),
+           'per_step_vs_card': _held_pass(f'{what} (per-step vs cuDNN on '
+                                          'the card)', per_step, card),
+           'cpu_fp32_vs_fp64_not_held': {
+               'loss_rel_err': abs(cpu32[0] - ref[0]) / max(abs(ref[0]), 1),
+               'gradients_worst': max(_grad_errs(cpu32[2], ref[2]).values())}}
+    return row
+
+
+# (name, class, kwargs, time_major, initial states, lengths): each mode
+# forward and bidirectional, batch-major and time-major, with and without
+# initial states and lengths, 2 layers each
+RNN_PARITY_CASES = (
+    ('SimpleRNN tanh', 'SimpleRNN', {}, False, False, False),
+    ('SimpleRNN tanh bidirect', 'SimpleRNN', {'direction': 'bidirect'}, True,
+     True, True),
+    ('SimpleRNN relu', 'SimpleRNN', {'activation': 'relu'}, True, True,
+     False),
+    ('SimpleRNN relu bidirect', 'SimpleRNN',
+     {'activation': 'relu', 'direction': 'bidirect'}, False, False, True),
+    ('LSTM', 'LSTM', {}, True, True, True),
+    ('LSTM bidirect', 'LSTM', {'direction': 'bidirect'}, False, True, True),
+    ('GRU', 'GRU', {}, False, False, True),
+    ('GRU bidirect', 'GRU', {'direction': 'bidirect'}, True, False, False),
+)
+
+
+def _rnn_lengths(rs):
+    """One row at T, one at 1, the rest in [1, T]."""
+    lens = rs.randint(1, RNN_T + 1, RNN_B)
+    lens[0], lens[1] = RNN_T, 1
+    return lens
+
+
+def _rnn_layer_cases(seed):
+    from paddle_tpu_torch import nn
+    rows = []
+    for i, (what, cls, kw, tm, init, lens) in enumerate(RNN_PARITY_CASES):
+        rs = np.random.RandomState(seed + 93 + i)
+        d = 2 if kw.get('direction') == 'bidirect' else 1
+        x = rs.randn(*((RNN_T, RNN_B, RNN_I) if tm else
+                       (RNN_B, RNN_T, RNN_I)))
+        states = [rs.randn(2 * d, RNN_B, RNN_H)
+                  for _ in range((2 if cls == 'LSTM' else 1) if init else 0)]
+        lengths = _rnn_lengths(rs) if lens else None
+
+        def run(model, x, *st):
+            init = None if not st else (st if len(st) == 2 else st[0])
+            return model(x, init, lengths)
+        rows.append(_three_ways(
+            what, lambda dev, gen, cls=cls, kw=kw, tm=tm: getattr(nn, cls)(
+                RNN_I, RNN_H, 2, time_major=tm, device=dev, generator=gen,
+                **kw), [x] + states, run, seed + 94 + i))
+    return rows
+
+
+def _text_rnn_cases(seed):
+    """The text zoo's recurrent layers with lengths: ``text.LSTM``
+    reversed, ``text.BidirectionalGRU`` both ways of merging, and
+    ``text.RNN`` over a ``StackedLSTMCell`` with ``forget_bias``."""
+    from paddle_tpu_torch import text
+    kw = dict(num_layers=2)
+    makes = {
+        'text.LSTM reverse': lambda d, g: text.LSTM(
+            RNN_I, RNN_H, is_reverse=True, device=d, generator=g, **kw),
+        'text.BidirectionalGRU stacked': lambda d, g: text.BidirectionalGRU(
+            RNN_I, RNN_H, device=d, generator=g, **kw),
+        'text.BidirectionalGRU merge_each_layer': lambda d, g:
+        text.BidirectionalGRU(RNN_I, RNN_H, merge_each_layer=True, device=d,
+                              generator=g, **kw),
+        'text.RNN(StackedLSTMCell forget_bias=1.0)': lambda d, g: text.RNN(
+            text.StackedLSTMCell(RNN_I, RNN_H, forget_bias=1.0, device=d,
+                                 generator=g, **kw)),
+    }
+    rows = []
+    for i, (what, make) in enumerate(makes.items()):
+        rs = np.random.RandomState(seed + 103 + i)
+        x = rs.randn(RNN_B, RNN_T, RNN_I)
+        lengths = _rnn_lengths(rs)
+        rows.append(_three_ways(what, make, [x],
+                                lambda m, x: m(x, None, lengths),
+                                seed + 107 + i))
+    return rows
+
+
+def _path_scores(emission, transition, path, lens):
+    """Each row's score of ``path`` under the CRF, in fp64."""
+    e, w = emission.double(), transition.double()
+    rows = torch.arange(e.shape[0])
+    mask = torch.arange(e.shape[1])[None] < lens[:, None]
+    emit = (e.gather(2, path[..., None])[..., 0] * mask).sum(1)
+    trans = (w[2:][path[:, :-1], path[:, 1:]] * mask[:, 1:]).sum(1)
+    last = path[rows, (lens - 1).clamp(min=0)]
+    return w[0][path[:, 0]] + emit + trans + w[1][last]
+
+
+def _viterbi_held(what, emission, transition, lens, got):
+    """``got`` (the card's paths) against ``F.crf_decoding`` on the CPU on
+    the same fp32 emissions: equal, except rows whose two paths' fp64
+    scores lie within ``VITERBI_NEAR_TIE`` of each other -> the counted
+    near-tie rows."""
+    from paddle_tpu_torch.nn import functional as F
+    em, tr = emission.detach().cpu(), transition.detach().cpu()
+    lens = torch.as_tensor(lens).cpu()
+    want = F.crf_decoding(em, tr, length=lens)
+    got = got.cpu()
+    differ = torch.nonzero((got != want).any(1)).flatten()
+    if len(differ):
+        a = _path_scores(em[differ], tr, got[differ], lens[differ])
+        b = _path_scores(em[differ], tr, want[differ], lens[differ])
+        gap = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+        check(f'{what}: Viterbi paths that differ from the CPU\'s beyond a '
+              f'near-tie', gap, VITERBI_NEAR_TIE)
+    return int(len(differ))
+
+
+def _crf_cases(seed):
+    """``F.linear_chain_crf`` at ``CRF_SHAPE``, lengths in [1, T]: the NLL
+    and its gradients to the emissions and the transition, the card fp32
+    against the CPU fp64; ``F.crf_decoding`` on the card's emissions
+    against the CPU's on the same tensors."""
+    from paddle_tpu_torch.nn import functional as F
+    dev = torch.device('cuda', 0)
+    B, T, D = CRF_SHAPE
+    rs = np.random.RandomState(seed + 111)
+    arrays = [rs.randn(B, T, D), 0.5 * rs.randn(D + 2, D)]
+    label = rs.randint(0, D, (B, T))
+    lens = rs.randint(1, T + 1, B)
+
+    def run(model, e, w):
+        return F.linear_chain_crf(e, torch.as_tensor(label, device=e.device),
+                                  w, length=lens)
+    card = _projected_pass(torch.nn.Module(), arrays, run, dev,
+                           torch.float32)
+    ref = _projected_pass(torch.nn.Module(), arrays, run, 'cpu',
+                          torch.float64)
+    nll = _held_pass('linear_chain_crf (card vs CPU fp64)', card, ref)
+    em = torch.tensor(arrays[0], dtype=torch.float32, device=dev)
+    tr = torch.tensor(arrays[1], dtype=torch.float32, device=dev)
+    paths = F.crf_decoding(em, tr, length=torch.as_tensor(lens, device=dev))
+    ties = _viterbi_held('crf_decoding', em, tr, lens, paths)
+    return {'shape': list(CRF_SHAPE), 'nll': nll,
+            'viterbi_near_tie_rows': ties}
+
+
+def _skipgram_case(seed):
+    from paddle_tpu_torch import text
+    rs = np.random.RandomState(seed + 113)
+    ids = [rs.randint(0, PTB_VOCAB, 256), rs.randint(0, PTB_VOCAB, 256),
+           rs.randint(0, PTB_VOCAB, (256, 5))]
+
+    def run(model, *unused):
+        return model(*(torch.as_tensor(a, device=model.in_embed.weight.device)
+                       for a in ids))
+    return _three_ways('SkipGram (vocab 10000, dim 128, 5 negatives)',
+                       lambda d, g: text.SkipGram(PTB_VOCAB, 128, device=d,
+                                                  generator=g),
+                       [], run, seed + 114)
+
+
+class _TextTransformer(torch.nn.Module):
+    """The text zoo's ``TransformerEncoder`` and ``TransformerDecoder`` at
+    Transformer-base widths (p = 0), target embeddings, a position table
+    and the output projection: the model ``rnn_parity`` trains one pass of
+    and beam-searches."""
+
+    def __init__(self, *, device, generator):
+        super().__init__()
+        from paddle_tpu_torch import nn, text
+        args = (TT_LAYERS, TT_HEADS, TT_DK, TT_DK, TT_DMODEL, TT_DINNER,
+                0.0, 0.0, 0.0)
+        kw = dict(device=device, generator=generator)
+        self.encoder = text.TransformerEncoder(*args, **kw)
+        self.decoder = text.TransformerDecoder(*args, **kw)
+        self.word = nn.Embedding(TT_VOCAB, TT_DMODEL, **kw)
+        self.pos = nn.Embedding(256, TT_DMODEL, **kw)
+        self.out = nn.Linear(TT_DMODEL, TT_VOCAB, **kw)
+
+    def embed(self, ids, pos):
+        return self.word(ids) + self.pos(pos)
+
+    def forward(self, src, trg_ids, src_bias):
+        memory = self.encoder(src, src_bias)
+        pos = torch.arange(trg_ids.shape[1], device=src.device)[None]
+        causal = torch.triu(torch.full((trg_ids.shape[1],) * 2, -1e9,
+                                       dtype=src.dtype, device=src.device), 1)
+        out = self.decoder(self.embed(trg_ids, pos), memory, causal, src_bias)
+        return torch.log_softmax(self.out(out), -1)
+
+    def beam_search(self, src, src_bias, trace):
+        from paddle_tpu_torch import text
+        cell = text.TransformerCell(self.decoder, self.embed, self.out)
+        search = _traced_decoder(text.TransformerBeamSearchDecoder, trace,
+                                 True)(cell, 0, 1, TT_BEAM, 2)
+        memory = self.encoder(src, src_bias)
+        tile = search.tile_beam_merge_with_batch
+        static = [{k: tile(v, TT_BEAM) for k, v in c.items()}
+                  for c in self.decoder.prepare_static_cache(memory)]
+        return text.DynamicDecode(search, max_step_num=TT_STEPS,
+                                  is_test=True)(
+            inits=self.decoder.prepare_incremental_cache(memory),
+            enc_output=tile(memory, TT_BEAM), static_caches=static,
+            trg_src_attn_bias=tile(src_bias, TT_BEAM))
+
+
+def _text_transformer(seed):
+    """``_TextTransformer`` on ``TT_BATCH`` sources of ``TT_LEN`` (random
+    embeddings, rows padded through a key bias) and targets of ``TT_LEN``
+    ids: one forward and backward of the target tokens' log-likelihood
+    projected, the card fp32 against the CPU fp64 (the LayerNorm kernel
+    launched once for each 'n' command of the forward, exactly); then the
+    beam search (beam ``TT_BEAM``, ``TT_STEPS`` steps) on the card against
+    the same search on the CPU up to each row's first near-tie (with its
+    launches) -> (the row, the path's launches)."""
+    from paddle_tpu_torch import kernels
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 115)
+    model = _TextTransformer(device=dev, generator=gen).train()
+    rs = np.random.RandomState(seed + 116)
+    src = rs.randn(TT_BATCH, TT_LEN, TT_DMODEL)
+    bias = np.zeros((TT_BATCH, 1, 1, TT_LEN))
+    for b in range(TT_BATCH):
+        bias[b, ..., rs.randint(TT_LEN // 2, TT_LEN + 1):] = -1e9
+    trg = rs.randint(2, TT_VOCAB, (TT_BATCH, TT_LEN))
+
+    def run(m, x, bias_):
+        return m(x, torch.as_tensor(trg, device=x.device), bias_.detach())
+    with tf32_off():
+        kernels.reset_launch_counts()          # the main path: one pass
+        card = _projected_pass(model, [src, bias], run, dev, torch.float32)
+        counts = kernels.launch_counts()       # ... read right after it
+        _only_norms(counts, TT_ENC_NORMS + TT_DEC_NORMS,
+                    'text_transformer forward and backward')
+        ref = _projected_pass(copy.deepcopy(model).to('cpu').double(),
+                              [src, bias], run, 'cpu', torch.float64)
+        held = _held_pass('text zoo Transformer (card vs CPU fp64)', card,
+                          ref, extra_grads=False)
+        model.eval()
+        x = torch.tensor(src, dtype=torch.float32, device=dev)
+        xb = torch.tensor(bias, dtype=torch.float32, device=dev)
+        gpu = {'marks': [], 'outputs': [], 'tops': []}
+        kernels.reset_launch_counts()          # the main path: the search
+        ids, states = model.beam_search(x, xb, gpu)
+        decoded = kernels.launch_counts()      # ... read right after it
+        steps = len(gpu['outputs'])
+        _only_norms(decoded, TT_ENC_NORMS + TT_DEC_NORMS * steps,
+                    'text_transformer beam search')
+        cpu = {'marks': [], 'outputs': [], 'tops': []}
+        want_ids, want_states = copy.deepcopy(model).to('cpu').beam_search(
+            x.cpu(), xb.cpu(), cpu)
+    ties, held_rows, score_err = _beams_held('text zoo beam search', gpu,
+                                             cpu, steps)
+    rows = torch.tensor(held_rows, dtype=torch.long)
+    if not torch.equal(ids.cpu()[rows], want_ids[rows]):
+        raise AssertionError("text zoo beam search: the beams differ from "
+                             "the CPU's on a row without a near-tie")
+    lp_err = rel_err(states['log_probs'].cpu()[rows],
+                     want_states['log_probs'][rows])
+    check('text zoo beam search: final log-probabilities', lp_err, TOL)
+    total = {k: counts[k] + decoded[k] for k in counts}
+    return {'widths': {'layers': [TT_LAYERS, TT_LAYERS], 'n_head': TT_HEADS,
+                       'd_key': TT_DK, 'd_model': TT_DMODEL,
+                       'd_inner_hid': TT_DINNER, 'vocab': TT_VOCAB},
+            'batch': [TT_BATCH, TT_LEN], 'pass': held,
+            'pass_launches': counts, 'beam': TT_BEAM, 'steps_run': steps,
+            'search_launches': decoded,
+            'near_tie_rows': sum(t is not None for t in ties),
+            'first_near_tie_steps': ties, 'step_scores_rel_err': score_err,
+            'final_log_probs_rel_err': lp_err}, total
+
+
+def phase_rnn_parity(seed):
+    """The recurrent slice on the card against the CPU, fp32 with TF32 off
+    against the port's CPU path in fp64 on the same weights (the CPU's
+    fp32 distance printed, not held): ``nn.SimpleRNN`` (tanh, relu),
+    ``nn.LSTM`` and ``nn.GRU`` (``RNN_PARITY_CASES``) and the text zoo's
+    recurrent layers (``_text_rnn_cases``) at I = H = ``RNN_H``, batch
+    ``RNN_B``, ``RNN_T`` steps: outputs and final states within ``TOL``,
+    every gradient within ``GRAD_TOL``, for cuDNN's route against the CPU
+    and the card's per-step route against cuDNN's; ``F.linear_chain_crf``
+    and ``F.crf_decoding`` (``_crf_cases``); ``SkipGram`` with given
+    negatives; the text zoo's Transformer (``_text_transformer``) ->
+    the ``text_transformer`` path's launches."""
+    t0 = time.perf_counter()
+    with tf32_off():
+        layers = _rnn_layer_cases(seed)
+        text_rnn = _text_rnn_cases(seed)
+        crf = _crf_cases(seed)
+        skipgram = _skipgram_case(seed)
+    transformer, counts = _text_transformer(seed)
+    emit({'phase': 'rnn_parity', 'size': {'input': RNN_I, 'hidden': RNN_H,
+                                          'batch': RNN_B, 'steps': RNN_T},
+          'against': 'the port on the CPU in fp64, same weights',
+          'tolerance': {'outputs': TOL, 'gradients': GRAD_TOL,
+                        'viterbi_near_tie': VITERBI_NEAR_TIE},
+          'layers': layers, 'text_layers': text_rnn, 'crf': crf,
+          'skipgram': skipgram, 'text_transformer': transformer,
+          'seconds': time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _ptb_corpus(seed):
+    """``PTB_REPEATS`` copies of one sequence of ``PTB_CYCLE`` ids drawn
+    from ``seed``, cut into ``PTB_BATCH`` rows as ptb_lm batches its
+    corpus -> the (inputs, targets) of each truncated step, on the card."""
+    dev = torch.device('cuda', 0)
+    rs = np.random.RandomState(seed)
+    data = np.tile(rs.randint(0, PTB_VOCAB, PTB_CYCLE), PTB_REPEATS)
+    data = torch.from_numpy(data.reshape(PTB_BATCH, -1)).to(dev)
+    return [(data[:, i * PTB_BPTT:(i + 1) * PTB_BPTT],
+             data[:, i * PTB_BPTT + 1:(i + 1) * PTB_BPTT + 1])
+            for i in range(PTB_WARMUP + PTB_STEPS)]
+
+
+def _lstm_routes(model, seed):
+    """One forward and backward of the model's LSTM on a PTB step's
+    shapes (train mode, p = 0 between layers) on cuDNN's route and on the
+    per-step route: both timed, and the per-step one held to cuDNN's
+    within ``TOL`` / ``GRAD_TOL``; and cuDNN's with the four tensors of
+    each layer copied into one flat buffer (``torch._cudnn_rnn_flatten_
+    weight``, as ``torch.nn.LSTM`` keeps them) against the port's separate
+    parameters, which cuDNN compacts on every call."""
+    from paddle_tpu_torch.nn.functional import rnn as frnn
+    dev = torch.device('cuda', 0)
+    lstm = copy.deepcopy(model.lstm).train()
+    lstm.dropout = 0.0
+    rs = np.random.RandomState(seed + 121)
+    x = torch.tensor(rs.randn(PTB_BATCH, PTB_BPTT, PTB_HIDDEN),
+                     dtype=torch.float32, device=dev, requires_grad=True)
+
+    def once():
+        out, (h, c) = lstm(x)
+        loss = out.square().sum() + h.sum() + c.sum()
+        return [out, h, c] + list(torch.autograd.grad(
+            loss, [x] + list(lstm.parameters())))
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(5):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 5
+    cudnn = once()
+    cudnn_ms = timed(once)
+    with frnn.rnn_route('per_step'):
+        per_step = once()
+        per_step_ms = timed(once)
+    out_err = max(max_err(a, b) for a, b in zip(per_step[:3], cudnn[:3]))
+    check('PTB LSTM: per-step vs cuDNN outputs', out_err, TOL)
+    grad_err = max(rel_err(a, b) for a, b in zip(per_step[3:], cudnn[3:]))
+    check('PTB LSTM: per-step vs cuDNN gradients', grad_err, GRAD_TOL)
+    # the same layers, each on one flat buffer: what cuDNN's copy costs
+    flat = []
+    with torch.no_grad():
+        for layer in lstm._all_layers:
+            ws = [t.detach().clone().requires_grad_()
+                  for t in layer.cell._params()]
+            torch._cudnn_rnn_flatten_weight(ws, 4, PTB_HIDDEN, 2, PTB_HIDDEN,
+                                            0, 1, True, False)
+            flat.append(ws)
+    zeros = torch.zeros(1, PTB_BATCH, PTB_HIDDEN, device=dev)
+
+    def flat_once():
+        out, ends = x, []
+        for ws in flat:
+            out, h, c = torch._VF.lstm(out, (zeros, zeros), ws, True, 1,
+                                       0.0, True, False, True)
+            ends += [h, c]
+        loss = out.square().sum() + sum(e.sum() for e in ends)
+        return torch.autograd.grad(loss, [x] + [w for ws in flat
+                                                for w in ws])
+    flat_ms = timed(flat_once)
+    return {'shape': [PTB_BATCH, PTB_BPTT, PTB_HIDDEN], 'layers': PTB_LAYERS,
+            'cudnn_ms': cudnn_ms, 'per_step_ms': per_step_ms,
+            'cudnn_flat_weights_ms': flat_ms,
+            'per_step_vs_cudnn': {'outputs': out_err,
+                                  'gradients_worst': grad_err}}
+
+
+def phase_train_ptb_lm(seed, card):
+    """``text.LSTMLanguageModel`` at PTB large (Zaremba et al. 2014, Paddle's
+    ptb_lm 'large'): vocab ``PTB_VOCAB``, hidden ``PTB_HIDDEN``,
+    ``PTB_LAYERS`` layers, dropout ``PTB_DROPOUT``, untied, fp32 (TF32 off),
+    trained by ptb_lm's eager loop: batch ``PTB_BATCH`` x ``PTB_BPTT``
+    steps of truncated backpropagation through time, the state carried
+    across steps and detached, the loss ptb_lm's (the mean over the batch
+    summed over the steps), SGD at 1.0 with ``ClipGradByGlobalNorm(10.0)``;
+    ``PTB_WARMUP`` + ``PTB_STEPS`` steps on ``_ptb_corpus``. Gates: every
+    loss finite, the mean of the last five below the first step's, none of
+    the seven kernels, two cuDNN RNN calls a step (one a layer). Printed:
+    step ms (median), words/s, peak memory, launches and host syncs a step,
+    the perplexity at the first and last step, one profiled step, and
+    ``_lstm_routes`` -> the path's launch counts."""
+    from paddle_tpu_torch import kernels, text
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.functional import rnn as frnn
+    from paddle_tpu_torch.optimizer import SGD
+    dev = torch.device('cuda', 0)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 118)
+    model = text.LSTMLanguageModel(PTB_VOCAB, PTB_HIDDEN, PTB_LAYERS,
+                                   PTB_DROPOUT, device=dev,
+                                   generator=gen).train()
+    opt = SGD(learning_rate=1.0, parameters=model.parameters(),
+              grad_clip=ClipGradByGlobalNorm(10.0))
+    batches = _ptb_corpus(seed + 119)
+    n_params = sum(p.numel() for p in model.parameters())
+    state = [None]
+
+    def step(x, y):
+        logits, st = model(x, state[0])
+        loss = model.loss(logits, y) * PTB_BPTT
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        state[0] = tuple(s.detach() for s in st)
+        return loss
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, syncs = [], [], []
+    with tf32_off():
+        kernels.reset_launch_counts()          # the main path: the steps
+        frnn.reset_route_counts()
+        for i, (x, y) in enumerate(batches):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            loss, n, _ = _count_syncs(lambda: float(step(x, y)))
+            end.record()
+            torch.cuda.synchronize()
+            losses.append(loss / PTB_BPTT)
+            syncs.append(n)
+            if i >= PTB_WARMUP:
+                ms.append(start.elapsed_time(end))
+        counts = kernels.launch_counts()       # ... read right after it
+        routes = frnn.route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _zero_counts(counts, 'train_ptb_lm')
+    n_steps = PTB_WARMUP + PTB_STEPS
+    if routes['torch_rnn'] != PTB_LAYERS * n_steps or routes['per_step']:
+        raise AssertionError(f"train_ptb_lm: RNN routes {routes}")
+    if not (all(np.isfinite(losses)) and
+            np.mean(losses[-5:]) < losses[0]):
+        raise AssertionError(f"train_ptb_lm: losses {losses}")
+    x, y = batches[0]
+    with tf32_off():
+        prof = phase_profile('train_ptb_lm step', lambda: step(x, y), {},
+                             batch=[PTB_BATCH, PTB_BPTT])
+        lstm = _lstm_routes(model, seed)
+    emit({'phase': 'train_ptb_lm', 'model': 'LSTMLanguageModel, PTB large '
+          '(Zaremba et al. 2014; ptb_lm large)', 'card': card,
+          'entry': "the eager loop of ptb_lm (model, loss.backward, "
+                   "SGD.step with the clip)",
+          'vocab': PTB_VOCAB, 'hidden': PTB_HIDDEN, 'layers': PTB_LAYERS,
+          'dropout': PTB_DROPOUT, 'parameters': n_params,
+          'batch': [PTB_BATCH, PTB_BPTT], 'dtype': 'float32 (TF32 off)',
+          'optimizer': 'SGD(1.0), ClipGradByGlobalNorm(10.0)',
+          'setup_s': setup_s, 'step_ms': ms,
+          'step_ms_median': float(np.median(ms)),
+          'words_per_s': PTB_BATCH * PTB_BPTT / (float(np.median(ms)) / 1e3),
+          'peak_gb': peak / 1e9, 'losses': losses,
+          'perplexity_first_last': [math.exp(losses[0]),
+                                    math.exp(losses[-1])],
+          'host_syncs_per_step': syncs, 'host_syncs_counted': 'the step '
+          'and the read of its loss', 'launches': counts,
+          'rnn_routes': routes,
+          'profile': {k: prof[k] for k in ('wall_ms', 'device_busy_ms',
+                                           'device_idle_share',
+                                           'device_events')},
+          'lstm_routes': lstm, 'seconds': time.perf_counter() - t0})
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _lac_set(seed, n):
+    """``n`` sentences of lengths in [4, ``LAC_LEN``] padded to it, words
+    in [1, ``LAC_VOCAB``), each tag a function of its word (learnable) in the
+    IOB scheme of ``LAC_CHUNK_TYPES`` types (tag 2t: B of type t, 2t + 1:
+    I, ``LAC_TAGS`` - 1: O) -> (words, lengths, tags) numpy."""
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(4, LAC_LEN + 1, n)
+    words = rs.randint(1, LAC_VOCAB, (n, LAC_LEN))
+    tags = words % LAC_TAGS
+    pad = np.arange(LAC_LEN)[None] >= lens[:, None]
+    words[pad], tags[pad] = 0, 0
+    return words.astype(np.int64), lens.astype(np.int64), \
+        tags.astype(np.int64)
+
+
+class _LacTrainNet(torch.nn.Module):
+    """``SequenceTagging`` as LAC trains it under ``Model.fit``: forward
+    (words, lengths, tags) -> (decoded paths, CRF costs), the paths first
+    for the chunk metric, the costs for the loss."""
+
+    def __init__(self, tagger):
+        super().__init__()
+        self.tagger = tagger
+
+    def forward(self, word, lengths, target):
+        cost, decoded = self.tagger(word, lengths, target)
+        return decoded, cost
+
+
+def phase_train_lac(seed, card):
+    """LAC's BiGRU-CRF tagger (``text.SequenceTagging``: word embedding
+    128, two BiGRUs of 128, 57 tags; vocab ``LAC_VOCAB``; the embedding
+    and CRF learning rates at the reference's defaults) trained through
+    ``hapi.Model.fit``, eager, fp32 (TF32 off): batch ``LAC_BATCH``
+    sentences padded to ``LAC_LEN``, Adam(1e-3), the loss the CRF cost's
+    mean, the metric the port's ``ChunkEvaluator`` on ``metric.chunk_eval``
+    (IOB, ``LAC_CHUNK_TYPES`` types); ``LAC_WARMUP`` + ``LAC_STEPS`` steps.
+    Gates: finite losses, a held-out batch's CRF cost a token (eval mode,
+    outside the counted path) lower after the fit than before, none of the
+    seven kernels. Printed: step ms, sentences/s and tokens/s, peak
+    memory, host syncs a step, the F1 at the end, one profiled step ->
+    (the path's launch counts, the trained tagger)."""
+    from paddle_tpu_torch import Model, io, kernels, metric, text
+    from paddle_tpu_torch.optimizer import Adam
+    dev = torch.device('cuda', 0)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 123)
+    tagger = text.SequenceTagging(LAC_VOCAB, LAC_TAGS, device=dev,
+                                  generator=gen)
+    net = _LacTrainNet(tagger)
+
+    class Chunks(metric.ChunkEvaluator):
+        """The chunk counts of ``metric.chunk_eval`` (IOB); each update
+        returns the F1 so far."""
+
+        def compute(self, decoded, target, lengths):
+            return metric.chunk_eval(decoded, target, 'IOB',
+                                     LAC_CHUNK_TYPES,
+                                     seq_length=lengths)[3:]
+
+        def update(self, *counts):
+            super().update(*counts)
+            return self.accumulate()[2]
+    steps = LAC_WARMUP + LAC_STEPS
+    words, lens, tags = _lac_set(seed + 124, LAC_BATCH * steps)
+    rows = [((words[i], lens[i], tags[i]), (tags[i], lens[i]))
+            for i in range(len(words))]
+
+    class Sentences(io.Dataset):
+        def __len__(self):
+            return len(rows)
+
+        def __getitem__(self, i):
+            return rows[i]
+    opt = Adam(learning_rate=1e-3, parameters=net.parameters())
+    model = Model(net, device=dev).prepare(
+        opt, lambda decoded, cost, *labels: cost.mean(), Chunks())
+    loader = io.DataLoader(Sentences(), batch_size=LAC_BATCH, shuffle=False,
+                           device=dev)
+    # a held-out batch, its mean cost a token in eval mode before and after
+    w, n, t = (torch.from_numpy(a).to(dev) for a in
+               _lac_set(seed + 126, LAC_BATCH))
+
+    def held_out():
+        return model.eval_batch([w, n, t], [t, n])[0][0] / float(n.float(
+        ).mean())
+    clock = _step_clock()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    with tf32_off():
+        before = held_out()
+        kernels.reset_launch_counts()          # the main path: the fit
+        t1 = time.perf_counter()
+        _, n_sync, where = _count_syncs(lambda: model.fit(
+            loader, epochs=1, shuffle=False, verbose=0, callbacks=[clock]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = kernels.launch_counts()       # ... read right after it
+        after = held_out()
+    n_sync -= _SYNC_NOTICE in ' '.join(where)
+    peak = torch.cuda.max_memory_allocated()
+    _zero_counts(counts, 'train_lac')
+    losses = [float(r[3]['loss']) for r in clock.rows]
+    if len(losses) != steps or not all(np.isfinite(losses)) or \
+            not after < before:
+        raise AssertionError(f"train_lac: held-out cost a token {before} -> "
+                             f"{after}, losses {losses}")
+    ends = [r[2] for r in clock.rows]
+    ms = [1e3 * (b - a) for a, b in zip(ends, ends[1:])][LAC_WARMUP - 1:]
+    tokens = int(lens[LAC_BATCH * LAC_WARMUP:].sum())
+    batch = next(iter(loader))
+    with tf32_off():
+        prof = phase_profile('train_lac train_batch',
+                             lambda: model.train_batch(*batch), {},
+                             batch=[LAC_BATCH, LAC_LEN])
+    emit({'phase': 'train_lac', 'model': 'SequenceTagging (LAC BiGRU-CRF: '
+          'embedding 128, 2 BiGRUs of 128, 57 IOB tags)', 'card': card,
+          'entry': 'hapi.Model.fit (eager)', 'vocab': LAC_VOCAB,
+          'batch': [LAC_BATCH, LAC_LEN], 'dtype': 'float32 (TF32 off)',
+          'optimizer': 'Adam(1e-3); embedding and CRF learning rates 0.1',
+          'setup_s': setup_s, 'fit_wall_s': wall, 'step_ms': ms,
+          'step_ms_median': float(np.median(ms)),
+          'sentences_per_s': LAC_BATCH * len(ms) / (sum(ms) / 1e3),
+          'tokens_per_s': tokens / (sum(ms) / 1e3),
+          'peak_gb': peak / 1e9, 'losses': losses,
+          'held_out_cost_per_token': [before, after],
+          'chunk_f1': clock.rows[-1][3].get('chunk'),
+          'host_syncs': n_sync, 'host_syncs_per_step': n_sync / steps,
+          'sync_sites': where[:4], 'launches': counts,
+          'profile': {k: prof[k] for k in ('wall_ms', 'device_busy_ms',
+                                           'device_idle_share',
+                                           'device_events')},
+          'seconds': time.perf_counter() - t0})
+    del model, net, opt, loader, batch
+    torch.cuda.empty_cache()
+    return counts, tagger
+
+
+def _alone_held(eng, ep, tagger, reqs, served):
+    """Each request of ``reqs`` served again on its own (batch bucket 1, the
+    same length bucket): its tags equal to ``served``'s, the ones it got
+    inside its batch, except rows whose two paths' fp64 scores under the
+    lone run's emissions lie within ``VITERBI_NEAR_TIE`` -> {'requests',
+    'near_tie_rows'}."""
+    seen = []
+    hook = tagger.fc.register_forward_hook(
+        lambda m, a, out: seen.append(out.detach().cpu()))
+    try:
+        with tf32_off():
+            alone = []
+            for r in reqs:
+                fut = ep.submit(r)
+                eng.run_until_idle()
+                alone.append(fut.result(timeout=600))
+    finally:
+        hook.remove()
+    trans = tagger.linear_chain_crf.transition.detach().cpu()
+    ties = 0
+    for i, (r, one, resp) in enumerate(zip(reqs, alone, served)):
+        if not one.ok:
+            raise AssertionError(f"serve_lac request {i} alone: {one.status}")
+        a = torch.as_tensor(np.asarray(one.outputs))[None]
+        b = torch.as_tensor(np.asarray(resp.outputs))[None]
+        if torch.equal(a, b):
+            continue
+        n = torch.as_tensor([int(r['lengths'])])
+        sa, sb = (_path_scores(seen[i][:1], trans, p, n) for p in (a, b))
+        gap = float((sa - sb).abs() / sb.abs().clamp(min=1.0))
+        check(f'serve_lac request {i}: tags alone vs in its batch beyond a '
+              f'near-tie', gap, VITERBI_NEAR_TIE)
+        ties += 1
+    return {'requests': len(reqs), 'near_tie_rows': ties}
+
+
+def phase_serve_lac(seed, card, tagger):
+    """The trained tagger served: ``ServingEngine.register(layer=tagger,
+    bucket_spec=BucketSpec(LAC_BATCH_BUCKETS, LAC_LENGTH_BUCKETS))``, each
+    request a query-length sentence (its words unpadded, 4 to ``LAC_LEN``
+    words, 13 on average, and its length), in ``LAC_WAVES``. Gates: every response
+    ok, its tags over its length in [0, ``LAC_TAGS``) and zeros past it;
+    each batch's paths equal to ``F.crf_decoding`` on the CPU on that
+    batch's own emissions (taken on the card by a hook), near-tie rows
+    counted; each request served again alone (batch bucket 1, the same
+    padding) with the tags it got in its batch (``_alone_held``); at most
+    ``LAC_SYNC_BUDGET`` host syncs a batch; none of the seven kernels.
+    Printed: requests/s, p50/p99 batch ms per (batch, length) bucket, peak
+    memory, one profiled batch of 64 -> the path's launch counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import (BucketSpec, ServingEngine,
+                                          select_bucket)
+    dev = torch.device('cuda', 0)
+    t0 = time.perf_counter()
+    tagger = tagger.eval()
+    eng = ServingEngine(queue_capacity=256, device=dev)
+    ep = eng.register('lac', layer=tagger, example={
+        'word': np.zeros(LAC_LEN, np.int64), 'lengths': np.int64(LAC_LEN)},
+        bucket_spec=BucketSpec(LAC_BATCH_BUCKETS, LAC_LENGTH_BUCKETS))
+    warm = eng.warmup()
+    # query-length sentences: 3 + a geometric number of words (mean 10),
+    # at most LAC_LEN
+    rs = np.random.RandomState(seed + 125)
+    lens = np.minimum(3 + rs.geometric(0.1, sum(LAC_WAVES)), LAC_LEN)
+    reqs = [{'word': rs.randint(1, LAC_VOCAB, n).astype(np.int64),
+             'lengths': np.int64(n)} for n in lens]
+    seen = []
+    hooks = [tagger.fc.register_forward_hook(
+        lambda m, a, out: seen.append(out.detach().clone()))]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    with tf32_off():
+        kernels.reset_launch_counts()          # the main path: the waves
+        served, n_sync, where = [], 0, []
+        t1 = time.perf_counter()
+        at = 0
+        for n in LAC_WAVES:
+            futs = [ep.submit(r) for r in reqs[at:at + n]]
+            at += n
+            _, k, w = _count_syncs(eng.run_until_idle)
+            n_sync, where = n_sync + k, where + w
+            served += [f.result(timeout=600) for f in futs]
+        serve_s = time.perf_counter() - t1
+        counts = kernels.launch_counts()       # ... read right after it
+    for h in hooks:
+        h.remove()
+    peak = torch.cuda.max_memory_allocated()
+    n_sync -= _SYNC_NOTICE in ' '.join(where)
+    _zero_counts(counts, 'serve_lac')
+    batches = len(seen)
+    if n_sync > LAC_SYNC_BUDGET * batches:
+        raise AssertionError(f"serve_lac: {n_sync} host syncs in {batches} "
+                             f"batches: {sorted(set(where))[:4]}")
+    # the batches in order: the responses that share one 'run' make one
+    groups, by_bucket = [], {}
+    for i, resp in enumerate(served):
+        if not resp.ok:
+            raise AssertionError(f"serve_lac request {i}: {resp.status}")
+        if groups and groups[-1][0] == resp.breakdown['run']:
+            groups[-1][1].append(i)
+        else:
+            groups.append((resp.breakdown['run'], [i]))
+    if len(groups) != batches:
+        raise AssertionError(f"serve_lac: {len(groups)} batches in the "
+                             f"responses, {batches} through the tagger")
+    near_ties = 0
+    trans = tagger.linear_chain_crf.transition
+    for (run_ms, idx), emission in zip(groups, seen):
+        paths = torch.stack([torch.as_tensor(np.asarray(served[i].outputs))
+                             for i in idx])
+        L = paths.shape[1]
+        for j, i in enumerate(idx):
+            p = paths[j]
+            if int(p[lens[i]:].abs().sum()) or int(p.max()) >= LAC_TAGS:
+                raise AssertionError(f"serve_lac request {i}: tags {p}")
+        rows = emission[:len(idx)]
+        near_ties += _viterbi_held('serve_lac', rows, trans,
+                                   lens[idx], paths)
+        key = f'{select_bucket(len(idx), LAC_BATCH_BUCKETS)}x{L}'
+        by_bucket.setdefault(key, []).append(run_ms)
+    lat = {k: {'batches': len(v), 'p50_ms': float(np.percentile(v, 50)),
+               'p99_ms': float(np.percentile(v, 99))}
+           for k, v in sorted(by_bucket.items())}
+    alone = _alone_held(eng, ep, tagger, reqs, served)
+
+    def one_batch():
+        futs = [ep.submit(r) for r in reqs[-64:]]
+        eng.run_until_idle()
+        for f in futs:
+            f.result(timeout=600)
+    with tf32_off():
+        prof = phase_profile('serve_lac batch of 64', one_batch, {},
+                             bucket=64)
+    emit({'phase': 'serve_lac', 'model': 'SequenceTagging (LAC), trained by '
+          'train_lac', 'card': card, 'dtype': 'float32 (TF32 off)',
+          'buckets': {'batch': LAC_BATCH_BUCKETS,
+                      'length': LAC_LENGTH_BUCKETS},
+          'setup_s': setup_s, 'warmup_buckets': warm['lac'],
+          'requests': len(served), 'waves': LAC_WAVES,
+          'requests_per_s': len(served) / serve_s,
+          'batch_latency_ms': lat, 'batches': batches, 'peak_gb': peak / 1e9,
+          'host_syncs': n_sync, 'host_syncs_per_batch': n_sync / batches,
+          'host_sync_budget_per_batch': LAC_SYNC_BUDGET,
+          'sync_sites': sorted(set(where))[:4],
+          'viterbi_near_tie_rows': near_ties, 'alone': alone,
+          'launches': counts,
+          'profile': {k: prof[k] for k in ('wall_ms', 'device_busy_ms',
+                                           'device_idle_share',
+                                           'device_events')},
+          'seconds': time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    return counts
 
 
 SOURCES = {
@@ -9161,6 +10122,16 @@ PHASES = (
      lambda r: phase_seq2seq_parity(r.seed)),
     ('seq2seq', (), ('s2s_trained', 's2s_decoded'),
      lambda r: phase_seq2seq(r.seed, r.card)),
+    # the recurrent slice: the RNNs, the CRF and the text zoo against the
+    # CPU, PTB-large trained, LAC trained and served
+    ('rnn_parity', (), ('text_transformer',),
+     lambda r: phase_rnn_parity(r.seed)),
+    ('train_ptb_lm', (), ('ptb_lm',),
+     lambda r: phase_train_ptb_lm(r.seed, r.card)),
+    ('train_lac', (), ('lac_trained', 'lac_tagger'),
+     lambda r: phase_train_lac(r.seed, r.card)),
+    ('serve_lac', ('lac_tagger',), ('lac_served',),
+     lambda r: phase_serve_lac(r.seed, r.card, r.lac_tagger)),
 )
 
 
@@ -9234,7 +10205,10 @@ def main():
     # train_ssd: the SSD's waves and timed steps, which launch
     # none; finetune_ernie: ERNIE-large's fit, 10 steps at four lengths;
     # seq2seq_train: 8 Transformer-base steps; seq2seq_translate: one
-    # translate call); the top-level numbers are bf16's, the dtype of the
+    # translate call; text_transformer: the text zoo's Transformer, one
+    # forward and backward and one beam search; train_ptb_lm: 22 steps;
+    # train_lac: the fit, 12 steps; serve_lac: the waves, which launch
+    # none); the top-level numbers are bf16's, the dtype of the
     # reference's training recipe, ``gpt`` holds the fp32 cases at
     # generate's shapes and ``ragged`` the attention kernels' cases at
     # RAGGED_LENGTHS (ernie_parity), ``width_512`` the norm kernels' cases
@@ -9255,7 +10229,10 @@ def main():
              'hapi_fit_resnet': r.hapi_resnet,
              'serve_ssd': r.serve_ssd, 'train_ssd': r.train_ssd,
              'finetune_ernie': r.finetuned, 'seq2seq_train': r.s2s_trained,
-             'seq2seq_translate': r.s2s_decoded}
+             'seq2seq_translate': r.s2s_decoded,
+             'text_transformer': r.text_transformer,
+             'train_ptb_lm': r.ptb_lm, 'train_lac': r.lac_trained,
+             'serve_lac': r.lac_served}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'share_of_bound', 'achieved_tflops',
             'achieved_tb_per_s')

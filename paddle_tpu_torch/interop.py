@@ -15,7 +15,12 @@ the reference stores (in, out), ``torch.nn.functional.linear`` takes
 the transpose is chosen by module type. BERT's tied MLM decoder is one
 (vocab, hidden) parameter on both sides, listed once, under
 ``bert.embeddings.word_embeddings.weight``, and used untransposed, so it
-moves like any embedding table.
+moves like any embedding table. So is every tensor two attributes share
+(``SequenceTagging``'s two transitions, ``text.LSTM``'s ``cell`` and
+``rnn.cell``): the reference's ``state_dict`` lists it once, under the
+first name, and so do these functions (``state_keys``), where torch's
+``state_dict()`` lists both. The recurrent cells' weights are not
+``Linear``s and move untransposed.
 
 ``to_paddle_tpu_state`` is the inverse (parameters, or their ``.grad``s),
 and ``load_paddle_tpu_opt_state`` / ``to_paddle_tpu_opt_state`` move the
@@ -36,7 +41,7 @@ import torch
 
 from .nn.layer.common import Linear
 
-__all__ = ['load_paddle_tpu_state', 'to_paddle_tpu_state',
+__all__ = ['load_paddle_tpu_state', 'to_paddle_tpu_state', 'state_keys',
            'load_paddle_tpu_opt_state', 'to_paddle_tpu_opt_state',
            'load_paddle_tpu_scheduler_state',
            'to_paddle_tpu_scheduler_state', 'from_paddle_tpu_train_state']
@@ -48,12 +53,24 @@ def _linear_weights(module):
             for name, m in module.named_modules() if isinstance(m, Linear)}
 
 
+def state_keys(module):
+    """``module``'s state as the reference lists it: {key: tensor} in
+    ``state_dict()`` order, a tensor that several attributes share once,
+    under its first key."""
+    seen, out = set(), {}
+    for key, t in module.state_dict(keep_vars=True).items():
+        if id(t) not in seen:
+            seen.add(id(t))
+            out[key] = t
+    return out
+
+
 def load_paddle_tpu_state(module, state):
     """Copy ``state`` (reference key -> numpy array) into ``module``.
     Raises ``ValueError`` on missing, unexpected or mis-shaped keys; nothing
     is copied unless every key checks out."""
     linear_weights = _linear_weights(module)
-    own = module.state_dict()
+    own = state_keys(module)
     missing = sorted(set(own) - set(state))
     unexpected = sorted(set(state) - set(own))
     if missing or unexpected:
@@ -73,7 +90,9 @@ def load_paddle_tpu_state(module, state):
         if transpose:
             value = value.T
         converted[key] = torch.tensor(value, dtype=target.dtype)
-    module.load_state_dict(converted)
+    with torch.no_grad():
+        for key, value in converted.items():
+            own[key].copy_(value)
     return module
 
 
@@ -86,7 +105,7 @@ def to_paddle_tpu_state(module, grads=False):
     if grads:
         tensors = {k: p.grad for k, p in module.named_parameters()}
     else:
-        tensors = module.state_dict()
+        tensors = state_keys(module)
     out = {}
     for key, t in tensors.items():
         if t is None:

@@ -5,15 +5,17 @@ resolved lazily from ``fluid.layers``). The port has the detection names
 of that list, resolved lazily from ``vision`` (which imports ``nn``, so
 an eager import here would be a cycle); the other names wait for
 ``fluid`` (ROADMAP.md, Queue 1 item 7)."""
-from . import (activation, common, conv, extension, loss, norm, pooling,
-               transformer, vision)
+from . import (activation, common, conv, crf, extension, input, loss, norm,
+               pooling, rnn, transformer, vision)
 from .activation import *  # noqa: F401,F403
 from .common import *  # noqa: F401,F403
 from .conv import *  # noqa: F401,F403
+from .crf import crf_decoding, linear_chain_crf
 from .extension import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
 from .norm import *  # noqa: F401,F403
 from .pooling import *  # noqa: F401,F403
+from .rnn import rnn_scan
 from .transformer import multi_head_attention, scaled_dot_product_attention
 from .vision import *  # noqa: F401,F403
 
@@ -37,8 +39,8 @@ _FLUID_ALIASES = frozenset([
 __all__ = sorted({*activation.__all__, *common.__all__, *conv.__all__,
                   *extension.__all__, *loss.__all__, *norm.__all__, *pooling.__all__,
                   *vision.__all__, 'scaled_dot_product_attention',
-                  'multi_head_attention',
-                  'conv_transpose1d', 'conv_transpose2d',
+                  'multi_head_attention', 'rnn_scan', 'linear_chain_crf',
+                  'crf_decoding', 'input', 'conv_transpose1d', 'conv_transpose2d',
                   'conv_transpose3d', *_FLUID_ALIASES})
 
 

@@ -1,7 +1,7 @@
 """Common functionals. Counterpart of ``paddle_tpu/nn/functional/common.py``
 (``linear``, ``dropout`` and its channel-wise and alpha forms, ``pad``,
 ``interpolate``, ``bilinear``, ``cosine_similarity``, the pixel shuffles,
-``unfold`` / ``fold``, ``one_hot``, ``label_smooth``).
+``unfold`` / ``fold``, ``one_hot``, ``embedding``, ``label_smooth``).
 
 ``linear`` asks ``amp.maybe_cast_for('matmul', x, w)`` first, as the
 reference's does: under ``auto_cast`` (O1, or O2) ``x`` and ``w`` become
@@ -27,7 +27,8 @@ from ...kernels.philox import keep_mask
 __all__ = ['linear', 'dropout', 'next_dropout_call', 'dropout2d',
            'dropout3d', 'alpha_dropout', 'pad', 'zeropad2d', 'interpolate',
            'upsample', 'bilinear', 'cosine_similarity', 'pixel_shuffle',
-           'pixel_unshuffle', 'unfold', 'fold', 'one_hot', 'label_smooth']
+           'pixel_unshuffle', 'unfold', 'fold', 'one_hot', 'embedding',
+           'label_smooth']
 
 
 def linear(x, weight, bias=None):
@@ -337,6 +338,16 @@ def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1):
 
 def one_hot(x, num_classes):
     return TF.one_hot(x.to(torch.int64), num_classes).to(torch.float32)
+
+
+def embedding(x, weight, padding_idx=None, sparse=False):
+    """Rows of ``weight`` at ``x``; rows looked up at ``padding_idx`` are
+    zeros (and pass no gradient), as in the reference. ``sparse`` changes
+    nothing: the gradient is dense on both sides."""
+    out = TF.embedding(x.to(torch.int64), weight)
+    if padding_idx is not None:
+        out = torch.where((x == padding_idx)[..., None], 0.0, out)
+    return out
 
 
 def label_smooth(label, prior_dist=None, epsilon=0.1):

@@ -151,6 +151,17 @@ class BatchRunner:
     (one request's inputs, no batch axis) pins the shape/dtype spec:
     submits that disagree are rejected at admission and warmup knows what
     zeros to feed.
+
+    With ``bucket_spec.length_buckets`` the inputs of one or more axes are
+    sequences along their first axis: a request may send any length up to
+    the example's (which must be the largest length bucket), and a batch
+    pads them with zeros to the length bucket of its longest request, so
+    the shapes stay a closed set of (batch bucket, length bucket) pairs.
+    The outputs come back at that length; a client reads its own prefix.
+    That holds only for a model whose outputs over a request's own length
+    do not depend on how far it is padded (one given its lengths, say): a
+    model that reads its padding is served with one length bucket, the
+    length it was trained at.
     """
 
     kind = 'batch'
@@ -164,6 +175,18 @@ class BatchRunner:
         self.device = device
         self._fn = batch_fn
         self.stats = _Stats()
+        # the inputs padded to a length bucket (first axis)
+        self._sequences = set()
+        if self.spec.length_buckets is not None:
+            self._sequences = {k for k, ex in self.example.items()
+                               if ex.ndim >= 1}
+            longest = self.spec.length_buckets[-1]
+            bad = sorted(k for k in self._sequences
+                         if self.example[k].shape[0] != longest)
+            if bad:
+                raise ValueError(
+                    f"serving[{name}]: the examples of {bad} must be as long "
+                    f"as the largest length bucket, {longest}")
 
     def validate(self, req):
         missing = sorted(set(self.example) - set(req.inputs))
@@ -172,7 +195,10 @@ class BatchRunner:
                 f"serving[{self.name}]: request missing inputs {missing}")
         for k, ex in self.example.items():
             a = np.asarray(req.inputs[k])
-            if a.shape != ex.shape or a.dtype != ex.dtype:
+            fits = a.shape == ex.shape or (
+                k in self._sequences and a.ndim == ex.ndim and
+                0 < a.shape[0] <= ex.shape[0] and a.shape[1:] == ex.shape[1:])
+            if not fits or a.dtype != ex.dtype:
                 raise ValueError(
                     f"serving[{self.name}]: input {k!r} has shape/dtype "
                     f"{a.shape}/{a.dtype}, registered example is "
@@ -195,11 +221,31 @@ class BatchRunner:
         """Run every bucket once with zero feeds (first-call set-up, such as
         the kernel build, happens here and not under traffic) -> the number
         of buckets run."""
+        lengths = self.spec.length_buckets if self._sequences else (None,)
         for b in self.spec.batch_buckets:
-            _to_numpy(self._fn(self._feeds(
-                {k: np.zeros((b,) + ex.shape, ex.dtype)
-                 for k, ex in self.example.items()})))
-        return len(self.spec.batch_buckets)
+            for n in lengths:
+                _to_numpy(self._fn(self._feeds(
+                    {k: np.zeros((b,) + self._shape(k, n), ex.dtype)
+                     for k, ex in self.example.items()})))
+        return len(self.spec.batch_buckets) * len(lengths)
+
+    def _shape(self, k, length):
+        shape = self.example[k].shape
+        return shape if k not in self._sequences else (length,) + shape[1:]
+
+    def _batch(self, ready, bucket):
+        """The requests' inputs stacked into ``bucket`` rows, the sequences
+        padded to the length bucket of the longest."""
+        if not self._sequences:
+            return {k: stack_examples([r.inputs[k] for r in ready], bucket)
+                    for k in self.example}
+        n = self.spec.length_bucket(max(np.shape(r.inputs[k])[0]
+                                        for r in ready
+                                        for k in self._sequences))
+        return {k: stack_examples(
+            [pad_to_bucket(r.inputs[k], n) if k in self._sequences
+             else r.inputs[k] for r in ready], bucket)
+            for k in self.example}
 
     def step(self):
         ready, expired = self.queue.pop_ready(self.spec.max_batch)
@@ -210,8 +256,7 @@ class BatchRunner:
         if not ready:
             return bool(expired)
         bucket = self.spec.batch_bucket(len(ready))
-        batch = {k: stack_examples([r.inputs[k] for r in ready], bucket)
-                 for k in self.example}
+        batch = self._batch(ready, bucket)
         self.stats.batches += 1
         _count('serving.batches')
         self.stats.occupancy(len(ready) / bucket)

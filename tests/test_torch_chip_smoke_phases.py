@@ -28,7 +28,9 @@ def test_phase_table_is_ordered_and_each_read_has_an_earlier_giver():
         assert all(key in given for key in reads), (name, reads)
         assert not set(gives) & set(given), name
         given.update(dict.fromkeys(gives, name))
-    assert names[-3:] == ['finetune_ernie', 'seq2seq_parity', 'seq2seq']
+    assert names[-7:] == ['finetune_ernie', 'seq2seq_parity', 'seq2seq',
+                          'rnn_parity', 'train_ptb_lm', 'train_lac',
+                          'serve_lac']
 
 
 def test_selected_phases_adds_what_a_phase_reads_in_run_order():
@@ -39,6 +41,8 @@ def test_selected_phases_adds_what_a_phase_reads_in_run_order():
         ['seq2seq_parity']
     assert [p[0] for p in cs.selected_phases('serve_fleet')] == \
         ['serve', 'serve_fleet']
+    assert [p[0] for p in cs.selected_phases('serve_lac')] == \
+        ['train_lac', 'serve_lac']
     for bad in ('nope', 'seq2seq,nope', ' , '):
         with pytest.raises(SystemExit):
             cs.selected_phases(bad)
@@ -87,3 +91,34 @@ def test_s2s_loss_is_the_target_tokens_cross_entropy():
     assert abs(loss - float(want)) <= 1e-6 * abs(float(want))
     assert sorted(grads) == sorted(n for n, _ in model.named_parameters())
     assert all(torch.isfinite(g).all() for g in grads.values())
+
+
+def test_path_scores_are_the_crf_gold_scores():
+    """``_path_scores`` (the near-tie rule's fp64 scores) is the CRF's gold
+    score: the log-partition less the negative log-likelihood."""
+    from paddle_tpu_torch.nn import functional as F
+    rs = np.random.RandomState(5)
+    em = torch.from_numpy(rs.randn(4, 6, 5))
+    tr = torch.from_numpy(rs.randn(7, 5))
+    lens = torch.tensor([6, 3, 1, 4])
+    path = torch.from_numpy(rs.randint(0, 5, (4, 6)))
+    nll = F.linear_chain_crf(em, path, tr, length=lens)[:, 0]
+    log_z = nll + cs._path_scores(em, tr, path, lens)
+    other = torch.from_numpy(rs.randint(0, 5, (4, 6)))
+    torch.testing.assert_close(
+        F.linear_chain_crf(em, other, tr, length=lens)[:, 0]
+        + cs._path_scores(em, tr, other, lens), log_z)
+
+
+def test_viterbi_held_counts_no_tie_and_refuses_a_worse_path():
+    from paddle_tpu_torch.nn import functional as F
+    rs = np.random.RandomState(6)
+    em = torch.from_numpy(rs.randn(5, 7, 4).astype(np.float32))
+    tr = torch.from_numpy(rs.randn(6, 4).astype(np.float32))
+    lens = np.array([7, 2, 5, 1, 3])
+    paths = F.crf_decoding(em, tr, length=torch.from_numpy(lens))
+    assert cs._viterbi_held('t', em, tr, lens, paths) == 0
+    worse = paths.clone()
+    worse[0, 0] = (worse[0, 0] + 1) % 4
+    with pytest.raises(AssertionError, match='beyond a near-tie'):
+        cs._viterbi_held('t', em, tr, lens, worse)
